@@ -1,0 +1,58 @@
+"""Layout conversion between the JAX package's arrays and the port's.
+
+Everything here takes and returns numpy arrays; nothing imports JAX.
+
+- JAX limb-last element batches ``[R, *elem, 32]`` ↔ port ``[*elem, 32, R]``
+  (rows move from first to last);
+- JAX tiled points ``[6, 32, S, 128]`` or limb-last points ``[R, 3, 2, 32]``
+  ↔ port planes ``[6, 32, R]``;
+- JAX tiled Straus digits ``[nwin, S, 128]`` ↔ port ``[nwin, R]``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+LANES = 128
+
+
+def elems_from_jax(arr) -> np.ndarray:
+    """[R, *elem, 32] → [*elem, 32, R]."""
+    return np.ascontiguousarray(np.moveaxis(np.asarray(arr), 0, -1))
+
+
+def elems_to_jax(arr) -> np.ndarray:
+    """[*elem, 32, R] → [R, *elem, 32]."""
+    return np.ascontiguousarray(np.moveaxis(np.asarray(arr), -1, 0))
+
+
+def points_from_jax(arr) -> np.ndarray:
+    """JAX tiled [6, 32, S, 128] or limb-last [R, 3, 2, 32] → [6, 32, R]."""
+    a = np.asarray(arr)
+    if a.ndim == 4 and a.shape[:2] == (6, 32):
+        return np.ascontiguousarray(a.reshape(6, 32, -1))
+    if a.ndim == 4 and a.shape[1:] == (3, 2, 32):
+        return elems_from_jax(a).reshape(6, 32, a.shape[0])
+    raise ValueError(f"not a JAX point batch: shape {a.shape}")
+
+
+def points_to_jax(arr, tiled: bool = True) -> np.ndarray:
+    """[6, 32, R] → JAX tiled [6, 32, R/128, 128] (tiled=True) or
+    limb-last [R, 3, 2, 32]."""
+    a = np.asarray(arr)
+    r = a.shape[-1]
+    if tiled:
+        return np.ascontiguousarray(a.reshape(6, 32, r // LANES, LANES))
+    return elems_to_jax(a.reshape(3, 2, 32, r))
+
+
+def digits_from_jax(arr) -> np.ndarray:
+    """JAX tiled digits [nwin, S, 128] → [nwin, R]."""
+    a = np.asarray(arr)
+    return np.ascontiguousarray(a.reshape(a.shape[0], -1))
+
+
+def digits_to_jax(arr) -> np.ndarray:
+    """[nwin, R] → JAX tiled [nwin, R/128, 128]."""
+    a = np.asarray(arr)
+    return np.ascontiguousarray(a.reshape(a.shape[0], -1, LANES))

@@ -1,0 +1,177 @@
+"""Build the port's CUDA kernels (csrc/*.cu) and load them with ctypes.
+
+Each ``.cu`` source is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a`` (Hopper); the objects are linked into one shared
+library with a plain C interface.  The library lives under
+``build/charon_tpu_torch/<hash>/`` at the repository root (listed in
+.gitignore), keyed by a hash of the sources and flags, so a changed kernel rebuilds and an
+unchanged one loads in milliseconds.  Nothing here runs at import: the
+first kernel launch builds and loads.  ``python -m
+charon_tpu_torch.ops.build`` builds and prints the compiler's per-kernel
+register and spill report.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("fp_ops.cu", "g2.cu")
+HEADERS = ("fp381.cuh", "fp381_consts.cuh")
+LIB_NAME = "libcharon_tpu_torch.so"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+#: filled by `library()`: seconds spent building (0.0 when loaded from an
+#: earlier build) and the library's path
+INFO: dict = {}
+
+
+def build_root() -> Path:
+    return CSRC.parent.parent / "build" / "charon_tpu_torch"
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(ARCH + FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels are built on the machine with the "
+                       "card")
+
+
+def compile_commands(out_dir: Path) -> list[list[str]]:
+    """One nvcc command per source (object files in `out_dir`)."""
+    nvcc = nvcc_path()
+    return [[nvcc, *ARCH, *FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
+             "-o", str(out_dir / (Path(src).stem + ".o"))]
+            for src in SOURCES]
+
+
+def build() -> Path:
+    """Compile and link the library unless this source hash is built;
+    returns the library path."""
+    final = build_root() / source_hash()
+    lib = final / LIB_NAME
+    if lib.exists():
+        INFO.update(build_seconds=0.0, path=str(lib))
+        return lib
+    build_root().mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=build_root()))
+    try:
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in compile_commands(tmp)]
+        logs = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   + logs[-1])
+        link = [nvcc_path(), *ARCH, "-shared", "-o", str(tmp / LIB_NAME),
+                *[str(tmp / (Path(s).stem + ".o")) for s in SOURCES]]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+        (tmp / "ptxas.log").write_text("\n".join(logs))
+        try:
+            os.replace(tmp, final)
+        except OSError:      # a concurrent build got there first
+            shutil.rmtree(tmp, ignore_errors=True)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    INFO.update(build_seconds=time.perf_counter() - t0, path=str(lib))
+    return lib
+
+
+def ptxas_report() -> str:
+    """The compiler's register / spill / stack lines of the current build."""
+    log = build_root() / source_hash() / "ptxas.log"
+    if not log.exists():
+        return ""
+    keep = ("Compiling entry function", "Function properties", "registers",
+            "spill", "stack frame")
+    return "\n".join(line.strip() for line in log.read_text().splitlines()
+                     if any(k in line for k in keep))
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.charon_fp_op.argtypes = [i, i, p, p, p, i, i, p]
+    lib.charon_g2_step.argtypes = [i, p, p, p, i, p]
+    lib.charon_straus_step.argtypes = [i, p, p, p, p, p, p, i, p, i, p]
+    for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step):
+        fn.restype = i
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            _bind(lib)
+            _LIB = lib
+        return _LIB
+
+
+def render_consts_header() -> str:
+    """The text of csrc/fp381_consts.cuh, from the Python constant tables
+    (the committed header must equal this; a test pins it)."""
+    from . import cuda_g2, fp
+
+    def rows(arr) -> str:
+        return ",\n".join("    {" + ", ".join(str(int(v)) for v in row) + "}"
+                          for row in arr)
+
+    def flat(arr) -> str:
+        return ", ".join(str(int(v)) for v in arr)
+
+    return (
+        "// Generated by charon_tpu_torch.ops.build.render_consts_header()\n"
+        "// from the tables of ops/fp.py and ops/cuda_g2.py; a test checks\n"
+        "// that this file equals the rendering.  Do not edit by hand.\n"
+        "#pragma once\n\n"
+        "namespace fp381 {\n\n"
+        "// FOLDC[j] = 2^(12·(32+j)) mod p as 32 limbs\n"
+        f"static __constant__ int FOLDC[{len(fp.FOLDC)}][32] = {{\n"
+        f"{rows(fp.FOLDC)}\n}};\n\n"
+        "// 48p in spread form: every low limb >= LMAX\n"
+        f"static __constant__ int SPREAD48P[{len(fp.SPREAD48P)}] = "
+        f"{{{flat(fp.SPREAD48P)}}};\n\n"
+        "// spread multiples of p for the lazy Karatsuba combines\n"
+        f"static __constant__ int OFF1[{len(cuda_g2.OFF1)}] = "
+        f"{{{flat(cuda_g2.OFF1)}}};\n"
+        f"static __constant__ int OFF2[{len(cuda_g2.OFF2)}] = "
+        f"{{{flat(cuda_g2.OFF2)}}};\n\n"
+        "}  // namespace fp381\n")
+
+
+if __name__ == "__main__":
+    path = build()
+    print(f"built {path} in {INFO['build_seconds']:.1f} s")
+    print(ptxas_report())

@@ -1,0 +1,459 @@
+"""Kernels K2 and K3 — whole G2 group-law steps on the card (csrc/g2.cu).
+
+The counterpart of the JAX package's ops/pallas_g2.py:
+
+- K2 `g2_step<DBL|ADD>` replaces `_dbl_kernel` / `_add_kernel`: one
+  complete Renes–Costello–Batina (a = 0) doubling or addition per row.
+- K3 `straus_step<HEAD>` replaces `_dbl3sel_s_kernel` (HEAD: acc ← 8·acc
+  ± table[|d|]) and `_addsel_s_kernel` (acc ← acc ± table[|d|]); a zero
+  digit keeps the accumulator.
+
+One thread per point row holds the whole step: every intermediate stays
+in the thread's registers and local memory, and device memory sees only
+the operand points and the result — the same "inputs + outputs" traffic
+the Pallas kernels get from VMEM.  The field arithmetic is the JAX
+package's column arithmetic (12-bit limbs, lazy Karatsuba Fp2 products
+with the _OFF1/_OFF2 spread offsets), so each kernel is BIT-IDENTICAL to
+its plain version here: the port of the DIRECT bodies (`pallas_g2.
+_DIRECT_FNS`), which the CPU tests compare with JAX and the chip smoke
+compares with the kernel.
+
+LAYOUT.  A point batch is ``[6, 32, R]`` int32: planes (X0, X1, Y0, Y1,
+Z0, Z1) × limbs × rows — the port's `[3, 2, 32, R]` point reshaped, with
+no copy.  Neighbouring threads read neighbouring rows.  Straus digits are
+``[nwin, R]`` int32, iteration-major, rows t-major (row = t·Vpad + v) as
+in the JAX backend; K3 reads its table slices and digit row through a row
+offset and the tables' row stride, so the window loop makes no copies.
+
+Every wrapper routes a CPU tensor to the plain version and launches the
+kernel for a CUDA tensor (or raises).  `LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..tbls.ref.fields import P
+from . import build, fp
+
+NL = fp.NLIMBS
+MASK = fp.MASK
+
+
+# ---------------------------------------------------------------------------
+# Host-side constants (copies of pallas_g2's tables)
+# ---------------------------------------------------------------------------
+
+def _spread_multiple(width: int, min_digit: int) -> np.ndarray:
+    """A multiple of p as `width + 1` nonnegative digits with every digit
+    below `width` at least `min_digit` (fp.SPREAD48P, generalised)."""
+    k = ((min_digit * 4) << (12 * (width - 1))) // P + 2
+    digits = [int(d) for d in fp.to_limbs(k * P, width + 1)]
+    for i in range(width):
+        while digits[i] < min_digit:
+            digits[i] += 1 << 12
+            digits[i + 1] -= 1
+    assert all(d >= 0 for d in digits)
+    assert sum(d << (12 * i) for i, d in enumerate(digits)) == k * P
+    return np.asarray(digits, np.int64)
+
+
+# Offsets for the lazy Karatsuba combines: columns after two carry rounds
+# are < 2^13, and c1 subtracts two such vectors.
+OFF1 = _spread_multiple(65, 1 << 13)      # 66 digits
+OFF2 = _spread_multiple(65, 1 << 14)      # 66 digits
+
+# Worst fold width is 68 (66 lazy-combine columns widened by two carry
+# rounds) → 36 high columns.
+FC_ROWS = 36
+_FC_NP = fp.FOLDC[:FC_ROWS].astype(np.int32)          # [36, 32]
+_OFF1_32 = OFF1.astype(np.int32)
+_OFF2_32 = OFF2.astype(np.int32)
+_SPREAD = fp.SPREAD48P                                 # 33 digits
+
+
+def fold_consts() -> np.ndarray:
+    """The fold-constant table [36, 32] (the JAX `fold_consts()` without
+    its lane broadcast; the kernels hold it in __constant__ memory)."""
+    return _FC_NP.copy()
+
+
+# ---------------------------------------------------------------------------
+# Plain field library (the DIRECT bodies of pallas_g2).  An Fp element is
+# a [W, R] int32 tensor (limb axis first); an Fp2 element a (c0, c1) tuple.
+# ---------------------------------------------------------------------------
+
+def _col(arr: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """A per-limb constant column shaped to broadcast against x [W, ...]."""
+    t = fp.const(arr, x.device)
+    return t.view(t.shape[0], *([1] * (x.dim() - 1)))
+
+
+def _zrow(x: torch.Tensor, n: int = 1) -> torch.Tensor:
+    return x.new_zeros((n,) + tuple(x.shape[1:]))
+
+
+def _pc(x: torch.Tensor, rounds: int) -> torch.Tensor:
+    """Partial carries; widens by one limb per round."""
+    for _ in range(rounds):
+        z = _zrow(x)
+        x = (torch.cat([x & MASK, z]) + torch.cat([z, x >> fp.LIMB_BITS]))
+    return x
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """[W ≥ 32, ...] → [32, ...], value preserved mod p."""
+    h = x.shape[0] - NL
+    assert h <= FC_ROWS
+    if not h:
+        return x
+    fc = fp.const(_FC_NP, x.device)[:h]
+    fc = fc.view(h, NL, *([1] * (x.dim() - 1)))
+    return x[:NL] + torch.sum(x[NL:].unsqueeze(1) * fc, dim=0,
+                              dtype=torch.int32)
+
+
+def _reduce(x: torch.Tensor, iters: int) -> torch.Tensor:
+    x = _fold(_pc(x, 2))
+    for _ in range(iters):
+        x = _fold(_pc(x, 2))
+    return x
+
+
+def _addf(a, b):
+    return _reduce(a + b, 1)
+
+
+def _add_off(cols: torch.Tensor, off: np.ndarray) -> torch.Tensor:
+    """Add a spread multiple of p column-wise (one extra top column)."""
+    w = cols.shape[0]
+    full = _col(off, cols)
+    return torch.cat([cols + full[:w], full[w:w + 1].expand_as(cols[:1])])
+
+
+def _subf(a, b):
+    d = torch.cat([a - b, _zrow(a)])
+    return _reduce(d + _col(_SPREAD, d), 1)
+
+
+def _negf(a):
+    d = torch.cat([a, _zrow(a)])
+    return _reduce(_col(_SPREAD, d) - d, 1)
+
+
+def _msmall(a, k: int):
+    assert 1 <= k <= 16
+    return _reduce(a * k, 2)
+
+
+_conv = fp._conv  # 63 raw convolution columns of two [32, R] elements
+
+
+def _mulf(a, b):
+    return _reduce(_conv(a, b), 5)
+
+
+def _f2add(a, b):
+    return (_addf(a[0], b[0]), _addf(a[1], b[1]))
+
+
+def _f2sub(a, b):
+    return (_subf(a[0], b[0]), _subf(a[1], b[1]))
+
+
+def _f2small(a, k: int):
+    return (_msmall(a[0], k), _msmall(a[1], k))
+
+
+def _f2mul(a, b):
+    """Lazy Karatsuba: combine the three sub-products at column level,
+    then ONE fold-reduction per output coefficient."""
+    t0 = _pc(_conv(a[0], b[0]), 2)                       # 65 cols < 2^13
+    t1 = _pc(_conv(a[1], b[1]), 2)
+    t2 = _pc(_conv(_addf(a[0], a[1]), _addf(b[0], b[1])), 2)
+    c0 = _add_off(t0 - t1, _OFF1_32)                     # 66 cols
+    c1 = _add_off(t2 - t0 - t1, _OFF2_32)
+    return (_reduce(c0, 6), _reduce(c1, 6))
+
+
+def _f2sqr(a):
+    """(a0+a1)(a0−a1) + 2a0a1·u."""
+    c0 = _mulf(_addf(a[0], a[1]), _subf(a[0], a[1]))
+    t = _pc(_conv(a[0], a[1]), 2)
+    return (c0, _reduce(t * 2, 5))
+
+
+def _f2_mul_b3(a):
+    """×3b = ×12(1+u)."""
+    return (_msmall(_subf(a[0], a[1]), 12), _msmall(_addf(a[0], a[1]), 12))
+
+
+def _pt_unstack(p):
+    return ((p[0], p[1]), (p[2], p[3]), (p[4], p[5]))
+
+
+def _pt_stack(x, y, z):
+    return torch.stack([x[0], x[1], y[0], y[1], z[0], z[1]])
+
+
+def _g2_double(p):
+    x, y, z = _pt_unstack(p)
+    yy = _f2sqr(y)
+    yz = _f2mul(y, z)
+    zz = _f2sqr(z)
+    xy = _f2mul(x, y)
+    bzz = _f2_mul_b3(zz)
+    e8 = _f2small(yy, 8)
+    s = _f2add(yy, bzz)
+    d = _f2sub(yy, _f2small(bzz, 3))
+    x3 = _f2small(_f2mul(d, xy), 2)
+    y3 = _f2add(_f2mul(bzz, e8), _f2mul(d, s))
+    z3 = _f2mul(yz, e8)
+    return _pt_stack(x3, y3, z3)
+
+
+def _g2_add(p1, p2):
+    x1, y1, z1 = _pt_unstack(p1)
+    x2, y2, z2 = _pt_unstack(p2)
+    t0 = _f2mul(x1, x2)
+    t1 = _f2mul(y1, y2)
+    t2 = _f2mul(z1, z2)
+    pxy = _f2mul(_f2add(x1, y1), _f2add(x2, y2))
+    pyz = _f2mul(_f2add(y1, z1), _f2add(y2, z2))
+    pxz = _f2mul(_f2add(x1, z1), _f2add(x2, z2))
+    t3 = _f2sub(pxy, _f2add(t0, t1))         # X1Y2 + X2Y1
+    t4 = _f2sub(pyz, _f2add(t1, t2))         # Y1Z2 + Y2Z1
+    t5 = _f2sub(pxz, _f2add(t0, t2))         # X1Z2 + X2Z1
+    m = _f2small(t0, 3)                      # 3·X1X2
+    bz = _f2_mul_b3(t2)                      # 3b·Z1Z2
+    s = _f2add(t1, bz)
+    d = _f2sub(t1, bz)
+    by = _f2_mul_b3(t5)
+    x3 = _f2sub(_f2mul(t3, d), _f2mul(t4, by))
+    y3 = _f2add(_f2mul(d, s), _f2mul(m, by))
+    z3 = _f2add(_f2mul(t4, s), _f2mul(t3, m))
+    return _pt_stack(x3, y3, z3)
+
+
+def _signed_sel(w, t1, t2, t3, t4):
+    """table[|w|] (|w| = 0 or 4 → t4), Y negated where w < 0."""
+    wa = torch.abs(w)
+    pt = torch.where(wa == 1, t1,
+                     torch.where(wa == 2, t2, torch.where(wa == 3, t3, t4)))
+    neg = w < 0
+    return torch.stack([pt[0], pt[1],
+                        torch.where(neg, _negf(pt[2]), pt[2]),
+                        torch.where(neg, _negf(pt[3]), pt[3]),
+                        pt[4], pt[5]])
+
+
+def dbl_plain(p: torch.Tensor) -> torch.Tensor:
+    return _g2_double(p)
+
+
+def add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _g2_add(a, b)
+
+
+def straus_step_plain(acc, tables, row0: int, digits: torch.Tensor,
+                      head: bool) -> torch.Tensor:
+    """acc ← (8·acc if head else acc) ± table[|d|] over rows
+    [row0, row0 + n) of the tables and digit row; d = 0 keeps."""
+    n = acc.shape[-1]
+    t1, t2, t3, t4 = (t[..., row0:row0 + n] for t in tables)
+    w = digits[row0:row0 + n]
+    if head:
+        acc = _g2_double(_g2_double(_g2_double(acc)))
+    added = _g2_add(acc, _signed_sel(w, t1, t2, t3, t4))
+    return torch.where(w == 0, acc, added)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+#: kernel launches since the last `reset_launches()`
+LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "straus_head": 0, "straus_tail": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check_pts(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: int32 planes expected, got {t.dtype}")
+        if t.dim() != 3 or t.shape[:2] != (6, NL) or t.shape[2] == 0:
+            raise ValueError(f"{name}: expected [6, 32, R], got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.device != ts[0].device:
+            raise ValueError(f"{name}: operands on different devices")
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{name}: {t.numel()} limbs exceed the int index")
+
+
+def _cuda_ready(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensor on {t.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
+
+
+def _g2_step(name: str, kind: int, a: torch.Tensor,
+             b: torch.Tensor | None) -> torch.Tensor:
+    ops = (a,) if b is None else (a, b)
+    _check_pts(name, *ops)
+    if b is not None and b.shape != a.shape:
+        raise ValueError(f"{name}: operand shapes differ")
+    _cuda_ready(name, a)
+    out = torch.empty_like(a)
+    err = build.library().charon_g2_step(
+        kind, out.data_ptr(), a.data_ptr(),
+        0 if b is None else b.data_ptr(), a.shape[2],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def dbl(p: torch.Tensor) -> torch.Tensor:
+    """[6, 32, R] G2 points → doubled points."""
+    if p.device.type == "cpu":
+        return dbl_plain(p)
+    return _g2_step("g2_dbl", 0, p, None)
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cpu":
+        return add_plain(a, b)
+    return _g2_step("g2_add", 1, a, b)
+
+
+def straus_step(acc: torch.Tensor, tables, row0: int, digits: torch.Tensor,
+                head: bool) -> torch.Tensor:
+    """One Straus window step over n = acc rows: tables are four
+    [6, 32, RT] point batches (P, 2P, 3P, 4P), read at rows
+    [row0, row0 + n); digits is one [RT] int32 digit row."""
+    if acc.device.type == "cpu":
+        return straus_step_plain(acc, tables, row0, digits, head)
+    name = "straus_head" if head else "straus_tail"
+    _check_pts(name, acc, *tables)
+    n, rt = acc.shape[2], tables[0].shape[2]
+    if any(t.shape != tables[0].shape for t in tables):
+        raise ValueError(f"{name}: table shapes differ")
+    if not 0 <= row0 <= rt - n:
+        raise ValueError(f"{name}: rows [{row0}, {row0 + n}) outside {rt}")
+    if (digits.dtype != torch.int32 or digits.shape != (rt,)
+            or not digits.is_contiguous() or digits.device != acc.device):
+        raise ValueError(f"{name}: digits must be a contiguous int32 [{rt}] "
+                         f"row on {acc.device}")
+    _cuda_ready(name, acc)
+    out = torch.empty_like(acc)
+    off = 4 * row0                      # byte offset of row0 in every plane
+    err = build.library().charon_straus_step(
+        int(head), out.data_ptr(), acc.data_ptr(),
+        *[t.data_ptr() + off for t in tables], rt,
+        digits.data_ptr() + off, n,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Layout helpers + the Straus MSM
+# ---------------------------------------------------------------------------
+
+_INF_PLANES = np.zeros((6, NL), np.int32)
+_INF_PLANES[2] = fp.ONE  # (0 : 1 : 0)
+
+
+def as_planes(pt: torch.Tensor) -> torch.Tensor:
+    """[3, 2, 32, R] point batch → the kernels' [6, 32, R] view."""
+    return pt.reshape(6, NL, pt.shape[-1])
+
+
+def as_points(planes: torch.Tensor) -> torch.Tensor:
+    """[6, 32, R] planes → [3, 2, 32, R] point batch (a view)."""
+    return planes.reshape(3, 2, NL, planes.shape[-1])
+
+
+def inf_planes(n: int, device) -> torch.Tensor:
+    """n points at infinity as [6, 32, n] planes."""
+    return fp.const(_INF_PLANES, device).unsqueeze(-1).expand(
+        6, NL, n).contiguous()
+
+
+def signed_digit_rows(bits: np.ndarray) -> np.ndarray:
+    """Host: [R, nbits] scalar bit planes (MSB first) → [R, nwin] balanced
+    base-8 digits in [−4, 3], MSB-first per row; value-exact
+    (Σᵢ d_{nwin−1−i}·8^i == the scalar).  The balanced recode's carry
+    chain resolves by carry lookahead: digit i GENERATES a carry iff
+    u_i ≥ 4 and PROPAGATES iff u_i == 3."""
+    r, nbits = bits.shape
+    pad = (-nbits) % 3
+    b = np.concatenate([np.zeros((r, pad), bits.dtype), bits], axis=1)
+    nd = b.shape[1] // 3
+    u = (b[:, ::-1][:, 0::3] * 1 + b[:, ::-1][:, 1::3] * 2
+         + b[:, ::-1][:, 2::3] * 4)                     # [R, nd] LSB-first
+    gen = u >= 4
+    pos = np.arange(nd, dtype=np.int64)
+    anchor = np.maximum.accumulate(np.where(u == 3, -1, pos), axis=1)
+    gen_pad = np.concatenate([np.zeros((r, 1), bool), gen], axis=1)
+    anchor_prev = np.concatenate(
+        [np.full((r, 1), -1, np.int64), anchor[:, :-1]], axis=1)
+    c_in = np.take_along_axis(gen_pad, anchor_prev + 1, axis=1)
+    v = u + c_in.astype(np.int32)
+    d = np.zeros((r, nd + 1), np.int32)
+    d[:, :nd] = np.where(v >= 4, v - 8, v)
+    d[:, nd] = np.take_along_axis(gen_pad, anchor[:, -1:] + 1,
+                                  axis=1)[:, 0]
+    return np.ascontiguousarray(d[:, ::-1])             # MSB-first
+
+
+def straus_combine(pts: torch.Tensor, digits: torch.Tensor,
+                   t_count: int) -> torch.Tensor:
+    """Joint-T Straus MSM over a t-major batch:
+
+    pts    [6, 32, R]  rows t-major (row = t·Vpad + v),
+    digits [nwin, R]   balanced base-8 digits, iteration-major,
+    → [6, 32, Vpad] combined points (Vpad = R / t_count).
+
+    acc ← 8·acc + Σ_t d_{t,i}·P_t per window i: one K3 head step (t = 0)
+    and T − 1 tail steps per window, on tables {P, 2P, 3P, 4P} built once
+    by K2 over all rows."""
+    return straus_loop(straus_tables(pts), digits, t_count)
+
+
+def straus_tables(pts: torch.Tensor) -> tuple:
+    """The window tables (P, 2P, 3P, 4P) over all rows, by K2."""
+    p2 = dbl(pts)
+    p3 = add(p2, pts)
+    p4 = dbl(p2)
+    return (pts, p2, p3, p4)
+
+
+def straus_loop(tables: tuple, digits: torch.Tensor,
+                t_count: int) -> torch.Tensor:
+    """The window loop of `straus_combine` over prebuilt tables."""
+    r = tables[0].shape[-1]
+    assert r % t_count == 0
+    sv = r // t_count
+    acc = inf_planes(sv, tables[0].device)
+    for i in range(digits.shape[0]):
+        row = digits[i]
+        acc = straus_step(acc, tables, 0, row, head=True)
+        for k in range(1, t_count):
+            acc = straus_step(acc, tables, k * sv, row, head=False)
+    return acc
