@@ -6,7 +6,10 @@ Everything here takes and returns numpy arrays; nothing imports JAX.
   (rows move from first to last);
 - JAX tiled points ``[6, 32, S, 128]`` or limb-last points ``[R, 3, 2, 32]``
   ↔ port planes ``[6, 32, R]``;
-- JAX tiled Straus digits ``[nwin, S, 128]`` ↔ port ``[nwin, R]``.
+- JAX tiled Straus digits ``[nwin, S, 128]`` ↔ port ``[nwin, R]``;
+- JAX tiled plane stacks ``[n, 32, S, 128]`` ↔ port ``[n, 32, R]``, and
+  the limb-last Fp12 ``[R, 2, 3, 2, 32]`` and G1 ``[R, 3, 32]`` batches
+  ↔ port ``[12, 32, R]`` / ``[3, 32, R]`` planes.
 """
 
 from __future__ import annotations
@@ -56,3 +59,52 @@ def digits_to_jax(arr) -> np.ndarray:
     """[nwin, R] → JAX tiled [nwin, R/128, 128]."""
     a = np.asarray(arr)
     return np.ascontiguousarray(a.reshape(a.shape[0], -1, LANES))
+
+
+def planes_from_jax(arr) -> np.ndarray:
+    """JAX tiled plane stack [n, 32, S, 128] → [n, 32, R]."""
+    a = np.asarray(arr)
+    return np.ascontiguousarray(a.reshape(a.shape[0], a.shape[1], -1))
+
+
+def planes_to_jax(arr) -> np.ndarray:
+    """[n, 32, R] → JAX tiled [n, 32, R/128, 128]."""
+    a = np.asarray(arr)
+    return np.ascontiguousarray(
+        a.reshape(a.shape[0], a.shape[1], -1, LANES))
+
+
+def f12_from_jax(arr) -> np.ndarray:
+    """JAX tiled [12, 32, S, 128] or limb-last [R, 2, 3, 2, 32] → the
+    port's Fp12 planes [12, 32, R] (plane m = (k·3 + j)·2 + c)."""
+    a = np.asarray(arr)
+    if a.ndim == 4 and a.shape[:2] == (12, 32):
+        return planes_from_jax(a)
+    if a.ndim == 5 and a.shape[1:] == (2, 3, 2, 32):
+        return elems_from_jax(a).reshape(12, 32, a.shape[0])
+    raise ValueError(f"not a JAX Fp12 batch: shape {a.shape}")
+
+
+def f12_to_jax(arr, tiled: bool = True) -> np.ndarray:
+    """[12, 32, R] → JAX tiled [12, 32, R/128, 128] (tiled=True) or
+    limb-last [R, 2, 3, 2, 32]."""
+    a = np.asarray(arr)
+    if tiled:
+        return planes_to_jax(a)
+    return elems_to_jax(a.reshape(2, 3, 2, 32, a.shape[-1]))
+
+
+def g1_from_jax(arr) -> np.ndarray:
+    """JAX tiled [3, 32, S, 128] or limb-last [R, 3, 32] → [3, 32, R]."""
+    a = np.asarray(arr)
+    if a.ndim == 4 and a.shape[:2] == (3, 32):
+        return planes_from_jax(a)
+    if a.ndim == 3 and a.shape[1:] == (3, 32):
+        return elems_from_jax(a)
+    raise ValueError(f"not a JAX G1 batch: shape {a.shape}")
+
+
+def g1_to_jax(arr, tiled: bool = True) -> np.ndarray:
+    """[3, 32, R] → JAX tiled [3, 32, R/128, 128] or limb-last [R, 3, 32]."""
+    a = np.asarray(arr)
+    return planes_to_jax(a) if tiled else elems_to_jax(a)

@@ -275,6 +275,310 @@ static __device__ __noinline__ void g2_add(G2& o, const G2& p1, const G2& p2) {
   f2_add(o.z, a, b);
 }
 
+// ---- Fp12 tower for the pairing kernels (pallas_pairing's in-kernel
+// library): Fp6 = Fp2[v]/(v³ − ξ), Fp12 = Fp6[w]/(w² − v), ξ = 1 + u.  An
+// F12 is laid out as its planes: plane m = (k·3 + j)·2 + c.  Every
+// function below reads all of its operands before it writes its output, so
+// the output may alias any operand.  The Fp2/Fp6 helpers are __noinline__:
+// one copy each keeps the three pairing sources' code (and nvcc's time)
+// bounded, at the price of passing operands through the local-memory stack.
+
+static __device__ __noinline__ void mul_n(int* o, const int* a,
+                                          const int* b) {
+  mul(o, a, b);
+}
+
+static __device__ __noinline__ void f2_add_n(F2& o, const F2& a,
+                                             const F2& b) {
+  f2_add(o, a, b);
+}
+
+static __device__ __noinline__ void f2_sub_n(F2& o, const F2& a,
+                                             const F2& b) {
+  f2_sub(o, a, b);
+}
+
+static __device__ __noinline__ void f2_small_n(F2& o, const F2& a, int k) {
+  f2_small(o, a, k);
+}
+
+// ×ξ = (1 + u): (a0 − a1) + (a0 + a1)·u
+static __device__ __noinline__ void f2_mul_xi(F2& o, const F2& a) {
+  int s[NL], d[NL];
+  sub(d, a.c0, a.c1);
+  add(s, a.c0, a.c1);
+  copy(o.c0, d);
+  copy(o.c1, s);
+}
+
+// Fp2 × Fp: both coefficients through the full multiplier
+static __device__ __noinline__ void f2_mul_fp(F2& o, const F2& a,
+                                              const int* s) {
+  mul(o.c0, a.c0, s);
+  mul(o.c1, a.c1, s);
+}
+
+struct F6 {
+  F2 c[3];
+};
+
+struct F12 {
+  F6 c[2];
+};
+
+static __device__ __noinline__ void f6_add(F6& o, const F6& a, const F6& b) {
+#pragma unroll 1
+  for (int i = 0; i < 3; ++i) f2_add_n(o.c[i], a.c[i], b.c[i]);
+}
+
+static __device__ __noinline__ void f6_sub(F6& o, const F6& a, const F6& b) {
+#pragma unroll 1
+  for (int i = 0; i < 3; ++i) f2_sub_n(o.c[i], a.c[i], b.c[i]);
+}
+
+// ×v: (ξ·a2, a0, a1)
+static __device__ __noinline__ void f6_mul_by_v(F6& o, const F6& a) {
+  F2 t;
+  f2_mul_xi(t, a.c[2]);
+  o.c[2] = a.c[1];
+  o.c[1] = a.c[0];
+  o.c[0] = t;
+}
+
+// Toom-style product: 6 Fp2 products (pallas_pairing._f6_mul)
+static __device__ __noinline__ void f6_mul(F6& o, const F6& a, const F6& b) {
+  F2 v0, v1, v2, s, t, t12, t01, t02, u;
+  f2_mul(v0, a.c[0], b.c[0]);
+  f2_mul(v1, a.c[1], b.c[1]);
+  f2_mul(v2, a.c[2], b.c[2]);
+  f2_add_n(s, a.c[1], a.c[2]);
+  f2_add_n(t, b.c[1], b.c[2]);
+  f2_mul(t12, s, t);
+  f2_add_n(u, v1, v2);
+  f2_sub_n(t12, t12, u);            // a1b2 + a2b1
+  f2_add_n(s, a.c[0], a.c[1]);
+  f2_add_n(t, b.c[0], b.c[1]);
+  f2_mul(t01, s, t);
+  f2_add_n(u, v0, v1);
+  f2_sub_n(t01, t01, u);            // a0b1 + a1b0
+  f2_add_n(s, a.c[0], a.c[2]);
+  f2_add_n(t, b.c[0], b.c[2]);
+  f2_mul(t02, s, t);
+  f2_add_n(u, v0, v2);
+  f2_sub_n(t02, t02, u);            // a0b2 + a2b0
+  f2_mul_xi(u, t12);
+  f2_add_n(o.c[0], v0, u);
+  f2_mul_xi(u, v2);
+  f2_add_n(o.c[1], t01, u);
+  f2_add_n(o.c[2], t02, v1);
+}
+
+// Sparse (d0 + d1·v) product: 5 Fp2 products (pallas_pairing._f6_mul_by_01)
+static __device__ __noinline__ void f6_mul_by_01(F6& o, const F6& a,
+                                                 const F2& d0, const F2& d1) {
+  F2 v0, v1, x12, x01, x02, s, t;
+  f2_mul(v0, a.c[0], d0);
+  f2_mul(v1, a.c[1], d1);
+  f2_add_n(s, a.c[1], a.c[2]);
+  f2_mul(x12, s, d1);
+  f2_add_n(s, a.c[0], a.c[1]);
+  f2_add_n(t, d0, d1);
+  f2_mul(x01, s, t);
+  f2_add_n(s, a.c[0], a.c[2]);
+  f2_mul(x02, s, d0);
+  f2_sub_n(s, x12, v1);
+  f2_mul_xi(s, s);
+  f2_add_n(o.c[0], v0, s);
+  f2_add_n(s, v0, v1);
+  f2_sub_n(o.c[1], x01, s);
+  f2_sub_n(s, x02, v0);
+  f2_add_n(o.c[2], s, v1);
+}
+
+// f² (pallas_pairing._f12_sqr)
+static __device__ __noinline__ void f12_sqr(F12& o, const F12& f) {
+  F6 v0, t, s, u;
+  f6_mul(v0, f.c[0], f.c[1]);
+  f6_add(s, f.c[0], f.c[1]);
+  f6_mul_by_v(u, f.c[1]);
+  f6_add(u, f.c[0], u);
+  f6_mul(t, s, u);
+  f6_sub(t, t, v0);
+  f6_mul_by_v(u, v0);
+  f6_sub(o.c[0], t, u);
+#pragma unroll 1
+  for (int i = 0; i < 3; ++i) f2_small_n(o.c[1].c[i], v0.c[i], 2);
+}
+
+// f·g (pallas_pairing._f12_mul)
+static __device__ __noinline__ void f12_mul(F12& o, const F12& f,
+                                            const F12& g) {
+  F6 aa, bb, s, t;
+  f6_mul(aa, f.c[0], g.c[0]);
+  f6_mul(bb, f.c[1], g.c[1]);
+  f6_add(s, f.c[0], f.c[1]);
+  f6_add(t, g.c[0], g.c[1]);
+  f6_mul(s, s, t);                  // cross
+  f6_add(t, aa, bb);
+  f6_sub(o.c[1], s, t);
+  f6_mul_by_v(t, bb);
+  f6_add(o.c[0], aa, t);
+}
+
+// f·((c0 + c1·v) + c4·v·w): 13 Fp2 products (pallas_pairing._f12_mul_by_014)
+static __device__ __noinline__ void f12_mul_by_014(F12& o, const F12& f,
+                                                   const F2& c0, const F2& c1,
+                                                   const F2& c4) {
+  F6 aa, t6, bb, s;
+  F2 o2;
+  f6_mul_by_01(aa, f.c[0], c0, c1);
+  f6_add(s, f.c[0], f.c[1]);
+  f2_add_n(o2, c1, c4);
+  f6_mul_by_01(t6, s, c0, o2);
+  f2_mul(bb.c[1], f.c[1].c[0], c4);
+  f2_mul(bb.c[2], f.c[1].c[1], c4);
+  f2_mul(o2, f.c[1].c[2], c4);
+  f2_mul_xi(bb.c[0], o2);           // bb = f1·c4·v: the v-rotation
+  f6_add(s, aa, bb);
+  f6_sub(o.c[1], t6, s);
+  f6_mul_by_v(s, bb);
+  f6_add(o.c[0], s, aa);
+}
+
+// ---- Miller-loop steps (pallas_pairing._dbl_step / _add_step) -------------
+//
+// The Miller accumulator is a projective twist point (X, Y, Z) ∈ Fp2³; a
+// step returns the new point and the sparse line (c0, c1b, c4b).
+
+struct Line {
+  F2 c0, c1b, c4b;
+};
+
+// Doubling + the line through 2R, scaled by 2YZ² (EFD dbl-2007-bl, a = 0)
+static __device__ __noinline__ void pp_double(G2& o, Line& l, const G2& p) {
+  F2 XX, YY, s, XY, w, ss, B, wX, YYZ, sZ, wsq, YYss, sss, h, t, u;
+  f2_sqr(XX, p.x);
+  f2_sqr(YY, p.y);
+  f2_mul(s, p.y, p.z);
+  f2_mul(XY, p.x, p.y);
+  f2_small_n(w, XX, 3);
+  f2_sqr(ss, s);
+  f2_mul(B, XY, s);
+  f2_mul(l.c1b, w, p.z);
+  f2_mul(wX, w, p.x);
+  f2_mul(YYZ, YY, p.z);
+  f2_mul(sZ, s, p.z);
+  f2_sqr(wsq, w);
+  f2_mul(YYss, YY, ss);
+  f2_mul(sss, s, ss);
+  f2_small_n(t, B, 8);
+  f2_sub_n(h, wsq, t);
+  f2_mul(t, h, s);                  // hs
+  f2_small_n(o.x, t, 2);
+  f2_small_n(t, B, 4);
+  f2_sub_n(t, t, h);
+  f2_mul(t, w, t);                  // wterm
+  f2_small_n(u, YYss, 8);
+  f2_sub_n(o.y, t, u);
+  f2_small_n(o.z, sss, 8);
+  f2_small_n(t, YYZ, 2);
+  f2_sub_n(l.c0, t, wX);
+  f2_small_n(l.c4b, sZ, 2);
+}
+
+// Mixed addition R + Q (Q affine (x2, y2)) + the line, scaled by δ
+static __device__ __noinline__ void pp_add(G2& o, Line& l, const G2& p,
+                                           const F2& x2, const F2& y2) {
+  F2 yZ, xZ, theta, delta, c, d, dy, tx, e, f_, g, h, t, eY;
+  f2_mul(yZ, y2, p.z);
+  f2_mul(xZ, x2, p.z);
+  f2_sub_n(theta, p.y, yZ);
+  f2_sub_n(delta, p.x, xZ);
+  f2_sqr(c, theta);
+  f2_sqr(d, delta);
+  f2_mul(dy, delta, y2);
+  f2_mul(tx, theta, x2);
+  f2_mul(e, delta, d);
+  f2_mul(f_, p.z, c);
+  f2_mul(g, p.x, d);
+  f2_add_n(h, e, f_);
+  f2_small_n(t, g, 2);
+  f2_sub_n(h, h, t);
+  f2_sub_n(t, g, h);
+  f2_mul(t, theta, t);
+  f2_mul(eY, e, p.y);
+  f2_mul(o.z, p.z, e);
+  f2_mul(o.x, delta, h);
+  f2_sub_n(o.y, t, eY);
+  f2_sub_n(l.c0, dy, tx);
+  l.c1b = theta;
+  l.c4b = delta;
+}
+
+// ---- G1 complete group law (RCB16 Algs 7/9, a = 0, b₃ = 12) ---------------
+
+struct G1 {
+  int x[NL], y[NL], z[NL];
+};
+
+static __device__ __noinline__ void g1_double(G1& o, const G1& p) {
+  int yy[NL], yz[NL], zz[NL], xy[NL], bzz[NL], e8[NL], s[NL], d[NL],
+      t[NL], u[NL];
+  mul_n(yy, p.y, p.y);
+  mul_n(yz, p.y, p.z);
+  mul_n(zz, p.z, p.z);
+  mul_n(xy, p.x, p.y);
+  mul_small(bzz, zz, 12);
+  mul_small(e8, yy, 8);
+  add(s, yy, bzz);
+  mul_small(t, bzz, 3);
+  sub(d, yy, t);
+  mul_n(t, d, xy);
+  mul_small(o.x, t, 2);
+  mul_n(t, bzz, e8);
+  mul_n(u, d, s);
+  add(o.y, t, u);
+  mul_n(o.z, yz, e8);
+}
+
+static __device__ __noinline__ void g1_add(G1& o, const G1& p1,
+                                           const G1& p2) {
+  int t0[NL], t1[NL], t2[NL], t3[NL], t4[NL], t5[NL], a[NL], b[NL];
+  mul_n(t0, p1.x, p2.x);
+  mul_n(t1, p1.y, p2.y);
+  mul_n(t2, p1.z, p2.z);
+  add(a, p1.x, p1.y);
+  add(b, p2.x, p2.y);
+  mul_n(t3, a, b);                  // pxy
+  add(a, p1.y, p1.z);
+  add(b, p2.y, p2.z);
+  mul_n(t4, a, b);                  // pyz
+  add(a, p1.x, p1.z);
+  add(b, p2.x, p2.z);
+  mul_n(t5, a, b);                  // pxz
+  add(a, t0, t1);
+  sub(t3, t3, a);                   // X1Y2 + X2Y1
+  add(a, t1, t2);
+  sub(t4, t4, a);                   // Y1Z2 + Y2Z1
+  add(a, t0, t2);
+  sub(t5, t5, a);                   // X1Z2 + X2Z1
+  int m[NL], bz[NL], s[NL], d[NL], by[NL];
+  mul_small(m, t0, 3);
+  mul_small(bz, t2, 12);
+  add(s, t1, bz);
+  sub(d, t1, bz);
+  mul_small(by, t5, 12);
+  mul_n(a, t3, d);
+  mul_n(b, t4, by);
+  sub(o.x, a, b);
+  mul_n(a, d, s);
+  mul_n(b, m, by);
+  add(o.y, a, b);
+  mul_n(a, t4, s);
+  mul_n(b, t3, m);
+  add(o.z, a, b);
+}
+
 // ---- point planes in device memory: [6, 32, stride], row r ---------------
 
 __device__ __forceinline__ void load_el(int* o, const int* plane, int r,

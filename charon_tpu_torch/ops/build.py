@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +25,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fp_ops.cu", "g2.cu")
+SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu")
 HEADERS = ("fp381.cuh", "fp381_consts.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -108,15 +109,47 @@ def build() -> Path:
     return lib
 
 
+def _kernel_name(mangled: str) -> str:
+    """'_ZN…_pairing_cu_…15f12_step_kernelILi2EE…' → 'pairing.cu
+    f12_step_kernel<2>' (the length-prefixed name ending in _kernel)."""
+    src = next((f"{stem}.cu" for stem in (Path(x).stem for x in SOURCES)
+                if f"_{stem}_cu_" in mangled), "?")
+    # the length prefix may follow hash digits: try every suffix of each
+    # digit run as the length, and keep the last (innermost) name
+    found = f"{src} {mangled}"
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(m.start(), m.end()):
+            name = mangled[m.end():m.end() + int(mangled[k:m.end()])]
+            if name.endswith("_kernel") and name[:1].isalpha():
+                t = re.match(r"ILi(-?\d+)E", mangled[m.end() + len(name):])
+                found = f"{src} {name}" + (f"<{t.group(1)}>" if t else "")
+    return found
+
+
 def ptxas_report() -> str:
-    """The compiler's register / spill / stack lines of the current build."""
+    """One line per kernel of the current build: registers, stack frame,
+    and the largest spill of the kernel or the device functions it calls
+    (from the compiler's -Xptxas -v log)."""
     log = build_root() / source_hash() / "ptxas.log"
     if not log.exists():
         return ""
-    keep = ("Compiling entry function", "Function properties", "registers",
-            "spill", "stack frame")
-    return "\n".join(line.strip() for line in log.read_text().splitlines()
-                     if any(k in line for k in keep))
+    rows, cur = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": _kernel_name(m.group(1)), "regs": 0, "stack": 0,
+                   "spill": 0}
+            rows.append(cur)
+        elif cur is not None:
+            if (m := re.search(r"Used (\d+) registers", line)):
+                cur["regs"] = int(m.group(1))
+            if (m := re.search(r"(\d+) bytes cumulative stack size", line)):
+                cur["stack"] = int(m.group(1))
+            if (m := re.search(r"(\d+) bytes spill stores", line)):
+                cur["spill"] = max(cur["spill"], int(m.group(1)))
+    return "\n".join(f"ptxas {r['name']}: {r['regs']} registers, "
+                     f"{r['stack']} B stack, {r['spill']} B largest spill"
+                     for r in rows)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -124,7 +157,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_fp_op.argtypes = [i, i, p, p, p, i, i, p]
     lib.charon_g2_step.argtypes = [i, p, p, p, i, p]
     lib.charon_straus_step.argtypes = [i, p, p, p, p, p, p, i, p, i, p]
-    for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step):
+    lib.charon_pp_step.argtypes = [i, p, p, p, i, p]
+    lib.charon_f12_step.argtypes = [i, p, p, p, p, i, i, p]
+    lib.charon_g1_dblsel.argtypes = [p, p, p, p, p, p, i, p]
+    for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
+               lib.charon_pp_step, lib.charon_f12_step,
+               lib.charon_g1_dblsel):
         fn.restype = i
 
 

@@ -1,11 +1,12 @@
-"""Batched ZCash G2 point (de)serialisation — bytes on the host, square
-roots on the device.  The G2 half of the JAX package's ops/codec.py.
+"""Batched ZCash point (de)serialisation — bytes on the host, square roots
+on the device.  The port of the JAX package's ops/codec.py (G1 and G2).
 
-The host does only vectorised numpy bit shuffles (96-byte signatures ↔
-12-bit limb planes, no per-element Python); the expensive part of
-decompression — y as an Fp2 square root by two fixed-exponent pows, then
-the ψ subgroup check — runs on the device, batched over all points, and
-every field op there is a launch of kernel K1.
+The host does only vectorised numpy bit shuffles (48-byte pubkeys and
+96-byte signatures ↔ 12-bit limb planes, no per-element Python); the
+expensive part of decompression — y as a square root by fixed-exponent
+pows, then the subgroup check ([r]P = ∞ on G1, ψ(Q) = [z]Q on G2) — runs
+on the device, batched over all points, and every field op there is a
+launch of kernel K1.
 
 Host helpers keep the JAX package's limb-last numpy layout (``[N, 32]``);
 device functions take and return port-layout tensors (``[32, R]``
@@ -19,7 +20,7 @@ import torch
 
 from . import fp, tower
 from . import curve as tcurve
-from .curve import F2_OPS, from_affine, to_affine
+from .curve import F2_OPS, FP_OPS, from_affine, to_affine
 from ..tbls.ref import curve as refcurve
 from ..tbls.ref.fields import BLS_X, FQ2, P, R
 
@@ -67,6 +68,22 @@ def limbs_sgn(a: np.ndarray) -> np.ndarray:
     return _limbs_cmp_const(a, _HALF_LIMBS) > 0
 
 
+def g1_bytes_split(raw: np.ndarray):
+    """[N, 48] uint8 → (x [N, 32], sign [N], inf [N], bad [N])."""
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    flags = raw[:, 0]
+    c = (flags & _C_FLAG) != 0
+    i = (flags & _I_FLAG) != 0
+    s = (flags & _S_FLAG) != 0
+    data = raw.copy()
+    data[:, 0] &= 0x1F
+    x = bytes48_to_limbs(data)
+    bad = ~c
+    bad |= i & (s | (x != 0).any(-1))
+    bad |= ~i & ~limbs_lt_p(x)
+    return x, s, i, bad
+
+
 def g2_bytes_split(raw: np.ndarray):
     """[N, 96] uint8 → (xc0, xc1 [N, 32], sign [N], inf [N], bad [N])."""
     raw = np.ascontiguousarray(raw, dtype=np.uint8)
@@ -82,6 +99,16 @@ def g2_bytes_split(raw: np.ndarray):
     bad |= i & (s | (xc1 != 0).any(-1) | (xc0 != 0).any(-1))
     bad |= ~i & ~(limbs_lt_p(xc0) & limbs_lt_p(xc1))
     return xc0, xc1, s, i, bad
+
+
+def g1_assemble(x_std: np.ndarray, y_sgn: np.ndarray,
+                inf: np.ndarray) -> np.ndarray:
+    """Std-form affine x limbs + y sign + inf → [N, 48] uint8 compressed."""
+    out = limbs_to_bytes48(x_std)
+    out[:, 0] |= _C_FLAG | np.where(y_sgn, _S_FLAG, 0).astype(np.uint8)
+    out[inf] = 0
+    out[inf, 0] = _C_FLAG | _I_FLAG
+    return out
 
 
 def g2_assemble(xc0_std: np.ndarray, xc1_std: np.ndarray, y_sgn: np.ndarray,
@@ -106,9 +133,22 @@ def g2_compress_np(xc0, xc1, yc0, yc1, inf) -> np.ndarray:
     return g2_assemble(np.asarray(xc0), np.asarray(xc1), sgn, np.asarray(inf))
 
 
+def g1_compress_np(x, y, inf) -> np.ndarray:
+    """numpy std-form affine limb planes [N, 32] → [N, 48] compressed."""
+    return g1_assemble(np.asarray(x), limbs_sgn(np.asarray(y)),
+                       np.asarray(inf))
+
+
 # ---------------------------------------------------------------------------
-# Device square root
+# Device square roots
 # ---------------------------------------------------------------------------
+
+def fp_sqrt(a: torch.Tensor):
+    """Batched Fp square root: p ≡ 3 mod 4 ⇒ candidate a^((p+1)/4).
+    Returns (root, ok); root is garbage where ok is False."""
+    root = fp.pow_fixed(a, (P + 1) // 4)
+    return root, fp.eq(fp.sqr(root), a)
+
 
 _F2_MINUS_ONE = np.stack([fp.to_limbs(P - 1), fp.ZERO])
 
@@ -181,6 +221,7 @@ _PSI_CX_M = tower.f2_pack([_PSI_CX])[..., 0]
 _PSI_CY_M = tower.f2_pack([_PSI_CY])[..., 0]
 _ABS_Z_BITS = np.array([(abs(_Z_SIGNED) >> (63 - i)) & 1 for i in range(64)],
                        np.int32)
+_R_BITS = np.array([(R >> (254 - i)) & 1 for i in range(255)], np.int32)
 
 
 def g2_psi(pt: torch.Tensor) -> torch.Tensor:
@@ -203,9 +244,37 @@ def g2_in_subgroup(pt: torch.Tensor) -> torch.Tensor:
     return tcurve.eq_points(F2_OPS, g2_psi(pt), zq)
 
 
+def g1_in_subgroup(pt: torch.Tensor) -> torch.Tensor:
+    """Batched [r]P == ∞ check over [3, 32, R] (E(Fp)[r] is exactly G1)."""
+    bits = fp.const(_R_BITS, pt.device).unsqueeze(-1).expand(
+        255, pt.shape[-1])
+    return tcurve.is_inf(FP_OPS, tcurve.scalar_mul(FP_OPS, pt, bits))
+
+
 # ---------------------------------------------------------------------------
 # Device decompression and normalisation
 # ---------------------------------------------------------------------------
+
+def limbs_sgn_device(a_std: torch.Tensor) -> torch.Tensor:
+    """Device ZCash sign of a standard-form element: a > (p−1)/2."""
+    return fp.sgn(a_std)
+
+
+def g1_decompress(x_std: torch.Tensor, sign: torch.Tensor, inf: torch.Tensor,
+                  subgroup_check: bool = True):
+    """Std-form x limb planes [32, R] + sign/inf flags [R] → (projective
+    points [3, 32, R], ok [R]).  ok is False for an x off the curve and,
+    by default, for a point outside G1 — the oracle deserialiser's rule."""
+    rhs = fp.add(fp.mul(fp.sqr(x_std), x_std), fp.elem(FP_OPS.b, x_std.device))
+    y, ok = fp_sqrt(rhs)
+    flip = limbs_sgn_device(fp.canon_std(y)) != sign
+    y = fp.select(flip, fp.neg(y), y)
+    pt = from_affine(FP_OPS, x_std, y, inf=inf)
+    ok = ok | inf
+    if subgroup_check:
+        ok = ok & g1_in_subgroup(pt)
+    return pt, ok
+
 
 def g2_decompress(xc0_std: torch.Tensor, xc1_std: torch.Tensor,
                   sign: torch.Tensor, inf: torch.Tensor,
@@ -226,6 +295,12 @@ def g2_decompress(xc0_std: torch.Tensor, xc1_std: torch.Tensor,
     if subgroup_check:
         ok = ok & g2_in_subgroup(pt)
     return pt, ok
+
+
+def g1_normalize(pt: torch.Tensor):
+    """Projective [3, 32, R] → (x std, y std [32, R], inf [R])."""
+    x, y, inf = to_affine(FP_OPS, pt)
+    return fp.canon_std(x), fp.canon_std(y), inf
 
 
 def g2_normalize(pt: torch.Tensor):

@@ -31,6 +31,8 @@ kernel for a CUDA tensor (or raises).  `LAUNCHES` counts kernel launches.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -273,8 +275,10 @@ def straus_step_plain(acc, tables, row0: int, digits: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-#: kernel launches since the last `reset_launches()`
+#: kernel launches since the last `reset_launches()` (bumped under
+#: `_COUNT_LOCK`, as the dispatch pipeline launches from two threads)
 LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "straus_head": 0, "straus_tail": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -323,7 +327,8 @@ def _g2_step(name: str, kind: int, a: torch.Tensor,
         0 if b is None else b.data_ptr(), a.shape[2],
         torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(name, err)
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
     return out
 
 
@@ -367,7 +372,8 @@ def straus_step(acc: torch.Tensor, tables, row0: int, digits: torch.Tensor,
         digits.data_ptr() + off, n,
         torch.cuda.current_stream(acc.device).cuda_stream)
     _raise_on(name, err)
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
     return out
 
 

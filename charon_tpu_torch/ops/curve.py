@@ -1,16 +1,17 @@
-"""Batched G2 point arithmetic for BLS12-381 in PyTorch.
+"""Batched G1/G2 point arithmetic for BLS12-381 in PyTorch.
 
 The port of the JAX package's ops/curve.py: HOMOGENEOUS PROJECTIVE points
 (X : Y : Z) with infinity (0 : 1 : 0), and the Renes–Costello–Batina
 COMPLETE addition/doubling for a = 0 curves (one straight-line formula for
 every input pair, no zero-tests).  The group law is generic over a
-field-ops table; this slice instantiates it for Fp2 (G2).  Every field op
-reaches kernel K1.
+field-ops table, instantiated for Fp (G1, `FP_OPS`) and Fp2 (G2,
+`F2_OPS`).  Every field op reaches kernel K1.
 
 Layout: a point batch is ``[..., 3, *elem]`` with the coordinates stacked
 just before the element axes; an element is ``[32, R]`` (Fp) or
 ``[2, 32, R]`` (Fp2), rows last.  A G2 batch ``[3, 2, 32, R]`` is the
-``[6, 32, R]`` plane layout of the group-law kernels (ops/cuda_g2.py).
+``[6, 32, R]`` plane layout of the group-law kernels (ops/cuda_g2.py), a
+G1 batch ``[3, 32, R]`` that of the pairing kernels (ops/cuda_pairing.py).
 Per-row flags are ``[..., R]``.
 """
 
@@ -46,9 +47,22 @@ class FieldOps:
     b: Any               # curve coefficient b (numpy)
 
 
+def _fp_mul_b3(x):
+    return fp.mul_small(x, 12)          # 3·b = 12 on G1
+
+
 def _f2_mul_b3(x):
     return tower.f2_mul_small(tower.f2_mul_by_xi(x), 12)  # 3·4(1+u) = 12ξ
 
+
+FP_OPS = FieldOps(
+    name="fp", elem_ndim=2,
+    add=fp.add, sub=fp.sub, neg=fp.neg, mul=fp.mul, dbl=fp.double,
+    mul_small=fp.mul_small, inv=fp.inv, is_zero=fp.is_zero, eq=fp.eq,
+    select=fp.select, mul_many=fp.mul_many, mul_b3=_fp_mul_b3,
+    one=fp.ONE,
+    b=fp.to_limbs(4),                        # y² = x³ + 4
+)
 
 F2_OPS = FieldOps(
     name="fp2", elem_ndim=3,
@@ -93,6 +107,11 @@ def inf_points(F: FieldOps, n: int, device) -> torch.Tensor:
     one = _one(F, device)
     pt = torch.stack([torch.zeros_like(one), one, torch.zeros_like(one)])
     return pt.expand(*pt.shape[:-1], n).contiguous()
+
+
+def is_inf(F: FieldOps, pt) -> torch.Tensor:
+    _, _, z = _coords(F, pt)
+    return F.is_zero(z)
 
 
 def from_affine(F: FieldOps, x, y, inf=None):
@@ -205,6 +224,19 @@ def scalar_mul(F: FieldOps, pt, bits: torch.Tensor):
 # ---------------------------------------------------------------------------
 # Host conversions (oracle points ↔ limb planes)
 # ---------------------------------------------------------------------------
+
+def g1_pack(pts) -> np.ndarray:
+    """Host: oracle G1 affine points (None → ∞) → [3, 32, len]."""
+    out = np.zeros((len(pts), 3, fp.NLIMBS), np.int32)
+    for n, pt in enumerate(pts):
+        if pt is None:
+            out[n, 1] = fp.ONE
+        else:
+            out[n, 0] = fp.to_limbs(pt[0].n)
+            out[n, 1] = fp.to_limbs(pt[1].n)
+            out[n, 2] = fp.ONE
+    return np.ascontiguousarray(np.moveaxis(out, 0, -1))
+
 
 def g2_pack(pts) -> np.ndarray:
     """Host: oracle G2 affine points (None → ∞) → [3, 2, 32, len]."""

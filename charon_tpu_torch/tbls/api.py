@@ -1,4 +1,5 @@
-"""Public threshold-BLS API of the port — the part the combine slice uses.
+"""Public threshold-BLS API of the port — the part the combine and verify
+slices use.
 
 A trimmed copy of the JAX package's tbls/api.py: keys and signatures
 cross this boundary as canonical ZCash-format bytes (48-byte G1 pubkeys,
@@ -6,8 +7,7 @@ cross this boundary as canonical ZCash-format bytes (48-byte G1 pubkeys,
 internal representation.  Backends: ``"cuda"``, the default
 (tbls/backend_cuda.py, created on first use on the current CUDA device —
 it raises when there is none), and ``"cpu"`` (the pure-Python oracle, a
-loop per validator), which runs only after `set_backend("cpu")`.
-Verification comes with slice 2.
+loop per entry or validator), which runs only after `set_backend("cpu")`.
 """
 
 from __future__ import annotations
@@ -64,6 +64,49 @@ def sign(sk: PrivKey, msg: bytes) -> Signature:
     return curve.g2_to_bytes(bls.sign(privkey_to_int(sk), msg))
 
 
+def verify(pubkey: PubKey, msg: bytes, sig: Signature) -> bool:
+    """One (pubkey, msg, signature) check; malformed bytes verify False."""
+    be = _backend()
+    if hasattr(be, "batch_verify_bytes"):
+        return be.batch_verify_bytes([(pubkey, msg, sig)])[0]
+    try:
+        pk = curve.g1_from_bytes(pubkey)
+        s = curve.g2_from_bytes(sig)
+    except ValueError:
+        return False
+    return be.verify(pk, msg, s)
+
+
+def batch_verify(entries: list[tuple[PubKey, bytes, Signature]]
+                 ) -> list[bool]:
+    """Verify a batch of (pubkey, msg, signature) triples.  Blocking — run
+    it off the event loop (`dispatch.DispatchPipeline`)."""
+    dispatch.assert_off_loop("tbls.batch_verify")
+    be = _backend()
+    if hasattr(be, "batch_verify_bytes"):
+        return be.batch_verify_bytes(entries)
+    parsed, oks = [], []
+    for pk_b, msg, sig_b in entries:
+        try:
+            parsed.append((curve.g1_from_bytes(pk_b), msg,
+                           curve.g2_from_bytes(sig_b)))
+            oks.append(True)
+        except ValueError:
+            oks.append(False)
+    it = iter(be.batch_verify(parsed))
+    return [ok and next(it) for ok in oks]
+
+
+def verify_stages():
+    """(host_prep, device_exec) callables for one verify payload:
+    ``device_exec(host_prep(entries)) == batch_verify(entries)``.  A
+    backend without the split runs whole in the exec stage."""
+    be = _backend()
+    if hasattr(be, "verify_host_prep"):
+        return be.verify_host_prep, be.verify_device_exec
+    return (lambda entries: entries), batch_verify
+
+
 def threshold_combine(
         batch: list[dict[int, Signature]]) -> list[Signature]:
     """Lagrange-combine many validators' partial-signature sets at once.
@@ -91,6 +134,12 @@ class CPUBackend:
     """Loop-based oracle backend (pure Python)."""
 
     name = "cpu"
+
+    def verify(self, pk, msg: bytes, sig) -> bool:
+        return bls.verify(pk, msg, sig)
+
+    def batch_verify(self, entries) -> list[bool]:
+        return [bls.verify(pk, msg, sig) for pk, msg, sig in entries]
 
     def threshold_combine(self, batch):
         out = []
@@ -131,6 +180,21 @@ def _backend():
 
 def backend_name() -> str:
     return _backend().name
+
+
+def verify_path(n: int = 2048) -> str:
+    """Which verify implementation `batch_verify` takes for an n-entry
+    batch (the BatchVerifier's per-path counters)."""
+    be = _backend()
+    fn = getattr(be, "verify_path", None)
+    return fn(n) if fn is not None else be.name
+
+
+def verify_padded_rows(n: int) -> int:
+    """Entries an n-entry `batch_verify` launches after padding."""
+    be = _backend()
+    fn = getattr(be, "verify_padded_rows", None)
+    return fn(n) if fn is not None else n
 
 
 def combine_path() -> str:

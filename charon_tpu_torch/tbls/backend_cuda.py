@@ -1,9 +1,12 @@
-"""CUDA tbls backend: the threshold-combine path on the card.
+"""CUDA tbls backend: threshold combine and batched verification on the
+card.
 
-The counterpart of the JAX package's TPU backend for slice 1 (its fused
-Straus bytes path).  `threshold_combine_bytes` is the composition of two
-stages, so the dispatch pipeline can overlap batch k+1's host prep with
-batch k's device work:
+The counterpart of the JAX package's TPU backend: its fused Straus bytes
+path (slice 1) and its fused RLC batch verification (slice 2).  Each
+bytes entry point is the composition of two stages, so the dispatch
+pipeline can overlap batch k+1's host prep with batch k's device work.
+
+Combine (`threshold_combine_bytes`):
 
 - `combine_host_prep` (host): split the 96-byte signatures into 12-bit
   limb planes (vectorised numpy), reject malformed encodings, look up the
@@ -13,22 +16,49 @@ batch k's device work:
   subgroup check, kernel K1), the Straus tables (K2) and window loop
   (K3), normalisation (K1), then the host compresses the affine points.
 
+Verify (`batch_verify_bytes`), one RLC batch check per call:
+
+    Π_k [ e(−g1, sig_k) · e(pk_k, H(m_k)) ]^{r_k}  ==  1
+
+- `verify_host_prep` (host): split the signatures into limb planes; look
+  up the decompressed-pubkey LRU (a miss decompresses G1 on the card,
+  [r]P subgroup check included, once per distinct key) and the
+  hashed-message LRU (a miss runs `hash_to_g2` on the host); draw FRESH
+  64-bit coefficients r_k from OS entropy on every call (a predictable
+  coefficient would let a forger cancel rows).
+- `verify_device_exec` (card): G2 decompression of the signatures (ψ
+  check), the G1 tables {P, 2P, 3P} of the pair-major rows (−g1, pk_k),
+  32 K6 windows scaling both rows of entry k by r_k, the Miller loop over
+  the 2·V rows (K4/K5), dropped / ∞ / padding rows masked to one, the K5
+  product fold to one row, and ONE final exponentiation (plain tower code,
+  K1).  If the batch equation fails, every row is re-checked on its own —
+  e(−g1, sig)·e(pk, H(m)) == 1, ANDed with the decode mask — so the
+  verdicts are exactly the pure-Python oracle's.
+
 A failed launch raises; there is no fallback path.  The device stages
 synchronise at their boundaries and record their seconds in
 `last_stages` and each kernel's launches in `last_launches` (the smoke
-run's per-stage breakdown).
+run's per-stage breakdown); the verify stages also add up in
+`verify_totals` / `verify_launch_totals` across calls (the tiles of one
+flush).  A stage a call does not run is absent, not zero.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from . import dispatch, shamir
-from ..ops import codec, cuda_fp, cuda_g2
+from .ref import curve as refcurve
+from .ref.hash_to_curve import hash_to_g2
+from ..ops import codec, cuda_fp, cuda_g2, cuda_pairing, fp
 from ..ops import curve as tcurve
+from ..ops import pairing as tpair
+from ..ops.curve import F2_OPS, FP_OPS
 
 _G2_INF_BYTES = np.zeros(96, np.uint8)
 _G2_INF_BYTES[0] = 0xC0
@@ -39,6 +69,20 @@ STRAUS_NWIN = 87
 #: validators pad to a multiple of this (10,000 → 10,240, the JAX fused
 #: path's padding)
 ROW_TILE = 1024
+
+NL = fp.NLIMBS
+
+#: random-coefficient width of the RLC batch check (a forger's rows cancel
+#: with probability ~2^-64)
+_RLC_BITS = 64
+
+_NEG_G1 = tcurve.g1_pack([refcurve.neg(refcurve.G1_GEN)])[..., 0]  # [3, 32]
+_G1_INF = tcurve.g1_pack([None])[..., 0]
+
+
+def _pad_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
 
 # Lagrange digit rows cached per share-index set: within a slot every
 # validator aggregates the same share indices.
@@ -76,6 +120,27 @@ class CUDABackend:
         self.last_stages: dict[str, float] = {}
         #: kernel launches per device stage of the last combine
         self.last_launches: dict[str, dict[str, int]] = {}
+        #: verify stage seconds / launches summed over calls since the
+        #: last `reset_verify_totals()` (the tiles of one flush)
+        self.verify_totals: dict[str, float] = {}
+        self.verify_launch_totals: dict[str, dict[str, int]] = {}
+        self._totals_lock = threading.Lock()
+        #: hashed-message LRU: msg → packed affine H(m) [3, 2, 32]
+        self._hm_cache: OrderedDict[bytes, np.ndarray] = OrderedDict()
+        #: decompressed-pubkey LRU: 48-byte pk → ([3, 32] planes, ok)
+        self._pk_cache: OrderedDict[bytes, tuple[np.ndarray, bool]] = \
+            OrderedDict()
+        self.hm_cache_hits = self.hm_cache_misses = 0
+        self.hm_cache_evictions = 0
+        self.pk_cache_hits = self.pk_cache_misses = 0
+        self.pk_cache_evictions = 0
+        # the caches and counters are touched by the host-prep thread and
+        # by direct callers; device work for misses runs outside the lock
+        self._cache_lock = threading.Lock()
+
+    #: LRU capacities (the JAX backend's)
+    HM_CACHE_MAX = 4096
+    PK_CACHE_MAX = 65536
 
     # -- attribution --------------------------------------------------------
 
@@ -86,12 +151,217 @@ class CUDABackend:
         """Validator rows a combine launches (padded to `ROW_TILE`)."""
         return -(-v // ROW_TILE) * ROW_TILE
 
-    # -- verification comes with slice 2 -----------------------------------
+    def verify_path(self, n: int) -> str:
+        """The verify implementation of an n-entry batch: the fused RLC
+        check on the card, messages hashed on the host."""
+        return "cuda-rlc+h2c-host"
+
+    def verify_padded_rows(self, n: int) -> int:
+        """Entries an n-entry verify launches: the next power of two (the
+        product fold halves the rows); 2 Miller rows per entry."""
+        return 0 if n == 0 else _pad_pow2(n)
+
+    # -- verification -------------------------------------------------------
+
+    def verify(self, pk, msg: bytes, sig) -> bool:
+        return self.batch_verify([(pk, msg, sig)])[0]
 
     def batch_verify(self, entries) -> list[bool]:
-        raise NotImplementedError(
-            "batch verification on the CUDA backend comes with slice 2 (the "
-            "pairing kernels); use the cpu backend")
+        """entries: [(pk point, msg, sig point)] (oracle affine points) →
+        [bool], through the bytes path."""
+        return self.batch_verify_bytes(
+            [(refcurve.g1_to_bytes(pk), msg, refcurve.g2_to_bytes(sig))
+             for pk, msg, sig in entries])
+
+    def batch_verify_bytes(self, entries, rng=None) -> list[bool]:
+        """entries: [(48-byte pk, msg bytes, 96-byte sig)] → [bool].
+        `rng` (a numpy Generator) draws the RLC coefficients; the default
+        is a fresh generator from OS entropy on every call."""
+        return self.verify_device_exec(self.verify_host_prep(entries, rng))
+
+    def reset_verify_totals(self) -> None:
+        with self._totals_lock:
+            self.verify_totals = {}
+            self.verify_launch_totals = {}
+
+    def _hash_points(self, msgs) -> np.ndarray:
+        """[m messages] → packed affine H(m) [3, 2, 32, m] through the LRU;
+        misses are deduplicated and hashed on the host."""
+        out = np.zeros((3, 2, NL, len(msgs)), np.int32)
+        miss: dict[bytes, list[int]] = {}
+        with self._cache_lock:
+            for k, msg in enumerate(msgs):
+                hm = self._hm_cache.get(msg)
+                if hm is not None:
+                    self._hm_cache.move_to_end(msg)
+                    out[..., k] = hm
+                else:
+                    miss.setdefault(msg, []).append(k)
+            n_miss = sum(len(v) for v in miss.values())
+            self.hm_cache_hits += len(msgs) - n_miss
+            self.hm_cache_misses += n_miss
+        if not miss:
+            return out
+        keys = list(miss)
+        planes = tcurve.g2_pack([hash_to_g2(msg) for msg in keys])
+        with self._cache_lock:
+            for j, msg in enumerate(keys):
+                if len(self._hm_cache) >= self.HM_CACHE_MAX:
+                    self._hm_cache.popitem(last=False)
+                    self.hm_cache_evictions += 1
+                self._hm_cache[msg] = planes[..., j].copy()
+                for k in miss[msg]:
+                    out[..., k] = planes[..., j]
+        return out
+
+    def _pk_planes_cached(self, pk_bytes_list, stages: dict,
+                          launches: dict) -> tuple[np.ndarray, np.ndarray]:
+        """[m × 48-byte pk] → (planes [3, 32, m], ok [m]) through the LRU;
+        misses are deduplicated and decompressed in one batch on the
+        device (curve, [r]P subgroup and non-∞ checks)."""
+        m = len(pk_bytes_list)
+        planes = np.zeros((3, NL, m), np.int32)
+        ok = np.zeros(m, bool)
+        miss: dict[bytes, list[int]] = {}
+        with self._cache_lock:
+            for k, pk in enumerate(pk_bytes_list):
+                hit = self._pk_cache.get(pk)
+                if hit is not None:
+                    self._pk_cache.move_to_end(pk)
+                    planes[..., k], ok[k] = hit
+                else:
+                    miss.setdefault(pk, []).append(k)
+            n_miss = sum(len(v) for v in miss.values())
+            self.pk_cache_hits += m - n_miss
+            self.pk_cache_misses += n_miss
+        if not miss:
+            return planes, ok
+        keys = list(miss)
+        clock = _StageClock(self.device, stages, launches)
+        raw = np.frombuffer(b"".join(keys), np.uint8).reshape(-1, 48)
+        x, sign, inf, bad = codec.g1_bytes_split(raw)
+        pts, dec = codec.g1_decompress(self._put(np.ascontiguousarray(x.T)),
+                                       self._put(sign), self._put(inf))
+        dec = dec & ~tcurve.is_inf(FP_OPS, pts)
+        pts, dec = pts.cpu().numpy(), dec.cpu().numpy() & ~bad
+        clock.lap("pk_decompress_s")
+        with self._cache_lock:
+            for j, pk in enumerate(keys):
+                if len(self._pk_cache) >= self.PK_CACHE_MAX:
+                    self._pk_cache.popitem(last=False)
+                    self.pk_cache_evictions += 1
+                self._pk_cache[pk] = (pts[..., j].copy(), bool(dec[j]))
+                for k in miss[pk]:
+                    planes[..., k], ok[k] = pts[..., j], bool(dec[j])
+        return planes, ok
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def verify_host_prep(self, entries, rng=None) -> dict:
+        """Host stage of `batch_verify_bytes`: wire bytes → limb planes,
+        the two cache lookups, malformed-entry flags, fresh RLC
+        coefficient windows."""
+        n = len(entries)
+        if n == 0:
+            return {"kind": "empty"}
+        t0 = time.perf_counter()
+        stages: dict[str, float] = {}
+        launches: dict[str, dict[str, int]] = {}
+        v = self.verify_padded_rows(n)
+        sg_raw = np.broadcast_to(_G2_INF_BYTES, (v, 96)).copy()
+        pks = np.broadcast_to(_G1_INF[..., None], (3, NL, v)).copy()
+        hms = np.zeros((3, 2, NL, v), np.int32)
+        host_ok = np.zeros(v, bool)
+        rows, msgs, pk_bytes = [], [], []
+        for k, (pk, msg, sig) in enumerate(entries):
+            if len(pk) != 48 or len(sig) != 96:
+                continue            # malformed entry: invalid, not fatal
+            sg_raw[k] = np.frombuffer(sig, np.uint8)
+            rows.append(k)
+            msgs.append(msg)
+            pk_bytes.append(pk)
+        if rows:
+            hms[..., rows] = self._hash_points(msgs)
+            planes, pk_ok = self._pk_planes_cached(pk_bytes, stages, launches)
+            pks[..., rows] = planes
+            host_ok[rows] = pk_ok
+        xc0, xc1, sign, inf, sg_bad = codec.g2_bytes_split(sg_raw)
+        # fresh per-entry coefficients every call: a plain product admits
+        # adversarial cross-row cancellation; the RLC rejects any invalid
+        # subset except with probability ~2^-64.  Both rows of entry k
+        # take r_k.
+        gen = np.random.default_rng() if rng is None else rng
+        r_bits = gen.integers(0, 2, (v, _RLC_BITS)).astype(np.int32)
+        windows = cuda_pairing.windows_from_bits(np.repeat(r_bits, 2, axis=0))
+        stages["host_prep_s"] = (time.perf_counter() - t0
+                                 - stages.get("pk_decompress_s", 0.0))
+        return {"kind": "rlc", "n": n, "v": v, "pks": pks, "hms": hms,
+                "xc0": np.ascontiguousarray(xc0.T),
+                "xc1": np.ascontiguousarray(xc1.T), "sign": sign,
+                "inf": inf, "host_ok": host_ok & ~sg_bad,
+                "windows": windows, "stages": stages, "launches": launches}
+
+    def verify_device_exec(self, prepared: dict) -> list[bool]:
+        """Device stage of `batch_verify_bytes` (launch thread)."""
+        if prepared["kind"] == "empty":
+            return []
+        dispatch.assert_off_loop("tbls.backend_cuda.verify_device_exec")
+        p, dev = prepared, self.device
+        n, v = p["n"], p["v"]
+        if not p["host_ok"].any():
+            return [False] * n          # nothing decodes: no device work
+        stages = dict(p["stages"])
+        launches = dict(p["launches"])
+        clock = _StageClock(dev, stages, launches)
+        sigs, sg_ok = codec.g2_decompress(self._put(p["xc0"]),
+                                          self._put(p["xc1"]),
+                                          self._put(p["sign"]),
+                                          self._put(p["inf"]))
+        sg_ok = sg_ok & ~tcurve.is_inf(F2_OPS, sigs)
+        live = p["host_ok"] & sg_ok.cpu().numpy()
+        live[n:] = False
+        clock.lap("sig_decompress_s")
+        # pair-major G1 rows: (2k, 2k+1) = (−g1, pk_k)
+        pks = self._put(p["pks"])
+        neg_g1 = fp.const(_NEG_G1, dev).unsqueeze(-1).expand(3, NL, v)
+        base = torch.stack([neg_g1, pks], dim=-1).reshape(3, NL, 2 * v)
+        p2 = tcurve.double_point(FP_OPS, base)
+        p3 = tcurve.add_points(FP_OPS, p2, base)
+        clock.lap("rlc_tables_s")
+        acc = cuda_pairing.g1_scalar_mul_rows(base, p2, p3,
+                                              self._put(p["windows"]))
+        clock.lap("rlc_scalar_mul_s")
+        hms = self._put(p["hms"])
+        q = torch.stack([sigs, hms], dim=-1).reshape(3, 2, NL, 2 * v)
+        f = cuda_pairing.miller_rows(cuda_pairing.g1_proj_rows(acc),
+                                     cuda_pairing.g2_affine_rows(q))
+        clock.lap("miller_s")
+        drop = self._put(np.repeat(~live, 2))
+        prod = cuda_pairing.fold_product(cuda_pairing.mask_rows(f, drop))
+        clock.lap("fold_s")
+        all_ok = bool(tpair.is_one(tpair.final_exponentiate(
+            prod.reshape(2, 3, 2, NL, 1)))[0])
+        clock.lap("final_exp_s")
+        if all_ok:
+            ok = live
+        else:
+            # some live row fails the batch equation: re-check every row
+            # on its own so callers get exact per-entry verdicts
+            ps = torch.stack([neg_g1, pks])
+            qs = torch.stack([sigs, hms])
+            ok = tpair.pairing_product_is_one(ps, qs).cpu().numpy() & live
+            clock.lap("recheck_s")
+        self.last_stages = stages
+        self.last_launches = launches
+        with self._totals_lock:
+            for k, sec in stages.items():
+                self.verify_totals[k] = self.verify_totals.get(k, 0.0) + sec
+            for k, counts in launches.items():
+                tot = self.verify_launch_totals.setdefault(k, {})
+                for name, c in counts.items():
+                    tot[name] = tot.get(name, 0) + c
+        return [bool(b) for b in ok[:n]]
 
     # -- aggregation --------------------------------------------------------
 
@@ -138,10 +408,7 @@ class CUDABackend:
         stages = {"host_prep_s": p["host_prep_s"]}
         launches: dict[str, dict[str, int]] = {}
         clock = _StageClock(dev, stages, launches)
-
-        def put(a):
-            return torch.from_numpy(a).to(dev)
-
+        put = self._put
         pts, ok = codec.g2_decompress(put(p["xc0"]), put(p["xc1"]),
                                       put(p["sign"]), put(p["inf"]))
         ok = ok.cpu().numpy()
@@ -171,7 +438,7 @@ class CUDABackend:
 
 
 def _launch_counts() -> dict[str, int]:
-    return {**cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES}
+    return {**cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES, **cuda_pairing.LAUNCHES}
 
 
 class _StageClock:

@@ -2,19 +2,23 @@
 and the tbls backends.
 
 A copy of the JAX package's stdlib-only pipeline (tbls/dispatch.py),
-trimmed to the combine path and wired to this package's `api`.  A device
+trimmed to the combine and verify paths (no metrics registries, stage
+histograms or environment knobs) and wired to this package's `api`.  A device
 launch must never run on the asyncio event loop: a multi-hundred-ms
 combine would freeze every timer and duty hand-off for its duration.  The
 process owns ONE `DispatchPipeline`, a two-stage executor pair:
 
     caller (event loop)              host-prep thread     launch thread
     await pipeline.threshold_combine ─▶ bytes→limbs packing ─▶ device kernels
-                                        Lagrange digits        + result fetch
+    await pipeline.batch_verify         Lagrange digits,       + result fetch
+                                        cache lookups, RLC r
 
 Both stages are single-thread executors, which makes the pipeline a
-double buffer: while the launch thread executes combine *k*, the prep
-thread packs combine *k+1*.  The split entry points come from
-`tbls.api.combine_stages`.
+double buffer: while the launch thread executes batch *k*, the prep
+thread packs batch *k+1*.  A verify larger than `VERIFY_TILE` entries is
+split into tiles that run through the same two stages, so host prep of
+tile *i+1* overlaps device execution of tile *i*.  The split entry points
+come from `tbls.api.verify_stages` / `combine_stages`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,18 @@ from __future__ import annotations
 import asyncio
 import threading
 from concurrent.futures import ThreadPoolExecutor
+
+#: verify entries per pipelined tile (the JAX package's default
+#: CHARON_TPU_DISPATCH_TILE: its headline 2,048-entry verify bucket)
+VERIFY_TILE = 2048
+
+
+def tile_sizes(n: int, tile: int) -> list[int]:
+    """The tile sizes an n-entry verify splits into at `tile` (≤ 0: one
+    tile).  Never empty for n > 0."""
+    if tile > 0 and n > tile:
+        return [min(tile, n - i) for i in range(0, n, tile)]
+    return [n]
 
 
 def assert_off_loop(op: str) -> None:
@@ -48,10 +64,61 @@ class DispatchPipeline:
             max_workers=1, thread_name_prefix="charon-cuda-host-prep")
         self._launch_pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="charon-cuda-launch")
-        #: device-stage runs completed (one per coalesced combine); loops
-        #: in several threads may share the pipeline, hence the lock
+        #: coalesced calls completed (one per combine or verify flush) and
+        #: device-stage runs (one per tile); loops in several threads may
+        #: share the pipeline, hence the lock
         self.launches = 0
+        self.tiles = 0
         self._lock = threading.Lock()
+
+    async def _pipelined(self, stages, payloads) -> list:
+        """Run each payload through (prep, exec); prep of payload i+1
+        overlaps the exec of payload i.  Results in submission order; the
+        first stage exception is raised after every submitted exec has
+        finished."""
+        prep_fn, exec_fn = stages
+        loop = asyncio.get_running_loop()
+        futs = []
+        prep_exc: BaseException | None = None
+        try:
+            for payload in payloads:
+                try:
+                    prepared = await loop.run_in_executor(
+                        self._prep_pool, prep_fn, payload)
+                except BaseException as exc:  # noqa: BLE001 — re-raised
+                    prep_exc = exc
+                    break
+                futs.append(loop.run_in_executor(self._launch_pool, exec_fn,
+                                                 prepared))
+            results = await asyncio.gather(*futs, return_exceptions=True)
+        finally:
+            with self._lock:
+                self.launches += bool(futs)
+                self.tiles += len(futs)
+        if prep_exc is not None:
+            raise prep_exc
+        for r in results:
+            if isinstance(r, BaseException):
+                raise r
+        return list(results)
+
+    def plan_verify(self, n: int) -> list[int]:
+        """The tile sizes an n-entry verify runs as."""
+        return tile_sizes(n, VERIFY_TILE)
+
+    async def batch_verify(self, entries) -> list:
+        """`tbls.batch_verify` off-loop, tiled into pipelined
+        sub-launches of at most `VERIFY_TILE` entries."""
+        from . import api
+
+        if not entries:
+            return []
+        payloads, pos = [], 0
+        for size in self.plan_verify(len(entries)):
+            payloads.append(entries[pos:pos + size])
+            pos += size
+        per_tile = await self._pipelined(api.verify_stages(), payloads)
+        return [ok for part in per_tile for ok in part]
 
     async def threshold_combine(self, batch) -> list:
         """`tbls.threshold_combine` off-loop: host packing on the prep
@@ -60,15 +127,8 @@ class DispatchPipeline:
 
         if not batch:
             return []
-        prep_fn, exec_fn = api.combine_stages()
-        loop = asyncio.get_running_loop()
-        prepared = await loop.run_in_executor(self._prep_pool, prep_fn, batch)
-        try:
-            return await loop.run_in_executor(self._launch_pool, exec_fn,
-                                              prepared)
-        finally:
-            with self._lock:
-                self.launches += 1
+        [out] = await self._pipelined(api.combine_stages(), [batch])
+        return out
 
     def shutdown(self) -> None:
         self._prep_pool.shutdown(wait=True)

@@ -1,7 +1,6 @@
 """BLS signatures on BLS12-381 (eth2 layout: G1 pubkeys, G2 signatures),
-pure-Python oracle path — the signing half of the JAX package's
-tbls/ref/bls.py (verification needs the pairing, which comes with the
-verify slice)."""
+pure-Python oracle path — the signing and verifying part of the JAX
+package's tbls/ref/bls.py."""
 
 from __future__ import annotations
 
@@ -16,3 +15,16 @@ def sk_to_pk(sk: int) -> Point:
 
 def sign(sk: int, msg: bytes, dst: bytes = DST_G2) -> Point:
     return c.multiply(hash_to_g2(msg, dst), sk)
+
+
+def verify(pk: Point, msg: bytes, sig: Point, dst: bytes = DST_G2) -> bool:
+    """e(−g1, sig) · e(pk, H(msg)) == 1, with subgroup membership implied
+    by deserialisation (points passed in memory are assumed checked)."""
+    from .pairing import multi_pairing_is_one
+
+    if pk is None or sig is None:
+        return False
+    return multi_pairing_is_one([
+        (c.neg(c.G1_GEN), sig),
+        (pk, hash_to_g2(msg, dst)),
+    ])

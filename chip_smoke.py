@@ -8,11 +8,13 @@ Phases, in order; any failure raises and exits non-zero:
 1. build   — compile csrc/*.cu with nvcc (one process per source, in
              parallel); print the build seconds, the compiler's register /
              spill report, and the card's name and power limit.
-2. kernels — every kernel (K1 fp ops, K2 G2 dbl/add, K3 Straus head/tail)
-             against its plain PyTorch version ON THE CARD at the main
-             path's shapes, on seeded random and all-LMAX limbs: the
-             results must be bit-identical.  Kernel and plain times are
-             CUDA-event medians of 5 runs.
+2. kernels — every kernel (K1 fp ops, K2 G2 dbl/add, K3 Straus head/tail
+             at the combine's shapes; K4 Miller dbl/add, K5 Fp12
+             sqr/mul014/f12mul and K6 G1 dblsel at one verify tile, 4,096
+             Miller rows) against its plain PyTorch version ON THE CARD, on
+             seeded random and all-LMAX limbs: the results must be
+             bit-identical.  Kernel and plain times are CUDA-event medians
+             of 5 runs.
 3. combine — a pool of 1,024 distinct signatures s·H(m) built on the card;
              a real-Shamir check (V = 128: the combined bytes must equal
              sk·H(m)); then 10,000 SigAgg.aggregate() calls in one event-loop
@@ -20,8 +22,19 @@ Phases, in order; any failure raises and exits non-zero:
              combine, 4 random rows checked against the pure-Python oracle;
              malformed and off-curve signatures must raise ValueError; the
              p50 of 3 full combines split into stages, with every kernel's
-             launch count on the main path (each must be > 0).
+             launch count on the combine path (each must be > 0).
+4. verify  — 10,000 keys and 64 messages (one per committee); pk = sk·G1
+             and sig = sk·H(m) computed on the card, 3 rows checked against
+             the oracle.  A cold BatchVerifier.verify_many of the 10,000
+             entries (one peer's parsigex message) fills the pubkey LRU;
+             then 3 timed reps, each ONE pipeline launch of 5 tiles (4 ×
+             2,048 + 1,808), all verdicts True, stages summed over the
+             tiles, every pairing kernel launched; then a 2,048-entry batch
+             with 6 bad entries whose verdicts must equal the pure-Python
+             oracle on the bad rows and on 4 random good ones.
 
+A kernel's `launches` in the JSON line is its count over the main-path
+runs (the combine rep and the verify rep each start from zero counts).
 The second-to-last line is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -54,8 +67,11 @@ IMAD_LANES_PER_SM = 64
 ISSUE_LANES_PER_SM = 128
 
 # The combine the script drives: the north star's 10,000 validators, T = 7
-# partials each (a 7-of-10 cluster), p50 over REPS full combines.
+# partials each (a 7-of-10 cluster), p50 over REPS full combines.  The
+# verify: one peer's parsigex message at the same node — one partial per
+# validator — over MESSAGES attestation messages (one per committee).
 VALIDATORS, SHARES, REPS = 10_000, 7, 3
+MESSAGES = 64
 
 
 def log(msg: str) -> None:
@@ -120,7 +136,25 @@ _B3 = OPS["fp_sub"] + OPS["fp_add"] + 2 * OPS["fp_mul_small"]
 OPS["g2_dbl"] = (2 * _F2SQR + 6 * _F2MUL + _B3 + 3 * _F2SMALL + 2 * _F2ADD
                  + _F2SUB)
 OPS["g2_add"] = 12 * _F2MUL + 12 * _F2ADD + 5 * _F2SUB + _F2SMALL + 2 * _B3
-PT_BYTES = 6 * NL * 4
+# the pairing kernels (csrc/fp381.cuh tower and G1 law, csrc/pairing.cu)
+_XI = OPS["fp_sub"] + OPS["fp_add"]
+_F6ADD, _F6SUB = 3 * _F2ADD, 3 * _F2SUB
+_F6MUL = 6 * _F2MUL + 12 * _F2ADD + 3 * _F2SUB + 2 * _XI
+_F6MUL01 = 5 * _F2MUL + 7 * _F2ADD + 3 * _F2SUB + _XI
+OPS["pp_sqr"] = (2 * _F6MUL + 2 * _F6ADD + 2 * _XI + 2 * _F6SUB
+                 + 3 * _F2SMALL)
+OPS["pp_f12mul"] = 3 * _F6MUL + 4 * _F6ADD + _F6SUB + _XI
+OPS["pp_mul014"] = (6 * OPS["fp_mul"] + 2 * _F6MUL01 + 3 * _F6ADD + _F2ADD
+                    + 3 * _F2MUL + 2 * _XI + _F6SUB)
+OPS["pp_dbl"] = 4 * _F2SQR + 11 * _F2MUL + 8 * _F2SMALL + 4 * _F2SUB
+OPS["pp_add"] = (2 * _F2SQR + 11 * _F2MUL + 6 * _F2SUB + _F2ADD
+                 + _F2SMALL)
+OPS["g1_dbl"] = (8 * OPS["fp_mul"] + 4 * OPS["fp_mul_small"]
+                 + 2 * OPS["fp_add"] + OPS["fp_sub"])
+OPS["g1_add"] = (12 * OPS["fp_mul"] + 12 * OPS["fp_add"] + 5 * OPS["fp_sub"]
+                 + 3 * OPS["fp_mul_small"])
+EL_BYTES = NL * 4
+PT_BYTES = 6 * EL_BYTES
 
 
 def straus_work(digits: np.ndarray, head: bool) -> tuple[np.ndarray, int]:
@@ -159,50 +193,68 @@ def time_ms(fn, reps: int = 5) -> float:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def limbs(dev, gen, shape, pattern):
+    """Seeded random limbs in [0, LMAX], or all LMAX."""
+    from charon_tpu_torch.ops import fp
+
+    if pattern == "lmax":
+        return torch.full(shape, fp.LMAX, dtype=torch.int32, device=dev)
+    return torch.from_numpy(
+        gen.integers(0, fp.LMAX + 1, shape, dtype=np.int32)).to(dev)
+
+
+def bound(ops: np.ndarray, nbytes: float, sm_clocks_per_s: float
+          ) -> tuple[float, str]:
+    """(least ms, what bounds it): IMADs over the FMA pipe, all int32
+    instructions over the schedulers' rate, or bytes over the memory
+    rate."""
+    imad, alu = (float(x) for x in ops)
+    t_ops = max(imad / IMAD_LANES_PER_SM,
+                (imad + alu) / ISSUE_LANES_PER_SM) / sm_clocks_per_s
+    t_mem = nbytes / MEM_BYTES_PER_S
+    return (max(t_ops, t_mem) * 1e3,
+            "operations" if t_ops >= t_mem else "bytes")
+
+
+def record(results: dict, name, kernel_fn, plain_fn, ops, nbytes, patterns,
+           sm_clocks_per_s: float) -> None:
+    """Hold the kernel against its plain version on every input pattern
+    (bit for bit), then time both on the first pattern."""
+    err = 0
+    for pat in patterns:
+        args = pat()
+        got, want = kernel_fn(*args), plain_fn(*args)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                                 f"{tuple(want.shape)}")
+        diff = int((got.long() - want.long()).abs().max())
+        if diff:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max abs err {diff})")
+        err = max(err, diff)
+    args = patterns[0]()
+    ms = time_ms(lambda: kernel_fn(*args))
+    plain_ms = time_ms(lambda: plain_fn(*args))
+    bms, by = bound(ops, nbytes, sm_clocks_per_s)
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by}
+    log(f"kernel {name}: bit-identical on {len(patterns)} inputs; {ms:.4f} "
+        f"ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by})")
+
+
 def kernels_phase(dev, rows: int, vrows: int, sm_clocks_per_s: float) -> dict:
     from charon_tpu_torch.ops import cuda_fp, cuda_g2, fp
 
     gen = np.random.default_rng(20261016)
-    lmax = fp.LMAX
-
-    def limbs(shape, pattern):
-        if pattern == "lmax":
-            return torch.full(shape, lmax, dtype=torch.int32, device=dev)
-        return torch.from_numpy(
-            gen.integers(0, lmax + 1, shape, dtype=np.int32)).to(dev)
-
-    def bound(ops: np.ndarray, nbytes: float) -> tuple[float, str]:
-        imad, alu = (float(x) for x in ops)
-        t_ops = max(imad / IMAD_LANES_PER_SM,
-                    (imad + alu) / ISSUE_LANES_PER_SM) / sm_clocks_per_s
-        t_mem = nbytes / MEM_BYTES_PER_S
-        return (max(t_ops, t_mem) * 1e3,
-                "operations" if t_ops >= t_mem else "bytes")
-
     results = {}
 
-    def record(name, kernel_fn, plain_fn, ops, nbytes, patterns):
-        err = 0
-        for pat in patterns:
-            args = pat()
-            got, want = kernel_fn(*args), plain_fn(*args)
-            torch.cuda.synchronize()
-            if got.shape != want.shape:
-                raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
-                                     f"{tuple(want.shape)}")
-            diff = int((got.long() - want.long()).abs().max())
-            if diff:
-                raise AssertionError(f"{name}: kernel differs from its plain "
-                                     f"version (max abs err {diff})")
-            err = max(err, diff)
-        args = patterns[0]()
-        ms = time_ms(lambda: kernel_fn(*args))
-        plain_ms = time_ms(lambda: plain_fn(*args))
-        bms, by = bound(ops, nbytes)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bms, "bound_by": by}
-        log(f"kernel {name}: bit-identical; {ms:.4f} ms (plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by})")
+    def rec(name, kernel_fn, plain_fn, ops, nbytes, patterns):
+        record(results, name, kernel_fn, plain_fn, ops, nbytes, patterns,
+               sm_clocks_per_s)
+
+    def lim(shape, pattern):
+        return limbs(dev, gen, shape, pattern)
 
     # K1 on [2, 32, rows] = 2·rows Fp rows
     fshape = (2, NL, rows)
@@ -212,24 +264,23 @@ def kernels_phase(dev, rows: int, vrows: int, sm_clocks_per_s: float) -> dict:
             ("fp_add", cuda_fp.add, fp.add_plain, 2),
             ("fp_sub", cuda_fp.sub, fp.sub_plain, 2),
             ("fp_neg", cuda_fp.neg, fp.neg_plain, 1)):
-        pats = [lambda n_in=n_in, p=p: tuple(limbs(fshape, p)
+        pats = [lambda n_in=n_in, p=p: tuple(lim(fshape, p)
                                              for _ in range(n_in))
                 for p in ("random", "lmax")]
-        record(name, k_fn, p_fn, OPS[name] * nfp, (n_in + 1) * 128 * nfp,
-               pats)
-    pats = [lambda p=p: (limbs(fshape, p), 12) for p in ("random", "lmax")]
-    record("fp_mul_small", cuda_fp.mul_small, fp.mul_small_plain,
-           OPS["fp_mul_small"] * nfp, 2 * 128 * nfp, pats)
+        rec(name, k_fn, p_fn, OPS[name] * nfp, (n_in + 1) * 128 * nfp, pats)
+    pats = [lambda p=p: (lim(fshape, p), 12) for p in ("random", "lmax")]
+    rec("fp_mul_small", cuda_fp.mul_small, fp.mul_small_plain,
+        OPS["fp_mul_small"] * nfp, 2 * 128 * nfp, pats)
 
     # K2 on [6, 32, rows]
     pshape = (6, NL, rows)
-    pats = [lambda p=p: (limbs(pshape, p),) for p in ("random", "lmax")]
-    record("g2_dbl", cuda_g2.dbl, cuda_g2.dbl_plain, OPS["g2_dbl"] * rows,
-           2 * PT_BYTES * rows, pats)
-    pats = [lambda p=p: (limbs(pshape, p), limbs(pshape, p))
+    pats = [lambda p=p: (lim(pshape, p),) for p in ("random", "lmax")]
+    rec("g2_dbl", cuda_g2.dbl, cuda_g2.dbl_plain, OPS["g2_dbl"] * rows,
+        2 * PT_BYTES * rows, pats)
+    pats = [lambda p=p: (lim(pshape, p), lim(pshape, p))
             for p in ("random", "lmax")]
-    record("g2_add", cuda_g2.add, cuda_g2.add_plain, OPS["g2_add"] * rows,
-           3 * PT_BYTES * rows, pats)
+    rec("g2_add", cuda_g2.add, cuda_g2.add_plain, OPS["g2_add"] * rows,
+        3 * PT_BYTES * rows, pats)
 
     # K3: acc [6, 32, vrows], four tables [6, 32, rows], digits [rows] in
     # [-4, 3], rows [row0, row0 + vrows)
@@ -239,11 +290,57 @@ def kernels_phase(dev, rows: int, vrows: int, sm_clocks_per_s: float) -> dict:
     for name, head, row0 in (("straus_head", True, 0),
                              ("straus_tail", False, vrows)):
         def pat(p, head=head, row0=row0):
-            tabs = tuple(limbs(pshape, p) for _ in range(4))
-            return (limbs((6, NL, vrows), p), tabs, row0, digits, head)
+            tabs = tuple(lim(pshape, p) for _ in range(4))
+            return (lim((6, NL, vrows), p), tabs, row0, digits, head)
         ops, nbytes = straus_work(d_np[row0:row0 + vrows], head)
-        record(name, cuda_g2.straus_step, cuda_g2.straus_step_plain, ops,
-               nbytes, [lambda p=p: pat(p) for p in ("random", "lmax")])
+        rec(name, cuda_g2.straus_step, cuda_g2.straus_step_plain, ops,
+            nbytes, [lambda p=p: pat(p) for p in ("random", "lmax")])
+    return results
+
+
+def pairing_kernels_phase(dev, rows: int, sm_clocks_per_s: float) -> dict:
+    """K4–K6 against their plain versions at `rows` Miller rows (one
+    verify tile), on seeded random and all-LMAX limbs; F12MUL also on the
+    fold's operands, the two row halves of one tensor."""
+    from charon_tpu_torch.ops import cuda_pairing as cp
+
+    gen = np.random.default_rng(20261017)
+    results = {}
+
+    def rec(name, kernel_fn, plain_fn, ops, nbytes, patterns):
+        record(results, name, kernel_fn, plain_fn, ops, nbytes, patterns,
+               sm_clocks_per_s)
+
+    def lim(planes, pattern, n=rows):
+        return limbs(dev, gen, (planes, NL, n), pattern)
+
+    pats = ("random", "lmax")
+    rec("pp_dbl", cp.pp_dbl, cp.pp_dbl_plain, OPS["pp_dbl"] * rows,
+        (6 + 12) * EL_BYTES * rows, [lambda p=p: (lim(6, p),) for p in pats])
+    rec("pp_add", cp.pp_add, cp.pp_add_plain, OPS["pp_add"] * rows,
+        (6 + 4 + 12) * EL_BYTES * rows,
+        [lambda p=p: (lim(6, p), lim(4, p)) for p in pats])
+    rec("pp_sqr", cp.pp_sqr, cp.pp_sqr_plain, OPS["pp_sqr"] * rows,
+        (12 + 12) * EL_BYTES * rows,
+        [lambda p=p: (lim(12, p),) for p in pats])
+    rec("pp_mul014", cp.pp_mul014, cp.pp_mul014_plain,
+        OPS["pp_mul014"] * rows, (12 + 6 + 3 + 12) * EL_BYTES * rows,
+        [lambda p=p: (lim(12, p), lim(6, p), lim(3, p)) for p in pats])
+
+    def halves():
+        f = lim(12, "random", 2 * rows)
+        return f[..., :rows], f[..., rows:]
+
+    rec("pp_f12mul", cp.pp_f12mul, cp.pp_f12mul_plain,
+        OPS["pp_f12mul"] * rows, (12 + 12 + 12) * EL_BYTES * rows,
+        [lambda p=p: (lim(12, p), lim(12, p)) for p in pats] + [halves])
+    w = torch.from_numpy(gen.integers(0, 4, rows, dtype=np.int32)).to(dev)
+    nz = int((w != 0).sum())
+    rec("g1_dblsel", cp.g1_dblsel, cp.g1_dblsel_plain,
+        OPS["g1_dbl"] * 2 * rows + OPS["g1_add"] * nz,
+        rows * (6 * EL_BYTES + 4) + nz * 3 * EL_BYTES,
+        [lambda p=p: (lim(3, p), lim(3, p), lim(3, p), lim(3, p), w)
+         for p in pats])
     return results
 
 
@@ -431,6 +528,204 @@ def combine_phase(dev) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4: batched verification through BatchVerifier
+# ---------------------------------------------------------------------------
+
+def oracle_verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
+    """The pure-Python verdict on wire bytes (a decode failure is False)."""
+    from charon_tpu_torch.tbls.ref import bls
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    try:
+        return bls.verify(rc.g1_from_bytes(pk), msg, rc.g2_from_bytes(sig))
+    except ValueError:
+        return False
+
+
+def verify_pool(dev, backend) -> list[tuple[bytes, bytes, bytes]]:
+    """VALIDATORS entries (pk, m_{k mod 64}, sk·H(m)): keys and signatures
+    computed on the card through the port's curve and codec, H(m) through
+    the backend's message cache (hashed on the host once per message)."""
+    from charon_tpu_torch.ops import codec, curve as tcurve
+    from charon_tpu_torch.tbls.ref import bls
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.tbls.ref.fields import R
+
+    v = VALIDATORS
+    rng = random.Random(11)
+    sks = [rng.randrange(1, R) for _ in range(v)]
+    msgs = [f"charon-tpu-torch chip smoke: slot 96 committee {c}".encode()
+            for c in range(MESSAGES)]
+    t0 = time.perf_counter()
+    hms = backend._hash_points(msgs)                    # [3, 2, 32, 64]
+    t_hash = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bits = torch.from_numpy(np.ascontiguousarray(
+        tcurve.scalars_to_bits(sks).T)).to(dev)
+    g1 = torch.from_numpy(tcurve.g1_pack([rc.G1_GEN])).to(dev).expand(
+        3, NL, v).contiguous()
+    x, y, inf = codec.g1_normalize(tcurve.scalar_mul(tcurve.FP_OPS, g1, bits))
+    pks = codec.g1_compress_np(x.cpu().numpy().T, y.cpu().numpy().T,
+                               inf.cpu().numpy())
+    base = torch.from_numpy(np.ascontiguousarray(
+        hms[..., np.arange(v) % MESSAGES])).to(dev)
+    xc0, xc1, yc0, yc1, inf = codec.g2_normalize(
+        tcurve.scalar_mul(tcurve.F2_OPS, base, bits))
+    sigs = codec.g2_compress_np(*[a.cpu().numpy().T
+                                  for a in (xc0, xc1, yc0, yc1)],
+                                inf.cpu().numpy())
+    entries = [(pks[k].tobytes(), msgs[k % MESSAGES], sigs[k].tobytes())
+               for k in range(v)]
+    t_card = time.perf_counter() - t0
+    for k in (0, v // 2, v - 1):
+        pk, msg, sig = entries[k]
+        if pk != rc.g1_to_bytes(bls.sk_to_pk(sks[k])) or \
+                sig != rc.g2_to_bytes(bls.sign(sks[k], msg)):
+            raise AssertionError(f"pool row {k}: pk or sig != the oracle's")
+    log(f"verify pool: {v:,} keys and signatures over {MESSAGES} messages; "
+        f"host hash_to_g2 {t_hash:.2f} s, pk = sk·G1 and sig = sk·H(m) on "
+        f"the card {t_card:.2f} s (3 rows oracle-checked)")
+    return entries
+
+
+async def verify_round(entries):
+    """One BatchVerifier.verify_many in one tick → (verdicts, pipeline
+    launches, tiles)."""
+    from charon_tpu_torch.core.verify import BatchVerifier
+    from charon_tpu_torch.tbls import dispatch
+
+    verifier = BatchVerifier()
+    pipe = dispatch.default_pipeline()
+    before = (pipe.launches, pipe.tiles)
+    oks = await verifier.verify_many(entries)
+    return oks, pipe.launches - before[0], pipe.tiles - before[1]
+
+
+def reset_all_launches() -> None:
+    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_pairing
+
+    for mod in (cuda_fp, cuda_g2, cuda_pairing):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_pairing
+
+    return {**cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES, **cuda_pairing.LAUNCHES}
+
+
+def bad_entries(entries, pool_rows):
+    """The six kinds of bad entry of the reject run, made from good ones."""
+    from charon_tpu_torch.ops import codec
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    (pk0, m0, s0), (pk1, m1, s1) = entries[pool_rows[0]], entries[
+        pool_rows[1]]
+    other_msg = next(m for _, m, _ in entries if m != m0)
+    cof = rc.g2_to_bytes(codec._find_g2_cofactor_point())
+    return [
+        ("wrong_msg", (pk0, other_msg, s0)),
+        ("other_key", (pk0, m1, s1)),
+        ("bad_sig_bytes", (pk0, m0, bytes([s0[0] & 0x7F]) + s0[1:])),
+        ("bad_pk_bytes", (bytes([pk0[0] & 0x7F]) + pk0[1:], m0, s0)),
+        ("off_subgroup", (pk0, m0, cof)),
+        ("short_pk", (pk0[:47], m0, s0)),
+    ]
+
+
+def verify_phase(dev) -> dict:
+    from charon_tpu_torch.ops import cuda_pairing
+    from charon_tpu_torch.tbls import api, dispatch
+
+    backend = api._backend()
+    entries = verify_pool(dev, backend)
+    tiles_want = len(dispatch.tile_sizes(VALIDATORS, dispatch.VERIFY_TILE))
+
+    # cold: the pubkey LRU fills (one device G1 decompress of 10,000 keys)
+    backend.reset_verify_totals()
+    t0 = time.perf_counter()
+    oks, launches, tiles = asyncio.run(verify_round(entries))
+    wall = time.perf_counter() - t0
+    if not all(oks) or len(oks) != VALIDATORS:
+        raise AssertionError(f"cold run: {oks.count(False)} of {len(oks)} "
+                             f"valid entries rejected")
+    log(f"verify cold: {VALIDATORS:,} entries, {tiles} tiles, {wall:.3f} s "
+        f"wall; pk_decompress_s "
+        f"{backend.verify_totals['pk_decompress_s']:.4f} "
+        f"({backend.pk_cache_misses:,} key misses)")
+
+    # timed: warm caches, one pipeline launch of 5 tiles per rep
+    runs, launch_counts, stage_launches = [], None, None
+    for rep in range(REPS):
+        backend.reset_verify_totals()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        oks, launches, tiles = asyncio.run(verify_round(entries))
+        wall = time.perf_counter() - t0
+        if rep == 0:
+            launch_counts = all_launches()
+            stage_launches = {k: dict(c) for k, c in
+                              backend.verify_launch_totals.items()}
+        if not all(oks) or launches != 1 or tiles != tiles_want:
+            raise AssertionError(
+                f"verify rep {rep}: {oks.count(False)} rejected, {launches} "
+                f"pipeline launches, {tiles} tiles (want 1, {tiles_want})")
+        if "recheck_s" in backend.verify_totals:
+            raise AssertionError(f"verify rep {rep}: an all-valid flush "
+                                 f"took the per-row re-check")
+        runs.append({"wall_s": wall, **backend.verify_totals})
+        log(f"verify rep {rep}: {VALIDATORS:,} entries, {tiles} tiles: "
+            f"{wall:.3f} s wall; " + ", ".join(
+                f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
+    zero = [k for k in cuda_pairing.LAUNCHES if launch_counts[k] == 0]
+    if zero:
+        raise AssertionError(f"pairing kernels never launched on the verify "
+                             f"path: {zero}")
+    by_stage = {k: sum(st.get(k, 0) for st in stage_launches.values())
+                for k in launch_counts}
+    if by_stage != launch_counts:
+        raise AssertionError(f"verify stage launches {by_stage} do not add "
+                             f"up to the run's {launch_counts}")
+    p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    log("verify p50 over %d reps (stages summed over tiles): %s" % (
+        REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
+    log("verify launches per flush: " + json.dumps(
+        {k: n for k, n in launch_counts.items() if n}))
+    log("verify launches per stage: " + json.dumps(
+        {st: {k: n for k, n in c.items() if n}
+         for st, c in stage_launches.items()}))
+
+    # reject: one tile with 6 bad rows; verdicts equal the oracle's
+    gen = np.random.default_rng(5)
+    batch = list(entries[:dispatch.VERIFY_TILE])
+    bad_rows = sorted(gen.choice(len(batch), 6, replace=False).tolist())
+    good_rows = [r for r in range(len(batch)) if r not in bad_rows]
+    for (kind, entry), r in zip(bad_entries(batch, good_rows[:2]), bad_rows):
+        batch[r] = entry
+    backend.reset_verify_totals()
+    t0 = time.perf_counter()
+    oks, launches, tiles = asyncio.run(verify_round(batch))
+    wall = time.perf_counter() - t0
+    rejected = [r for r, ok in enumerate(oks) if not ok]
+    if rejected != bad_rows:
+        raise AssertionError(f"reject run: rows {rejected} rejected, want "
+                             f"{bad_rows}")
+    sample = bad_rows + sorted(gen.choice(good_rows, 4,
+                                          replace=False).tolist())
+    t1 = time.perf_counter()
+    for r in sample:
+        if oracle_verify(*batch[r]) != oks[r]:
+            raise AssertionError(f"reject run row {r}: verdict {oks[r]} != "
+                                 f"the oracle's")
+    log(f"verify reject: {len(batch):,} entries, 6 bad rows {bad_rows} "
+        f"rejected, every other row accepted; {len(sample)} rows equal the "
+        f"pure-Python oracle ({time.perf_counter() - t1:.1f} s); "
+        f"{wall:.3f} s wall, recheck_s "
+        f"{backend.verify_totals['recheck_s']:.4f}")
+    return launch_counts
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "fp_mul": ("charon_tpu_torch/csrc/fp_ops.cu", "charon_tpu/ops/pallas_fp.py:78"),
@@ -445,6 +740,18 @@ SOURCES = {
                     "charon_tpu/ops/pallas_g2.py:706"),
     "straus_tail": ("charon_tpu_torch/csrc/g2.cu",
                     "charon_tpu/ops/pallas_g2.py:700"),
+    "pp_dbl": ("charon_tpu_torch/csrc/pairing.cu",
+               "charon_tpu/ops/pallas_pairing.py:328"),
+    "pp_add": ("charon_tpu_torch/csrc/pairing.cu",
+               "charon_tpu/ops/pallas_pairing.py:332"),
+    "pp_sqr": ("charon_tpu_torch/csrc/pairing.cu",
+               "charon_tpu/ops/pallas_pairing.py:336"),
+    "pp_mul014": ("charon_tpu_torch/csrc/pairing.cu",
+                  "charon_tpu/ops/pallas_pairing.py:340"),
+    "pp_f12mul": ("charon_tpu_torch/csrc/pairing.cu",
+                  "charon_tpu/ops/pallas_pairing.py:345"),
+    "g1_dblsel": ("charon_tpu_torch/csrc/pairing.cu",
+                  "charon_tpu/ops/pallas_pairing.py:349"),
 }
 
 
@@ -477,10 +784,17 @@ def main() -> int:
 
     # the kernels at the shapes the combine gives them: its padded
     # validator rows (one Straus step) times the shares (decompress, tables)
-    from charon_tpu_torch.tbls import api
+    from charon_tpu_torch.tbls import api, dispatch
     vrows = api.combine_padded_rows(VALIDATORS, SHARES)
     kern = kernels_phase(dev, vrows * SHARES, vrows, sm_clocks_per_s)
-    launches, _ = combine_phase(dev)
+    # the pairing kernels at one verify tile: 2 Miller rows per entry
+    kern.update(pairing_kernels_phase(
+        dev, 2 * api.verify_padded_rows(dispatch.VERIFY_TILE),
+        sm_clocks_per_s))
+    combine_launches, _ = combine_phase(dev)
+    verify_launches = verify_phase(dev)
+    launches = {k: combine_launches.get(k, 0) + verify_launches.get(k, 0)
+                for k in SOURCES}
 
     from charon_tpu_torch.tbls import dispatch
     pipe = dispatch.current_pipeline()

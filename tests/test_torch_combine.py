@@ -128,8 +128,9 @@ def test_backend_attribution_and_padding(port_backend):
     assert tapi.combine_path() == "straus"
     assert tapi.combine_padded_rows(130, 7) == 136
     assert tapi.threshold_combine([]) == []
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port_backend.batch_verify([])
+    # the verify half exists on the same backend (slice 2)
+    assert port_backend.batch_verify([]) == []
+    assert tapi.verify_path(2048) == "cuda-rlc+h2c-host"
 
 
 def test_padding_of_the_north_star_batch():
@@ -193,4 +194,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=300,
                          cwd=str(Path(__file__).resolve().parent.parent))
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15
+    assert int(res.stdout.split()[-1]) >= 29
