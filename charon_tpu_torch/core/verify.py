@@ -94,7 +94,8 @@ class BatchVerifier:
         """One coalesced flush: run it, demux verdicts, fire the hook."""
         flat = [e for item in batch for e in item.entries]
         pipe = dispatch.default_pipeline()
-        tile_paths = [tbls.verify_path(s) for s in pipe.plan_verify(len(flat))]
+        path = tbls.verify_path(len(flat))
+        tiles = len(pipe.plan_verify(len(flat)))
         try:
             oks = await pipe.batch_verify(flat)
         except Exception as exc:
@@ -105,8 +106,7 @@ class BatchVerifier:
         self.launches += 1
         self.entries_total += len(flat)
         self.max_batch = max(self.max_batch, len(flat))
-        for path in tile_paths:
-            self.paths[path] = self.paths.get(path, 0) + 1
+        self.paths[path] = self.paths.get(path, 0) + tiles
         pos = 0
         for item in batch:
             n = len(item.entries)

@@ -14,19 +14,16 @@ launches per op (plain-version calls are not counted).
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
-from . import build
+from . import build, launch_count
 from . import fp as _fp
 
 OPS = {"fp_mul": 0, "fp_add": 1, "fp_sub": 2, "fp_neg": 3, "fp_mul_small": 4}
 
-#: kernel launches per op since the last `reset_launches()` (bumped under
-#: `_COUNT_LOCK`: the host-prep and launch threads both launch K1)
+#: kernel launches per op since the last `reset_launches()` (all threads;
+#: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {name: 0 for name in OPS}
-_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -69,8 +66,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor | None,
         torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+    launch_count.bump(LAUNCHES, name)
     return out
 
 

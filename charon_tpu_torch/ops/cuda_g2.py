@@ -31,13 +31,11 @@ kernel for a CUDA tensor (or raises).  `LAUNCHES` counts kernel launches.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
 from ..tbls.ref.fields import P
-from . import build, fp
+from . import build, fp, launch_count
 
 NL = fp.NLIMBS
 MASK = fp.MASK
@@ -275,10 +273,9 @@ def straus_step_plain(acc, tables, row0: int, digits: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-#: kernel launches since the last `reset_launches()` (bumped under
-#: `_COUNT_LOCK`, as the dispatch pipeline launches from two threads)
+#: kernel launches since the last `reset_launches()` (all threads;
+#: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "straus_head": 0, "straus_tail": 0}
-_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -327,8 +324,7 @@ def _g2_step(name: str, kind: int, a: torch.Tensor,
         0 if b is None else b.data_ptr(), a.shape[2],
         torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(name, err)
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+    launch_count.bump(LAUNCHES, name)
     return out
 
 
@@ -372,8 +368,7 @@ def straus_step(acc: torch.Tensor, tables, row0: int, digits: torch.Tensor,
         digits.data_ptr() + off, n,
         torch.cuda.current_stream(acc.device).cuda_stream)
     _raise_on(name, err)
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+    launch_count.bump(LAUNCHES, name)
     return out
 
 

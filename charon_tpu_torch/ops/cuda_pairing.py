@@ -33,13 +33,11 @@ kernel for a CUDA tensor (or raises).  `LAUNCHES` counts kernel launches.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
 from ..tbls.ref.fields import BLS_X
-from . import build, fp
+from . import build, fp, launch_count
 from .cuda_g2 import (_addf, _cuda_ready, _f2add, _f2mul, _f2small, _f2sqr,
                       _f2sub, _msmall, _mulf, _raise_on, _subf)
 
@@ -294,11 +292,10 @@ def g1_dblsel_plain(acc, t1, t2, t3, w: torch.Tensor) -> torch.Tensor:
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-#: kernel launches since the last `reset_launches()` (bumped under
-#: `_COUNT_LOCK`, as the dispatch pipeline launches from two threads)
+#: kernel launches since the last `reset_launches()` (all threads;
+#: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"pp_dbl": 0, "pp_add": 0, "pp_sqr": 0, "pp_mul014": 0,
             "pp_f12mul": 0, "g1_dblsel": 0}
-_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -344,8 +341,7 @@ def pp_dbl(xyz: torch.Tensor) -> torch.Tensor:
     err = build.library().charon_pp_step(0, out.data_ptr(), xyz.data_ptr(),
                                          0, n, _stream(xyz))
     _raise_on("pp_dbl", err)
-    with _COUNT_LOCK:
-        LAUNCHES["pp_dbl"] += 1
+    launch_count.bump(LAUNCHES, "pp_dbl")
     return out
 
 
@@ -362,8 +358,7 @@ def pp_add(xyz: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     err = build.library().charon_pp_step(1, out.data_ptr(), xyz.data_ptr(),
                                          q.data_ptr(), n, _stream(xyz))
     _raise_on("pp_add", err)
-    with _COUNT_LOCK:
-        LAUNCHES["pp_add"] += 1
+    launch_count.bump(LAUNCHES, "pp_add")
     return out
 
 
@@ -385,8 +380,7 @@ def _f12_step(name: str, kind: int, a: torch.Tensor, b, p,
         0 if b is None else b.data_ptr(), 0 if p is None else p.data_ptr(),
         n, istride, _stream(a))
     _raise_on(name, err)
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+    launch_count.bump(LAUNCHES, name)
     return out
 
 
@@ -432,8 +426,7 @@ def g1_dblsel(acc: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
         out.data_ptr(), acc.data_ptr(), t1.data_ptr(), t2.data_ptr(),
         t3.data_ptr(), w.data_ptr(), n, _stream(acc))
     _raise_on("g1_dblsel", err)
-    with _COUNT_LOCK:
-        LAUNCHES["g1_dblsel"] += 1
+    launch_count.bump(LAUNCHES, "g1_dblsel")
     return out
 
 

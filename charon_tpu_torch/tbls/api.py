@@ -182,7 +182,7 @@ def backend_name() -> str:
     return _backend().name
 
 
-def verify_path(n: int = 2048) -> str:
+def verify_path(n: int) -> str:
     """Which verify implementation `batch_verify` takes for an n-entry
     batch (the BatchVerifier's per-path counters)."""
     be = _backend()

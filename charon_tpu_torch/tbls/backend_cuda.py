@@ -36,15 +36,19 @@ Verify (`batch_verify_bytes`), one RLC batch check per call:
   verdicts are exactly the pure-Python oracle's.
 
 A failed launch raises; there is no fallback path.  The device stages
-synchronise at their boundaries and record their seconds in
-`last_stages` and each kernel's launches in `last_launches` (the smoke
-run's per-stage breakdown); the verify stages also add up in
-`verify_totals` / `verify_launch_totals` across calls (the tiles of one
-flush).  A stage a call does not run is absent, not zero.
+synchronise their thread's stream at their boundaries and record their
+seconds in `last_stages` and the launches their thread made in
+`last_launches` (the smoke run's per-stage breakdown); the verify stages
+also add up in `verify_totals` / `verify_launch_totals` across calls (the
+tiles of one flush).  The pubkey-miss decompress runs on the host-prep
+thread, on a stream of its own, while the launch thread may be running
+the previous tile: its seconds are CUDA-event time on that stream.  A
+stage a call does not run is absent, not zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import OrderedDict
@@ -55,7 +59,7 @@ import torch
 from . import dispatch, shamir
 from .ref import curve as refcurve
 from .ref.hash_to_curve import hash_to_g2
-from ..ops import codec, cuda_fp, cuda_g2, cuda_pairing, fp
+from ..ops import codec, cuda_fp, cuda_g2, cuda_pairing, fp, launch_count
 from ..ops import curve as tcurve
 from ..ops import pairing as tpair
 from ..ops.curve import F2_OPS, FP_OPS
@@ -137,6 +141,9 @@ class CUDABackend:
         # the caches and counters are touched by the host-prep thread and
         # by direct callers; device work for misses runs outside the lock
         self._cache_lock = threading.Lock()
+        #: the host-prep thread's stream for pubkey-miss decompression
+        self._prep_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
 
     #: LRU capacities (the JAX backend's)
     HM_CACHE_MAX = 4096
@@ -173,11 +180,9 @@ class CUDABackend:
             [(refcurve.g1_to_bytes(pk), msg, refcurve.g2_to_bytes(sig))
              for pk, msg, sig in entries])
 
-    def batch_verify_bytes(self, entries, rng=None) -> list[bool]:
-        """entries: [(48-byte pk, msg bytes, 96-byte sig)] → [bool].
-        `rng` (a numpy Generator) draws the RLC coefficients; the default
-        is a fresh generator from OS entropy on every call."""
-        return self.verify_device_exec(self.verify_host_prep(entries, rng))
+    def batch_verify_bytes(self, entries) -> list[bool]:
+        """entries: [(48-byte pk, msg bytes, 96-byte sig)] → [bool]."""
+        return self.verify_device_exec(self.verify_host_prep(entries))
 
     def reset_verify_totals(self) -> None:
         with self._totals_lock:
@@ -237,14 +242,15 @@ class CUDABackend:
         if not miss:
             return planes, ok
         keys = list(miss)
-        clock = _StageClock(self.device, stages, launches)
         raw = np.frombuffer(b"".join(keys), np.uint8).reshape(-1, 48)
         x, sign, inf, bad = codec.g1_bytes_split(raw)
-        pts, dec = codec.g1_decompress(self._put(np.ascontiguousarray(x.T)),
-                                       self._put(sign), self._put(inf))
-        dec = dec & ~tcurve.is_inf(FP_OPS, pts)
-        pts, dec = pts.cpu().numpy(), dec.cpu().numpy() & ~bad
-        clock.lap("pk_decompress_s")
+        with _own_stream_stage(self._prep_stream, "pk_decompress_s", stages,
+                               launches):
+            pts, dec = codec.g1_decompress(
+                self._put(np.ascontiguousarray(x.T)), self._put(sign),
+                self._put(inf))
+            dec = dec & ~tcurve.is_inf(FP_OPS, pts)
+            pts, dec = pts.cpu().numpy(), dec.cpu().numpy() & ~bad
         with self._cache_lock:
             for j, pk in enumerate(keys):
                 if len(self._pk_cache) >= self.PK_CACHE_MAX:
@@ -261,7 +267,8 @@ class CUDABackend:
     def verify_host_prep(self, entries, rng=None) -> dict:
         """Host stage of `batch_verify_bytes`: wire bytes → limb planes,
         the two cache lookups, malformed-entry flags, fresh RLC
-        coefficient windows."""
+        coefficient windows.  `rng` is for tests that need repeatable
+        coefficients; the main path never passes it."""
         n = len(entries)
         if n == 0:
             return {"kind": "empty"}
@@ -437,14 +444,44 @@ class CUDABackend:
         return self.combine_device_exec(self.combine_host_prep(batch))
 
 
+_KERNELS = (*cuda_fp.LAUNCHES, *cuda_g2.LAUNCHES, *cuda_pairing.LAUNCHES)
+
+
 def _launch_counts() -> dict[str, int]:
-    return {**cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES, **cuda_pairing.LAUNCHES}
+    """The calling thread's launches per kernel (every kernel named)."""
+    mine = launch_count.this_thread()
+    return {k: mine.get(k, 0) for k in _KERNELS}
+
+
+@contextlib.contextmanager
+def _own_stream_stage(stream, name: str, seconds: dict, launches: dict):
+    """Run the body as stage `name` on `stream` (None on the CPU).  Its
+    seconds are CUDA-event time on that stream, so work another thread
+    has queued on the card is not waited for; its launches are the
+    calling thread's."""
+    n0 = _launch_counts()
+    if stream is None:
+        t0 = time.perf_counter()
+        yield
+        seconds[name] = time.perf_counter() - t0
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record(stream)
+            yield
+            end.record(stream)
+        end.synchronize()
+        seconds[name] = start.elapsed_time(end) / 1e3
+    n1 = _launch_counts()
+    launches[name] = {k: n1[k] - n0[k] for k in n1}
 
 
 class _StageClock:
-    """Host seconds and kernel launches between stage boundaries, each
-    ended by a device synchronise (so a stage's time includes its
-    kernels)."""
+    """Host seconds and the calling thread's kernel launches between
+    stage boundaries, each ended by a synchronise of the thread's current
+    stream (so a stage's time includes its kernels, and not another
+    thread's)."""
 
     def __init__(self, device: torch.device, seconds: dict, launches: dict):
         self._device = device
@@ -455,7 +492,7 @@ class _StageClock:
 
     def lap(self, name: str) -> None:
         if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+            torch.cuda.current_stream(self._device).synchronize()
         now, n = time.perf_counter(), _launch_counts()
         self._seconds[name] = now - self._t
         self._launches[name] = {k: n[k] - self._n[k] for k in n}

@@ -33,11 +33,8 @@ VERIFY_TILE = 2048
 
 
 def tile_sizes(n: int, tile: int) -> list[int]:
-    """The tile sizes an n-entry verify splits into at `tile` (≤ 0: one
-    tile).  Never empty for n > 0."""
-    if tile > 0 and n > tile:
-        return [min(tile, n - i) for i in range(0, n, tile)]
-    return [n]
+    """The tile sizes an n-entry verify (n > 0) splits into at `tile`."""
+    return [min(tile, n - i) for i in range(0, n, tile)]
 
 
 def assert_off_loop(op: str) -> None:

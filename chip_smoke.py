@@ -25,16 +25,18 @@ Phases, in order; any failure raises and exits non-zero:
              launch count on the combine path (each must be > 0).
 4. verify  — 10,000 keys and 64 messages (one per committee); pk = sk·G1
              and sig = sk·H(m) computed on the card, 3 rows checked against
-             the oracle.  A cold BatchVerifier.verify_many of the 10,000
-             entries (one peer's parsigex message) fills the pubkey LRU;
-             then 3 timed reps, each ONE pipeline launch of 5 tiles (4 ×
+             the oracle.  The G1 decompress of the 10,000 keys alone on the
+             idle card; a cold BatchVerifier.verify_many of the 10,000
+             entries (one peer's parsigex message) fills the pubkey LRU
+             (its decompress overlaps earlier tiles); then 3 timed reps, each ONE pipeline launch of 5 tiles (4 ×
              2,048 + 1,808), all verdicts True, stages summed over the
              tiles, every pairing kernel launched; then a 2,048-entry batch
              with 6 bad entries whose verdicts must equal the pure-Python
              oracle on the bad rows and on 4 random good ones.
 
 A kernel's `launches` in the JSON line is its count over the main-path
-runs (the combine rep and the verify rep each start from zero counts).
+runs: `launches_combine` (one combine rep) plus `launches_verify` (one
+10,000-entry verify rep), each counted from zero.
 The second-to-last line is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -641,18 +643,46 @@ def verify_phase(dev) -> dict:
     entries = verify_pool(dev, backend)
     tiles_want = len(dispatch.tile_sizes(VALIDATORS, dispatch.VERIFY_TILE))
 
-    # cold: the pubkey LRU fills (one device G1 decompress of 10,000 keys)
+    # the G1 decompress of every key alone, on the idle card, through a
+    # second backend (its own, empty pubkey LRU)
+    stages, stage_launches = {}, {}
+    _, ok = type(backend)()._pk_planes_cached([pk for pk, _, _ in entries],
+                                              stages, stage_launches)
+    if not ok.all():
+        raise AssertionError(f"{int((~ok).sum())} valid keys failed to "
+                             f"decompress")
+    log(f"pk decompress alone: {VALIDATORS:,} keys, "
+        f"{stages['pk_decompress_s']:.4f} s (CUDA events); launches "
+        + json.dumps({k: n for k, n in
+                      stage_launches['pk_decompress_s'].items() if n}))
+
+    # cold: the pubkey LRU fills; each tile's misses decompress on the
+    # host-prep thread's stream while the launch thread runs the tile
+    # before, and every launch lands in the stage of the thread that made it
     backend.reset_verify_totals()
+    reset_all_launches()
     t0 = time.perf_counter()
     oks, launches, tiles = asyncio.run(verify_round(entries))
     wall = time.perf_counter() - t0
     if not all(oks) or len(oks) != VALIDATORS:
         raise AssertionError(f"cold run: {oks.count(False)} of {len(oks)} "
                              f"valid entries rejected")
+    cold_counts = all_launches()
+    by_stage = {k: sum(st.get(k, 0) for st in
+                       backend.verify_launch_totals.values())
+                for k in cold_counts}
+    if by_stage != cold_counts:
+        raise AssertionError(f"cold run: stage launches {by_stage} do not "
+                             f"add up to the run's {cold_counts}")
     log(f"verify cold: {VALIDATORS:,} entries, {tiles} tiles, {wall:.3f} s "
         f"wall; pk_decompress_s "
-        f"{backend.verify_totals['pk_decompress_s']:.4f} "
-        f"({backend.pk_cache_misses:,} key misses)")
+        f"{backend.verify_totals['pk_decompress_s']:.4f} summed over tiles, "
+        f"overlapping the tiles' device work "
+        f"({backend.pk_cache_misses:,} key misses); " + ", ".join(
+            f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
+    log("verify cold launches per stage: " + json.dumps(
+        {st: {k: n for k, n in c.items() if n}
+         for st, c in backend.verify_launch_totals.items()}))
 
     # timed: warm caches, one pipeline launch of 5 tiles per rep
     runs, launch_counts, stage_launches = [], None, None
@@ -793,8 +823,6 @@ def main() -> int:
         sm_clocks_per_s))
     combine_launches, _ = combine_phase(dev)
     verify_launches = verify_phase(dev)
-    launches = {k: combine_launches.get(k, 0) + verify_launches.get(k, 0)
-                for k in SOURCES}
 
     from charon_tpu_torch.tbls import dispatch
     pipe = dispatch.current_pipeline()
@@ -804,7 +832,10 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
+         "replaces": SOURCES[name][1],
+         "launches": combine_launches.get(name, 0) + verify_launches[name],
+         "launches_combine": combine_launches.get(name, 0),
+         "launches_verify": verify_launches[name],
          **kern[name], "library_ms": None}
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ is in tests/test_torch_verify_flush.py.)
 """
 
 import asyncio
+import inspect
 
 import numpy as np
 import pytest
@@ -114,6 +115,9 @@ def test_rlc_coefficients_are_fresh_per_call(port_backend, monkeypatch):
     np.testing.assert_array_equal(p3["windows"], p4["windows"])
     # both Miller rows of an entry share its coefficient
     np.testing.assert_array_equal(p3["windows"][:, 0], p3["windows"][:, 1])
+    # the bytes entry point takes no generator: nothing can seed it
+    assert list(inspect.signature(
+        port_backend.batch_verify_bytes).parameters) == ["entries"]
 
 
 def test_api_verify_and_oracle_backend(port_backend):

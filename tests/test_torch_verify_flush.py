@@ -7,6 +7,7 @@ decompress / hash each distinct key and message once.
 """
 
 import asyncio
+import threading
 
 import pytest
 import torch
@@ -16,7 +17,7 @@ import torch
 torch.set_num_threads(1)
 
 from charon_tpu_torch.core.verify import BatchVerifier
-from charon_tpu_torch.ops import cuda_pairing
+from charon_tpu_torch.ops import cuda_pairing, launch_count
 from charon_tpu_torch.tbls import api as tapi
 from charon_tpu_torch.tbls import backend_cuda, dispatch
 from charon_tpu_torch.tbls.ref import bls, curve as rc
@@ -79,6 +80,7 @@ def test_a_ten_entry_flush_runs_three_tiles(coalesced):
     assert tiles == 3
     assert verifier.paths == {"cuda-rlc+h2c-host": 3}
     assert dispatch.tile_sizes(10, 4) == [4, 4, 2]
+    assert dispatch.tile_sizes(3, 4) == [3]
     assert dispatch.tile_sizes(10_000, 2048) == [2048] * 4 + [1808]
 
 
@@ -96,3 +98,23 @@ def test_caches_and_padding(port_backend, coalesced):
     assert (be.hm_cache_misses, be.hm_cache_hits) == (4, 6)
     assert (be.pk_cache_misses, be.pk_cache_hits) == (4, 6)
     assert all(n == 0 for n in cuda_pairing.LAUNCHES.values())
+
+
+def test_stage_launches_are_the_calling_threads_own():
+    """A stage counts only the launches of the thread that runs it: the
+    host-prep thread's pubkey-miss decompress and the launch thread's tile
+    overlap, and neither lands in the other's stage."""
+    totals = {"fp_mul": 0, "pp_sqr": 0}
+    seconds, launches = {}, {}
+    other = threading.Thread(
+        target=lambda: [launch_count.bump(totals, "fp_mul")
+                        for _ in range(3)])
+    with backend_cuda._own_stream_stage(None, "pk_decompress_s", seconds,
+                                        launches):
+        launch_count.bump(totals, "pp_sqr")
+        other.start()
+        other.join()
+    assert totals == {"fp_mul": 3, "pp_sqr": 1}
+    assert launches["pk_decompress_s"]["pp_sqr"] == 1
+    assert launches["pk_decompress_s"]["fp_mul"] == 0
+    assert seconds["pk_decompress_s"] >= 0
