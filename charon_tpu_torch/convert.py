@@ -9,7 +9,11 @@ Everything here takes and returns numpy arrays; nothing imports JAX.
 - JAX tiled Straus digits ``[nwin, S, 128]`` ↔ port ``[nwin, R]``;
 - JAX tiled plane stacks ``[n, 32, S, 128]`` ↔ port ``[n, 32, R]``, and
   the limb-last Fp12 ``[R, 2, 3, 2, 32]`` and G1 ``[R, 3, 32]`` batches
-  ↔ port ``[12, 32, R]`` / ``[3, 32, R]`` planes.
+  ↔ port ``[12, 32, R]`` / ``[3, 32, R]`` planes;
+- the hash-to-G2 inputs: JAX `pack_messages` output (u rows ``[R, 2,
+  32]``, flags ``[R]``) or the tiled ``[2, 32, S, 128]`` / ``[S, 128]``
+  kernel inputs ↔ port ``[2, 32, R]`` / ``[R]``, and the h2c constant
+  table ``[42, 32, 128]`` ↔ ``[42, 32]``.
 """
 
 from __future__ import annotations
@@ -108,3 +112,38 @@ def g1_to_jax(arr, tiled: bool = True) -> np.ndarray:
     """[3, 32, R] → JAX tiled [3, 32, R/128, 128] or limb-last [R, 3, 32]."""
     a = np.asarray(arr)
     return planes_to_jax(a) if tiled else elems_to_jax(a)
+
+
+def h2c_inputs_from_jax(u, exc, sgn):
+    """JAX u rows [R, 2, 32] (pack_messages) or tiled [2, 32, S, 128], and
+    flags [R] or [S, 128] → port (u [2, 32, R], exc [R], sgn [R])."""
+    a = np.asarray(u)
+    if a.ndim == 3 and a.shape[1:] == (2, 32):
+        planes = elems_from_jax(a)
+    elif a.ndim == 4 and a.shape[:2] == (2, 32):
+        planes = planes_from_jax(a)
+    else:
+        raise ValueError(f"not a JAX u batch: shape {a.shape}")
+    return (planes, np.ascontiguousarray(np.asarray(exc).reshape(-1)),
+            np.ascontiguousarray(np.asarray(sgn).reshape(-1)))
+
+
+def h2c_inputs_to_jax(u, exc, sgn):
+    """Port (u [2, 32, R], exc [R], sgn [R]) → the JAX pipeline's tiled
+    inputs (u [2, 32, R/128, 128], exc and sgn [R/128, 128])."""
+    r = np.asarray(u).shape[-1]
+    return (planes_to_jax(u),
+            np.ascontiguousarray(np.asarray(exc).reshape(r // LANES, LANES)),
+            np.ascontiguousarray(np.asarray(sgn).reshape(r // LANES, LANES)))
+
+
+def h2c_consts_from_jax(hc) -> np.ndarray:
+    """JAX lane-broadcast table [42, 32, 128] → [42, 32]."""
+    return np.ascontiguousarray(np.asarray(hc)[:, :, 0])
+
+
+def h2c_consts_to_jax(hc) -> np.ndarray:
+    """[42, 32] → the JAX kernels' lane-broadcast [42, 32, 128]."""
+    a = np.asarray(hc)
+    return np.ascontiguousarray(np.broadcast_to(a[:, :, None],
+                                                a.shape + (LANES,)))

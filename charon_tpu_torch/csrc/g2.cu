@@ -1,13 +1,20 @@
-// g2.cu — kernels K2 (g2_step<DBL|ADD>) and K3 (straus_step<HEAD>): whole
-// BLS12-381 G2 group-law steps, one thread per point row.
+// g2.cu — kernels K2 (g2_step<DBL|ADD>), K3 (straus_step<HEAD>) and K10
+// (g2_sel<DBL>): whole BLS12-381 G2 group-law steps, one thread per point
+// row.
 //
 // Replaces: charon_tpu/ops/pallas_g2.py
 //   K2 g2_step<DBL>      _dbl_kernel        (complete RCB doubling)
 //   K2 g2_step<ADD>      _add_kernel        (complete RCB addition)
 //   K3 straus_step<1>    _dbl3sel_s_kernel  acc ← 8·acc ± table[|d|]
 //   K3 straus_step<0>    _addsel_s_kernel   acc ← acc ± table[|d|]
-// (d ∈ [−4, 3] a balanced base-8 digit; d = 0 keeps the accumulator and
-// skips the addition; a negative digit negates the table point's Y.)
+//   K10 g2_sel<1>        _dblsel_kernel     acc ← 4·acc + table[w]
+//   K10 g2_sel<0>        _addsel_kernel     acc ← acc + table[w]
+// (K3: d ∈ [−4, 3] a balanced base-8 digit; d = 0 keeps the accumulator
+// and skips the addition; a negative digit negates the table point's Y.
+// K10: w ∈ {0, 1, 2, 3} an UNSIGNED 2-bit window over {Q, 2Q, 3Q}, two
+// doublings not three, no negation; w = 0 keeps the accumulator.  K10
+// dblsel serves the [|x|]-multiplies of hash-to-G2's cofactor clearing,
+// one launch per window with the same w on every row.)
 //
 // Layout: a point batch is [6, 32, stride] int32 — planes X0 X1 Y0 Y1 Z0 Z1
 // × limbs × rows.  K3 reads the four tables (P, 2P, 3P, 4P) and the digit
@@ -25,6 +32,13 @@
 // 1.98 GHz one window of the 10,000-validator, 7-share combine (10,240
 // rows × (head + 6 tails)) needs at most 0.45 ms; its 3.8 KB × 7 × 10,240
 // bytes need 0.08 ms at 3.35 TB/s.
+//
+// K10 dblsel is two doublings and, where w ≠ 0, one addition per row:
+// [186,624, 179,526] instructions, against 4.6 KB of device memory per row
+// (acc, one table row, out).  Hash-to-G2 launches it on one row per
+// message (2,048 per verify tile): blocks of 32, one warp on each of 64
+// SMs, so it is bound by instruction latency, not by the int32 rate, as
+// K3 is.
 //
 // What the design does about it, and what it does not yet: the whole step
 // runs in one thread with no device-memory round trip between field ops
@@ -44,6 +58,9 @@ namespace {
 using fp381::G2;
 
 constexpr int BLOCK = 64;
+// K10 runs on one row per message: blocks of 32 put 2,048 rows on 64 SMs
+// where blocks of 64 would use 32.
+constexpr int SEL_BLOCK = 32;
 
 template <int DBL>
 __global__ void __launch_bounds__(BLOCK)
@@ -91,7 +108,31 @@ straus_step_kernel(int* __restrict__ out, const int* __restrict__ acc,
   fp381::store_pt(out, a, r, n);
 }
 
-int grid_of(int n) { return (n + BLOCK - 1) / BLOCK; }
+// acc ← (4·acc if DBL else acc) + table[w]; w = 0 keeps the accumulator.
+// All [6, 32, n], w [n].
+template <int DBL>
+__global__ void __launch_bounds__(SEL_BLOCK)
+g2_sel_kernel(int* __restrict__ out, const int* __restrict__ acc,
+              const int* __restrict__ t1, const int* __restrict__ t2,
+              const int* __restrict__ t3, const int* __restrict__ w, int n) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int wr = w[r];
+  G2 a;
+  fp381::load_pt(a, acc, r, n);
+  if (DBL) {
+    fp381::g2_double(a, a);
+    fp381::g2_double(a, a);
+  }
+  if (wr != 0) {
+    G2 s;
+    fp381::load_pt(s, wr == 1 ? t1 : wr == 2 ? t2 : t3, r, n);
+    fp381::g2_add(a, a, s);
+  }
+  fp381::store_pt(out, a, r, n);
+}
+
+int grid_of(int n, int block = BLOCK) { return (n + block - 1) / block; }
 
 }  // namespace
 
@@ -134,6 +175,28 @@ extern "C" int charon_straus_step(int head, void* out, const void* acc,
   } else {
     straus_step_kernel<0><<<grid_of(n), BLOCK, 0, s>>>(o, a, p1, p2, p3, p4,
                                                        tstride, d, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dbl 1: out = 4·acc + table[w]; dbl 0: out = acc + table[w] (w = 0 keeps).
+// out, acc, t1..t3 [6, 32, n]; w [n].
+extern "C" int charon_g2_sel(int dbl, void* out, const void* acc,
+                             const void* t1, const void* t2, const void* t3,
+                             const void* w, int n, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* o = static_cast<int*>(out);
+  const int* a = static_cast<const int*>(acc);
+  const int* p1 = static_cast<const int*>(t1);
+  const int* p2 = static_cast<const int*>(t2);
+  const int* p3 = static_cast<const int*>(t3);
+  const int* d = static_cast<const int*>(w);
+  if (dbl) {
+    g2_sel_kernel<1><<<grid_of(n, SEL_BLOCK), SEL_BLOCK, 0, s>>>(
+        o, a, p1, p2, p3, d, n);
+  } else {
+    g2_sel_kernel<0><<<grid_of(n, SEL_BLOCK), SEL_BLOCK, 0, s>>>(
+        o, a, p1, p2, p3, d, n);
   }
   return (int)cudaGetLastError();
 }

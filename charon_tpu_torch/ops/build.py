@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu")
+SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu")
 HEADERS = ("fp381.cuh", "fp381_consts.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -160,9 +160,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_pp_step.argtypes = [i, p, p, p, i, p]
     lib.charon_f12_step.argtypes = [i, p, p, p, p, i, i, p]
     lib.charon_g1_dblsel.argtypes = [p, p, p, p, p, p, i, p]
+    lib.charon_g2_sel.argtypes = [i, p, p, p, p, p, p, i, p]
+    lib.charon_f2_chain.argtypes = [i, p, p, p, i, p]
+    lib.charon_h2c_sswu.argtypes = [p, p, p, i, p]
+    lib.charon_h2c_point.argtypes = [i, p, p, i, p]
     for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
                lib.charon_pp_step, lib.charon_f12_step,
-               lib.charon_g1_dblsel):
+               lib.charon_g1_dblsel, lib.charon_g2_sel, lib.charon_f2_chain,
+               lib.charon_h2c_sswu, lib.charon_h2c_point):
         fn.restype = i
 
 
@@ -180,7 +185,7 @@ def library() -> ctypes.CDLL:
 def render_consts_header() -> str:
     """The text of csrc/fp381_consts.cuh, from the Python constant tables
     (the committed header must equal this; a test pins it)."""
-    from . import cuda_g2, fp
+    from . import cuda_g2, cuda_h2c, fp
 
     def rows(arr) -> str:
         return ",\n".join("    {" + ", ".join(str(int(v)) for v in row) + "}"
@@ -191,8 +196,9 @@ def render_consts_header() -> str:
 
     return (
         "// Generated by charon_tpu_torch.ops.build.render_consts_header()\n"
-        "// from the tables of ops/fp.py and ops/cuda_g2.py; a test checks\n"
-        "// that this file equals the rendering.  Do not edit by hand.\n"
+        "// from the tables of ops/fp.py, ops/cuda_g2.py and ops/cuda_h2c.py;\n"
+        "// a test checks that this file equals the rendering.  Do not edit\n"
+        "// by hand.\n"
         "#pragma once\n\n"
         "namespace fp381 {\n\n"
         "// FOLDC[j] = 2^(12·(32+j)) mod p as 32 limbs\n"
@@ -206,6 +212,9 @@ def render_consts_header() -> str:
         f"{{{flat(cuda_g2.OFF1)}}};\n"
         f"static __constant__ int OFF2[{len(cuda_g2.OFF2)}] = "
         f"{{{flat(cuda_g2.OFF2)}}};\n\n"
+        "// hash-to-G2 constants: Fp2 constant i in rows (2i, 2i + 1)\n"
+        f"static __constant__ int H2C[{len(cuda_h2c.h2c_consts())}][32] = {{\n"
+        f"{rows(cuda_h2c.h2c_consts())}\n}};\n\n"
         "}  // namespace fp381\n")
 
 

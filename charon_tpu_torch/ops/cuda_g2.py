@@ -7,6 +7,12 @@ The counterpart of the JAX package's ops/pallas_g2.py:
 - K3 `straus_step<HEAD>` replaces `_dbl3sel_s_kernel` (HEAD: acc ← 8·acc
   ± table[|d|]) and `_addsel_s_kernel` (acc ← acc ± table[|d|]); a zero
   digit keeps the accumulator.
+- K10 `g2_sel<DBL>` replaces `_dblsel_kernel` (DBL: acc ← 4·acc +
+  table[w]) and `_addsel_kernel` (acc ← acc + table[w]) with an UNSIGNED
+  window w ∈ {0, 1, 2, 3} over the table {Q, 2Q, 3Q}; w = 0 keeps the
+  (quadrupled) accumulator.  dblsel runs the hash-to-G2 cofactor
+  clearing's [|x|]-multiplies (ops/cuda_h2c.py); addsel has no caller in
+  the JAX package and is ported for parity.
 
 One thread per point row holds the whole step: every intermediate stays
 in the thread's registers and local memory, and device memory sees only
@@ -269,13 +275,32 @@ def straus_step_plain(acc, tables, row0: int, digits: torch.Tensor,
     return torch.where(w == 0, acc, added)
 
 
+def _unsigned_sel(w, t1, t2, t3):
+    """table[w] for w ∈ {1, 2, 3} (pallas_g2._sel: anything else → t3)."""
+    return torch.where(w == 1, t1, torch.where(w == 2, t2, t3))
+
+
+def dblsel_plain(acc, t1, t2, t3, w: torch.Tensor) -> torch.Tensor:
+    """acc ← 4·acc + table[w]; w = 0 keeps 4·acc (pallas_g2._dblsel_body)."""
+    acc4 = _g2_double(_g2_double(acc))
+    added = _g2_add(acc4, _unsigned_sel(w, t1, t2, t3))
+    return torch.where(w == 0, acc4, added)
+
+
+def addsel_plain(acc, t1, t2, t3, w: torch.Tensor) -> torch.Tensor:
+    """acc ← acc + table[w]; w = 0 keeps acc (pallas_g2._addsel_body)."""
+    added = _g2_add(acc, _unsigned_sel(w, t1, t2, t3))
+    return torch.where(w == 0, acc, added)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 #: kernel launches since the last `reset_launches()` (all threads;
 #: `launch_count.this_thread()` has the calling thread's own)
-LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "straus_head": 0, "straus_tail": 0}
+LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "straus_head": 0, "straus_tail": 0,
+            "g2_dblsel": 0, "g2_addsel": 0}
 
 
 def reset_launches() -> None:
@@ -370,6 +395,44 @@ def straus_step(acc: torch.Tensor, tables, row0: int, digits: torch.Tensor,
     _raise_on(name, err)
     launch_count.bump(LAUNCHES, name)
     return out
+
+
+def _g2_sel(name: str, dbl: bool, acc, t1, t2, t3,
+            w: torch.Tensor) -> torch.Tensor:
+    _check_pts(name, acc, t1, t2, t3)
+    n = acc.shape[2]
+    if any(t.shape != acc.shape for t in (t1, t2, t3)):
+        raise ValueError(f"{name}: operand shapes differ")
+    if (w.dtype != torch.int32 or tuple(w.shape) != (n,)
+            or not w.is_contiguous() or w.device != acc.device):
+        raise ValueError(f"{name}: w must be a contiguous int32 [{n}] row "
+                         f"on {acc.device}")
+    _cuda_ready(name, acc)
+    out = torch.empty_like(acc)
+    err = build.library().charon_g2_sel(
+        int(dbl), out.data_ptr(), acc.data_ptr(), t1.data_ptr(),
+        t2.data_ptr(), t3.data_ptr(), w.data_ptr(), n,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    _raise_on(name, err)
+    launch_count.bump(LAUNCHES, name)
+    return out
+
+
+def dblsel(acc: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
+           t3: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One 2-bit window of a per-row G2 scalar multiplication: [6, 32, R]
+    accumulators and tables {Q, 2Q, 3Q}, w [R] int32 in 0..3."""
+    if acc.device.type == "cpu":
+        return dblsel_plain(acc, t1, t2, t3, w)
+    return _g2_sel("g2_dblsel", True, acc, t1, t2, t3, w)
+
+
+def addsel(acc: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
+           t3: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """acc + table[w] per row (w = 0 keeps acc); shapes as `dblsel`."""
+    if acc.device.type == "cpu":
+        return addsel_plain(acc, t1, t2, t3, w)
+    return _g2_sel("g2_addsel", False, acc, t1, t2, t3, w)
 
 
 # ---------------------------------------------------------------------------

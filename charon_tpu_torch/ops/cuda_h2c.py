@@ -1,0 +1,555 @@
+"""Kernels K7–K9 and the batched device hash-to-G2 (csrc/h2c.cu).
+
+The counterpart of the JAX package's ops/pallas_h2c.py: the host keeps
+expand_message_xmd + hash_to_field (SHA-256, `pack_messages`), and the
+card runs SSWU onto E', the Fp2 square roots and inversion as fixed
+addition chains, the 3-isogeny, the two-point addition and the
+Budroni–Pintore ψ cofactor clearing:
+
+- K7 `f2_chain<SQR|MUL|SQR4|SQR4MUL>` replaces `_h2c_sqr_kernel`,
+  `_h2c_mul_kernel`, `_h2c_sqr4_kernel` and `_h2c_sqr4mul_kernel`: a²,
+  a·b, a¹⁶ and a¹⁶·m on one Fp2 row (one 4-bit window of a fixed-exponent
+  pow per SQR4/SQR4MUL launch).
+- K8 `h2c_sswu` replaces `_h2c_sswu_kernel`: the SSWU fraction x = xn/xd
+  and both square-root radicands v1 = g'(x1)·xd⁴ and v2 = (Z·u²)³·v1,
+  reading the host's exceptional flag (tv1 = 0: u = 0 or Z·u² = −1).
+- K9 `h2c_point<ISO3|PSI>` replaces `_h2c_iso3_kernel` (Horner over the
+  isogeny table to a projective point) and `_h2c_psi_kernel` (ψ as two
+  conjugations and two constant products).
+
+The [|x|]-multiplies of the cofactor clearing run K10 `dblsel`, its
+doublings and additions K2 (ops/cuda_g2.py).  The exactness boundaries —
+sgn0, the candidate-square test, the ∞ guard of the isogeny — and the
+negations between launches run on K1 and the plain exact-carry code of
+ops/fp.py, as the JAX package keeps them at the jnp level.
+
+Each kernel is bit-identical to its plain version here, which is the JAX
+`_DIRECT_FNS` body line for line on `cuda_g2`'s plain field library.
+
+LAYOUT.  A batch of n-plane rows is ``[n, 32, R]`` int32; an Fp2 batch
+``[2, 32, R]`` is also the port tower's element layout.  The u rows are
+u-MAJOR, as in the JAX package: rows [0, m) hold u₀ of each message and
+[m, 2m) hold u₁, so the two mapped halves are two row ranges of one
+tensor; both square-root candidates ride one chain, stacked on the row
+axis.  Nothing is padded.
+
+Every wrapper routes a CPU tensor to the plain version and launches the
+kernel for a CUDA tensor (or raises).  `LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..tbls.ref import sswu as refsswu
+from ..tbls.ref.fields import BLS_X, FQ2, P
+from ..tbls.ref.hash_to_curve import DST_G2, hash_to_field_fp2
+from . import build, codec, cuda_g2, fp, launch_count, tower
+from .cuda_g2 import (_cuda_ready, _f2add, _f2mul, _f2sqr, _negf,
+                      _raise_on)
+
+NL = fp.NLIMBS
+
+# ---------------------------------------------------------------------------
+# The h2c constant table: SSWU constants, 3-isogeny coefficients and the ψ
+# constants as Fp limb rows [42, 32]; Fp2 constant i occupies rows
+# (2i, 2i + 1) = (c0, c1).  The kernels hold it in __constant__ memory
+# (csrc/fp381_consts.cuh, rendered by build.render_consts_header()).
+# ---------------------------------------------------------------------------
+
+_HC_ONE = 0          # FQ2 one (for tv1 + 1)
+_HC_Z = 1            # SSWU Z = −(2 + u)
+_HC_A = 2            # A' of E'
+_HC_NEG_A = 3        # −A'  (x1 denominator: xd = −A'·tv1)
+_HC_ZA = 4           # Z·A' (the tv1 = 0 exceptional denominator)
+_HC_B = 5            # B' of E'
+_HC_XN = 6           # 6..9   isogeny x-numerator k1_0..k1_3
+_HC_XD = 10          # 10..11 x-denominator k2_0..k2_1 (monic, deg 2)
+_HC_YN = 12          # 12..15 y-numerator k3_0..k3_3
+_HC_YD = 16          # 16..18 y-denominator k4_0..k4_2 (monic, deg 3)
+_HC_PSI_CX = 19      # ψ x-constant
+_HC_PSI_CY = 20      # ψ y-constant
+
+
+def _build_hc() -> np.ndarray:
+    consts = [FQ2.one(), refsswu.Z_SSWU, refsswu.A_PRIME,
+              -refsswu.A_PRIME, refsswu.Z_SSWU * refsswu.A_PRIME,
+              refsswu.B_PRIME]
+    consts += list(refsswu._XN)
+    consts += list(refsswu._XD[:2])
+    consts += list(refsswu._YN)
+    consts += list(refsswu._YD[:3])
+    consts += [codec._PSI_CX, codec._PSI_CY]
+    rows = [fp.to_limbs(int(c) % P) for x in consts for c in x.coeffs]
+    return np.stack(rows).astype(np.int32)
+
+
+_HC_NP = _build_hc()
+assert refsswu._XD[2] == FQ2.one() and refsswu._YD[3] == FQ2.one()
+
+
+def h2c_consts() -> np.ndarray:
+    """The constant table [42, 32] (the JAX `h2c_consts()` without its
+    lane broadcast)."""
+    return _HC_NP.copy()
+
+
+def _cf2(idx: int, like: torch.Tensor):
+    """Fp2 constant `idx` broadcast to the shape of `like` ([32, R])."""
+    hc = fp.const(_HC_NP, like.device)
+    return (hc[2 * idx].unsqueeze(-1).expand_as(like),
+            hc[2 * idx + 1].unsqueeze(-1).expand_as(like))
+
+
+def _planes(*els) -> torch.Tensor:
+    return torch.stack(els)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the JAX kernel bodies on cuda_g2's plain field library)
+# ---------------------------------------------------------------------------
+
+def sswu_plain(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """u [2, 32, R], w [R] the exceptional flag → [10, 32, R]
+    (xn, xd, zu2, v1, v2): x1 = xn/xd on E', v1 = gx_num·xd with gx_num =
+    g'(x1)·xd³ (so y1 = sqrt(v1)/xd²), v2 = (Z·u²)³·v1."""
+    uu = (u[0], u[1])
+    z = _cf2(_HC_Z, u[0])
+    a = _cf2(_HC_A, u[0])
+    na = _cf2(_HC_NEG_A, u[0])
+    za = _cf2(_HC_ZA, u[0])
+    b = _cf2(_HC_B, u[0])
+    one = _cf2(_HC_ONE, u[0])
+    u2 = _f2sqr(uu)
+    zu2 = _f2mul(z, u2)
+    zu2sq = _f2sqr(zu2)
+    tv1 = _f2add(zu2sq, zu2)
+    xd_reg = _f2mul(na, tv1)
+    excb = w != 0
+    xd = (torch.where(excb, za[0], xd_reg[0]),
+          torch.where(excb, za[1], xd_reg[1]))
+    xn = _f2mul(b, _f2add(tv1, one))
+    xd2 = _f2sqr(xd)
+    xd3 = _f2mul(xd2, xd)
+    xn2 = _f2sqr(xn)
+    xn3 = _f2mul(xn2, xn)
+    gx_num = _f2add(_f2add(xn3, _f2mul(a, _f2mul(xn, xd2))),
+                    _f2mul(b, xd3))
+    v1 = _f2mul(gx_num, xd)
+    zu2cu = _f2mul(zu2sq, zu2)
+    v2 = _f2mul(zu2cu, v1)
+    return _planes(*xn, *xd, *zu2, *v1, *v2)
+
+
+def sqr_plain(a: torch.Tensor) -> torch.Tensor:
+    return _planes(*_f2sqr((a[0], a[1])))
+
+
+def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _planes(*_f2mul((a[0], a[1]), (b[0], b[1])))
+
+
+def sqr4_plain(a: torch.Tensor) -> torch.Tensor:
+    acc = (a[0], a[1])
+    for _ in range(4):
+        acc = _f2sqr(acc)
+    return _planes(*acc)
+
+
+def sqr4mul_plain(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """One 4-bit window step of a fixed-exponent pow: acc ← acc¹⁶·m."""
+    acc = (a[0], a[1])
+    for _ in range(4):
+        acc = _f2sqr(acc)
+    return _planes(*_f2mul(acc, (m[0], m[1])))
+
+
+def _horner(x, idxs, monic: bool):
+    """Σ kᵢ·xⁱ by Horner; `idxs` are the table slots of k₀..k_deg (k_deg
+    omitted and implied 1 when monic)."""
+    if monic:
+        acc = _f2add(x, _cf2(idxs[-1], x[0]))
+    else:
+        acc = _cf2(idxs[-1], x[0])
+    for i in reversed(idxs[:-1]):
+        acc = _f2add(_f2mul(acc, x), _cf2(i, x[0]))
+    return acc
+
+
+def iso3_plain(xy: torch.Tensor) -> torch.Tensor:
+    """3-isogeny E' → E: affine (x, y) [4, 32, R] → projective [6, 32, R]
+    (xn'·yd', y·yn'·xd', xd'·yd'); ∞ surfaces as Zo ≡ 0."""
+    x = (xy[0], xy[1])
+    y = (xy[2], xy[3])
+    xnum = _horner(x, [_HC_XN + i for i in range(4)], monic=False)
+    xden = _horner(x, [_HC_XD + i for i in range(2)], monic=True)
+    ynum = _horner(x, [_HC_YN + i for i in range(4)], monic=False)
+    yden = _horner(x, [_HC_YD + i for i in range(3)], monic=True)
+    xo = _f2mul(xnum, yden)
+    yo = _f2mul(y, _f2mul(ynum, xden))
+    zo = _f2mul(xden, yden)
+    return _planes(*xo, *yo, *zo)
+
+
+def psi_plain(pt: torch.Tensor) -> torch.Tensor:
+    """ψ on projective planes [6, 32, R]: (c_x·X̄, c_y·Ȳ, Z̄)."""
+    cx = _cf2(_HC_PSI_CX, pt[0])
+    cy = _cf2(_HC_PSI_CY, pt[0])
+    xb = (pt[0], _negf(pt[1]))
+    yb = (pt[2], _negf(pt[3]))
+    xo = _f2mul(cx, xb)
+    yo = _f2mul(cy, yb)
+    return _planes(*xo, *yo, pt[4], _negf(pt[5]))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+#: kernel launches since the last `reset_launches()` (all threads;
+#: `launch_count.this_thread()` has the calling thread's own)
+LAUNCHES = {"h2c_sswu": 0, "h2c_sqr": 0, "h2c_mul": 0, "h2c_sqr4": 0,
+            "h2c_sqr4mul": 0, "h2c_iso3": 0, "h2c_psi": 0}
+
+#: K7 op codes (csrc/h2c.cu) and K9 kinds
+_CHAIN = {"h2c_sqr": 0, "h2c_mul": 1, "h2c_sqr4": 2, "h2c_sqr4mul": 3}
+_POINT = {"h2c_iso3": (0, 4), "h2c_psi": (1, 6)}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(name: str, t: torch.Tensor, planes: int, n: int) -> None:
+    """A contiguous int32 [planes, 32, n] operand."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: int32 planes expected, got {t.dtype}")
+    if t.dim() != 3 or tuple(t.shape) != (planes, NL, n) or n == 0:
+        raise ValueError(f"{name}: expected [{planes}, 32, {n}], got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: operands must be contiguous")
+    if 10 * NL * n >= 2 ** 31:
+        raise ValueError(f"{name}: {n} rows exceed the int index")
+
+
+def _same_device(name: str, *ts: torch.Tensor) -> None:
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{name}: operands on different devices")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _chain(name: str, a: torch.Tensor, b: torch.Tensor | None
+           ) -> torch.Tensor:
+    n = a.shape[-1]
+    _check(name, a, 2, n)
+    if b is not None:
+        _check(name, b, 2, n)
+        _same_device(name, a, b)
+    _cuda_ready(name, a)
+    out = torch.empty_like(a)
+    err = build.library().charon_f2_chain(
+        _CHAIN[name], out.data_ptr(), a.data_ptr(),
+        0 if b is None else b.data_ptr(), n, _stream(a))
+    _raise_on(name, err)
+    launch_count.bump(LAUNCHES, name)
+    return out
+
+
+def h2c_sqr(a: torch.Tensor) -> torch.Tensor:
+    """[2, 32, R] Fp2 rows → a²."""
+    if a.device.type == "cpu":
+        return sqr_plain(a)
+    return _chain("h2c_sqr", a, None)
+
+
+def h2c_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[2, 32, R] × [2, 32, R] → a·b."""
+    if a.device.type == "cpu":
+        return mul_plain(a, b)
+    return _chain("h2c_mul", a, b)
+
+
+def h2c_sqr4(a: torch.Tensor) -> torch.Tensor:
+    """[2, 32, R] → a¹⁶."""
+    if a.device.type == "cpu":
+        return sqr4_plain(a)
+    return _chain("h2c_sqr4", a, None)
+
+
+def h2c_sqr4mul(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """[2, 32, R] × [2, 32, R] → a¹⁶·m."""
+    if a.device.type == "cpu":
+        return sqr4mul_plain(a, m)
+    return _chain("h2c_sqr4mul", a, m)
+
+
+def h2c_sswu(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """u [2, 32, R], w [R] int32 exceptional flags → [10, 32, R]."""
+    if u.device.type == "cpu":
+        return sswu_plain(u, w)
+    n = u.shape[-1]
+    _check("h2c_sswu", u, 2, n)
+    if w.dtype != torch.int32 or tuple(w.shape) != (n,) \
+            or not w.is_contiguous():
+        raise ValueError(f"h2c_sswu: w must be a contiguous int32 [{n}] row")
+    _same_device("h2c_sswu", u, w)
+    _cuda_ready("h2c_sswu", u)
+    out = u.new_empty((10, NL, n))
+    err = build.library().charon_h2c_sswu(out.data_ptr(), u.data_ptr(),
+                                          w.data_ptr(), n, _stream(u))
+    _raise_on("h2c_sswu", err)
+    launch_count.bump(LAUNCHES, "h2c_sswu")
+    return out
+
+
+def _point(name: str, x: torch.Tensor) -> torch.Tensor:
+    kind, planes = _POINT[name]
+    n = x.shape[-1]
+    _check(name, x, planes, n)
+    _cuda_ready(name, x)
+    out = x.new_empty((6, NL, n))
+    err = build.library().charon_h2c_point(kind, out.data_ptr(),
+                                           x.data_ptr(), n, _stream(x))
+    _raise_on(name, err)
+    launch_count.bump(LAUNCHES, name)
+    return out
+
+
+def h2c_iso3(xy: torch.Tensor) -> torch.Tensor:
+    """Affine E' points [4, 32, R] → projective E points [6, 32, R]."""
+    if xy.device.type == "cpu":
+        return iso3_plain(xy)
+    return _point("h2c_iso3", xy)
+
+
+def h2c_psi(pt: torch.Tensor) -> torch.Tensor:
+    """ψ over projective points [6, 32, R]."""
+    if pt.device.type == "cpu":
+        return psi_plain(pt)
+    return _point("h2c_psi", pt)
+
+
+# ---------------------------------------------------------------------------
+# Exactness boundaries and negations between launches
+# ---------------------------------------------------------------------------
+
+#: exact Fp2 equality / zero test of [2, 32, R] batches → [R] bool (the
+#: port tower's element layout is the rows' layout)
+f2_eq_rows = tower.f2_eq
+f2_is_zero_rows = tower.f2_is_zero
+
+
+def f2_eq_const_rows(a: torch.Tensor, const_planes: np.ndarray
+                     ) -> torch.Tensor:
+    """Exact equality against a host [2, 32] limb constant."""
+    return tower.f2_eq(a, fp.elem(const_planes, a.device))
+
+
+def f2_sgn0_rows(a: torch.Tensor) -> torch.Tensor:
+    """RFC 9380 sgn0 (m = 2) of [2, 32, R] → [R] bool.  Parity needs the
+    CANONICAL representative: one exact-carry canonicalisation each."""
+    c0 = fp.canon_std(a[0])
+    c1 = fp.canon_std(a[1])
+    s0 = (c0[0] & 1) == 1
+    z0 = torch.all(c0 == 0, dim=0)
+    s1 = (c1[0] & 1) == 1
+    return s0 | (z0 & s1)
+
+
+def _f2_neg_t(a: torch.Tensor) -> torch.Tensor:
+    """Negate an Fp2 batch (K1; bit-identical to the in-kernel negation)."""
+    return _planes(fp.neg(a[0]), fp.neg(a[1]))
+
+
+def _pt_neg_t(p: torch.Tensor) -> torch.Tensor:
+    """Negate projective points [6, 32, R] (Y planes 2, 3)."""
+    return torch.cat([p[0:2], fp.neg(p[2])[None], fp.neg(p[3])[None],
+                      p[4:6]])
+
+
+_F2_MINUS_ONE = np.stack([fp.to_limbs(P - 1), fp.ZERO])
+
+
+# ---------------------------------------------------------------------------
+# Drivers: fixed-exponent pow, Alg-9 sqrt, norm inversion
+# ---------------------------------------------------------------------------
+
+def _pow_digits(e: int) -> tuple[int, ...]:
+    """Base-16 digits of a positive exponent, MSB first (first nonzero) —
+    the static window schedule of the fixed addition chain."""
+    assert e > 0
+    return tuple(int(c, 16) for c in f"{e:x}")
+
+
+#: The three chain exponents: Alg-9's two pows and the Fermat inversion.
+EXP_SQRT_A1 = (P - 3) // 4
+EXP_SQRT_B = (P - 1) // 2
+EXP_INV = P - 2
+
+
+def f2_pow_rows(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e over [2, 32, R] for a host-known exponent: a 15-entry window
+    table (14 launches), then one K7 sqr4mul / sqr4 launch per 4-bit
+    window, MSB first."""
+    tbl = [None, a, h2c_sqr(a)]
+    for k in range(3, 16):
+        tbl.append(h2c_mul(tbl[k - 1], a))
+    digs = _pow_digits(e)
+    acc = tbl[digs[0]]
+    for d in digs[1:]:
+        acc = h2c_sqr4mul(acc, tbl[d]) if d else h2c_sqr4(acc)
+    return acc
+
+
+def f2_sqrt_rows(v: torch.Tensor):
+    """Batched Fp2 square root (Adj–Rodríguez-Henríquez Alg. 9) → (root,
+    ok [R]); the root is garbage where ok is False."""
+    a1 = f2_pow_rows(v, EXP_SQRT_A1)
+    alpha = h2c_mul(h2c_sqr(a1), v)
+    x0 = h2c_mul(a1, v)
+    # branch 1: α = −1 ⇒ root = u·x0 = (−x0c1) + x0c0·u
+    root_u = _planes(fp.neg(x0[1]), x0[0])
+    # branch 2: root = (α+1)^((p−1)/2) · x0
+    ap1 = _planes(fp.add(alpha[0], fp.elem(fp.ONE, v.device)), alpha[1])
+    b = f2_pow_rows(ap1, EXP_SQRT_B)
+    root_b = h2c_mul(b, x0)
+    is_m1 = f2_eq_const_rows(alpha, _F2_MINUS_ONE)
+    root = torch.where(is_m1, root_u, root_b)
+    ok = f2_eq_rows(h2c_sqr(root), v)
+    return root, ok
+
+
+def f2_inv_rows(a: torch.Tensor) -> torch.Tensor:
+    """Batched Fp2 inversion via the norm: a⁻¹ = ā·(a·ā)^(p−2); the norm
+    has a value-zero imaginary part, so its Fermat pow runs on the same
+    chain kernels (inv(0) = 0)."""
+    ac = _planes(a[0], fp.neg(a[1]))
+    n = h2c_mul(a, ac)
+    ninv = f2_pow_rows(n, EXP_INV)
+    return h2c_mul(ac, ninv)
+
+
+# ---------------------------------------------------------------------------
+# ψ-cofactor clearing
+# ---------------------------------------------------------------------------
+
+#: Static 2-bit window schedule of |x| (the 64-bit BLS parameter): one
+#: window for every row of a dblsel launch.
+_Z_WINDOWS = tuple((BLS_X >> (62 - 2 * i)) & 3 for i in range(32))
+assert BLS_X.bit_length() == 64
+
+
+def _zmul(q: torch.Tensor) -> torch.Tensor:
+    """[|x|]Q over [6, 32, R]: the table {Q, 2Q, 3Q} (K2) and 32 K10
+    dblsel steps, each with one window for every row."""
+    q2 = cuda_g2.dbl(q)
+    q3 = cuda_g2.add(q2, q)
+    n = q.shape[-1]
+    rows = [torch.full((n,), w, dtype=torch.int32, device=q.device)
+            for w in range(4)]
+    acc = cuda_g2.inf_planes(n, q.device)
+    for w in _Z_WINDOWS:
+        acc = cuda_g2.dblsel(acc, q, q2, q3, rows[w])
+    return acc
+
+
+def clear_cofactor_rows(p: torch.Tensor) -> torch.Tensor:
+    """Budroni–Pintore clearing over projective points [6, 32, R]:
+
+        h_eff·P = [x²−x−1]P + [x−1]ψ(P) + ψ²([2]P),   x = −|x|
+
+    i.e. ([x²]P + [|x|]P − P) + (−[|x|]ψ(P) − ψ(P)) + ψ²(2P): three
+    [|x|]-multiplies, three ψ launches, one doubling, five additions."""
+    t0 = _zmul(p)                          # [|x|]P
+    t1 = _zmul(t0)                         # [x²]P
+    part1 = cuda_g2.add(cuda_g2.add(t1, t0), _pt_neg_t(p))
+    psip = h2c_psi(p)
+    xpsip = _zmul(psip)
+    part2 = cuda_g2.add(_pt_neg_t(xpsip), _pt_neg_t(psip))
+    part3 = h2c_psi(h2c_psi(cuda_g2.dbl(p)))
+    return cuda_g2.add(cuda_g2.add(part1, part2), part3)
+
+
+# ---------------------------------------------------------------------------
+# The pipeline
+# ---------------------------------------------------------------------------
+
+def map_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
+                   ) -> torch.Tensor:
+    """SSWU + sqrt + sign fix + 3-isogeny: u [2, 32, R], exc / sgn [R]
+    int32 host flags (tv1 = 0, sgn0(u)) → [6, 32, R] projective points on
+    E, one per u row (NOT cofactor-cleared)."""
+    s = u.shape[-1]
+    out = h2c_sswu(u, exc)
+    xn, xd, zu2 = out[0:2], out[2:4], out[4:6]
+    v1, v2 = out[6:8], out[8:10]
+    # ONE chain for both candidates, candidate 2 rows after candidate 1
+    root, ok = f2_sqrt_rows(torch.cat([v1, v2], dim=-1))
+    root1, root2 = root[..., :s], root[..., s:]
+    ok1 = ok[:s]
+    x2n = h2c_mul(zu2, xn)
+    xnum = torch.where(ok1, xn, x2n)
+    rootsel = torch.where(ok1, root1, root2)
+    # affine x, y via ONE inversion chain: x = xnum·xd⁻¹,
+    # y = sqrt(gx_num·xd)·xd⁻² (the xd³ fraction trick)
+    xdi = f2_inv_rows(xd)
+    x_aff = h2c_mul(xnum, xdi)
+    y_aff = h2c_mul(rootsel, h2c_sqr(xdi))
+    # RFC sgn0 sign fix: sgn0(y) must equal sgn0(u)
+    flip = f2_sgn0_rows(y_aff) != (sgn != 0)
+    y_aff = torch.where(flip, _f2_neg_t(y_aff), y_aff)
+    pt = h2c_iso3(torch.cat([x_aff, y_aff]))
+    # isogeny ∞ guard (zero denominator ⇒ Zo ≡ 0): the exact (0 : 1 : 0)
+    # the complete group law requires
+    inf_flag = f2_is_zero_rows(pt[4:6])
+    inf_pt = fp.const(cuda_g2._INF_PLANES, u.device).unsqueeze(-1)
+    return torch.where(inf_flag, inf_pt, pt)
+
+
+def hash_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
+                    ) -> torch.Tensor:
+    """The device hash-to-G2 over a u-major batch of 2m rows (`pack_
+    messages`) → [6, 32, m] cleared projective G2 points, one per
+    message.  The two mapped halves are added by ONE K2 launch on copies
+    of the two row ranges (K2 takes contiguous operands)."""
+    half = u.shape[-1] // 2
+    mapped = map_to_g2_rows(u, exc, sgn)
+    r = cuda_g2.add(mapped[..., :half].contiguous(),
+                    mapped[..., half:].contiguous())
+    return clear_cofactor_rows(r)
+
+
+# ---------------------------------------------------------------------------
+# Host half: SHA-256 expand + hash_to_field
+# ---------------------------------------------------------------------------
+
+def _pack_u(us: list[FQ2]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fp2 u values → (u planes [2, 32, n], exc [n], sgn [n]) int32: the
+    tv1 = 0 exceptional flag (u = 0 or Z·u² = −1) and sgn0(u)."""
+    n = len(us)
+    u_rows = np.zeros((n, 2, NL), np.int32)
+    exc = np.zeros(n, np.int32)
+    sgn = np.zeros(n, np.int32)
+    for r, u in enumerate(us):
+        c0, c1 = (int(c) for c in u.coeffs)
+        u_rows[r, 0] = fp.to_limbs(c0)
+        u_rows[r, 1] = fp.to_limbs(c1)
+        zu2 = refsswu.Z_SSWU * (u * u)
+        tv1 = zu2 * zu2 + zu2
+        exc[r] = 1 if tv1.is_zero() else 0
+        sgn[r] = refsswu._sgn0(u)
+    return np.ascontiguousarray(u_rows.transpose(1, 2, 0)), exc, sgn
+
+
+def pack_messages(msgs, dst: bytes = DST_G2
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """expand_message_xmd + hash_to_field for m messages → (u [2, 32, 2m],
+    exc [2m], sgn [2m]) int32, u-major (row j·m + k = u_j of message k)."""
+    pairs = [hash_to_field_fp2(msg, 2, dst) for msg in msgs]
+    return _pack_u([p[0] for p in pairs] + [p[1] for p in pairs])

@@ -23,7 +23,10 @@ Verify (`batch_verify_bytes`), one RLC batch check per call:
 - `verify_host_prep` (host): split the signatures into limb planes; look
   up the decompressed-pubkey LRU (a miss decompresses G1 on the card,
   [r]P subgroup check included, once per distinct key) and the
-  hashed-message LRU (a miss runs `hash_to_g2` on the host); draw FRESH
+  hashed-message LRU (a batch of 8 or more distinct misses hashes to G2
+  on the card — SHA-256 and hash_to_field on the host, then the K7–K10
+  pipeline of ops/cuda_h2c.py and normalisation; fewer run the
+  pure-Python `hash_to_g2`, the JAX backend's size rule); draw FRESH
   64-bit coefficients r_k from OS entropy on every call (a predictable
   coefficient would let a forger cancel rows).
 - `verify_device_exec` (card): G2 decompression of the signatures (ψ
@@ -42,8 +45,9 @@ seconds in `last_stages` and the launches their thread made in
 also add up in `verify_totals` / `verify_launch_totals` across calls (the
 tiles of one flush).  The pubkey-miss decompress runs on the host-prep
 thread, on a stream of its own, while the launch thread may be running
-the previous tile: its seconds are CUDA-event time on that stream.  A
-stage a call does not run is absent, not zero.
+the previous tile: its seconds are CUDA-event time on that stream; so
+does the device hash of message misses (`h2c_s`, its host half
+`h2c_host_s`).  A stage a call does not run is absent, not zero.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ import torch
 from . import dispatch, shamir
 from .ref import curve as refcurve
 from .ref.hash_to_curve import hash_to_g2
-from ..ops import codec, cuda_fp, cuda_g2, cuda_pairing, fp, launch_count
+from ..ops import (codec, cuda_fp, cuda_g2, cuda_h2c, cuda_pairing, fp,
+                   launch_count)
 from ..ops import curve as tcurve
 from ..ops import pairing as tpair
 from ..ops.curve import F2_OPS, FP_OPS
@@ -82,6 +87,11 @@ _RLC_BITS = 64
 
 _NEG_G1 = tcurve.g1_pack([refcurve.neg(refcurve.G1_GEN)])[..., 0]  # [3, 32]
 _G1_INF = tcurve.g1_pack([None])[..., 0]
+
+
+#: distinct message misses at or above which a batch hashes on the card
+#: (the JAX backend's `_use_h2c` rule); fewer hash on the host
+H2C_MIN_BATCH = 8
 
 
 def _pad_pow2(n: int) -> int:
@@ -160,8 +170,10 @@ class CUDABackend:
 
     def verify_path(self, n: int) -> str:
         """The verify implementation of an n-entry batch: the fused RLC
-        check on the card, messages hashed on the host."""
-        return "cuda-rlc+h2c-host"
+        check on the card, message misses hashed on the card (a batch of
+        fewer than `H2C_MIN_BATCH` distinct misses still hashes on the
+        host, as the JAX backend's ``h2c-dev`` does)."""
+        return "cuda-rlc+h2c-dev"
 
     def verify_padded_rows(self, n: int) -> int:
         """Entries an n-entry verify launches: the next power of two (the
@@ -189,9 +201,12 @@ class CUDABackend:
             self.verify_totals = {}
             self.verify_launch_totals = {}
 
-    def _hash_points(self, msgs) -> np.ndarray:
+    def _hash_points(self, msgs, stages: dict, launches: dict
+                     ) -> np.ndarray:
         """[m messages] → packed affine H(m) [3, 2, 32, m] through the LRU;
-        misses are deduplicated and hashed on the host."""
+        misses are deduplicated and hashed in one batch: on the card when
+        there are `H2C_MIN_BATCH` or more (stages ``h2c_host_s`` and
+        ``h2c_s``), else on the host."""
         out = np.zeros((3, 2, NL, len(msgs)), np.int32)
         miss: dict[bytes, list[int]] = {}
         with self._cache_lock:
@@ -208,7 +223,10 @@ class CUDABackend:
         if not miss:
             return out
         keys = list(miss)
-        planes = tcurve.g2_pack([hash_to_g2(msg) for msg in keys])
+        if len(keys) >= H2C_MIN_BATCH:
+            planes = self._hash_on_card(keys, stages, launches)
+        else:
+            planes = tcurve.g2_pack([hash_to_g2(msg) for msg in keys])
         with self._cache_lock:
             for j, msg in enumerate(keys):
                 if len(self._hm_cache) >= self.HM_CACHE_MAX:
@@ -218,6 +236,20 @@ class CUDABackend:
                 for k in miss[msg]:
                     out[..., k] = planes[..., j]
         return out
+
+    def _hash_on_card(self, keys, stages: dict, launches: dict
+                      ) -> np.ndarray:
+        """Distinct messages → packed affine H(m) [3, 2, 32, m]: SHA-256
+        and hash_to_field on the host, then the device pipeline and its
+        normalisation on the prep thread's own stream."""
+        t0 = time.perf_counter()
+        u, exc, sgn = cuda_h2c.pack_messages(keys)
+        stages["h2c_host_s"] = time.perf_counter() - t0
+        with _own_stream_stage(self._prep_stream, "h2c_s", stages, launches):
+            pts = cuda_h2c.hash_to_g2_rows(self._put(u), self._put(exc),
+                                           self._put(sgn))
+            planes = _affine_planes(cuda_g2.as_points(pts)).cpu().numpy()
+        return planes
 
     def _pk_planes_cached(self, pk_bytes_list, stages: dict,
                           launches: dict) -> tuple[np.ndarray, np.ndarray]:
@@ -289,7 +321,7 @@ class CUDABackend:
             msgs.append(msg)
             pk_bytes.append(pk)
         if rows:
-            hms[..., rows] = self._hash_points(msgs)
+            hms[..., rows] = self._hash_points(msgs, stages, launches)
             planes, pk_ok = self._pk_planes_cached(pk_bytes, stages, launches)
             pks[..., rows] = planes
             host_ok[rows] = pk_ok
@@ -301,8 +333,9 @@ class CUDABackend:
         gen = np.random.default_rng() if rng is None else rng
         r_bits = gen.integers(0, 2, (v, _RLC_BITS)).astype(np.int32)
         windows = cuda_pairing.windows_from_bits(np.repeat(r_bits, 2, axis=0))
-        stages["host_prep_s"] = (time.perf_counter() - t0
-                                 - stages.get("pk_decompress_s", 0.0))
+        stages["host_prep_s"] = time.perf_counter() - t0 - sum(
+            stages.get(k, 0.0)
+            for k in ("pk_decompress_s", "h2c_host_s", "h2c_s"))
         return {"kind": "rlc", "n": n, "v": v, "pks": pks, "hms": hms,
                 "xc0": np.ascontiguousarray(xc0.T),
                 "xc1": np.ascontiguousarray(xc1.T), "sign": sign,
@@ -444,7 +477,21 @@ class CUDABackend:
         return self.combine_device_exec(self.combine_host_prep(batch))
 
 
-_KERNELS = (*cuda_fp.LAUNCHES, *cuda_g2.LAUNCHES, *cuda_pairing.LAUNCHES)
+def _affine_planes(pts: torch.Tensor) -> torch.Tensor:
+    """Projective G2 [3, 2, 32, m] → the message LRU's packed affine
+    planes [3, 2, 32, m] (canonical x, y and z = 1; ∞ as (0, 1, 0)), the
+    layout `curve.g2_pack` gives the host hash."""
+    xc0, xc1, yc0, yc1, inf = codec.g2_normalize(pts)
+    zero = torch.zeros_like(xc0)
+    one = fp.elem(fp.ONE, xc0.device).expand_as(xc0)
+    x = torch.stack([torch.where(inf, zero, xc0), torch.where(inf, zero, xc1)])
+    y = torch.stack([torch.where(inf, one, yc0), torch.where(inf, zero, yc1)])
+    z = torch.stack([torch.where(inf, zero, one), zero])
+    return torch.stack([x, y, z])
+
+
+_KERNELS = (*cuda_fp.LAUNCHES, *cuda_g2.LAUNCHES, *cuda_pairing.LAUNCHES,
+            *cuda_h2c.LAUNCHES)
 
 
 def _launch_counts() -> dict[str, int]:

@@ -33,10 +33,33 @@ Phases, in order; any failure raises and exits non-zero:
              tiles, every pairing kernel launched; then a 2,048-entry batch
              with 6 bad entries whose verdicts must equal the pure-Python
              oracle on the bad rows and on 4 random good ones.
+5. h2c     — one batch of 2,048 distinct messages (one verify tile)
+             through the device hash-to-G2 (cuda_h2c.hash_to_g2_rows)
+             must equal the same pipeline on the plain versions on the
+             card in every row; its normalised points must equal the
+             pure-Python hash_to_g2 on 32 sampled messages, and a batch of
+             the five RFC 9380 J.10.1 messages under the QUUX DST the same;
+             the batch timed alone on the idle card (h2c_s by CUDA events,
+             median of 3) with its launches.
+6. distinct — 10,000 entries with one distinct message per validator
+             (a selection-proof-like flush), signed on the card over H(m)
+             from the device pipeline; the pubkey LRU warm, the message LRU
+             cleared before each of 3 reps of one verify_many: all verdicts
+             True, every tile's misses hashed on the card under h2c_s, the
+             stage launches adding up; then a 2,048-entry batch with 4
+             entries carrying another entry's message, rejected exactly,
+             agreeing with the pure-Python oracle.
+
+Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
+K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
+2,048-message batch's shapes) against their plain versions.
 
 A kernel's `launches` in the JSON line is its count over the main-path
-runs: `launches_combine` (one combine rep) plus `launches_verify` (one
-10,000-entry verify rep), each counted from zero.
+runs: `launches_combine` (one combine rep), `launches_verify` (one
+10,000-entry verify rep, warm caches) and `launches_verify_distinct` (one
+rep of the distinct-message flush), each counted from zero.  K10 addsel
+has no caller on any path (nor in the JAX package): only phase 2 launches
+it.
 The second-to-last line is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -46,6 +69,7 @@ result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import random
 import statistics
@@ -74,6 +98,12 @@ ISSUE_LANES_PER_SM = 128
 # validator — over MESSAGES attestation messages (one per committee).
 VALIDATORS, SHARES, REPS = 10_000, 7, 3
 MESSAGES = 64
+# The device hash-to-G2 checks: messages sampled against the pure-Python
+# oracle, and the RFC 9380 J.10.1 suite's messages and DST.
+H2C_ORACLE_SAMPLES = 32
+J101_DST = b"QUUX-V01-CS02-with-BLS12381G2_XMD:SHA-256_SSWU_RO_"
+J101_MSGS = [b"", b"abc", b"abcdef0123456789", b"q128_" + b"q" * 128,
+             b"a512_" + b"a" * 512]
 
 
 def log(msg: str) -> None:
@@ -155,6 +185,16 @@ OPS["g1_dbl"] = (8 * OPS["fp_mul"] + 4 * OPS["fp_mul_small"]
                  + 2 * OPS["fp_add"] + OPS["fp_sub"])
 OPS["g1_add"] = (12 * OPS["fp_mul"] + 12 * OPS["fp_add"] + 5 * OPS["fp_sub"]
                  + 3 * OPS["fp_mul_small"])
+# the hash-to-G2 kernels (csrc/h2c.cu) and K10 (csrc/g2.cu)
+OPS["h2c_sqr"] = _F2SQR
+OPS["h2c_mul"] = _F2MUL
+OPS["h2c_sqr4"] = 4 * _F2SQR
+OPS["h2c_sqr4mul"] = 4 * _F2SQR + _F2MUL
+# 11 products, 4 squares, 4 sums; a row whose flag is clear adds the
+# product −A'·tv1
+OPS["h2c_sswu"] = 11 * _F2MUL + 4 * _F2SQR + 4 * _F2ADD
+OPS["h2c_iso3"] = 13 * _F2MUL + 11 * _F2ADD
+OPS["h2c_psi"] = 2 * _F2MUL + 3 * OPS["fp_neg"]
 EL_BYTES = NL * 4
 PT_BYTES = 6 * EL_BYTES
 
@@ -346,6 +386,57 @@ def pairing_kernels_phase(dev, rows: int, sm_clocks_per_s: float) -> dict:
     return results
 
 
+def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
+    """K7–K9 and K10 (dblsel, addsel) against their plain versions at the
+    shapes of one `msgs`-message hash batch: the sqrt chain's 4·msgs rows
+    (both candidates of both u values), SSWU and the isogeny's 2·msgs, ψ
+    and the cofactor steps' msgs; seeded random and all-LMAX limbs."""
+    from charon_tpu_torch.ops import cuda_g2, cuda_h2c as ch
+
+    gen = np.random.default_rng(20261018)
+    results = {}
+
+    def rec(name, kernel_fn, plain_fn, ops, nbytes, patterns):
+        record(results, name, kernel_fn, plain_fn, ops, nbytes, patterns,
+               sm_clocks_per_s)
+
+    def lim(planes, pattern, n):
+        return limbs(dev, gen, (planes, NL, n), pattern)
+
+    pats = ("random", "lmax")
+    n = 4 * msgs
+    for name, k_fn, p_fn, n_in in (
+            ("h2c_sqr", ch.h2c_sqr, ch.sqr_plain, 1),
+            ("h2c_mul", ch.h2c_mul, ch.mul_plain, 2),
+            ("h2c_sqr4", ch.h2c_sqr4, ch.sqr4_plain, 1),
+            ("h2c_sqr4mul", ch.h2c_sqr4mul, ch.sqr4mul_plain, 2)):
+        rec(name, k_fn, p_fn, OPS[name] * n, (n_in + 1) * 2 * EL_BYTES * n,
+            [lambda p=p, n_in=n_in: tuple(lim(2, p, n) for _ in range(n_in))
+             for p in pats])
+    n = 2 * msgs
+    w = gen.integers(0, 16, n, dtype=np.int32) == 0        # ~1 in 16 set
+    w_t = torch.from_numpy(w.astype(np.int32)).to(dev)
+    rec("h2c_sswu", ch.h2c_sswu, ch.sswu_plain,
+        OPS["h2c_sswu"] * n + _F2MUL * int((~w).sum()),
+        n * (12 * EL_BYTES + 4),
+        [lambda p=p: (lim(2, p, n), w_t) for p in pats])
+    rec("h2c_iso3", ch.h2c_iso3, ch.iso3_plain, OPS["h2c_iso3"] * n,
+        n * 10 * EL_BYTES, [lambda p=p: (lim(4, p, n),) for p in pats])
+    n = msgs
+    rec("h2c_psi", ch.h2c_psi, ch.psi_plain, OPS["h2c_psi"] * n,
+        n * 2 * PT_BYTES, [lambda p=p: (lim(6, p, n),) for p in pats])
+    w = torch.from_numpy(gen.integers(0, 4, n, dtype=np.int32)).to(dev)
+    nz = int((w != 0).sum())
+    for name, k_fn, p_fn, dbls in (
+            ("g2_dblsel", cuda_g2.dblsel, cuda_g2.dblsel_plain, 2),
+            ("g2_addsel", cuda_g2.addsel, cuda_g2.addsel_plain, 0)):
+        rec(name, k_fn, p_fn, OPS["g2_dbl"] * dbls * n + OPS["g2_add"] * nz,
+            n * (2 * PT_BYTES + 4) + nz * PT_BYTES,
+            [lambda p=p: (lim(6, p, n), lim(6, p, n), lim(6, p, n),
+                          lim(6, p, n), w) for p in pats])
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the combine through SigAgg
 # ---------------------------------------------------------------------------
@@ -497,7 +588,9 @@ def combine_phase(dev) -> tuple[dict, dict]:
         got, launches = asyncio.run(sigagg_round(parsigs, t, 64 + rep))
         wall = time.perf_counter() - t0
         if rep == 0:
-            launch_counts = {**cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES}
+            launch_counts = {k: n for k, n in {**cuda_fp.LAUNCHES,
+                                               **cuda_g2.LAUNCHES}.items()
+                             if k not in ("g2_dblsel", "g2_addsel")}
             stage_launches = backend.last_launches
         if launches != 1 or len(got) != v:
             raise AssertionError(f"rep {rep}: {launches} combines for "
@@ -544,10 +637,25 @@ def oracle_verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
         return False
 
 
-def verify_pool(dev, backend) -> list[tuple[bytes, bytes, bytes]]:
+def sign_on_card(dev, bits: torch.Tensor, hms: np.ndarray) -> list[bytes]:
+    """Row k: sk_k·H_k as compressed bytes, computed on the card (bits
+    [256, v] the keys' bits on the card, hms [3, 2, 32, v] packed H(m))."""
+    from charon_tpu_torch.ops import codec, curve as tcurve
+
+    base = torch.from_numpy(np.ascontiguousarray(hms)).to(dev)
+    xc0, xc1, yc0, yc1, inf = codec.g2_normalize(
+        tcurve.scalar_mul(tcurve.F2_OPS, base, bits))
+    sigs = codec.g2_compress_np(*[a.cpu().numpy().T
+                                  for a in (xc0, xc1, yc0, yc1)],
+                                inf.cpu().numpy())
+    return [sigs[k].tobytes() for k in range(sigs.shape[0])]
+
+
+def verify_pool(dev, backend):
     """VALIDATORS entries (pk, m_{k mod 64}, sk·H(m)): keys and signatures
     computed on the card through the port's curve and codec, H(m) through
-    the backend's message cache (hashed on the host once per message)."""
+    the backend's message cache (the 64 misses hashed on the card).
+    Returns (entries, sks, the keys' bits on the card)."""
     from charon_tpu_torch.ops import codec, curve as tcurve
     from charon_tpu_torch.tbls.ref import bls
     from charon_tpu_torch.tbls.ref import curve as rc
@@ -559,7 +667,7 @@ def verify_pool(dev, backend) -> list[tuple[bytes, bytes, bytes]]:
     msgs = [f"charon-tpu-torch chip smoke: slot 96 committee {c}".encode()
             for c in range(MESSAGES)]
     t0 = time.perf_counter()
-    hms = backend._hash_points(msgs)                    # [3, 2, 32, 64]
+    hms = backend._hash_points(msgs, {}, {})            # [3, 2, 32, 64]
     t_hash = time.perf_counter() - t0
     t0 = time.perf_counter()
     bits = torch.from_numpy(np.ascontiguousarray(
@@ -569,14 +677,8 @@ def verify_pool(dev, backend) -> list[tuple[bytes, bytes, bytes]]:
     x, y, inf = codec.g1_normalize(tcurve.scalar_mul(tcurve.FP_OPS, g1, bits))
     pks = codec.g1_compress_np(x.cpu().numpy().T, y.cpu().numpy().T,
                                inf.cpu().numpy())
-    base = torch.from_numpy(np.ascontiguousarray(
-        hms[..., np.arange(v) % MESSAGES])).to(dev)
-    xc0, xc1, yc0, yc1, inf = codec.g2_normalize(
-        tcurve.scalar_mul(tcurve.F2_OPS, base, bits))
-    sigs = codec.g2_compress_np(*[a.cpu().numpy().T
-                                  for a in (xc0, xc1, yc0, yc1)],
-                                inf.cpu().numpy())
-    entries = [(pks[k].tobytes(), msgs[k % MESSAGES], sigs[k].tobytes())
+    sigs = sign_on_card(dev, bits, hms[..., np.arange(v) % MESSAGES])
+    entries = [(pks[k].tobytes(), msgs[k % MESSAGES], sigs[k])
                for k in range(v)]
     t_card = time.perf_counter() - t0
     for k in (0, v // 2, v - 1):
@@ -585,9 +687,9 @@ def verify_pool(dev, backend) -> list[tuple[bytes, bytes, bytes]]:
                 sig != rc.g2_to_bytes(bls.sign(sks[k], msg)):
             raise AssertionError(f"pool row {k}: pk or sig != the oracle's")
     log(f"verify pool: {v:,} keys and signatures over {MESSAGES} messages; "
-        f"host hash_to_g2 {t_hash:.2f} s, pk = sk·G1 and sig = sk·H(m) on "
-        f"the card {t_card:.2f} s (3 rows oracle-checked)")
-    return entries
+        f"hash_to_g2 through the backend {t_hash:.2f} s, pk = sk·G1 and "
+        f"sig = sk·H(m) on the card {t_card:.2f} s (3 rows oracle-checked)")
+    return entries, sks, bits
 
 
 async def verify_round(entries):
@@ -604,16 +706,27 @@ async def verify_round(entries):
 
 
 def reset_all_launches() -> None:
-    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_pairing
+    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_h2c, cuda_pairing
 
-    for mod in (cuda_fp, cuda_g2, cuda_pairing):
+    for mod in (cuda_fp, cuda_g2, cuda_pairing, cuda_h2c):
         mod.reset_launches()
 
 
 def all_launches() -> dict:
-    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_pairing
+    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_h2c, cuda_pairing
 
-    return {**cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES, **cuda_pairing.LAUNCHES}
+    return {**cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES, **cuda_pairing.LAUNCHES,
+            **cuda_h2c.LAUNCHES}
+
+
+def check_stage_sums(label: str, counts: dict, stage_launches: dict) -> None:
+    """Every launch of the run lands in exactly one stage of the thread
+    that made it."""
+    by_stage = {k: sum(st.get(k, 0) for st in stage_launches.values())
+                for k in counts}
+    if by_stage != counts:
+        raise AssertionError(f"{label}: stage launches {by_stage} do not add "
+                             f"up to the run's {counts}")
 
 
 def bad_entries(entries, pool_rows):
@@ -635,12 +748,14 @@ def bad_entries(entries, pool_rows):
     ]
 
 
-def verify_phase(dev) -> dict:
+def verify_phase(dev):
+    """→ (launch counts of one warm rep, the pool's pubkeys, sks and key
+    bits on the card)."""
     from charon_tpu_torch.ops import cuda_pairing
     from charon_tpu_torch.tbls import api, dispatch
 
     backend = api._backend()
-    entries = verify_pool(dev, backend)
+    entries, sks, bits = verify_pool(dev, backend)
     tiles_want = len(dispatch.tile_sizes(VALIDATORS, dispatch.VERIFY_TILE))
 
     # the G1 decompress of every key alone, on the idle card, through a
@@ -667,13 +782,8 @@ def verify_phase(dev) -> dict:
     if not all(oks) or len(oks) != VALIDATORS:
         raise AssertionError(f"cold run: {oks.count(False)} of {len(oks)} "
                              f"valid entries rejected")
-    cold_counts = all_launches()
-    by_stage = {k: sum(st.get(k, 0) for st in
-                       backend.verify_launch_totals.values())
-                for k in cold_counts}
-    if by_stage != cold_counts:
-        raise AssertionError(f"cold run: stage launches {by_stage} do not "
-                             f"add up to the run's {cold_counts}")
+    check_stage_sums("cold run", all_launches(),
+                     backend.verify_launch_totals)
     log(f"verify cold: {VALIDATORS:,} entries, {tiles} tiles, {wall:.3f} s "
         f"wall; pk_decompress_s "
         f"{backend.verify_totals['pk_decompress_s']:.4f} summed over tiles, "
@@ -711,11 +821,7 @@ def verify_phase(dev) -> dict:
     if zero:
         raise AssertionError(f"pairing kernels never launched on the verify "
                              f"path: {zero}")
-    by_stage = {k: sum(st.get(k, 0) for st in stage_launches.values())
-                for k in launch_counts}
-    if by_stage != launch_counts:
-        raise AssertionError(f"verify stage launches {by_stage} do not add "
-                             f"up to the run's {launch_counts}")
+    check_stage_sums("verify", launch_counts, stage_launches)
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     log("verify p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
@@ -752,6 +858,218 @@ def verify_phase(dev) -> dict:
         f"pure-Python oracle ({time.perf_counter() - t1:.1f} s); "
         f"{wall:.3f} s wall, recheck_s "
         f"{backend.verify_totals['recheck_s']:.4f}")
+    return launch_counts, [pk for pk, _, _ in entries], sks, bits
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the device hash-to-G2 against its plain pipeline and the oracle
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper the h2c pipeline reaches (K1, K2, K7–K10)
+    replaced by its plain version, on any device."""
+    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_h2c as ch, fp
+
+    swaps = [(ch, {"h2c_sqr": ch.sqr_plain, "h2c_mul": ch.mul_plain,
+                   "h2c_sqr4": ch.sqr4_plain, "h2c_sqr4mul": ch.sqr4mul_plain,
+                   "h2c_sswu": ch.sswu_plain, "h2c_iso3": ch.iso3_plain,
+                   "h2c_psi": ch.psi_plain}),
+             (cuda_g2, {"dbl": cuda_g2.dbl_plain, "add": cuda_g2.add_plain,
+                        "dblsel": cuda_g2.dblsel_plain}),
+             (cuda_fp, {"mul": fp.mul_plain, "add": fp.add_plain,
+                        "sub": fp.sub_plain, "neg": fp.neg_plain,
+                        "mul_small": fp.mul_small_plain})]
+    saved = [(mod, {k: getattr(mod, k) for k in fns}) for mod, fns in swaps]
+    try:
+        for mod, fns in swaps:
+            for k, fn in fns.items():
+                setattr(mod, k, fn)
+        yield
+    finally:
+        for mod, fns in saved:
+            for k, fn in fns.items():
+                setattr(mod, k, fn)
+
+
+def h2c_phase(dev, batch: int) -> dict:
+    """One batch of `batch` distinct messages: kernels vs the plain
+    pipeline on the card, normalised points vs the oracle, timed alone.
+    → the batch's launches and seconds."""
+    from charon_tpu_torch.ops import cuda_g2, cuda_h2c, curve as tcurve
+    from charon_tpu_torch.tbls import backend_cuda
+    from charon_tpu_torch.tbls.ref.hash_to_curve import hash_to_g2
+
+    msgs = [f"charon-tpu-torch chip smoke: selection proof {k}".encode()
+            for k in range(batch)]
+    t0 = time.perf_counter()
+    u, exc, sgn = cuda_h2c.pack_messages(msgs)
+    t_pack = time.perf_counter() - t0
+    args = [torch.from_numpy(a).to(dev) for a in (u, exc, sgn)]
+    got = cuda_h2c.hash_to_g2_rows(*args)
+    t0 = time.perf_counter()
+    with plain_kernels():
+        want = cuda_h2c.hash_to_g2_rows(*args)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).any(dim=0).any(dim=0).sum())
+        raise AssertionError(f"h2c pipeline: {bad} of {batch} rows differ "
+                             f"from the plain pipeline on the card")
+    log(f"h2c: {batch:,} messages through the device pipeline equal the "
+        f"plain pipeline on the card in every row (plain {t_plain:.1f} s); "
+        f"pack_messages {t_pack:.4f} s on the host")
+
+    # timed alone on the idle card, through the backend's stage
+    be = backend_cuda.CUDABackend()
+    runs = []
+    for rep in range(1 + REPS):
+        reset_all_launches()
+        stages, launches = {}, {}
+        planes = be._hash_on_card(msgs, stages, launches)
+        if rep == 0:
+            counts = all_launches()
+            check_stage_sums("h2c batch", counts, launches)
+        else:
+            runs.append(stages)
+    rng = random.Random(13)
+    sample = sorted(rng.sample(range(batch), H2C_ORACLE_SAMPLES))
+    t0 = time.perf_counter()
+    for k in sample:
+        if not np.array_equal(planes[..., k],
+                              tcurve.g2_pack([hash_to_g2(msgs[k])])[..., 0]):
+            raise AssertionError(f"h2c message {k}: != the oracle's H(m)")
+    # the same pipeline under the J.10.1 suite's DST
+    u, exc, sgn = cuda_h2c.pack_messages(J101_MSGS, J101_DST)
+    pts = cuda_h2c.hash_to_g2_rows(
+        *[torch.from_numpy(a).to(dev) for a in (u, exc, sgn)])
+    jp = backend_cuda._affine_planes(cuda_g2.as_points(pts)).cpu().numpy()
+    for k, msg in enumerate(J101_MSGS):
+        if not np.array_equal(jp[..., k], tcurve.g2_pack(
+                [hash_to_g2(msg, J101_DST)])[..., 0]):
+            raise AssertionError(f"J.10.1 message {msg[:8]!r}: != the "
+                                 f"oracle's H(m)")
+    log(f"h2c: {H2C_ORACLE_SAMPLES} sampled messages and the 5 RFC 9380 "
+        f"J.10.1 messages (QUUX DST) equal the pure-Python hash_to_g2 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    log(f"h2c alone: {batch:,} messages, median of {REPS}: h2c_s "
+        f"{med['h2c_s']:.6f} s (CUDA events), h2c_host_s "
+        f"{med['h2c_host_s']:.6f} s; reps h2c_s "
+        + ", ".join(f"{r['h2c_s']:.6f}" for r in runs) + "; launches "
+        + json.dumps({k: n for k, n in counts.items() if n})
+        + f" ({sum(counts.values())} in all)")
+    return med
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: a flush of 10,000 distinct messages
+# ---------------------------------------------------------------------------
+
+H2C_PATH_KERNELS = ("h2c_sswu", "h2c_sqr", "h2c_mul", "h2c_sqr4",
+                    "h2c_sqr4mul", "h2c_iso3", "h2c_psi", "g2_dblsel")
+
+
+def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
+                          bits: torch.Tensor) -> dict:
+    """→ the launch counts of one rep of the distinct-message flush."""
+    from charon_tpu_torch.tbls import api, dispatch
+    from charon_tpu_torch.tbls.ref import bls
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    backend = api._backend()
+    v = VALIDATORS
+    msgs = [f"charon-tpu-torch chip smoke: selection proof slot 96 "
+            f"validator {k}".encode() for k in range(v)]
+    t0 = time.perf_counter()
+    stages = {}
+    hms = backend._hash_points(msgs, stages, {})
+    t_hash = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sigs = sign_on_card(dev, bits, hms)
+    entries = [(pks[k], msgs[k], sigs[k]) for k in range(v)]
+    t_sign = time.perf_counter() - t0
+    for k in (0, v - 1):
+        if sigs[k] != rc.g2_to_bytes(bls.sign(sks[k], msgs[k])):
+            raise AssertionError(f"distinct pool row {k}: sig != the "
+                                 f"oracle's")
+    log(f"distinct pool: {v:,} messages hashed on the card in {t_hash:.2f} s "
+        f"(h2c_host_s {stages['h2c_host_s']:.4f}, h2c_s "
+        f"{stages['h2c_s']:.4f}), signed on the card in {t_sign:.2f} s "
+        f"(2 rows oracle-checked)")
+
+    tiles_want = len(dispatch.tile_sizes(v, dispatch.VERIFY_TILE))
+    runs, launch_counts, stage_launches = [], None, None
+    for rep in range(REPS):
+        backend._hm_cache.clear()
+        misses0 = backend.hm_cache_misses
+        backend.reset_verify_totals()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        oks, launches, tiles = asyncio.run(verify_round(entries))
+        wall = time.perf_counter() - t0
+        if rep == 0:
+            launch_counts = all_launches()
+            stage_launches = {k: dict(c) for k, c in
+                              backend.verify_launch_totals.items()}
+        if not all(oks) or launches != 1 or tiles != tiles_want:
+            raise AssertionError(
+                f"distinct rep {rep}: {oks.count(False)} rejected, "
+                f"{launches} pipeline launches, {tiles} tiles")
+        h2c = backend.verify_launch_totals.get("h2c_s", {})
+        if backend.hm_cache_misses - misses0 != v or \
+                h2c.get("h2c_sswu", 0) != tiles:
+            raise AssertionError(
+                f"distinct rep {rep}: {backend.hm_cache_misses - misses0} "
+                f"message misses, {h2c.get('h2c_sswu', 0)} device h2c "
+                f"batches for {tiles} tiles")
+        if "recheck_s" in backend.verify_totals:
+            raise AssertionError(f"distinct rep {rep}: an all-valid flush "
+                                 f"took the per-row re-check")
+        runs.append({"wall_s": wall, **backend.verify_totals})
+        log(f"distinct rep {rep}: {v:,} entries, {v:,} distinct messages, "
+            f"{tiles} tiles: {wall:.3f} s wall; " + ", ".join(
+                f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
+    zero = [k for k in H2C_PATH_KERNELS if launch_counts[k] == 0]
+    if zero:
+        raise AssertionError(f"h2c kernels never launched on the distinct "
+                             f"flush: {zero}")
+    check_stage_sums("distinct", launch_counts, stage_launches)
+    p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    log("distinct p50 over %d reps (stages summed over tiles): %s" % (
+        REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
+    log("distinct launches per flush: " + json.dumps(
+        {k: n for k, n in launch_counts.items() if n}))
+    log("distinct launches per stage: " + json.dumps(
+        {st: {k: n for k, n in c.items() if n}
+         for st, c in stage_launches.items()}))
+
+    # reject: 4 entries carry the next entry's message
+    gen = np.random.default_rng(17)
+    batch = list(entries[:dispatch.VERIFY_TILE])
+    bad_rows = sorted(gen.choice(len(batch) - 1, 4, replace=False).tolist())
+    for r in bad_rows:
+        pk, _, sig = batch[r]
+        batch[r] = (pk, entries[r + 1][1], sig)
+    backend._hm_cache.clear()
+    backend.reset_verify_totals()
+    t0 = time.perf_counter()
+    oks, _, _ = asyncio.run(verify_round(batch))
+    wall = time.perf_counter() - t0
+    rejected = [r for r, ok in enumerate(oks) if not ok]
+    if rejected != bad_rows:
+        raise AssertionError(f"distinct reject: rows {rejected} rejected, "
+                             f"want {bad_rows}")
+    good = [r for r in range(len(batch)) if r not in bad_rows]
+    sample = bad_rows + sorted(gen.choice(good, 2, replace=False).tolist())
+    for r in sample:
+        if oracle_verify(*batch[r]) != oks[r]:
+            raise AssertionError(f"distinct reject row {r}: verdict "
+                                 f"{oks[r]} != the oracle's")
+    log(f"distinct reject: {len(batch):,} entries, 4 swapped-message rows "
+        f"{bad_rows} rejected, every other row accepted; {len(sample)} rows "
+        f"equal the pure-Python oracle; {wall:.3f} s wall; " + ", ".join(
+            f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
     return launch_counts
 
 
@@ -782,6 +1100,24 @@ SOURCES = {
                   "charon_tpu/ops/pallas_pairing.py:345"),
     "g1_dblsel": ("charon_tpu_torch/csrc/pairing.cu",
                   "charon_tpu/ops/pallas_pairing.py:349"),
+    "h2c_sswu": ("charon_tpu_torch/csrc/h2c.cu",
+                 "charon_tpu/ops/pallas_h2c.py:285"),
+    "h2c_sqr": ("charon_tpu_torch/csrc/h2c.cu",
+                "charon_tpu/ops/pallas_h2c.py:290"),
+    "h2c_mul": ("charon_tpu_torch/csrc/h2c.cu",
+                "charon_tpu/ops/pallas_h2c.py:294"),
+    "h2c_sqr4": ("charon_tpu_torch/csrc/h2c.cu",
+                 "charon_tpu/ops/pallas_h2c.py:298"),
+    "h2c_sqr4mul": ("charon_tpu_torch/csrc/h2c.cu",
+                    "charon_tpu/ops/pallas_h2c.py:302"),
+    "h2c_iso3": ("charon_tpu_torch/csrc/h2c.cu",
+                 "charon_tpu/ops/pallas_h2c.py:306"),
+    "h2c_psi": ("charon_tpu_torch/csrc/h2c.cu",
+                "charon_tpu/ops/pallas_h2c.py:311"),
+    "g2_dblsel": ("charon_tpu_torch/csrc/g2.cu",
+                  "charon_tpu/ops/pallas_g2.py:389"),
+    "g2_addsel": ("charon_tpu_torch/csrc/g2.cu",
+                  "charon_tpu/ops/pallas_g2.py:384"),
 }
 
 
@@ -821,8 +1157,13 @@ def main() -> int:
     kern.update(pairing_kernels_phase(
         dev, 2 * api.verify_padded_rows(dispatch.VERIFY_TILE),
         sm_clocks_per_s))
+    # the h2c kernels at one verify tile's message batch
+    kern.update(h2c_kernels_phase(dev, dispatch.VERIFY_TILE,
+                                  sm_clocks_per_s))
     combine_launches, _ = combine_phase(dev)
-    verify_launches = verify_phase(dev)
+    verify_launches, pks, sks, bits = verify_phase(dev)
+    h2c_phase(dev, dispatch.VERIFY_TILE)
+    distinct_launches = verify_distinct_phase(dev, pks, sks, bits)
 
     from charon_tpu_torch.tbls import dispatch
     pipe = dispatch.current_pipeline()
@@ -833,9 +1174,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": combine_launches.get(name, 0) + verify_launches[name],
+         "launches": (combine_launches.get(name, 0) + verify_launches[name]
+                      + distinct_launches[name]),
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
+         "launches_verify_distinct": distinct_launches[name],
          **kern[name], "library_ms": None}
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -130,7 +130,7 @@ def test_backend_attribution_and_padding(port_backend):
     assert tapi.threshold_combine([]) == []
     # the verify half exists on the same backend (slice 2)
     assert port_backend.batch_verify([]) == []
-    assert tapi.verify_path(2048) == "cuda-rlc+h2c-host"
+    assert tapi.verify_path(2048) == "cuda-rlc+h2c-dev"
 
 
 def test_padding_of_the_north_star_batch():

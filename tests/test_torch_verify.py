@@ -91,7 +91,7 @@ def test_mixed_batch_takes_the_reject_path(mixed):
     _, _, _, stages, verifier = mixed
     assert "recheck_s" in stages and "final_exp_s" in stages
     assert verifier.launches == 1 and verifier.entries_total == 9
-    assert verifier.paths == {"cuda-rlc+h2c-host": 1}
+    assert verifier.paths == {"cuda-rlc+h2c-dev": 1}
 
 
 def test_rlc_coefficients_are_fresh_per_call(port_backend, monkeypatch):

@@ -78,7 +78,7 @@ def test_two_verify_many_calls_coalesce_into_one_launch(coalesced):
 def test_a_ten_entry_flush_runs_three_tiles(coalesced):
     _, verifier, (_, tiles), _ = coalesced
     assert tiles == 3
-    assert verifier.paths == {"cuda-rlc+h2c-host": 3}
+    assert verifier.paths == {"cuda-rlc+h2c-dev": 3}
     assert dispatch.tile_sizes(10, 4) == [4, 4, 2]
     assert dispatch.tile_sizes(3, 4) == [3]
     assert dispatch.tile_sizes(10_000, 2048) == [2048] * 4 + [1808]
@@ -90,7 +90,7 @@ def test_caches_and_padding(port_backend, coalesced):
     assert be.verify_padded_rows(2048) == 2048
     assert be.verify_padded_rows(1808) == 2048
     assert be.verify_padded_rows(0) == 0
-    assert tapi.verify_path(2048) == "cuda-rlc+h2c-host"
+    assert tapi.verify_path(2048) == "cuda-rlc+h2c-dev"
     # 3 keys and 2 messages were decompressed / hashed once each; the
     # counters count rows: the first tile's 4 rows missed, the other 6 hit
     assert len(be._pk_cache) == 3
