@@ -23,8 +23,9 @@
 // What bounds it on an H100: int32 instructions.  Counted from fp381.cuh
 // as [IMAD, other] per row (the rules of fp_ops.cu; chip_smoke.py's OPS
 // table): an Fp2 product is [6,400, 5,320] and a square [5,152, 4,020];
-// K7 SQR4MUL is 4 squares and a product, [27,008, 21,400]; K8 is 12
-// products, 4 squares and 4 sums, [98,432, 83,296]; K9 ISO3 is 13 products
+// K7 SQR4MUL is 4 squares and a product, [27,008, 21,400]; K8 is 10
+// products, 4 squares and 4 sums, [85,632, 72,656], and one product more
+// where the flag is clear, [92,032, 77,976]; K9 ISO3 is 13 products
 // and 11 sums, [86,016, 78,444]; PSI 2 products and 3 negations, [13,280,
 // 11,924].  A row needs max(IMAD / 64, all / 128) SM clocks: at 132 SMs ×
 // 1.98 GHz the 8,192-row sqrt chain of one 2,048-message batch needs

@@ -47,7 +47,10 @@ tiles of one flush).  The pubkey-miss decompress runs on the host-prep
 thread, on a stream of its own, while the launch thread may be running
 the previous tile: its seconds are CUDA-event time on that stream; so
 does the device hash of message misses (`h2c_s`, its host half
-`h2c_host_s`).  A stage a call does not run is absent, not zero.
+`h2c_host_s`).  A batch of fewer than `H2C_MIN_BATCH` distinct misses
+hashes on the host instead, under `h2c_py_s`, so a call's stages show
+which route its misses took.  A stage a call does not run is absent, not
+zero.
 """
 
 from __future__ import annotations
@@ -170,9 +173,11 @@ class CUDABackend:
 
     def verify_path(self, n: int) -> str:
         """The verify implementation of an n-entry batch: the fused RLC
-        check on the card, message misses hashed on the card (a batch of
-        fewer than `H2C_MIN_BATCH` distinct misses still hashes on the
-        host, as the JAX backend's ``h2c-dev`` does)."""
+        check on the card, message misses hashed on the card.  As the JAX
+        backend's ``h2c-dev``, the label names the route a batch of
+        `H2C_MIN_BATCH` or more distinct misses takes; which route a call's
+        misses took depends on the cache and shows in its stages
+        (``h2c_s`` on the card, ``h2c_py_s`` on the host)."""
         return "cuda-rlc+h2c-dev"
 
     def verify_padded_rows(self, n: int) -> int:
@@ -206,7 +211,7 @@ class CUDABackend:
         """[m messages] → packed affine H(m) [3, 2, 32, m] through the LRU;
         misses are deduplicated and hashed in one batch: on the card when
         there are `H2C_MIN_BATCH` or more (stages ``h2c_host_s`` and
-        ``h2c_s``), else on the host."""
+        ``h2c_s``), else on the host (stage ``h2c_py_s``)."""
         out = np.zeros((3, 2, NL, len(msgs)), np.int32)
         miss: dict[bytes, list[int]] = {}
         with self._cache_lock:
@@ -226,7 +231,9 @@ class CUDABackend:
         if len(keys) >= H2C_MIN_BATCH:
             planes = self._hash_on_card(keys, stages, launches)
         else:
+            t0 = time.perf_counter()
             planes = tcurve.g2_pack([hash_to_g2(msg) for msg in keys])
+            stages["h2c_py_s"] = time.perf_counter() - t0
         with self._cache_lock:
             for j, msg in enumerate(keys):
                 if len(self._hm_cache) >= self.HM_CACHE_MAX:
@@ -335,7 +342,7 @@ class CUDABackend:
         windows = cuda_pairing.windows_from_bits(np.repeat(r_bits, 2, axis=0))
         stages["host_prep_s"] = time.perf_counter() - t0 - sum(
             stages.get(k, 0.0)
-            for k in ("pk_decompress_s", "h2c_host_s", "h2c_s"))
+            for k in ("pk_decompress_s", "h2c_host_s", "h2c_s", "h2c_py_s"))
         return {"kind": "rlc", "n": n, "v": v, "pks": pks, "hms": hms,
                 "xc0": np.ascontiguousarray(xc0.T),
                 "xc1": np.ascontiguousarray(xc1.T), "sign": sign,

@@ -33,17 +33,20 @@ Phases, in order; any failure raises and exits non-zero:
              tiles, every pairing kernel launched; then a 2,048-entry batch
              with 6 bad entries whose verdicts must equal the pure-Python
              oracle on the bad rows and on 4 random good ones.
-5. h2c     — one batch of 2,048 distinct messages (one verify tile)
+5. h2c     — the distinct flush's first 2,048 messages (one verify tile)
              through the device hash-to-G2 (cuda_h2c.hash_to_g2_rows)
              must equal the same pipeline on the plain versions on the
              card in every row; its normalised points must equal the
              pure-Python hash_to_g2 on 32 sampled messages, and a batch of
              the five RFC 9380 J.10.1 messages under the QUUX DST the same;
              the batch timed alone on the idle card (h2c_s by CUDA events,
-             median of 3) with its launches.
+             median of 3) with its launches; card batches of 1 and 7
+             messages timed against one host hash_to_g2 (the crossover of
+             the backend's size rule).
 6. distinct — 10,000 entries with one distinct message per validator
              (a selection-proof-like flush), signed on the card over H(m)
-             from the device pipeline; the pubkey LRU warm, the message LRU
+             from the device pipeline, whose first 2,048 rows must equal
+             phase 5's plain pipeline; the pubkey LRU warm, the message LRU
              cleared before each of 3 reps of one verify_many: all verdicts
              True, every tile's misses hashed on the card under h2c_s, the
              stage launches adding up; then a 2,048-entry batch with 4
@@ -190,9 +193,9 @@ OPS["h2c_sqr"] = _F2SQR
 OPS["h2c_mul"] = _F2MUL
 OPS["h2c_sqr4"] = 4 * _F2SQR
 OPS["h2c_sqr4mul"] = 4 * _F2SQR + _F2MUL
-# 11 products, 4 squares, 4 sums; a row whose flag is clear adds the
-# product −A'·tv1
-OPS["h2c_sswu"] = 11 * _F2MUL + 4 * _F2SQR + 4 * _F2ADD
+# 10 products, 4 squares, 4 sums on every row; a row whose flag is clear
+# adds the product −A'·tv1 (counted where the rows are known)
+OPS["h2c_sswu"] = 10 * _F2MUL + 4 * _F2SQR + 4 * _F2ADD
 OPS["h2c_iso3"] = 13 * _F2MUL + 11 * _F2ADD
 OPS["h2c_psi"] = 2 * _F2MUL + 3 * OPS["fp_neg"]
 EL_BYTES = NL * 4
@@ -892,16 +895,23 @@ def plain_kernels():
                 setattr(mod, k, fn)
 
 
-def h2c_phase(dev, batch: int) -> dict:
-    """One batch of `batch` distinct messages: kernels vs the plain
-    pipeline on the card, normalised points vs the oracle, timed alone.
-    → the batch's launches and seconds."""
+def distinct_messages(n: int) -> list[bytes]:
+    """The distinct-message flush's messages, one per validator."""
+    return [f"charon-tpu-torch chip smoke: selection proof slot 96 "
+            f"validator {k}".encode() for k in range(n)]
+
+
+def h2c_phase(dev, batch: int) -> np.ndarray:
+    """One batch of the first `batch` messages of the distinct flush:
+    kernels vs the plain pipeline on the card, normalised points vs the
+    oracle, timed alone, and small batches against the host hash (the
+    size rule's crossover).  → the plain pipeline's packed affine H(m)
+    [3, 2, 32, batch]."""
     from charon_tpu_torch.ops import cuda_g2, cuda_h2c, curve as tcurve
     from charon_tpu_torch.tbls import backend_cuda
     from charon_tpu_torch.tbls.ref.hash_to_curve import hash_to_g2
 
-    msgs = [f"charon-tpu-torch chip smoke: selection proof {k}".encode()
-            for k in range(batch)]
+    msgs = distinct_messages(batch)
     t0 = time.perf_counter()
     u, exc, sgn = cuda_h2c.pack_messages(msgs)
     t_pack = time.perf_counter() - t0
@@ -910,6 +920,8 @@ def h2c_phase(dev, batch: int) -> dict:
     t0 = time.perf_counter()
     with plain_kernels():
         want = cuda_h2c.hash_to_g2_rows(*args)
+        plain_planes = backend_cuda._affine_planes(
+            cuda_g2.as_points(want)).cpu().numpy()
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
     if got.shape != want.shape or not torch.equal(got, want):
@@ -959,7 +971,30 @@ def h2c_phase(dev, batch: int) -> dict:
         + ", ".join(f"{r['h2c_s']:.6f}" for r in runs) + "; launches "
         + json.dumps({k: n for k, n in counts.items() if n})
         + f" ({sum(counts.values())} in all)")
-    return med
+
+    # the size rule (fewer than H2C_MIN_BATCH misses hash on the host): a
+    # small batch on the card, wall time from the messages to the packed
+    # points, against the pure-Python hash of one message
+    small = {}
+    for m in (1, backend_cuda.H2C_MIN_BATCH - 1):
+        walls, devs = [], []
+        for _ in range(REPS):
+            stages = {}
+            t0 = time.perf_counter()
+            be._hash_on_card(msgs[:m], stages, {})
+            walls.append(time.perf_counter() - t0)
+            devs.append(stages["h2c_s"])
+        small[m] = (statistics.median(walls), statistics.median(devs))
+    host = []
+    for k in range(REPS):
+        t0 = time.perf_counter()
+        hash_to_g2(msgs[k])
+        host.append(time.perf_counter() - t0)
+    sizes = "; of ".join(f"{m} message(s) {w:.6f} s wall (h2c_s {d:.6f})"
+                         for m, (w, d) in small.items())
+    log(f"h2c size rule, median of {REPS}: a card batch of {sizes}; the "
+        f"host hash_to_g2 {statistics.median(host):.6f} s per message")
+    return plain_planes
 
 
 # ---------------------------------------------------------------------------
@@ -971,20 +1006,30 @@ H2C_PATH_KERNELS = ("h2c_sswu", "h2c_sqr", "h2c_mul", "h2c_sqr4",
 
 
 def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
-                          bits: torch.Tensor) -> dict:
-    """→ the launch counts of one rep of the distinct-message flush."""
+                          bits: torch.Tensor,
+                          plain_planes: np.ndarray) -> dict:
+    """`plain_planes`: the plain pipeline's H(m) of the flush's first
+    messages (`h2c_phase`).  → the launch counts of one rep of the
+    distinct-message flush."""
     from charon_tpu_torch.tbls import api, dispatch
     from charon_tpu_torch.tbls.ref import bls
     from charon_tpu_torch.tbls.ref import curve as rc
 
     backend = api._backend()
     v = VALIDATORS
-    msgs = [f"charon-tpu-torch chip smoke: selection proof slot 96 "
-            f"validator {k}".encode() for k in range(v)]
+    msgs = distinct_messages(v)
     t0 = time.perf_counter()
     stages = {}
     hms = backend._hash_points(msgs, stages, {})
     t_hash = time.perf_counter() - t0
+    # the signatures are made over these H(m) and the verify hashes the
+    # messages again through the same kernels: hold the first tile's rows
+    # against the plain pipeline, so a fault both hashes share shows
+    t = plain_planes.shape[-1]
+    if not np.array_equal(hms[..., :t], plain_planes):
+        bad = int((hms[..., :t] != plain_planes).reshape(-1, t).any(0).sum())
+        raise AssertionError(f"distinct pool: {bad} of the first {t} H(m) "
+                             f"differ from the plain pipeline's")
     t0 = time.perf_counter()
     sigs = sign_on_card(dev, bits, hms)
     entries = [(pks[k], msgs[k], sigs[k]) for k in range(v)]
@@ -995,8 +1040,9 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
                                  f"oracle's")
     log(f"distinct pool: {v:,} messages hashed on the card in {t_hash:.2f} s "
         f"(h2c_host_s {stages['h2c_host_s']:.4f}, h2c_s "
-        f"{stages['h2c_s']:.4f}), signed on the card in {t_sign:.2f} s "
-        f"(2 rows oracle-checked)")
+        f"{stages['h2c_s']:.4f}), the first {t:,} equal to the plain "
+        f"pipeline's; signed on the card in {t_sign:.2f} s (2 rows "
+        f"oracle-checked)")
 
     tiles_want = len(dispatch.tile_sizes(v, dispatch.VERIFY_TILE))
     runs, launch_counts, stage_launches = [], None, None
@@ -1162,8 +1208,9 @@ def main() -> int:
                                   sm_clocks_per_s))
     combine_launches, _ = combine_phase(dev)
     verify_launches, pks, sks, bits = verify_phase(dev)
-    h2c_phase(dev, dispatch.VERIFY_TILE)
-    distinct_launches = verify_distinct_phase(dev, pks, sks, bits)
+    plain_planes = h2c_phase(dev, dispatch.VERIFY_TILE)
+    distinct_launches = verify_distinct_phase(dev, pks, sks, bits,
+                                              plain_planes)
 
     from charon_tpu_torch.tbls import dispatch
     pipe = dispatch.current_pipeline()

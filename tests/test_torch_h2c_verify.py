@@ -8,7 +8,7 @@ another message than it carries — hashes its misses in ONE device batch
 on the host-prep thread, under the stage ``h2c_s`` (SHA-256 and
 hash_to_field under ``h2c_host_s``), reports the ``h2c-dev`` route, and
 gets the oracle's verdicts.  A batch of fewer than eight misses hashes on
-the host; a failing h2c launch makes the verify raise, with no fallback
+the host, under ``h2c_py_s``; a failing h2c launch makes the verify raise, with no fallback
 to host hashing.
 """
 
@@ -97,6 +97,7 @@ def test_misses_hash_on_the_card_route(port_backend, flush):
     _, _, verifier, threads, totals, launches = flush
     assert threads == ["charon-cuda-host-prep_0"]
     assert "h2c_s" in totals and "h2c_host_s" in totals
+    assert "h2c_py_s" not in totals
     assert launches["h2c_s"]["h2c_sswu"] == 1
     assert all(c.get("h2c_sswu", 0) == 0 for k, c in launches.items()
                if k != "h2c_s")
@@ -118,7 +119,7 @@ def test_fewer_than_eight_misses_hash_on_the_host(monkeypatch):
     stages, launches = {}, {}
     keys = MSGS[:backend_cuda.H2C_MIN_BATCH - 1]
     got = be._hash_points(keys + keys[:2], stages, launches)
-    assert stages == {} and launches == {}
+    assert list(stages) == ["h2c_py_s"] and launches == {}
     want = tcurve.g2_pack([hash_to_g2(m) for m in keys])
     np.testing.assert_array_equal(got[..., :len(keys)], want)
     np.testing.assert_array_equal(got[..., len(keys):], want[..., :2])

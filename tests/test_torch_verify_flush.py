@@ -76,9 +76,12 @@ def test_two_verify_many_calls_coalesce_into_one_launch(coalesced):
 
 
 def test_a_ten_entry_flush_runs_three_tiles(coalesced):
-    _, verifier, (_, tiles), _ = coalesced
+    _, verifier, (_, tiles), totals = coalesced
     assert tiles == 3
     assert verifier.paths == {"cuda-rlc+h2c-dev": 3}
+    # the label names the route of 8 or more misses; the first tile's 2
+    # distinct misses hashed on the host, and its stages say so
+    assert "h2c_py_s" in totals and "h2c_s" not in totals
     assert dispatch.tile_sizes(10, 4) == [4, 4, 2]
     assert dispatch.tile_sizes(3, 4) == [3]
     assert dispatch.tile_sizes(10_000, 2048) == [2048] * 4 + [1808]
