@@ -1,0 +1,364 @@
+// final_exp.cu — kernel K11: the whole final exponentiation
+// f ↦ f^(3·(p¹²−1)/r) of an Fp12 row in ONE launch, one warp per row.
+//
+// Replaces: the K1 chain of pairing.final_exponentiate (the JAX package's
+// charon_tpu/ops/pairing.py final_exponentiate, one jitted program whose
+// field ops reach charon_tpu/ops/pallas_fp.py `_mul_kernel` :78,
+// `_add_kernel` :97, `_sub_kernel` :104, `_neg_kernel` :112 and
+// `_small_kernel_factory` :120).  Eagerly, that chain is 7,914 dependent K1
+// launches per call, each on one row with ~130 µs of host glue.
+//
+// What it computes (ops/cuda_final_exp.py has the same sequence in plain
+// PyTorch): the easy part conj(f)·f⁻¹ then frob²(f)·f; the hard part
+// t0 = f^z·conj(f), t1 = t0^z·conj(t0), t2 = t1^z·frob(t1), t3 = (t2^z)^z,
+// t5 = t3·frob²(t2)·conj(t2), and t5·f²·f.  Each ^z is 63 squarings and 5
+// products over the bits of |z|, then a conjugation (z < 0; the argument
+// is cyclotomic, so the inverse is the conjugate).  f⁻¹ is tower.f12_inv's
+// formula, its Fp inverse the fixed pow p − 2, LSB first.
+//
+// Layout: [12, 32, R] int32 planes in and out (plane m = (k·3 + j)·2 + c),
+// the ops/pairing.py Fp12 [2, 3, 2, 32, R] with no copy.
+//
+// What bounds it on an H100: int32 instructions.  Counted from fp381.cuh
+// as [IMAD, other] (chip_smoke.py's OPS table, final_exp_ops): a squaring
+// is the K5 SQR, [91,392, 108,042], a product the K5 F12MUL, [133,344,
+// 152,494]; a row does 316 squarings, 34 products, 5 Frobenius maps (7 Fp2
+// products each), 9 conjugations and one inverse (its pow p − 2: 380
+// squarings and 229 products in Fp, [1,461,600, 825,804]): [35,375,872,
+// 40,642,194] per row.  At the card's full rate, max(IMAD / 64, all /
+// 128) clocks over 132 SMs at 1.98 GHz, that is 0.0023 ms at R = 1 and
+// 4.65 ms at R = 2,048.  This design keeps a row on one warp, so at R = 1
+// it occupies ONE SM and cannot beat that SM's rate: 0.300 ms (the
+// `bound_one_warp_ms` of chip_smoke.py).  The function does not force
+// that: an Fp12 step's 12–18 Fp2 products could spread over the SMs of a
+// thread-block cluster.  The count is also high for the function: it
+// charges each ^z squaring as a full K5 squaring, where the cyclotomic
+// (Granger–Scott) squaring needs far fewer products.  Device memory sees
+// 3 KB per row.
+//
+// What the design does about it, and what it does not yet: one warp per
+// row.  The 12 Fp2 products of a squaring (its two Toom Fp6 products) and
+// the 18 of a product (three) are independent: one lane each, operands and
+// results in shared memory, `__syncwarp()` between the operand, product
+// and combination stages, and each stage one instruction stream for all
+// its lanes (operands chosen by pointer, not by branch).  Every product and
+// sum is the same fp381.cuh function on the same inputs as the sequential
+// K5 tower, so the split cannot change a bit.  One warp alone on an SM
+// runs the unrolled field code at a small fraction of the schedulers'
+// rate (the K5 kernels, a warp per SM, show ~0.15 instructions per clock),
+// so the critical path of ~1 Fp2 product and ~4 sums per Fp12 op is what
+// the row costs; the inverse's 609 dependent Fp products run on lane 0.
+// Not yet: the cyclotomic squaring (Granger–Scott) for the 315 squarings
+// of the ^z chains, several lanes per Fp2 product (its three convolutions,
+// its two reductions), the inverse spread over the warp, and more than one
+// warp per row.  Measured times: PERF.md.
+
+#include "fp381.cuh"
+
+namespace {
+
+using fp381::F12;
+using fp381::F2;
+using fp381::F6;
+using fp381::NL;
+
+constexpr int WARP = 32;
+
+// One warp's working set in shared memory (15.75 KB).
+struct Ws {
+  F12 slot[5];   // x, t2, acc, base, tmp
+  F6 opd[2];     // the Fp6 operands a stage computes
+  F2 prod[18];   // Fp2 products, one per lane
+  F2 f6r[9];     // the Fp6 products' coefficients
+};
+
+__device__ __forceinline__ void fe_const(F2& o, int k) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    o.c0[i] = fp381::FE_G[2 * k][i];
+    o.c1[i] = fp381::FE_G[2 * k + 1][i];
+  }
+}
+
+// K Toom-style Fp6 products a[k]·b[k] (fp381::f6_mul), written to
+// f6r[3k .. 3k + 2]: 6K product lanes, then 3K combination lanes.
+__device__ void w_f6_products(Ws& s, int lane, int K, const F6* const* a,
+                              const F6* const* b) {
+  if (lane < 6 * K) {
+    const int k = lane / 6, p = lane % 6;
+    F2 x, y;
+    const F2 *xp, *yp;
+    if (p < 3) {
+      xp = &a[k]->c[p];
+      yp = &b[k]->c[p];
+    } else {
+      // p = 3: (1, 2); p = 4: (0, 1); p = 5: (0, 2)
+      const int i = p == 3 ? 1 : 0, j = p == 4 ? 1 : 2;
+      fp381::f2_add_n(x, a[k]->c[i], a[k]->c[j]);
+      fp381::f2_add_n(y, b[k]->c[i], b[k]->c[j]);
+      xp = &x;
+      yp = &y;
+    }
+    fp381::f2_mul(s.prod[lane], *xp, *yp);
+  }
+  __syncwarp();
+  if (lane < 3 * K) {
+    // coefficient i of product k, every lane on the same instructions:
+    //   i = 0: v0 + ξ·(v3 − (v1 + v2))
+    //   i = 1: (v4 − (v0 + v1)) + ξ·v2
+    //   i = 2: (v5 − (v0 + v2)) + v1
+    // (lane i = 2 computes a ξ·v2 it does not use)
+    const int k = lane / 3, i = lane % 3;
+    const F2* v = &s.prod[6 * k];
+    F2 u, t, m;
+    fp381::f2_add_n(u, v[i == 0 ? 1 : 0], v[i == 1 ? 1 : 2]);
+    fp381::f2_sub_n(t, v[3 + i], u);
+    fp381::f2_mul_xi(m, i == 0 ? t : v[2]);
+    fp381::f2_add_n(s.f6r[lane], i == 0 ? v[0] : t, i == 2 ? v[1] : m);
+  }
+  __syncwarp();
+}
+
+// o = f² (fp381::f12_sqr); o may alias f
+__device__ void w_sqr(Ws& s, int lane, F12& o, const F12& f) {
+  if (lane < 6) {
+    // s = f0 + f1 (lanes 0–2), u = f0 + v·f1 (lanes 3–5)
+    const int i = lane % 3;
+    F2 t;
+    fp381::f2_mul_xi(t, f.c[1].c[2]);
+    const F2& b = lane < 3 ? f.c[1].c[i] : i == 0 ? t : f.c[1].c[i - 1];
+    fp381::f2_add_n(s.opd[lane / 3].c[i], f.c[0].c[i], b);
+  }
+  __syncwarp();
+  const F6* a[2] = {&f.c[0], &s.opd[0]};
+  const F6* b[2] = {&f.c[1], &s.opd[1]};
+  w_f6_products(s, lane, 2, a, b);     // v0 = f6r[0..2], t = f6r[3..5]
+  const int i = lane % 3;
+  const F2* v0 = &s.f6r[0];
+  if (lane < 3) {                       // (t − v0) − v·v0
+    F2 d, e;
+    fp381::f2_sub_n(d, s.f6r[3 + i], v0[i]);
+    fp381::f2_mul_xi(e, v0[2]);
+    fp381::f2_sub_n(o.c[0].c[i], d, i == 0 ? e : v0[i - 1]);
+  } else if (lane < 6) {                // 2·v0
+    fp381::f2_small_n(o.c[1].c[i], v0[i], 2);
+  }
+  __syncwarp();
+}
+
+// o = f·g (fp381::f12_mul); o may alias f or g
+__device__ void w_mul(Ws& s, int lane, F12& o, const F12& f, const F12& g) {
+  if (lane < 6) {                       // f0 + f1 (lanes 0–2), g0 + g1
+    const F12& a = lane < 3 ? f : g;
+    const int i = lane % 3;
+    fp381::f2_add_n(s.opd[lane / 3].c[i], a.c[0].c[i], a.c[1].c[i]);
+  }
+  __syncwarp();
+  const F6* a[3] = {&f.c[0], &f.c[1], &s.opd[0]};
+  const F6* b[3] = {&g.c[0], &g.c[1], &s.opd[1]};
+  w_f6_products(s, lane, 3, a, b);     // aa, bb, cross
+  if (lane < 6) {
+    const int i = lane % 3;
+    const F2* aa = &s.f6r[0];
+    const F2* bb = &s.f6r[3];
+    F2 w, t;
+    fp381::f2_mul_xi(w, bb[2]);
+    fp381::f2_add_n(t, aa[i], bb[i]);
+    if (lane < 3) {                     // aa + v·bb
+      fp381::f2_add_n(o.c[0].c[i], aa[i], i == 0 ? w : bb[i - 1]);
+    } else {                            // cross − (aa + bb)
+      fp381::f2_sub_n(o.c[1].c[i], s.f6r[6 + i], t);
+    }
+  }
+  __syncwarp();
+}
+
+// o = conj(f) = (f0, −f1), one Fp element per lane; o may alias f
+__device__ void w_conj(int lane, F12& o, const F12& f) {
+  if (lane < 12) {
+    const int* a = reinterpret_cast<const int*>(&f) + lane * NL;
+    int* r = reinterpret_cast<int*>(&o) + lane * NL;
+    if (lane < 6) {
+      fp381::copy(r, a);
+    } else {
+      fp381::neg(r, a);
+    }
+  }
+  __syncwarp();
+}
+
+// o = f^p, one Fp2 coefficient (k, j) per lane: conj(x)·γ_j (j > 0), then
+// ·γw for k = 1 (tower.f12_frob); o may alias f
+__device__ void w_frob(int lane, F12& o, const F12& f) {
+  if (lane < 6) {
+    const int k = lane / 3, j = lane % 3;
+    const F2& x = f.c[k].c[j];
+    F2 y, g;
+    fp381::copy(y.c0, x.c0);
+    fp381::neg(y.c1, x.c1);
+    if (j) {
+      fe_const(g, j - 1);
+      fp381::f2_mul(y, y, g);
+    }
+    if (k) {
+      fe_const(g, 2);
+      fp381::f2_mul(y, y, g);
+    }
+    o.c[k].c[j] = y;
+  }
+  __syncwarp();
+}
+
+// o = g^z: the bits of |z| below the leading one, MSB first, then conj.
+// o must not alias g.
+__device__ void w_exp_z(Ws& s, int lane, F12& o, const F12& g) {
+  w_sqr(s, lane, o, g);
+  if ((fp381::ABS_Z >> 62) & 1) w_mul(s, lane, o, o, g);
+#pragma unroll 1
+  for (int i = 61; i >= 0; --i) {
+    w_sqr(s, lane, o, o);
+    if ((fp381::ABS_Z >> i) & 1) w_mul(s, lane, o, o, g);
+  }
+  w_conj(lane, o, o);
+}
+
+// ---- the inverse (one lane; sequential fp381 functions) -------------------
+
+// a^(p−2), LSB first (fp.pow_fixed's schedule)
+__device__ __noinline__ void fp_inv(int* o, const int* a) {
+  int result[NL], base[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) result[i] = i == 0;
+  fp381::copy(base, a);
+#pragma unroll 1
+  for (int i = 0; i < fp381::EXP_PM2_BITS; ++i) {
+    if ((fp381::EXP_PM2[i >> 5] >> (i & 31)) & 1u) {
+      fp381::mul_n(result, result, base);
+    }
+    if (i != fp381::EXP_PM2_BITS - 1) fp381::mul_n(base, base, base);
+  }
+  fp381::copy(o, result);
+}
+
+__device__ __noinline__ void f2_inv(F2& o, const F2& a) {
+  int s0[NL], s1[NL], n[NL], t0[NL], t1[NL];
+  fp381::mul_n(s0, a.c0, a.c0);
+  fp381::mul_n(s1, a.c1, a.c1);
+  fp381::add(n, s0, s1);
+  fp_inv(n, n);
+  fp381::mul_n(t0, a.c0, n);
+  fp381::mul_n(t1, a.c1, n);
+  fp381::copy(o.c0, t0);
+  fp381::neg(o.c1, t1);
+}
+
+__device__ __noinline__ void f6_inv(F6& o, const F6& a) {
+  F2 s0, s1, s2, p12, p01, p02, A, B, C, t, u, fa, fb, fc;
+  fp381::f2_mul(s0, a.c[0], a.c[0]);
+  fp381::f2_mul(s1, a.c[1], a.c[1]);
+  fp381::f2_mul(s2, a.c[2], a.c[2]);
+  fp381::f2_mul(p12, a.c[1], a.c[2]);
+  fp381::f2_mul(p01, a.c[0], a.c[1]);
+  fp381::f2_mul(p02, a.c[0], a.c[2]);
+  fp381::f2_mul_xi(t, p12);
+  fp381::f2_sub_n(A, s0, t);
+  fp381::f2_mul_xi(t, s2);
+  fp381::f2_sub_n(B, t, p01);
+  fp381::f2_sub_n(C, s1, p02);
+  fp381::f2_mul(fa, a.c[0], A);
+  fp381::f2_mul(fb, a.c[2], B);
+  fp381::f2_mul(fc, a.c[1], C);
+  fp381::f2_add_n(t, fb, fc);
+  fp381::f2_mul_xi(u, t);
+  fp381::f2_add_n(t, fa, u);
+  f2_inv(t, t);
+  fp381::f2_mul(o.c[0], A, t);
+  fp381::f2_mul(o.c[1], B, t);
+  fp381::f2_mul(o.c[2], C, t);
+}
+
+// o = f⁻¹ (tower.f12_inv's formula); o must not alias f
+__device__ __noinline__ void f12_inv(F12& o, const F12& f) {
+  F6 s0, s1, u, t;
+  fp381::f6_mul(s0, f.c[0], f.c[0]);
+  fp381::f6_mul(s1, f.c[1], f.c[1]);
+  fp381::f6_mul_by_v(u, s1);
+  fp381::f6_sub(u, s0, u);
+  f6_inv(t, u);
+  fp381::f6_mul(o.c[0], f.c[0], t);
+  fp381::f6_mul(o.c[1], f.c[1], t);
+#pragma unroll 1
+  for (int i = 0; i < 3; ++i) {
+    fp381::neg(o.c[1].c[i].c0, o.c[1].c[i].c0);
+    fp381::neg(o.c[1].c[i].c1, o.c[1].c[i].c1);
+  }
+}
+
+// ---- the kernel ------------------------------------------------------------
+
+__global__ void __launch_bounds__(WARP)
+final_exp_kernel(int* __restrict__ out, const int* __restrict__ in, int n) {
+  __shared__ Ws s;
+  const int r = blockIdx.x;
+  const int lane = threadIdx.x;
+  F12& x = s.slot[0];
+  F12* t2 = &s.slot[1];
+  F12* acc = &s.slot[2];
+  F12* base = &s.slot[3];
+  F12& tmp = s.slot[4];
+  {
+    int* e = reinterpret_cast<int*>(&x);
+#pragma unroll 1
+    for (int i = lane; i < 12 * NL; i += WARP) e[i] = in[(size_t)i * n + r];
+  }
+  __syncwarp();
+  // easy part: x = conj(x)·x⁻¹, then x = frob²(x)·x
+  if (lane == 0) f12_inv(tmp, x);
+  __syncwarp();
+  w_conj(lane, *acc, x);
+  w_mul(s, lane, x, *acc, tmp);
+  w_frob(lane, *acc, x);
+  w_frob(lane, *acc, *acc);
+  w_mul(s, lane, x, *acc, x);
+  // hard part
+  w_exp_z(s, lane, *acc, x);           // t0 = x^z · conj(x)
+  w_conj(lane, tmp, x);
+  w_mul(s, lane, *acc, *acc, tmp);
+  F12* sw = base;
+  base = acc;
+  acc = sw;
+  w_exp_z(s, lane, *acc, *base);       // t1 = t0^z · conj(t0)
+  w_conj(lane, tmp, *base);
+  w_mul(s, lane, *acc, *acc, tmp);
+  sw = base;
+  base = acc;
+  acc = sw;
+  w_exp_z(s, lane, *acc, *base);       // t2 = t1^z · frob(t1)
+  w_frob(lane, tmp, *base);
+  w_mul(s, lane, *t2, *acc, tmp);
+  w_exp_z(s, lane, *base, *t2);        // t3 = (t2^z)^z
+  w_exp_z(s, lane, *acc, *base);
+  w_frob(lane, tmp, *t2);              // t5 = t3 · frob²(t2) · conj(t2)
+  w_frob(lane, tmp, tmp);
+  w_mul(s, lane, *acc, *acc, tmp);
+  w_conj(lane, tmp, *t2);
+  w_mul(s, lane, *acc, *acc, tmp);
+  w_sqr(s, lane, tmp, x);              // x³
+  w_mul(s, lane, tmp, tmp, x);
+  w_mul(s, lane, *acc, *acc, tmp);     // t5 · x³
+  {
+    const int* e = reinterpret_cast<const int*>(acc);
+#pragma unroll 1
+    for (int i = lane; i < 12 * NL; i += WARP) out[(size_t)i * n + r] = e[i];
+  }
+}
+
+}  // namespace
+
+// out, in: [12, 32, n] int32.  Returns the cudaError of the launch.
+extern "C" int charon_final_exp(void* out, const void* in, int n,
+                                void* stream) {
+  final_exp_kernel<<<n, WARP, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(out), static_cast<const int*>(in), n);
+  return (int)cudaGetLastError();
+}

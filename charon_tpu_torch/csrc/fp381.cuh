@@ -579,6 +579,75 @@ static __device__ __noinline__ void g1_add(G1& o, const G1& p1,
   add(o.z, a, b);
 }
 
+// ---- exact boundary (fp.canon_std / fp.is_zero / fp.sgn) ------------------
+//
+// A canonical form is unique, so these agree with the plain tensor code by
+// construction, whatever the carry order.
+
+// value(a) (32 nonnegative limbs <= LMAX) → 34 exact 12-bit digits
+__device__ __forceinline__ void exact_digits(int* d, const int* a) {
+  int c = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int v = a[i] + c;
+    d[i] = v & MASK;
+    c = v >> LB;
+  }
+  d[NL] = c & MASK;
+  d[NL + 1] = c >> LB;
+}
+
+// d >= PMULT[k], lexicographic over 34 digits
+__device__ __forceinline__ bool ge_pmult(const int* d, int k) {
+#pragma unroll 1
+  for (int i = NL + 1; i >= 0; --i) {
+    if (d[i] != PMULT[k][i]) return d[i] > PMULT[k][i];
+  }
+  return true;
+}
+
+// a redundant residue → its canonical standard form in [0, p): subtract
+// the largest multiple c·p <= value(a), c < 48
+static __device__ __noinline__ void canon(int* o, const int* a) {
+  int d[NL + 2];
+  exact_digits(d, a);
+  int c = 0;
+#pragma unroll 1
+  for (int k = 1; k < 48; ++k) {
+    if (ge_pmult(d, k)) c = k;
+  }
+  int borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int v = d[i] - PMULT[c][i] - borrow;
+    borrow = v < 0;
+    o[i] = v + (borrow << LB);
+  }
+}
+
+// value(a) ≡ 0 (mod p)
+static __device__ __noinline__ bool is_zero(const int* a) {
+  int c[NL];
+  canon(c, a);
+  int acc = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) acc |= c[i];
+  return acc == 0;
+}
+
+// ZCash sign of a STANDARD-form element: a >= (p + 1) / 2
+__device__ __forceinline__ bool sgn(const int* a) {
+#pragma unroll 1
+  for (int i = NL - 1; i >= 0; --i) {
+    if (a[i] != HALF_P1[i]) return a[i] > HALF_P1[i];
+  }
+  return true;
+}
+
+__device__ __forceinline__ bool f2_is_zero(const F2& a) {
+  return is_zero(a.c0) && is_zero(a.c1);
+}
+
 // ---- point planes in device memory: [6, 32, stride], row r ---------------
 
 __device__ __forceinline__ void load_el(int* o, const int* plane, int r,

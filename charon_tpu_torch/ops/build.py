@@ -25,7 +25,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu")
+SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu", "final_exp.cu",
+           "decompress.cu")
 HEADERS = ("fp381.cuh", "fp381_consts.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -164,10 +165,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_f2_chain.argtypes = [i, p, p, p, i, p]
     lib.charon_h2c_sswu.argtypes = [p, p, p, i, p]
     lib.charon_h2c_point.argtypes = [i, p, p, i, p]
+    lib.charon_final_exp.argtypes = [p, p, i, p]
+    lib.charon_g2_decompress.argtypes = [p, p, p, p, p, p, i, p]
     for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
                lib.charon_pp_step, lib.charon_f12_step,
                lib.charon_g1_dblsel, lib.charon_g2_sel, lib.charon_f2_chain,
-               lib.charon_h2c_sswu, lib.charon_h2c_point):
+               lib.charon_h2c_sswu, lib.charon_h2c_point,
+               lib.charon_final_exp, lib.charon_g2_decompress):
         fn.restype = i
 
 
@@ -182,10 +186,17 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
+def _exp_words(e: int) -> list[int]:
+    """A fixed exponent as 32-bit words, least significant first."""
+    return [(e >> (32 * i)) & 0xFFFFFFFF for i in range(-(-e.bit_length()
+                                                           // 32))]
+
+
 def render_consts_header() -> str:
     """The text of csrc/fp381_consts.cuh, from the Python constant tables
     (the committed header must equal this; a test pins it)."""
-    from . import cuda_g2, cuda_h2c, fp
+    from . import cuda_codec, cuda_final_exp, cuda_g2, cuda_h2c, fp
+    from ..tbls.ref.fields import P
 
     def rows(arr) -> str:
         return ",\n".join("    {" + ", ".join(str(int(v)) for v in row) + "}"
@@ -194,11 +205,19 @@ def render_consts_header() -> str:
     def flat(arr) -> str:
         return ", ".join(str(int(v)) for v in arr)
 
+    def exponent(name: str, e: int, what: str) -> str:
+        w = _exp_words(e)
+        return (f"// {what}: {e.bit_length()} bits, 32-bit words, least "
+                f"significant first\n"
+                f"constexpr int {name}_BITS = {e.bit_length()};\n"
+                f"static __constant__ unsigned {name}[{len(w)}] = {{\n"
+                f"    {', '.join(f'{v}u' for v in w)}}};\n")
+
     return (
         "// Generated by charon_tpu_torch.ops.build.render_consts_header()\n"
-        "// from the tables of ops/fp.py, ops/cuda_g2.py and ops/cuda_h2c.py;\n"
-        "// a test checks that this file equals the rendering.  Do not edit\n"
-        "// by hand.\n"
+        "// from the tables of ops/fp.py, ops/cuda_g2.py, ops/cuda_h2c.py,\n"
+        "// ops/cuda_final_exp.py and ops/cuda_codec.py; a test checks that\n"
+        "// this file equals the rendering.  Do not edit by hand.\n"
         "#pragma once\n\n"
         "namespace fp381 {\n\n"
         "// FOLDC[j] = 2^(12·(32+j)) mod p as 32 limbs\n"
@@ -215,6 +234,26 @@ def render_consts_header() -> str:
         "// hash-to-G2 constants: Fp2 constant i in rows (2i, 2i + 1)\n"
         f"static __constant__ int H2C[{len(cuda_h2c.h2c_consts())}][32] = {{\n"
         f"{rows(cuda_h2c.h2c_consts())}\n}};\n\n"
+        "// c·p, c = 0..47, as 34 canonical digits (canon / is_zero)\n"
+        f"static __constant__ int PMULT[{len(fp.PMULT)}][34] = {{\n"
+        f"{rows(fp.PMULT)}\n}};\n\n"
+        "// (p + 1) / 2: sgn(a) = a >= HALF_P1\n"
+        f"static __constant__ int HALF_P1[32] = "
+        f"{{{flat(fp._HALF_P1[0])}}};\n\n"
+        "// Frobenius constants gamma1, gamma2, gammaw (Fp2 i in rows 2i,\n"
+        "// 2i+1)\n"
+        f"static __constant__ int FE_G[{len(cuda_final_exp.fe_consts())}][32]"
+        f" = {{\n{rows(cuda_final_exp.fe_consts())}\n}};\n\n"
+        "// decompression constants b', -1, psi's c_x, c_y (Fp2 i in rows\n"
+        "// 2i, 2i+1)\n"
+        f"static __constant__ int DC[{len(cuda_codec.dc_consts())}][32] = {{\n"
+        f"{rows(cuda_codec.dc_consts())}\n}};\n\n"
+        + exponent("EXP_PM2", P - 2, "p - 2 (the Fp inverse)")
+        + exponent("EXP_P34", cuda_codec.EXP_P34, "(p - 3) / 4")
+        + exponent("EXP_P12", cuda_codec.EXP_P12, "(p - 1) / 2")
+        + "\n// |z| and the sign of the BLS parameter z\n"
+        f"constexpr unsigned long long ABS_Z = {cuda_codec.ABS_Z}ull;\n"
+        f"constexpr int Z_NEG = {int(cuda_codec.Z_NEG)};\n\n"
         "}  // namespace fp381\n")
 
 

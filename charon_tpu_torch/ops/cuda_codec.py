@@ -1,0 +1,201 @@
+"""Kernel K12 — the whole G2 decompression on the card (csrc/decompress.cu).
+
+Everything `codec.g2_decompress` (the JAX package's ops/codec.py
+`g2_decompress`) does on the device, as ONE launch per batch: rhs = x³ +
+b', the Fp2 square root of Alg. 9 (two fixed-exponent pows, the α = −1
+select and the check root² == rhs), the ZCash sign of the canonical y and
+the flip, `from_affine` with the ∞ flag, and the subgroup check ψ(Q) ==
+[z]Q.  On the TPU each of those field ops reaches a `pallas_fp` kernel
+(`_mul_kernel` :78, `_add_kernel` :97, `_sub_kernel` :104, `_neg_kernel`
+:112, `_small_kernel_factory` :120); the port's plain copy makes each a
+K1 launch — 7,467 per batch.
+
+One thread per row holds the whole chain, on the csrc/fp381.cuh functions
+(the Fp2 squarings of the pows are `f2_sqr`, the group law the complete
+RCB doubling and addition of K2), plus exact `canon`, `is_zero` and `sgn`.
+The [|z|]Q multiplication is `curve.scalar_mul`'s 2-bit windowed
+double-and-add over |z| with the additions of zero windows left out and
+the top window's table entry as the start (the same group element: Q + ∞
+= Q).  The plain version here, `g2_decompress_plain`, runs the same
+sequence on cuda_g2's plain field library and is BIT-IDENTICAL to the
+kernel; it is value-equal to `codec.g2_decompress` and to JAX's, with the
+same ok flags (an x off the curve fails the square root whatever the
+later steps compute).
+
+Inputs: standard-form x = c0 + c1·u limb planes [32, R] int32, sign and
+inf flags [R] bool.  Output: (projective points [3, 2, 32, R], ok [R]
+bool) — `codec.g2_decompress`'s contract.  The wrapper routes CPU tensors
+to the plain version and launches the kernel for CUDA tensors (or
+raises); `LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..tbls.ref.fields import P
+from . import build, codec, fp, launch_count
+from .cuda_g2 import (_cuda_ready, _f2add, _f2mul, _f2sqr, _f2sub,
+                      _g2_add, _g2_double, _negf, _raise_on, _table_f2)
+from .curve import F2_OPS
+
+NL = fp.NLIMBS
+
+# Fp2 constants, i in rows 2i, 2i+1: the twist's b' = 4(1 + u), −1, and
+# the ψ coefficients c_x, c_y (codec._PSI_CX_M / _PSI_CY_M)
+_DC_NP = np.concatenate([F2_OPS.b, codec._F2_MINUS_ONE, codec._PSI_CX_M,
+                         codec._PSI_CY_M]).astype(np.int32)
+_DC_B, _DC_M1, _DC_CX, _DC_CY = 0, 1, 2, 3
+
+EXP_P34 = (P - 3) // 4      # a^((p−3)/4): the root candidate's pow
+EXP_P12 = (P - 1) // 2      # (α + 1)^((p−1)/2)
+
+#: |z| and the sign of z (codec's derived, checked values)
+ABS_Z = abs(codec._Z_SIGNED)
+Z_NEG = codec._Z_SIGNED < 0
+#: 2-bit windows of |z| over 64 bits, MSB first (the top one non-zero:
+#: the scalar multiplication starts from its table entry)
+Z_WINDOWS = tuple((ABS_Z >> (62 - 2 * i)) & 3 for i in range(32))
+assert ABS_Z < 1 << 64 and Z_WINDOWS[0] != 0
+
+
+def dc_consts() -> np.ndarray:
+    """The constant table [8, 32] of csrc/fp381_consts.cuh (DC)."""
+    return _DC_NP.copy()
+
+
+def _cf2(idx: int, like: torch.Tensor):
+    return _table_f2(_DC_NP, idx, like)
+
+
+def _f2_one(like: torch.Tensor):
+    one = fp.const(fp.ONE, like.device).unsqueeze(-1).expand_as(like)
+    return (one, torch.zeros_like(like))
+
+
+def _f2_pow(a, e: int):
+    """a^e, LSB first (tower.f2_pow_fixed's schedule): a set bit
+    multiplies the result by the base, every bit but the last squares
+    the base (f2_sqr)."""
+    result, base = _f2_one(a[0]), a
+    nbits = e.bit_length()
+    for i in range(nbits):
+        if (e >> i) & 1:
+            result = _f2mul(result, base)
+        if i != nbits - 1:
+            base = _f2sqr(base)
+    return result
+
+
+def _f2_is_zero(a) -> torch.Tensor:
+    return fp.is_zero(a[0]) & fp.is_zero(a[1])
+
+
+def _f2_sel(cond, a, b):
+    return (torch.where(cond, a[0], b[0]), torch.where(cond, a[1], b[1]))
+
+
+def _f2_neg(a):
+    return (_negf(a[0]), _negf(a[1]))
+
+
+def _pt(x, y, z) -> torch.Tensor:
+    return torch.stack([x[0], x[1], y[0], y[1], z[0], z[1]])
+
+
+def _in_subgroup(pt: torch.Tensor) -> torch.Tensor:
+    """ψ(Q) == [z]Q per row of [6, 32, R] points (True at ∞)."""
+    tables = (None, pt, _g2_double(pt))
+    tables += (_g2_add(tables[2], pt),)
+    acc = tables[Z_WINDOWS[0]]
+    for w in Z_WINDOWS[1:]:
+        acc = _g2_double(_g2_double(acc))
+        if w:
+            acc = _g2_add(acc, tables[w])
+    x2, y2, z2 = (acc[0], acc[1]), (acc[2], acc[3]), (acc[4], acc[5])
+    if Z_NEG:
+        y2 = _f2_neg(y2)
+    like = pt[0]
+    x, y, z = (pt[0], pt[1]), (pt[2], pt[3]), (pt[4], pt[5])
+    x1 = _f2mul(_cf2(_DC_CX, like), (x[0], _negf(x[1])))
+    y1 = _f2mul(_cf2(_DC_CY, like), (y[0], _negf(y[1])))
+    z1 = (z[0], _negf(z[1]))
+    xa, xb = _f2mul(x1, z2), _f2mul(x2, z1)
+    ya, yb = _f2mul(y1, z2), _f2mul(y2, z1)
+    i1, i2 = _f2_is_zero(z1), _f2_is_zero(z2)
+    return (i1 & i2) | (~i1 & ~i2 & _f2_is_zero(_f2sub(xa, xb))
+                        & _f2_is_zero(_f2sub(ya, yb)))
+
+
+def g2_decompress_plain(xc0: torch.Tensor, xc1: torch.Tensor,
+                        sign: torch.Tensor, inf: torch.Tensor):
+    """The kernel's sequence: (points [3, 2, 32, R], ok [R] bool)."""
+    x = (xc0, xc1)
+    rhs = _f2add(_f2mul(_f2sqr(x), x), _cf2(_DC_B, xc0))
+    # the square root (codec.f2_sqrt)
+    a1 = _f2_pow(rhs, EXP_P34)
+    alpha = _f2mul(_f2sqr(a1), rhs)
+    x0 = _f2mul(a1, rhs)
+    root_u = (_negf(x0[1]), x0[0])
+    root_b = _f2mul(_f2_pow(_f2add(alpha, _f2_one(xc0)), EXP_P12), x0)
+    is_m1 = _f2_is_zero(_f2sub(alpha, _cf2(_DC_M1, xc0)))
+    y = _f2_sel(is_m1, root_u, root_b)
+    ok = _f2_is_zero(_f2sub(_f2sqr(y), rhs))
+    # the sign of the canonical y
+    y0_std, y1_std = fp.canon_std(y[0]), fp.canon_std(y[1])
+    cur = torch.where(fp.is_zero(y1_std), fp.sgn(y0_std), fp.sgn(y1_std))
+    y = _f2_sel(cur != sign, _f2_neg(y), y)
+    # from_affine with the ∞ flag
+    zero, one = torch.zeros_like(xc0), _f2_one(xc0)
+    pt = _pt(_f2_sel(inf, (zero, zero), x), _f2_sel(inf, one, y),
+             _f2_sel(inf, (zero, zero), one))
+    ok = (ok | inf) & _in_subgroup(pt)
+    return pt.reshape(3, 2, NL, xc0.shape[-1]), ok
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+#: kernel launches since the last `reset_launches()` (all threads;
+#: `launch_count.this_thread()` has the calling thread's own)
+LAUNCHES = {"g2_decompress": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["g2_decompress"] = 0
+
+
+def g2_decompress(xc0: torch.Tensor, xc1: torch.Tensor, sign: torch.Tensor,
+                  inf: torch.Tensor):
+    """Std-form x limb planes [32, R] (int32) + sign/inf flags [R] (bool)
+    → (projective points [3, 2, 32, R], ok [R] bool): one launch, one
+    thread per row."""
+    r = xc0.shape[-1]
+    for name, t in (("xc0", xc0), ("xc1", xc1)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (NL, r) or r == 0:
+            raise ValueError(f"g2_decompress: {name} must be int32 [32, R], "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("sign", sign), ("inf", inf)):
+        if t.dtype != torch.bool or tuple(t.shape) != (r,):
+            raise ValueError(f"g2_decompress: {name} must be bool [{r}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if any(t.device != xc0.device for t in (xc1, sign, inf)):
+        raise ValueError("g2_decompress: operands on different devices")
+    if xc0.device.type == "cpu":
+        return g2_decompress_plain(xc0, xc1, sign, inf)
+    if not all(t.is_contiguous() for t in (xc0, xc1, sign, inf)):
+        raise ValueError("g2_decompress: operands must be contiguous")
+    if 6 * NL * r >= 2 ** 31:
+        raise ValueError(f"g2_decompress: {r} rows exceed the int index")
+    _cuda_ready("g2_decompress", xc0)
+    pts = xc0.new_empty((3, 2, NL, r))
+    ok = torch.empty(r, dtype=torch.bool, device=xc0.device)
+    err = build.library().charon_g2_decompress(
+        pts.data_ptr(), ok.data_ptr(), xc0.data_ptr(), xc1.data_ptr(),
+        sign.data_ptr(), inf.data_ptr(), r,
+        torch.cuda.current_stream(xc0.device).cuda_stream)
+    _raise_on("g2_decompress", err)
+    launch_count.bump(LAUNCHES, "g2_decompress")
+    return pts, ok

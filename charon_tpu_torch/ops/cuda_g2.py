@@ -96,6 +96,14 @@ def _col(arr: np.ndarray, x: torch.Tensor) -> torch.Tensor:
     return t.view(t.shape[0], *([1] * (x.dim() - 1)))
 
 
+def _table_f2(table: np.ndarray, idx: int, like: torch.Tensor):
+    """Fp2 constant `idx` of a [2n, 32] table (rows 2·idx, 2·idx + 1)
+    broadcast to the rows of `like` [32, R]."""
+    t = fp.const(table, like.device)
+    return (t[2 * idx].unsqueeze(-1).expand_as(like),
+            t[2 * idx + 1].unsqueeze(-1).expand_as(like))
+
+
 def _zrow(x: torch.Tensor, n: int = 1) -> torch.Tensor:
     return x.new_zeros((n,) + tuple(x.shape[1:]))
 

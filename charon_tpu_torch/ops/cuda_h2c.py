@@ -47,7 +47,7 @@ from ..tbls.ref.fields import BLS_X, FQ2, P
 from ..tbls.ref.hash_to_curve import DST_G2, hash_to_field_fp2
 from . import build, codec, cuda_g2, fp, launch_count, tower
 from .cuda_g2 import (_cuda_ready, _f2add, _f2mul, _f2sqr, _negf,
-                      _raise_on)
+                      _raise_on, _table_f2)
 
 NL = fp.NLIMBS
 
@@ -97,9 +97,7 @@ def h2c_consts() -> np.ndarray:
 
 def _cf2(idx: int, like: torch.Tensor):
     """Fp2 constant `idx` broadcast to the shape of `like` ([32, R])."""
-    hc = fp.const(_HC_NP, like.device)
-    return (hc[2 * idx].unsqueeze(-1).expand_as(like),
-            hc[2 * idx + 1].unsqueeze(-1).expand_as(like))
+    return _table_f2(_HC_NP, idx, like)
 
 
 def _planes(*els) -> torch.Tensor:

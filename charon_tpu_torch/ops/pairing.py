@@ -2,10 +2,11 @@
 
 The port of the JAX package's ops/pairing.py.  Every field op reaches
 kernel K1 through `tower`/`fp`; the fused Miller kernels (K4/K5,
-ops/cuda_pairing.py) serve the batch check, and this module serves what
-runs per batch or per row outside them: the ONE final exponentiation of
-an RLC batch, the per-row re-check after a failed batch equation, and the
-CPU reference.
+ops/cuda_pairing.py) serve the batch check and K11 (ops/cuda_final_exp.py)
+its final exponentiation.  This module serves the per-row re-check after a
+failed batch equation (its Miller loop here, its final exponentiation
+through K11) and the reference copy of the JAX functions
+(`final_exponentiate`, `pairing`).
 
 - Miller loop over the static bits of |z| (z the negative BLS parameter):
   the G2 accumulator in homogeneous projective coordinates on the
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fp
+from . import cuda_final_exp, fp
 from .tower import (F12_ONE, F2_ONE, f2_mul_fp, f2_mul_many, f2_mul_small,
                     f2_add, f2_sub, f12_conj, f12_eq, f12_frob, f12_inv,
                     f12_mul, f12_mul_by_014, f12_select, f12_sqr)
@@ -160,9 +161,10 @@ def pairing_product_is_one(ps: torch.Tensor, qs: torch.Tensor
                            ) -> torch.Tensor:
     """Π_k e(P_k, Q_k) == 1 with one shared final exponentiation per row —
     the per-row verification primitive (oracle:
-    ref.pairing.multi_pairing_is_one).  `ps` [K, ..., 3, 32, R], `qs`
-    [K, ..., 3, 2, 32, R], the product over the leading pair axis →
-    [..., R] bool."""
+    ref.pairing.multi_pairing_is_one).  `ps` [K, 3, 32, R], `qs`
+    [K, 3, 2, 32, R], the product over the leading pair axis → [R] bool.
+    The final exponentiation is K11's (`cuda_final_exp.final_exp`: one
+    launch over the rows on the card)."""
     prod = miller_loop(ps, qs)
     k = prod.shape[0]
     while k > 1:
@@ -170,4 +172,4 @@ def pairing_product_is_one(ps: torch.Tensor, qs: torch.Tensor
         prod = torch.cat([f12_mul(prod[:half], prod[half:2 * half]),
                           prod[2 * half:k]])
         k = half + (k - 2 * half)
-    return is_one(final_exponentiate(prod[0]))
+    return is_one(cuda_final_exp.final_exp(prod[0].contiguous()))

@@ -13,8 +13,9 @@ Combine (`threshold_combine_bytes`):
   per-index-set Lagrange digit rows, lay rows out T-MAJOR (row =
   t·Vpad + v) with validators padded to a multiple of `ROW_TILE`.
 - `combine_device_exec` (card): decompress (Fp2 square roots + ψ
-  subgroup check, kernel K1), the Straus tables (K2) and window loop
-  (K3), normalisation (K1), then the host compresses the affine points.
+  subgroup check, one launch of kernel K12), the Straus tables (K2) and
+  window loop (K3), normalisation (K1), then the host compresses the
+  affine points.
 
 Verify (`batch_verify_bytes`), one RLC batch check per call:
 
@@ -30,13 +31,14 @@ Verify (`batch_verify_bytes`), one RLC batch check per call:
   64-bit coefficients r_k from OS entropy on every call (a predictable
   coefficient would let a forger cancel rows).
 - `verify_device_exec` (card): G2 decompression of the signatures (ψ
-  check), the G1 tables {P, 2P, 3P} of the pair-major rows (−g1, pk_k),
-  32 K6 windows scaling both rows of entry k by r_k, the Miller loop over
-  the 2·V rows (K4/K5), dropped / ∞ / padding rows masked to one, the K5
-  product fold to one row, and ONE final exponentiation (plain tower code,
-  K1).  If the batch equation fails, every row is re-checked on its own —
-  e(−g1, sig)·e(pk, H(m)) == 1, ANDed with the decode mask — so the
-  verdicts are exactly the pure-Python oracle's.
+  check; one K12 launch), the G1 tables {P, 2P, 3P} of the pair-major rows
+  (−g1, pk_k), 32 K6 windows scaling both rows of entry k by r_k, the
+  Miller loop over the 2·V rows (K4/K5), dropped / ∞ / padding rows masked
+  to one, the K5 product fold to one row, and ONE final exponentiation
+  (one K11 launch).  If the batch equation fails, every row is re-checked
+  on its own — e(−g1, sig)·e(pk, H(m)) == 1 (the plain Miller loop, K1,
+  then K11 over the rows), ANDed with the decode mask — so the verdicts
+  are exactly the pure-Python oracle's.
 
 A failed launch raises; there is no fallback path.  The device stages
 synchronise their thread's stream at their boundaries and record their
@@ -66,8 +68,8 @@ import torch
 from . import dispatch, shamir
 from .ref import curve as refcurve
 from .ref.hash_to_curve import hash_to_g2
-from ..ops import (codec, cuda_fp, cuda_g2, cuda_h2c, cuda_pairing, fp,
-                   launch_count)
+from ..ops import (codec, cuda_codec, cuda_final_exp, cuda_fp, cuda_g2,
+                   cuda_h2c, cuda_pairing, fp, launch_count)
 from ..ops import curve as tcurve
 from ..ops import pairing as tpair
 from ..ops.curve import F2_OPS, FP_OPS
@@ -361,10 +363,10 @@ class CUDABackend:
         stages = dict(p["stages"])
         launches = dict(p["launches"])
         clock = _StageClock(dev, stages, launches)
-        sigs, sg_ok = codec.g2_decompress(self._put(p["xc0"]),
-                                          self._put(p["xc1"]),
-                                          self._put(p["sign"]),
-                                          self._put(p["inf"]))
+        sigs, sg_ok = cuda_codec.g2_decompress(self._put(p["xc0"]),
+                                               self._put(p["xc1"]),
+                                               self._put(p["sign"]),
+                                               self._put(p["inf"]))
         sg_ok = sg_ok & ~tcurve.is_inf(F2_OPS, sigs)
         live = p["host_ok"] & sg_ok.cpu().numpy()
         live[n:] = False
@@ -387,7 +389,7 @@ class CUDABackend:
         drop = self._put(np.repeat(~live, 2))
         prod = cuda_pairing.fold_product(cuda_pairing.mask_rows(f, drop))
         clock.lap("fold_s")
-        all_ok = bool(tpair.is_one(tpair.final_exponentiate(
+        all_ok = bool(tpair.is_one(cuda_final_exp.final_exp(
             prod.reshape(2, 3, 2, NL, 1)))[0])
         clock.lap("final_exp_s")
         if all_ok:
@@ -456,8 +458,8 @@ class CUDABackend:
         launches: dict[str, dict[str, int]] = {}
         clock = _StageClock(dev, stages, launches)
         put = self._put
-        pts, ok = codec.g2_decompress(put(p["xc0"]), put(p["xc1"]),
-                                      put(p["sign"]), put(p["inf"]))
+        pts, ok = cuda_codec.g2_decompress(put(p["xc0"]), put(p["xc1"]),
+                                           put(p["sign"]), put(p["inf"]))
         ok = ok.cpu().numpy()
         clock.lap("decompress_s")
         if not (ok | ~p["real"]).all():
@@ -498,7 +500,8 @@ def _affine_planes(pts: torch.Tensor) -> torch.Tensor:
 
 
 _KERNELS = (*cuda_fp.LAUNCHES, *cuda_g2.LAUNCHES, *cuda_pairing.LAUNCHES,
-            *cuda_h2c.LAUNCHES)
+            *cuda_h2c.LAUNCHES, *cuda_final_exp.LAUNCHES,
+            *cuda_codec.LAUNCHES)
 
 
 def _launch_counts() -> dict[str, int]:

@@ -22,7 +22,15 @@ Phases, in order; any failure raises and exits non-zero:
              combine, 4 random rows checked against the pure-Python oracle;
              malformed and off-curve signatures must raise ValueError; the
              p50 of 3 full combines split into stages, with every kernel's
-             launch count on the combine path (each must be > 0).
+             launch count on the combine path (each must be > 0) and ONE
+             K12 launch in its decompress stage.
+   redesign — K11 (the final exponentiation in one launch, a warp per
+             row) against its plain version at 1 row and at a verify
+             tile's 2,048, and K12 (the G2 decompression in one launch, a
+             thread per row) at 2,048 rows and at the combine's 71,680, on
+             the pool's signatures with ∞ rows, x off the curve and points
+             outside G2 mixed in: bit-identical, every ok flag as its row's
+             kind wants; both timed beside their bounds.
 4. verify  — 10,000 keys and 64 messages (one per committee); pk = sk·G1
              and sig = sk·H(m) computed on the card, 3 rows checked against
              the oracle.  The G1 decompress of the 10,000 keys alone on the
@@ -30,9 +38,12 @@ Phases, in order; any failure raises and exits non-zero:
              entries (one peer's parsigex message) fills the pubkey LRU
              (its decompress overlaps earlier tiles); then 3 timed reps, each ONE pipeline launch of 5 tiles (4 ×
              2,048 + 1,808), all verdicts True, stages summed over the
-             tiles, every pairing kernel launched; then a 2,048-entry batch
-             with 6 bad entries whose verdicts must equal the pure-Python
-             oracle on the bad rows and on 4 random good ones.
+             tiles, every pairing kernel launched, one K12 launch per tile
+             in sig_decompress_s and one K11 (plus is_one's K1 sub) in
+             final_exp_s, under 1,000 K1 launches per flush; then a
+             2,048-entry batch with 6 bad entries whose verdicts must equal
+             the pure-Python oracle on the bad rows and on 4 random good
+             ones (its re-check one K11 launch over the rows).
 5. h2c     — the distinct flush's first 2,048 messages (one verify tile)
              through the device hash-to-G2 (cuda_h2c.hash_to_g2_rows)
              must equal the same pipeline on the plain versions on the
@@ -49,9 +60,10 @@ Phases, in order; any failure raises and exits non-zero:
              phase 5's plain pipeline; the pubkey LRU warm, the message LRU
              cleared before each of 3 reps of one verify_many: all verdicts
              True, every tile's misses hashed on the card under h2c_s, the
-             stage launches adding up; then a 2,048-entry batch with 4
-             entries carrying another entry's message, rejected exactly,
-             agreeing with the pure-Python oracle.
+             stage launches adding up, K11 and K12 as in phase 4; then a
+             2,048-entry batch with 4 entries carrying another entry's
+             message, rejected exactly, agreeing with the pure-Python
+             oracle.
 
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
@@ -62,7 +74,11 @@ runs: `launches_combine` (one combine rep), `launches_verify` (one
 10,000-entry verify rep, warm caches) and `launches_verify_distinct` (one
 rep of the distinct-message flush), each counted from zero.  K10 addsel
 has no caller on any path (nor in the JAX package): only phase 2 launches
-it.
+it.  K11's ms, plain_ms and bound_ms are at the batch check's 1 row (its
+`recheck` key at 2,048), K12's at a verify tile's 2,048 (its `combine` key
+at 71,680).  Every bound_ms is at the card's full rate; K11 also gives
+`bound_one_warp_ms`, the bound at the rate of the SMs its rows can occupy
+under its one-warp-per-row design (one SM at 1 row).
 The second-to-last line is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -200,6 +216,65 @@ OPS["h2c_iso3"] = 13 * _F2MUL + 11 * _F2ADD
 OPS["h2c_psi"] = 2 * _F2MUL + 3 * OPS["fp_neg"]
 EL_BYTES = NL * 4
 PT_BYTES = 6 * EL_BYTES
+# the exact boundary of csrc/fp381.cuh: canon is the exact carry (3 ALU a
+# limb), 47 comparisons with the multiples of p (~3 digits of ~4
+# instructions each before they differ) and the borrow subtraction (5 a
+# limb); is_zero ORs the 32 canonical limbs
+_CANON = _alu(3 * NL + 47 * 12 + 5 * NL)
+_ISZERO = _CANON + _alu(NL)
+_F2EQ = _F2SUB + 2 * _ISZERO
+
+
+def _pow_ops(e: int, sqr, mul):
+    """A fixed-exponent pow, LSB first: a squaring per bit but the last,
+    a product per set bit."""
+    return (e.bit_length() - 1) * sqr + bin(e).count("1") * mul
+
+
+def final_exp_ops() -> np.ndarray:
+    """[IMAD, ALU] of one K11 row (csrc/final_exp.cu): five ^z chains of
+    63 squarings and popcount(|z|) − 1 products, one more squaring and
+    nine products around them, 5 Frobenius maps, 9 conjugations and the
+    inverse (its Fp inverse the pow p − 2).  Each ^z squaring is counted
+    as the full K5 squaring the kernel runs: the argument is cyclotomic
+    there, and a Granger–Scott squaring would need fewer products."""
+    from charon_tpu_torch.ops import cuda_codec
+    from charon_tpu_torch.tbls.ref.fields import P
+
+    zbits = cuda_codec.ABS_Z.bit_length() - 1
+    zmuls = bin(cuda_codec.ABS_Z).count("1") - 1
+    f2_inv = (4 * OPS["fp_mul"] + OPS["fp_add"] + OPS["fp_neg"]
+              + _pow_ops(P - 2, OPS["fp_mul"], OPS["fp_mul"]))
+    f6_inv = 12 * _F2MUL + 3 * _XI + 3 * _F2SUB + 2 * _F2ADD + f2_inv
+    f12_inv = 4 * _F6MUL + _XI + _F6SUB + f6_inv + 6 * OPS["fp_neg"]
+    conj = 6 * OPS["fp_neg"]
+    frob = 6 * OPS["fp_neg"] + 7 * _F2MUL
+    return ((5 * zbits + 1) * OPS["pp_sqr"] + (5 * zmuls + 9)
+            * OPS["pp_f12mul"] + 5 * frob + 9 * conj + f12_inv)
+
+
+def decompress_ops(n_valid: int, n_inf: int, n_off_curve: int,
+                   n_off_group: int) -> np.ndarray:
+    """[IMAD, ALU] of one K12 launch over rows of four kinds
+    (csrc/decompress.cu): every row computes x³ + b', both pows, the root,
+    its check and sign; a row whose root checks (valid, off the subgroup)
+    or that is ∞ runs the ψ check, whose equality multiplies only for two
+    finite points and stops at a differing x (off the subgroup)."""
+    from charon_tpu_torch.ops import cuda_codec
+
+    n = n_valid + n_inf + n_off_curve + n_off_group
+    every = (_F2SQR + _F2MUL + _F2ADD
+             + _pow_ops(cuda_codec.EXP_P34, _F2SQR, _F2MUL)
+             + _F2SQR + 2 * _F2MUL + _F2ADD
+             + _pow_ops(cuda_codec.EXP_P12, _F2SQR, _F2MUL) + _F2MUL
+             + _F2EQ + _F2SQR + _F2EQ + 2 * _CANON)
+    adds = sum(1 for w in cuda_codec.Z_WINDOWS[1:] if w)
+    chain = ((1 + 2 * (len(cuda_codec.Z_WINDOWS) - 1)) * OPS["g2_dbl"]
+             + (1 + adds) * OPS["g2_add"] + 2 * _F2MUL
+             + 5 * OPS["fp_neg"] + 4 * _ISZERO)
+    return (n * every + (n_valid + n_inf + n_off_group) * chain
+            + n_valid * (4 * _F2MUL + 2 * _F2EQ)
+            + n_off_group * (2 * _F2MUL + _F2EQ))
 
 
 def straus_work(digits: np.ndarray, head: bool) -> tuple[np.ndarray, int]:
@@ -262,25 +337,30 @@ def bound(ops: np.ndarray, nbytes: float, sm_clocks_per_s: float
 
 
 def record(results: dict, name, kernel_fn, plain_fn, ops, nbytes, patterns,
-           sm_clocks_per_s: float) -> None:
+           sm_clocks_per_s: float, plain_reps: int = 5) -> None:
     """Hold the kernel against its plain version on every input pattern
-    (bit for bit), then time both on the first pattern."""
+    (bit for bit), then time both on the first pattern (the kernel over 5
+    runs, the plain version over `plain_reps`)."""
     err = 0
     for pat in patterns:
         args = pat()
         got, want = kernel_fn(*args), plain_fn(*args)
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
-                                 f"{tuple(want.shape)}")
-        diff = int((got.long() - want.long()).abs().max())
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if [g.shape for g in got] != [w.shape for w in want]:
+            raise AssertionError(
+                f"{name}: shapes {[tuple(g.shape) for g in got]} != "
+                f"{[tuple(w.shape) for w in want]}")
+        diff = max(int((g.long() - w.long()).abs().max())
+                   for g, w in zip(got, want))
         if diff:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {diff})")
         err = max(err, diff)
     args = patterns[0]()
     ms = time_ms(lambda: kernel_fn(*args))
-    plain_ms = time_ms(lambda: plain_fn(*args))
+    plain_ms = time_ms(lambda: plain_fn(*args), plain_reps)
     bms, by = bound(ops, nbytes, sm_clocks_per_s)
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bms, "bound_by": by}
@@ -440,6 +520,130 @@ def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
     return results
 
 
+def k1_main_shapes(dev, sm_clocks_per_s: float) -> dict:
+    """K1's mul, add and sub at the shapes the main path now launches them
+    (the RLC tables' [6, 32, 4,096] products and [32, 4,096] sums, the
+    combine normalisation's [32, 10,240] inverse chain, is_one's
+    [2, 3, 2, 32, 1] difference): the kernel's CUDA-event median, and the
+    wall per launch through the `fp` entry point with its tensor glue (200
+    calls back to back, one synchronise)."""
+    from charon_tpu_torch.ops import cuda_fp, fp
+
+    gen = np.random.default_rng(20261020)
+    out = {}
+    for name, shape, k_fn, fp_fn in (
+            ("fp_mul", (6, NL, 4096), cuda_fp.mul, fp.mul),
+            ("fp_mul", (NL, 10_240), cuda_fp.mul, fp.mul),
+            ("fp_add", (NL, 4096), cuda_fp.add, fp.add),
+            ("fp_sub", (NL, 4096), cuda_fp.sub, fp.sub),
+            ("fp_sub", (2, 3, 2, NL, 1), cuda_fp.sub, fp.sub)):
+        a, b = limbs(dev, gen, shape, "random"), limbs(dev, gen, shape,
+                                                      "random")
+        ms = time_ms(lambda: k_fn(a, b))
+        fp_fn(a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fp_fn(a, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 200 * 1e3
+        rows = a.numel() // NL
+        nbytes = 3 * EL_BYTES * rows
+        bms, by = bound(OPS[name] * rows, nbytes, sm_clocks_per_s)
+        out.setdefault(name, []).append(
+            {"shape": list(shape), "ms": ms, "wall_ms": wall_ms,
+             "bound_ms": bms, "bound_by": by})
+        log(f"K1 {name} at {list(shape)}: {ms:.4f} ms (bound {bms:.4f} ms by "
+            f"{by}); {wall_ms:.4f} ms wall per launch through fp.{name[3:]}")
+    return out
+
+
+def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
+                           combine_real: int, combine_rows: int,
+                           sm_clocks_per_s: float, sms: int) -> dict:
+    """K11 against `final_exp_plain` at 1 row (the batch check) and `tile`
+    rows (a re-check), on seeded random and all-LMAX limbs; K12 against
+    `g2_decompress_plain` at `tile` rows (a verify tile) and `combine_rows`
+    (the combine: `combine_real` signatures, the rest ∞ padding), on the
+    pool's signatures (both signs) with ∞ rows, x off the curve and
+    on-curve points outside G2 mixed in.  Bit for bit, every row's ok flag
+    as its kind wants, and both timed beside their bounds."""
+    from charon_tpu_torch.ops import codec, cuda_codec, cuda_final_exp
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.tbls.ref.fields import FQ2
+
+    gen = np.random.default_rng(20261019)
+    results = {}
+    # K11: bound_ms at the card's full rate; `bound_one_warp_ms` at the
+    # rate of the SMs that one warp per row can occupy (one SM a row), an
+    # assumption of this design that the function does not force
+    for rows in (1, tile):
+        part = {}
+        ops, nbytes = final_exp_ops() * rows, 2 * 12 * EL_BYTES * rows
+        record(part, "final_exp", cuda_final_exp.final_exp,
+               cuda_final_exp.final_exp_plain, ops, nbytes,
+               [lambda p=p, rows=rows: (limbs(dev, gen, (2, 3, 2, NL, rows),
+                                               p),)
+                for p in ("random", "lmax")],
+               sm_clocks_per_s, plain_reps=1)
+        one_warp, _ = bound(ops, nbytes,
+                            sm_clocks_per_s * min(rows, sms) / sms)
+        results[f"final_exp@{rows}"] = {**part["final_exp"], "rows": rows,
+                                        "bound_one_warp_ms": one_warp}
+        log(f"K11 at {rows:,} rows: bound {one_warp:.4f} ms if each row "
+            f"stays on one SM (one warp per row)")
+
+    # K12: the kinds of row
+    off_curve = []
+    x = 1
+    while len(off_curve) < 8:
+        if (FQ2([x, 0]) ** 3 + rc.B2).sqrt() is None:
+            off_curve.append(bytes([0x80 | (0x20 if x % 2 else 0)])
+                             + bytes(47) + x.to_bytes(48, "big"))
+        x += 1
+    cof = codec._find_g2_cofactor_point()
+    off_group = [rc.g2_to_bytes(cof), rc.g2_to_bytes(rc.neg(cof))]
+    inf = rc.g2_to_bytes(None)
+    for rows, real in ((tile, tile), (combine_rows, combine_real)):
+        raw = [pool[k % len(pool)] for k in range(real)] \
+            + [inf] * (rows - real)
+        kind = ["valid"] * real + ["inf"] * (rows - real)
+        spots = gen.choice(real, 8 + 8 * 4 + 8, replace=False).tolist()
+        special = ([(b, "off_curve") for b in off_curve]
+                   + [(b, "off_group") for b in off_group * 16]
+                   + [(inf, "inf")] * 8)
+        for r, (b, k) in zip(spots, special):
+            raw[r], kind[r] = b, k
+        xc0, xc1, sign, inf_f, bad = codec.g2_bytes_split(
+            np.stack([np.frombuffer(b, np.uint8) for b in raw]))
+        if bad.any():
+            raise AssertionError("K12 inputs: a row does not decode")
+        args = (torch.from_numpy(np.ascontiguousarray(xc0.T)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(xc1.T)).to(dev),
+                torch.from_numpy(sign).to(dev),
+                torch.from_numpy(inf_f).to(dev))
+        _, ok = cuda_codec.g2_decompress(*args)
+        ok = ok.cpu().numpy()
+        want = np.array([k in ("valid", "inf") for k in kind])
+        if not np.array_equal(ok, want):
+            raise AssertionError(f"K12 at {rows} rows: ok flags of "
+                                 f"{int((ok != want).sum())} rows are wrong")
+        counts = {k: kind.count(k) for k in
+                  ("valid", "inf", "off_curve", "off_group")}
+        part = {}
+        record(part, "g2_decompress", cuda_codec.g2_decompress,
+               cuda_codec.g2_decompress_plain,
+               decompress_ops(counts["valid"], counts["inf"],
+                              counts["off_curve"], counts["off_group"]),
+               rows * (2 * EL_BYTES + 2 + PT_BYTES + 1), [lambda: args],
+               sm_clocks_per_s, plain_reps=1)
+        results[f"g2_decompress@{rows}"] = {**part["g2_decompress"],
+                                           "rows": rows}
+        log(f"K12 at {rows:,} rows: ok flags right for every kind "
+            f"{json.dumps(counts)}, {int(sign.sum()):,} rows of sign 1")
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the combine through SigAgg
 # ---------------------------------------------------------------------------
@@ -514,8 +718,10 @@ def parsigs_for(sig_sets: list[dict[int, bytes]], epoch: int) -> dict:
             for v, sigs in enumerate(sig_sets)}
 
 
-def combine_phase(dev) -> tuple[dict, dict]:
-    from charon_tpu_torch.ops import cuda_fp, cuda_g2
+def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
+    """→ (launch counts of one combine rep, its stage p50s, the pool of
+    1,024 signatures)."""
+    from charon_tpu_torch.ops import cuda_codec, cuda_fp, cuda_g2
     from charon_tpu_torch.tbls import api, shamir
     from charon_tpu_torch.tbls.ref import curve as rc
     from charon_tpu_torch.tbls.ref.fields import FQ2, R
@@ -584,6 +790,7 @@ def combine_phase(dev) -> tuple[dict, dict]:
     parsigs = parsigs_for(sig_sets, 2)
     cuda_fp.reset_launches()
     cuda_g2.reset_launches()
+    cuda_codec.reset_launches()
     runs = []
     launch_counts = stage_launches = None
     for rep in range(REPS):
@@ -591,9 +798,10 @@ def combine_phase(dev) -> tuple[dict, dict]:
         got, launches = asyncio.run(sigagg_round(parsigs, t, 64 + rep))
         wall = time.perf_counter() - t0
         if rep == 0:
-            launch_counts = {k: n for k, n in {**cuda_fp.LAUNCHES,
-                                               **cuda_g2.LAUNCHES}.items()
-                             if k not in ("g2_dblsel", "g2_addsel")}
+            launch_counts = {k: n for k, n in {
+                **cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES,
+                **cuda_codec.LAUNCHES}.items()
+                if k not in ("g2_dblsel", "g2_addsel")}
             stage_launches = backend.last_launches
         if launches != 1 or len(got) != v:
             raise AssertionError(f"rep {rep}: {launches} combines for "
@@ -606,7 +814,10 @@ def combine_phase(dev) -> tuple[dict, dict]:
         if got[f"0x{r:096x}"] != oracle_combine(sig_sets[r]):
             raise AssertionError(f"row {r}: combine != oracle")
     log("combine: 4 random rows equal the pure-Python oracle")
-    zero = [k for k, n in launch_counts.items() if n == 0]
+    # K12 decompresses, so the combine's only K1 work is the normalisation,
+    # which takes no small multiple
+    zero = [k for k, n in launch_counts.items()
+            if n == 0 and k != "fp_mul_small"]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{zero}")
@@ -622,7 +833,9 @@ def combine_phase(dev) -> tuple[dict, dict]:
     log("launches per stage: " + json.dumps(
         {st: {k: n for k, n in c.items() if n}
          for st, c in stage_launches.items()}))
-    return launch_counts, p50
+    check_stage_launches("combine", stage_launches, "decompress_s",
+                         {"g2_decompress": 1})
+    return launch_counts, p50, pool
 
 
 # ---------------------------------------------------------------------------
@@ -708,18 +921,41 @@ async def verify_round(entries):
     return oks, pipe.launches - before[0], pipe.tiles - before[1]
 
 
-def reset_all_launches() -> None:
-    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_h2c, cuda_pairing
+def _wrapper_modules():
+    from charon_tpu_torch.ops import (cuda_codec, cuda_final_exp, cuda_fp,
+                                      cuda_g2, cuda_h2c, cuda_pairing)
 
-    for mod in (cuda_fp, cuda_g2, cuda_pairing, cuda_h2c):
+    return (cuda_fp, cuda_g2, cuda_pairing, cuda_h2c, cuda_final_exp,
+            cuda_codec)
+
+
+def reset_all_launches() -> None:
+    for mod in _wrapper_modules():
         mod.reset_launches()
 
 
 def all_launches() -> dict:
-    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_h2c, cuda_pairing
+    return {k: n for mod in _wrapper_modules()
+            for k, n in mod.LAUNCHES.items()}
 
-    return {**cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES, **cuda_pairing.LAUNCHES,
-            **cuda_h2c.LAUNCHES}
+
+def check_stage_launches(label: str, stage_launches: dict, stage: str,
+                         want: dict) -> None:
+    """The launches of one stage are exactly `want` (K11 / K12 replaced
+    the K1 chains of the final exponentiation and the decompression)."""
+    got = {k: n for k, n in stage_launches.get(stage, {}).items() if n}
+    if got != want:
+        raise AssertionError(f"{label}: {stage} launched {got}, want {want}")
+
+
+def check_redesigned_stages(label: str, stage_launches: dict,
+                            tiles: int) -> None:
+    """One K12 launch per tile in sig_decompress_s; one K11 launch and
+    is_one's K1 sub per tile in final_exp_s."""
+    check_stage_launches(label, stage_launches, "sig_decompress_s",
+                         {"g2_decompress": tiles})
+    check_stage_launches(label, stage_launches, "final_exp_s",
+                         {"final_exp": tiles, "fp_sub": tiles})
 
 
 def check_stage_sums(label: str, counts: dict, stage_launches: dict) -> None:
@@ -754,7 +990,7 @@ def bad_entries(entries, pool_rows):
 def verify_phase(dev):
     """→ (launch counts of one warm rep, the pool's pubkeys, sks and key
     bits on the card)."""
-    from charon_tpu_torch.ops import cuda_pairing
+    from charon_tpu_torch.ops import cuda_fp, cuda_pairing
     from charon_tpu_torch.tbls import api, dispatch
 
     backend = api._backend()
@@ -820,11 +1056,20 @@ def verify_phase(dev):
         log(f"verify rep {rep}: {VALIDATORS:,} entries, {tiles} tiles: "
             f"{wall:.3f} s wall; " + ", ".join(
                 f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
-    zero = [k for k in cuda_pairing.LAUNCHES if launch_counts[k] == 0]
+    zero = [k for k in (*cuda_pairing.LAUNCHES, "final_exp", "g2_decompress")
+            if launch_counts[k] == 0]
     if zero:
-        raise AssertionError(f"pairing kernels never launched on the verify "
-                             f"path: {zero}")
+        raise AssertionError(f"kernels never launched on the verify path: "
+                             f"{zero}")
     check_stage_sums("verify", launch_counts, stage_launches)
+    check_redesigned_stages("verify", stage_launches, tiles_want)
+    k1 = sum(launch_counts[k] for k in cuda_fp.LAUNCHES)
+    if k1 >= 1000:
+        raise AssertionError(f"verify: {k1} K1 launches per warm flush")
+    redesigned = statistics.median(r["final_exp_s"] + r["sig_decompress_s"]
+                                   for r in runs)
+    log(f"verify: {k1} K1 launches per warm flush; final_exp_s + "
+        f"sig_decompress_s p50 over the tiles {redesigned:.6f} s")
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     log("verify p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
@@ -849,6 +1094,12 @@ def verify_phase(dev):
     if rejected != bad_rows:
         raise AssertionError(f"reject run: rows {rejected} rejected, want "
                              f"{bad_rows}")
+    # the re-check: the plain Miller loop (K1) and one K11 over the rows
+    recheck = {k: n for k, n in
+               backend.verify_launch_totals["recheck_s"].items() if n}
+    if recheck.get("final_exp") != 1 or \
+            set(recheck) - {"final_exp", *cuda_fp.LAUNCHES}:
+        raise AssertionError(f"reject run: recheck_s launched {recheck}")
     sample = bad_rows + sorted(gen.choice(good_rows, 4,
                                           replace=False).tolist())
     t1 = time.perf_counter()
@@ -1081,6 +1332,7 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
         raise AssertionError(f"h2c kernels never launched on the distinct "
                              f"flush: {zero}")
     check_stage_sums("distinct", launch_counts, stage_launches)
+    check_redesigned_stages("distinct", stage_launches, tiles_want)
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     log("distinct p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
@@ -1164,6 +1416,13 @@ SOURCES = {
                   "charon_tpu/ops/pallas_g2.py:389"),
     "g2_addsel": ("charon_tpu_torch/csrc/g2.cu",
                   "charon_tpu/ops/pallas_g2.py:384"),
+    # K11 and K12 each replace a whole chain of K1 launches (the pallas_fp
+    # kernels, :78 the product that does most of their work) in
+    # ops/pairing.py final_exponentiate and ops/codec.py g2_decompress
+    "final_exp": ("charon_tpu_torch/csrc/final_exp.cu",
+                  "charon_tpu/ops/pallas_fp.py:78"),
+    "g2_decompress": ("charon_tpu_torch/csrc/decompress.cu",
+                      "charon_tpu/ops/pallas_fp.py:78"),
 }
 
 
@@ -1178,7 +1437,7 @@ def main() -> int:
     from charon_tpu_torch.ops import build
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.INFO['build_seconds']:.1f} s) → {build.INFO['path']}")
@@ -1206,7 +1465,21 @@ def main() -> int:
     # the h2c kernels at one verify tile's message batch
     kern.update(h2c_kernels_phase(dev, dispatch.VERIFY_TILE,
                                   sm_clocks_per_s))
-    combine_launches, _ = combine_phase(dev)
+    for name, at in k1_main_shapes(dev, sm_clocks_per_s).items():
+        kern[name]["main_shapes"] = at
+    combine_launches, _, pool = combine_phase(dev)
+    # K11 at the batch check's 1 row and a re-check tile's rows, K12 at a
+    # verify tile and at the combine's padded 10,240 × 7 rows
+    tile = api.verify_padded_rows(dispatch.VERIFY_TILE)
+    redesign = redesign_kernels_phase(dev, pool, tile, VALIDATORS * SHARES,
+                                      vrows * SHARES, sm_clocks_per_s, sms)
+    # the main path's shapes: K11 at 1 row, K12 at a verify tile; the other
+    # shape beside it
+    kern["final_exp"] = {**redesign["final_exp@1"],
+                         "recheck": redesign[f"final_exp@{tile}"]}
+    kern["g2_decompress"] = {**redesign[f"g2_decompress@{tile}"],
+                             "combine": redesign[
+                                 f"g2_decompress@{vrows * SHARES}"]}
     verify_launches, pks, sks, bits = verify_phase(dev)
     plain_planes = h2c_phase(dev, dispatch.VERIFY_TILE)
     distinct_launches = verify_distinct_phase(dev, pks, sks, bits,
@@ -1217,6 +1490,8 @@ def main() -> int:
     if pipe is not None:
         pipe.shutdown()
 
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
