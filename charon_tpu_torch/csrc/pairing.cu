@@ -36,8 +36,13 @@
 // temporaries live in the thread's local-memory stack (L1-cached).  A tile
 // has only 4,096 threads — blocks of 32 give 128 blocks, about one warp per
 // SM on 132 SMs — so every launch is bound by instruction latency, not by
-// the int32 rate.  Several threads per row, one kernel per Miller loop and
-// wgmma for the limb products are the next designs.
+// the int32 rate: pp_mul014 takes the same ~0.67 ms at 132 rows as at
+// 2,048 (PERF.md).  The verify path's Miller loop is now kernel K13
+// (csrc/miller.cu: the whole loop in one launch, 8 threads a row, the state
+// in shared memory); K4 and the K5 SQR/MUL014 steps stay as the
+// counterparts of their Pallas kernels and the plain bodies K13 is held
+// to, and F12MUL and K6 still serve the fold and the RLC scaling, where a
+// lane split per row and wgmma for the limb products are the next designs.
 
 #include "fp381.cuh"
 

@@ -1,4 +1,5 @@
-"""Kernels K4–K6 — the batched Miller loop on the card (csrc/pairing.cu).
+"""Kernels K4–K6 and K13 — the batched Miller loop on the card
+(csrc/pairing.cu, csrc/miller.cu).
 
 The counterpart of the JAX package's ops/pallas_pairing.py:
 
@@ -11,13 +12,21 @@ The counterpart of the JAX package's ops/pallas_pairing.py:
 - K6 `g1_dblsel` replaces `_pp_g1_dblsel_kernel`: one 2-bit window of
   the per-row G1 scalar multiplication (acc ← 4·acc + table[w]) that
   scales each pair row by its random RLC coefficient.
+- K13 `miller_loop` replaces the launch sequence of `miller_rows`
+  (:489): the whole loop — 63 doublings, 5 additions, 62 squarings and
+  68 line multiplies, 198 K4/K5 launches a tile — in ONE launch, 8
+  threads per pair row running the op program of ops/miller_program.py
+  on the row's state in shared memory.  `miller_rows` (the verify path's
+  Miller loop and its per-row re-check) calls it; K4 and the K5
+  sqr/mul014 steps remain for the smoke run's kernel phase and as the
+  plain bodies K13 is held to (`miller_loop_plain`).
 
-One thread per pair row runs a whole step with every intermediate in its
-registers and local memory.  The field arithmetic is the JAX package's
-(the in-kernel library of pallas_g2: lazy-Karatsuba Fp2, fold-reduced
-Fp), so each kernel is BIT-IDENTICAL to its plain version here — the port
-of the `_DIRECT_FNS` bodies, which the CPU tests compare with JAX and the
-chip smoke compares with the kernel.
+In K4–K6 one thread per pair row runs a whole step with every
+intermediate in its registers and local memory.  The field arithmetic is
+the JAX package's (the in-kernel library of pallas_g2: lazy-Karatsuba
+Fp2, fold-reduced Fp), so each kernel is BIT-IDENTICAL to its plain
+version here — the port of the `_DIRECT_FNS` bodies, which the CPU tests
+compare with JAX and the chip smoke compares with the kernel.
 
 LAYOUT.  A batch of n-plane rows is ``[n, 32, R]`` int32: an Fp12 12
 planes (plane m = (k·3 + j)·2 + c), a Miller accumulator (X, Y, Z) 6, a
@@ -37,7 +46,7 @@ import numpy as np
 import torch
 
 from ..tbls.ref.fields import BLS_X
-from . import build, fp, launch_count
+from . import build, fp, launch_count, miller_program
 from .cuda_g2 import (_addf, _cuda_ready, _f2add, _f2mul, _f2small, _f2sqr,
                       _f2sub, _msmall, _mulf, _raise_on, _subf)
 
@@ -295,7 +304,8 @@ def g1_dblsel_plain(acc, t1, t2, t3, w: torch.Tensor) -> torch.Tensor:
 #: kernel launches since the last `reset_launches()` (all threads;
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"pp_dbl": 0, "pp_add": 0, "pp_sqr": 0, "pp_mul014": 0,
-            "pp_f12mul": 0, "g1_dblsel": 0}
+            "pp_f12mul": 0, "g1_dblsel": 0, "miller_loop": 0,
+            "miller_thread": 0}
 
 
 def reset_launches() -> None:
@@ -479,32 +489,111 @@ def windows_from_bits(bits: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(w.T.astype(np.int32))
 
 
+def _step_sequence(p, q, sqr, dbl, add, mul014) -> torch.Tensor:
+    r = p.shape[-1]
+    xyz = torch.cat([q, _rows_of(_F2_ONE_PLANES, r, q.device)])  # (x, y, 1)
+    f = f12_one(r, p.device)
+    for i, bit in enumerate(LOOP_BITS):
+        if i:
+            f = sqr(f)                      # f = 1 on step 0
+        out = dbl(xyz)
+        xyz, line = out[:XYZ_PLANES], out[XYZ_PLANES:]
+        f = mul014(f, line, p)
+        if bit:
+            out = add(xyz, q)
+            xyz, line = out[:XYZ_PLANES], out[XYZ_PLANES:]
+            f = mul014(f, line, p)
+    return f
+
+
+def miller_loop_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The Miller loop as the K4/K5 step sequence on their plain bodies:
+    62 squarings, 63 doublings, 5 additions and 68 line multiplies."""
+    return _step_sequence(p, q, pp_sqr_plain, pp_dbl_plain, pp_add_plain,
+                          pp_mul014_plain)
+
+
+def miller_steps(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The same sequence through the K4/K5 step wrappers (198 launches on
+    the card): what K13 replaced, kept for the smoke run's comparison."""
+    return _step_sequence(p, q, pp_sqr, pp_dbl, pp_add, pp_mul014)
+
+
+_CONST_PLANES = np.stack([fp.ONE, fp.ZERO, fp.ZERO, fp.ZERO])  # (1,0), (0,0)
+_PROGRAMS: dict = {}
+
+
+def _device_program(device, lanes: int, slots: int, window: int):
+    """(code, f's output codes, steps) of the scheduled Miller loop on
+    `device`, uploaded once per device and shape."""
+    key = (str(device), lanes, slots, window)
+    if key not in _PROGRAMS:
+        prog = miller_program.miller_program(lanes, slots, window)
+        _PROGRAMS[key] = (torch.from_numpy(prog.code).to(device),
+                          torch.from_numpy(prog.out).to(device), prog.steps)
+    return _PROGRAMS[key]
+
+
+def _check_pairs(name: str, p: torch.Tensor, q: torch.Tensor) -> int:
+    n = p.shape[-1]
+    _check(name, p, P_PLANES, n)
+    _check(name, q, Q_PLANES, n)
+    _same_device(name, p, q)
+    _cuda_ready(name, p)
+    return n
+
+
+def miller_loop(p: torch.Tensor, q: torch.Tensor,
+                lanes: int = miller_program.LANES,
+                slots: int = miller_program.SLOTS,
+                window: int = miller_program.WINDOW) -> torch.Tensor:
+    """K13: the whole Miller loop (`miller_loop_plain`) in one launch,
+    `lanes` threads per pair row running the program ops/miller_program.py
+    schedules with `slots` Fp elements of shared memory a row (and its
+    look-ahead `window`).  p [3, 32, R], q [4, 32, R] → f [12, 32, R]."""
+    if p.device.type == "cpu":
+        return miller_loop_plain(p, q)
+    n = _check_pairs("miller_loop", p, q)
+    code, fout, steps = _device_program(p.device, lanes, slots, window)
+    consts = _rows_of(_CONST_PLANES, n, p.device)
+    inp = torch.cat([p, q, consts]).permute(2, 0, 1).contiguous()
+    out = p.new_empty((F12_PLANES, NL, n))
+    err = build.library().charon_miller_loop(
+        out.data_ptr(), inp.data_ptr(), code.data_ptr(), steps,
+        fout.data_ptr(), lanes, slots, n, _stream(p))
+    _raise_on("miller_loop", err)
+    launch_count.bump(LAUNCHES, "miller_loop")
+    return out
+
+
+def miller_thread(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """K13's probe design: the same loop in one launch, ONE thread per
+    row running the K4/K5 functions on its stack (csrc/miller.cu
+    `miller_thread_kernel`).  No path calls it; the smoke run times it."""
+    if p.device.type == "cpu":
+        return miller_loop_plain(p, q)
+    n = _check_pairs("miller_thread", p, q)
+    out = p.new_empty((F12_PLANES, NL, n))
+    err = build.library().charon_miller_thread(
+        out.data_ptr(), p.data_ptr(), q.data_ptr(), n, _stream(p))
+    _raise_on("miller_thread", err)
+    launch_count.bump(LAUNCHES, "miller_thread")
+    return out
+
+
 def miller_rows(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Batched Miller loop f_{|z|,Q}(P) over pair rows.
+    """Batched Miller loop f_{|z|,Q}(P) over pair rows: one K13 launch
+    (`miller_loop`) on the card, its plain version on the CPU.
 
     p [3, 32, R] projective G1 planes (xP, −yP, zP), q [4, 32, R] affine
-    G2 planes → f [12, 32, R]: 62 K5 squarings, 63 K4 doublings, 5 K4
-    additions and 68 K5 line multiplies.
+    G2 planes → f [12, 32, R].
 
     NOT conjugated for the negative BLS parameter: conjugation commutes
     with the final exponentiation, so product-is-one checks are
     unaffected; `ops.pairing.miller_loop` equals conj(row).  Rows whose P
     or Q is at infinity produce garbage — mask them to 1 (`mask_rows`)
     before the fold."""
-    r = p.shape[-1]
-    xyz = torch.cat([q, _rows_of(_F2_ONE_PLANES, r, q.device)])  # (x, y, 1)
-    f = f12_one(r, p.device)
-    for i, bit in enumerate(LOOP_BITS):
-        if i:
-            f = pp_sqr(f)                   # f = 1 on step 0
-        out = pp_dbl(xyz)
-        xyz, line = out[:XYZ_PLANES], out[XYZ_PLANES:]
-        f = pp_mul014(f, line, p)
-        if bit:
-            out = pp_add(xyz, q)
-            xyz, line = out[:XYZ_PLANES], out[XYZ_PLANES:]
-            f = pp_mul014(f, line, p)
-    return f
+    return miller_loop(p, q)
 
 
 def mask_rows(f: torch.Tensor, drop: torch.Tensor) -> torch.Tensor:

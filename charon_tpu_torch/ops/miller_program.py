@@ -1,0 +1,513 @@
+"""The batched Miller loop as a scheduled program of field ops — the data
+that kernel K13 (csrc/miller.cu) runs.
+
+K13 spreads one pair row over a group of `LANES` threads.  What each
+thread does at each step is fixed before the launch: this module writes
+the whole Miller loop f_{|z|,Q}(P) as a dataflow graph of the field ops
+the K4/K5 step kernels run one after another (Fp2 products and squares,
+Fp products, sums, differences and small multiples, each the same
+csrc/fp381.cuh function on the same inputs), and schedules it:
+
+- a STEP is up to `LANES` independent ops of ONE kind (lane i runs op
+  i), so the threads of a group — and the groups of a warp, which all
+  run the same program — take one instruction stream, and a
+  `__syncwarp()` follows every step;
+- every intermediate lives in a SLOT of the row's shared memory (one Fp
+  element, 32 int32 limbs; an Fp2 takes two neighbouring slots); a slot
+  is freed when the last op that reads it has run, and reused from the
+  next step on, so no op reads a slot another op of its step writes;
+- P, Q and the constants one and zero stay in device memory (`GLOBAL`
+  codes), read where an op needs them.
+
+The scheduler is a list scheduler over the unrolled loop (all 63
+iterations, `schedule`): each step takes the kind whose ready ops leave
+the fewest lane-instructions idle, then up to `LANES` of them, oldest
+first, as far as free slots allow, looking at most `WINDOW` ops ahead of
+the sequential order.  Because the doubling chain of T does not depend
+on f, the next iteration's doubling overlaps this iteration's line
+multiplication.
+
+Every op is an op of the sequential step sequence on the same inputs, so
+the program computes exactly the bits of `cuda_pairing.miller_loop_plain`
+(the plain K4/K5 bodies in order): `run_plain` executes the encoded
+program on CPU tensors with the plain field functions, and the CPU tests
+hold it to that bit for bit.
+
+ENCODING (`Program.code`, int32 [steps, LANES, 2]): word 0 is kind |
+out << 8 | a << 16 | b << 24, word 1 the small multiple k.  An operand
+code below `GLOBAL` is a shared-memory slot; `GLOBAL + m` is plane m of
+the row's input block [IN_PLANES, 32] in device memory.  An Fp2 operand
+or output names the slot (plane) of its c0; c1 follows it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..tbls.ref.fields import BLS_X
+from . import fp
+
+# op kinds (csrc/miller.cu's switch): the Fp2 product and square, the Fp
+# product, and LIN — fp381's add, sub and mul_small as one function,
+# spread·48p + k·a + s·b reduced (see `lin_plain`)
+NOP, MUL2, SQR2, MUL, LIN = range(5)
+KIND_NAMES = ("nop", "f2_mul", "f2_sqr", "mul", "lin")
+
+#: int32 instructions per op, counted from csrc/fp381.cuh (chip_smoke.py's
+#: OPS table; LIN as its costliest form, mul_small): the scheduler's cost
+#: model
+COST = {MUL2: 11_720, SQR2: 9_172, MUL: 3_756, LIN: 809}
+
+# LIN forms: (k, s, iters, spread)
+_ADD, _SUB = (1, 1, 1, 0), (1, -1, 1, 1)
+
+#: threads per pair row, and the shared-memory slots of a row
+LANES = 8
+SLOTS = 52
+#: how far (in ops of the sequential order) the schedule may run ahead
+WINDOW = 40
+
+#: operand codes at or above GLOBAL name a plane of the row's input block
+GLOBAL = 192
+# the input block's planes: P = (xP, −yP, zP), Q = (x, y) affine, and the
+# constants (1, 0) and (0, 0) as Fp2 pairs
+IN_PX, IN_PY, IN_PZ, IN_QX, IN_QY, IN_ONE, IN_ZERO = 0, 1, 2, 3, 5, 7, 9
+IN_PLANES = 11
+
+# bits of |z| below the leading one, MSB first (cuda_pairing.LOOP_BITS)
+LOOP_BITS = tuple(int(b) for b in bin(BLS_X)[3:])
+
+
+# ---------------------------------------------------------------------------
+# The dataflow graph
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _Op:
+    kind: int
+    out: int                  # value id
+    half: int | None          # the half written (Fp ops), None: both
+    ins: tuple                # (value id, half | None) refs
+    lin: tuple = (0, 0, 0, 0)  # LIN's (k, s, iters, spread)
+
+
+class Dag:
+    """Values are Fp2 elements (two halves) or device-memory inputs; ops
+    write one half (Fp ops) or a whole Fp2 (MUL2, SQR2)."""
+
+    def __init__(self):
+        self.ops: list[_Op] = []
+        self.glob: dict[int, int] = {}      # value id → input plane
+        self.n = 0
+
+    def _new(self) -> int:
+        self.n += 1
+        return self.n - 1
+
+    def input(self, plane: int) -> int:
+        v = self._new()
+        self.glob[v] = plane
+        return v
+
+    # Fp2 helpers, each the fp381.cuh function of the same name
+    def f2_mul(self, a, b):
+        v = self._new()
+        self.ops.append(_Op(MUL2, v, None, ((a, None), (b, None))))
+        return v
+
+    def f2_sqr(self, a):
+        v = self._new()
+        self.ops.append(_Op(SQR2, v, None, ((a, None),)))
+        return v
+
+    def _lin(self, forms):
+        """One Fp2 value, half h = LIN of forms[h] = (ins, form)."""
+        v = self._new()
+        for h, (ins, form) in enumerate(forms):
+            self.ops.append(_Op(LIN, v, h, ins, form))
+        return v
+
+    def f2_add(self, a, b):
+        return self._lin([(((a, 0), (b, 0)), _ADD), (((a, 1), (b, 1)), _ADD)])
+
+    def f2_sub(self, a, b):
+        return self._lin([(((a, 0), (b, 0)), _SUB), (((a, 1), (b, 1)), _SUB)])
+
+    def f2_small(self, a, k):
+        form = (k, 0, 2, 0)
+        return self._lin([(((a, 0),), form), (((a, 1),), form)])
+
+    def f2_mul_xi(self, a):
+        """(a0 − a1) + (a0 + a1)·u"""
+        return self._lin([(((a, 0), (a, 1)), _SUB),
+                          (((a, 0), (a, 1)), _ADD)])
+
+    def f2_mul_fp(self, a, s):
+        v = self._new()
+        self.ops.append(_Op(MUL, v, 0, ((a, 0), (s, 0))))
+        self.ops.append(_Op(MUL, v, 1, ((a, 1), (s, 0))))
+        return v
+
+    # the tower (cuda_pairing._f6_* / _f12_*)
+    def f6_add(self, a, b):
+        return tuple(self.f2_add(x, y) for x, y in zip(a, b))
+
+    def f6_sub(self, a, b):
+        return tuple(self.f2_sub(x, y) for x, y in zip(a, b))
+
+    def f6_mul_by_v(self, a):
+        return (self.f2_mul_xi(a[2]), a[0], a[1])
+
+    def f6_mul(self, a, b):
+        v0 = self.f2_mul(a[0], b[0])
+        v1 = self.f2_mul(a[1], b[1])
+        v2 = self.f2_mul(a[2], b[2])
+        t12 = self.f2_sub(self.f2_mul(self.f2_add(a[1], a[2]),
+                                      self.f2_add(b[1], b[2])),
+                          self.f2_add(v1, v2))
+        t01 = self.f2_sub(self.f2_mul(self.f2_add(a[0], a[1]),
+                                      self.f2_add(b[0], b[1])),
+                          self.f2_add(v0, v1))
+        t02 = self.f2_sub(self.f2_mul(self.f2_add(a[0], a[2]),
+                                      self.f2_add(b[0], b[2])),
+                          self.f2_add(v0, v2))
+        return (self.f2_add(v0, self.f2_mul_xi(t12)),
+                self.f2_add(t01, self.f2_mul_xi(v2)),
+                self.f2_add(t02, v1))
+
+    def f6_mul_by_01(self, a, d0, d1):
+        v0 = self.f2_mul(a[0], d0)
+        v1 = self.f2_mul(a[1], d1)
+        x12 = self.f2_mul(self.f2_add(a[1], a[2]), d1)
+        x01 = self.f2_mul(self.f2_add(a[0], a[1]), self.f2_add(d0, d1))
+        x02 = self.f2_mul(self.f2_add(a[0], a[2]), d0)
+        return (self.f2_add(v0, self.f2_mul_xi(self.f2_sub(x12, v1))),
+                self.f2_sub(x01, self.f2_add(v0, v1)),
+                self.f2_add(self.f2_sub(x02, v0), v1))
+
+    def f12_sqr(self, f):
+        a0, a1 = f
+        v0 = self.f6_mul(a0, a1)
+        t = self.f6_mul(self.f6_add(a0, a1),
+                        self.f6_add(a0, self.f6_mul_by_v(a1)))
+        c0 = self.f6_sub(self.f6_sub(t, v0), self.f6_mul_by_v(v0))
+        c1 = tuple(self.f2_small(c, 2) for c in v0)
+        return c0, c1
+
+    def f12_mul_by_014(self, f, c0, c1, c4):
+        a0, a1 = f
+        aa = self.f6_mul_by_01(a0, c0, c1)
+        t6 = self.f6_mul_by_01(self.f6_add(a0, a1), c0, self.f2_add(c1, c4))
+        b0 = self.f2_mul(a1[0], c4)
+        b1 = self.f2_mul(a1[1], c4)
+        b2 = self.f2_mul(a1[2], c4)
+        bb = (self.f2_mul_xi(b2), b0, b1)
+        r1 = self.f6_sub(t6, self.f6_add(aa, bb))
+        r0 = self.f6_add(self.f6_mul_by_v(bb), aa)
+        return r0, r1
+
+    # the Miller steps (cuda_pairing._dbl_step / _add_step / _line_eval)
+    def dbl_step(self, T):
+        X, Y, Z = T
+        XX = self.f2_sqr(X)
+        YY = self.f2_sqr(Y)
+        s = self.f2_mul(Y, Z)
+        XY = self.f2_mul(X, Y)
+        w = self.f2_small(XX, 3)
+        ss = self.f2_sqr(s)
+        B = self.f2_mul(XY, s)
+        c1b = self.f2_mul(w, Z)
+        wX = self.f2_mul(w, X)
+        YYZ = self.f2_mul(YY, Z)
+        sZ = self.f2_mul(s, Z)
+        wsq = self.f2_sqr(w)
+        YYss = self.f2_mul(YY, ss)
+        sss = self.f2_mul(s, ss)
+        h = self.f2_sub(wsq, self.f2_small(B, 8))
+        hs = self.f2_mul(h, s)
+        wterm = self.f2_mul(w, self.f2_sub(self.f2_small(B, 4), h))
+        X3 = self.f2_small(hs, 2)
+        Y3 = self.f2_sub(wterm, self.f2_small(YYss, 8))
+        Z3 = self.f2_small(sss, 8)
+        c0 = self.f2_sub(self.f2_small(YYZ, 2), wX)
+        c4b = self.f2_small(sZ, 2)
+        return (X3, Y3, Z3), (c0, c1b, c4b)
+
+    def add_step(self, T, x2, y2):
+        X1, Y1, Z1 = T
+        yZ = self.f2_mul(y2, Z1)
+        xZ = self.f2_mul(x2, Z1)
+        theta = self.f2_sub(Y1, yZ)
+        delta = self.f2_sub(X1, xZ)
+        c = self.f2_sqr(theta)
+        d = self.f2_sqr(delta)
+        dy = self.f2_mul(delta, y2)
+        tx = self.f2_mul(theta, x2)
+        e = self.f2_mul(delta, d)
+        f_ = self.f2_mul(Z1, c)
+        g = self.f2_mul(X1, d)
+        h = self.f2_sub(self.f2_add(e, f_), self.f2_small(g, 2))
+        X3 = self.f2_mul(delta, h)
+        t = self.f2_mul(theta, self.f2_sub(g, h))
+        eY = self.f2_mul(e, Y1)
+        Z3 = self.f2_mul(Z1, e)
+        Y3 = self.f2_sub(t, eY)
+        c0 = self.f2_sub(dy, tx)
+        return (X3, Y3, Z3), (c0, theta, delta)
+
+    def line_eval(self, f, line, P):
+        px, py, pz = P
+        c0b, c1b, c4b = line
+        return self.f12_mul_by_014(f, self.f2_mul_fp(c0b, pz),
+                                   self.f2_mul_fp(c1b, px),
+                                   self.f2_mul_fp(c4b, py))
+
+
+def miller_dag() -> tuple[Dag, list[int]]:
+    """The unrolled loop of `cuda_pairing.miller_loop_plain` → (graph,
+    the six Fp2 values of f)."""
+    g = Dag()
+    P = tuple(g.input(m) for m in (IN_PX, IN_PY, IN_PZ))
+    qx, qy = g.input(IN_QX), g.input(IN_QY)
+    one, zero = g.input(IN_ONE), g.input(IN_ZERO)
+    T = (qx, qy, one)
+    f = ((one, zero, zero), (zero, zero, zero))
+    for i, bit in enumerate(LOOP_BITS):
+        if i:
+            f = g.f12_sqr(f)
+        T, line = g.dbl_step(T)
+        f = g.line_eval(f, line, P)
+        if bit:
+            T, line = g.add_step(T, qx, qy)
+            f = g.line_eval(f, line, P)
+    return g, [*f[0], *f[1]]
+
+
+# ---------------------------------------------------------------------------
+# The schedule
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Program:
+    code: np.ndarray          # int32 [steps, lanes, 2]
+    kinds: np.ndarray         # int32 [steps]
+    out: np.ndarray           # int32 [6]: the codes of f's Fp2 values
+    lanes: int
+    slots: int
+
+    @property
+    def steps(self) -> int:
+        return len(self.kinds)
+
+    def cost(self) -> int:
+        """Instructions one lane issues: each step costs its kind."""
+        return int(sum(COST[int(k)] for k in self.kinds))
+
+
+def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
+             slots: int = SLOTS, window: int = WINDOW) -> Program:
+    """List-schedule the graph: each step takes the kind whose ready ops
+    waste the fewest lane-instructions, (lanes − ops) · cost, then up to
+    `lanes` ops of it, oldest first.  Cheap LIN steps run as soon as they
+    are ready, so products wait until more of them are ready at once.
+    Only ops within `window` of the oldest unscheduled one are candidates,
+    which bounds how far the program runs ahead of the sequential order
+    (and so the slots it holds)."""
+    ops = dag.ops
+    nops = len(ops)
+    prod: dict[tuple[int, int], int] = {}
+    for i, op in enumerate(ops):
+        for h in ((0, 1) if op.half is None else (op.half,)):
+            prod[(op.out, h)] = i
+    deps = [set() for _ in ops]
+    users: dict[int, int] = {}
+    for i, op in enumerate(ops):
+        for v, h in op.ins:
+            if v in dag.glob:
+                continue
+            for hh in ((0, 1) if h is None else (h,)):
+                deps[i].add(prod[(v, hh)])
+            users[v] = users.get(v, 0) + 1
+    succ = [[] for _ in ops]
+    for i, d in enumerate(deps):
+        for j in d:
+            succ[j].append(i)
+    keep = set(outs)
+    waiting = [len(d) for d in deps]
+    ready = {i for i in range(nops) if not deps[i]}
+    scheduled = [False] * nops
+    oldest = 0
+    free = list(range(0, slots - 1, 2))[::-1]    # pairs, by their c0 slot
+    home: dict[int, int] = {}                    # value → c0 slot
+    left = dict(users)
+    code, kinds = [], []
+    done = 0
+
+    def at(v, h):
+        base = (GLOBAL + dag.glob[v]) if v in dag.glob else home[v]
+        return base + (h or 0)
+
+    while done < nops:
+        while scheduled[oldest]:
+            oldest += 1
+        by_kind: dict[int, list[int]] = {}
+        for i in sorted(ready):
+            if i < oldest + window:
+                by_kind.setdefault(ops[i].kind, []).append(i)
+        best = None
+        for kind, cand in by_kind.items():
+            # the ops a step of this kind can take: a new value needs a
+            # free pair
+            new, take = set(), []
+            for i in cand:
+                v = ops[i].out
+                if v not in home and v not in new:
+                    if len(new) == len(free):
+                        continue
+                    new.add(v)
+                take.append(i)
+                if len(take) == lanes:
+                    break
+            if not take:
+                continue
+            key = ((lanes - len(take)) * COST[kind], take[0])
+            if best is None or key < best[0]:
+                best = (key, kind, take)
+        if best is None:
+            raise RuntimeError(f"schedule: {slots} slots are too few (every "
+                               f"ready op needs a new pair)")
+        _, kind, chosen = best
+        for i in chosen:
+            if ops[i].out not in home:
+                home[ops[i].out] = free.pop()
+        freed = []
+        row = np.zeros((lanes, 2), np.uint32)
+        for lane, i in enumerate(chosen):
+            op = ops[i]
+            out = home[op.out] + (op.half or 0)
+            a = at(*op.ins[0])
+            b = at(*op.ins[1]) if len(op.ins) > 1 else a
+            k, sg, iters, spread = op.lin
+            row[lane] = (op.kind | out << 8 | a << 16 | b << 24,
+                         k | (sg + 1) << 8 | iters << 12 | spread << 16)
+            for v, _ in op.ins:
+                if v in dag.glob:
+                    continue
+                left[v] -= 1
+                if left[v] == 0 and v not in keep:
+                    freed.append(home[v])
+        code.append(row.view(np.int32))
+        kinds.append(kind)
+        free.extend(freed)
+        for i in chosen:
+            ready.discard(i)
+            scheduled[i] = True
+            done += 1
+            for j in succ[i]:
+                waiting[j] -= 1
+                if waiting[j] == 0:
+                    ready.add(j)
+    out = np.array([GLOBAL + dag.glob[v] if v in dag.glob else home[v]
+                    for v in outs], np.int32)
+    return Program(np.stack(code), np.asarray(kinds, np.int32), out, lanes,
+                   slots)
+
+
+_PROGRAM: dict[tuple[int, int, int], Program] = {}
+
+
+def miller_program(lanes: int = LANES, slots: int = SLOTS,
+                   window: int = WINDOW) -> Program:
+    """The scheduled Miller loop (built once per shape)."""
+    key = (lanes, slots, window)
+    if key not in _PROGRAM:
+        dag, outs = miller_dag()
+        _PROGRAM[key] = schedule(dag, outs, lanes, slots, window)
+    return _PROGRAM[key]
+
+
+def _fields(code: np.ndarray):
+    """[..., 2] int32 words → (kind, out, a, b, k, s, iters, spread)."""
+    w0 = code[..., 0].astype(np.int64) & 0xFFFFFFFF
+    w1 = code[..., 1].astype(np.int64)
+    return (w0 & 0xFF, (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF, w0 >> 24,
+            w1 & 0xFF, ((w1 >> 8) & 0xF) - 1, (w1 >> 12) & 0xF,
+            (w1 >> 16) & 1)
+
+
+def check(prog: Program) -> None:
+    """The invariants the kernel relies on: one kind a step; no op of a
+    step reads or writes a slot another op of it writes; every slot read
+    was written at an earlier step; slots in range."""
+    kind, out, a, b = _fields(prog.code)[:4]
+    written: set[int] = set()
+    for s in range(prog.steps):
+        live = kind[s] != NOP
+        if set(kind[s][live].tolist()) != {int(prog.kinds[s])}:
+            raise AssertionError(f"step {s}: kinds {kind[s][live]}")
+        wide = int(prog.kinds[s]) in (MUL2, SQR2)
+        reads, writes = set(), []
+        for lane in np.flatnonzero(live):
+            writes += [int(out[s, lane]) + h for h in range(1 + wide)]
+            for code in {int(a[s, lane]), int(b[s, lane])}:
+                if code < GLOBAL:
+                    reads |= {code + h for h in range(1 + wide)}
+        if len(set(writes)) != len(writes) or reads & set(writes):
+            raise AssertionError(f"step {s}: a slot is both read and written")
+        if not reads <= written:
+            raise AssertionError(f"step {s}: reads unwritten slots "
+                                 f"{sorted(reads - written)}")
+        if max(writes) >= prog.slots:
+            raise AssertionError(f"step {s}: slot out of range")
+        written |= set(writes)
+
+
+def lin_plain(a: torch.Tensor, b: torch.Tensor, k: int, s: int, iters: int,
+              spread: int) -> torch.Tensor:
+    """The kernel's LIN on [32, R] tensors: spread·48p + k·a + s·b, one
+    zero (or 48p's top) column above, reduced (cuda_g2's plain reduce)."""
+    from .cuda_g2 import _SPREAD, _col, _reduce
+
+    d = torch.cat([k * a + s * b, a.new_zeros((1,) + tuple(a.shape[1:]))])
+    if spread:
+        d = d + _col(_SPREAD, d)
+    return _reduce(d, iters)
+
+
+def run_plain(prog: Program, p: torch.Tensor, q: torch.Tensor
+              ) -> torch.Tensor:
+    """Execute the program on [3, 32, R] / [4, 32, R] CPU (or any) tensors
+    with the plain field functions, as the kernel's lanes do → f
+    [12, 32, R].  A step's writes land after all its reads."""
+    from .cuda_g2 import _f2mul, _f2sqr, _mulf
+
+    n = p.shape[-1]
+    one = fp.const(fp.ONE, p.device).unsqueeze(-1).expand(fp.NLIMBS, n)
+    zero = torch.zeros_like(one)
+    planes = [*p, *q, one, zero, zero, zero]
+    slots: dict[int, torch.Tensor] = {}
+
+    def get(code: int) -> torch.Tensor:
+        return planes[code - GLOBAL] if code >= GLOBAL else slots[code]
+
+    fields = _fields(prog.code)
+    for s in range(prog.steps):
+        writes = {}
+        for lane in range(prog.lanes):
+            kind, o, a, b, k, sg, iters, spread = (int(f[s, lane])
+                                                   for f in fields)
+            if kind == MUL2:
+                writes[o], writes[o + 1] = _f2mul((get(a), get(a + 1)),
+                                                  (get(b), get(b + 1)))
+            elif kind == SQR2:
+                writes[o], writes[o + 1] = _f2sqr((get(a), get(a + 1)))
+            elif kind == MUL:
+                writes[o] = _mulf(get(a), get(b))
+            elif kind == LIN:
+                writes[o] = lin_plain(get(a), get(b), k, sg, iters, spread)
+        slots.update(writes)
+    return torch.stack([get(int(prog.out[m // 2]) + m % 2)
+                        for m in range(12)])

@@ -33,12 +33,13 @@ Verify (`batch_verify_bytes`), one RLC batch check per call:
 - `verify_device_exec` (card): G2 decompression of the signatures (ψ
   check; one K12 launch), the G1 tables {P, 2P, 3P} of the pair-major rows
   (−g1, pk_k), 32 K6 windows scaling both rows of entry k by r_k, the
-  Miller loop over the 2·V rows (K4/K5), dropped / ∞ / padding rows masked
-  to one, the K5 product fold to one row, and ONE final exponentiation
-  (one K11 launch).  If the batch equation fails, every row is re-checked
-  on its own — e(−g1, sig)·e(pk, H(m)) == 1 (the plain Miller loop, K1,
-  then K11 over the rows), ANDed with the decode mask — so the verdicts
-  are exactly the pure-Python oracle's.
+  Miller loop over the 2·V rows (one K13 launch), dropped / ∞ / padding
+  rows masked to one, the K5 product fold to one row, and ONE final
+  exponentiation (one K11 launch).  If the batch equation fails, every
+  entry is re-checked on its own — e(−g1, sig)·e(pk, H(m)) == 1 on the
+  unscaled rows: one K13 launch, one K5 product of the two halves, K11
+  over the entries — ANDed with the decode mask, so the verdicts are
+  exactly the pure-Python oracle's.
 
 A failed launch raises; there is no fallback path.  The device stages
 synchronise their thread's stream at their boundaries and record their
@@ -380,11 +381,11 @@ class CUDABackend:
         clock.lap("rlc_tables_s")
         acc = cuda_pairing.g1_scalar_mul_rows(base, p2, p3,
                                               self._put(p["windows"]))
+        p_side = cuda_pairing.g1_proj_rows(acc)     # (xP, −yP, zP)
         clock.lap("rlc_scalar_mul_s")
         hms = self._put(p["hms"])
         q = torch.stack([sigs, hms], dim=-1).reshape(3, 2, NL, 2 * v)
-        f = cuda_pairing.miller_rows(cuda_pairing.g1_proj_rows(acc),
-                                     cuda_pairing.g2_affine_rows(q))
+        f = cuda_pairing.miller_rows(p_side, cuda_pairing.g2_affine_rows(q))
         clock.lap("miller_s")
         drop = self._put(np.repeat(~live, 2))
         prod = cuda_pairing.fold_product(cuda_pairing.mask_rows(f, drop))
@@ -395,11 +396,9 @@ class CUDABackend:
         if all_ok:
             ok = live
         else:
-            # some live row fails the batch equation: re-check every row
+            # some live row fails the batch equation: re-check every entry
             # on its own so callers get exact per-entry verdicts
-            ps = torch.stack([neg_g1, pks])
-            qs = torch.stack([sigs, hms])
-            ok = tpair.pairing_product_is_one(ps, qs).cpu().numpy() & live
+            ok = self._recheck(neg_g1, pks, sigs, hms, live)
             clock.lap("recheck_s")
         self.last_stages = stages
         self.last_launches = launches
@@ -411,6 +410,22 @@ class CUDABackend:
                 for name, c in counts.items():
                     tot[name] = tot.get(name, 0) + c
         return [bool(b) for b in ok[:n]]
+
+    def _recheck(self, neg_g1, pks, sigs, hms, live) -> np.ndarray:
+        """e(−g1, sig_k)·e(pk_k, H(m_k)) == 1 for every entry k, on the
+        unscaled rows [(−g1, sig_k) for k < v | (pk_k, H(m_k)) for k < v]:
+        one Miller launch (K13), rows that are not live masked to one, one
+        K5 product of the two halves, one K11 over the v rows; ANDed with
+        `live`."""
+        v = live.shape[0]
+        f = cuda_pairing.miller_rows(
+            cuda_pairing.g1_proj_rows(torch.cat([neg_g1, pks], dim=-1)),
+            cuda_pairing.g2_affine_rows(torch.cat([sigs, hms], dim=-1)))
+        f = cuda_pairing.mask_rows(f, self._put(np.tile(~live, 2)))
+        prod = cuda_pairing.pp_f12mul(f[..., :v], f[..., v:])
+        one = tpair.is_one(cuda_final_exp.final_exp(
+            prod.reshape(2, 3, 2, NL, v)))
+        return one.cpu().numpy() & live
 
     # -- aggregation --------------------------------------------------------
 

@@ -14,7 +14,8 @@ Phases, in order; any failure raises and exits non-zero:
              Miller rows) against its plain PyTorch version ON THE CARD, on
              seeded random and all-LMAX limbs: the results must be
              bit-identical.  Kernel and plain times are CUDA-event medians
-             of 5 runs.
+             of 5 runs.  K4 and the K5 sqr/mul014 steps run only here now:
+             K13 replaced their launch sequence on the verify path.
 3. combine — a pool of 1,024 distinct signatures s·H(m) built on the card;
              a real-Shamir check (V = 128: the combined bytes must equal
              sk·H(m)); then 10,000 SigAgg.aggregate() calls in one event-loop
@@ -30,7 +31,14 @@ Phases, in order; any failure raises and exits non-zero:
              thread per row) at 2,048 rows and at the combine's 71,680, on
              the pool's signatures with ∞ rows, x off the curve and points
              outside G2 mixed in: bit-identical, every ok flag as its row's
-             kind wants; both timed beside their bounds.
+             kind wants; both timed beside their bounds.  K13 (the whole
+             Miller loop in one launch, 8 threads a row) against
+             miller_loop_plain at a verify tile's 4,096 rows on random,
+             all-LMAX and real pairs with ∞ rows, bit for bit, timed beside
+             the 198-launch K4/K5 sequence it replaced and its bound; the
+             probe behind its design (pp_mul014 from 132 to 8,192 rows,
+             the loop one thread per row, K13 at other row counts and with
+             4 and 16 lanes a row).
 4. verify  — 10,000 keys and 64 messages (one per committee); pk = sk·G1
              and sig = sk·H(m) computed on the card, 3 rows checked against
              the oracle.  The G1 decompress of the 10,000 keys alone on the
@@ -38,12 +46,14 @@ Phases, in order; any failure raises and exits non-zero:
              entries (one peer's parsigex message) fills the pubkey LRU
              (its decompress overlaps earlier tiles); then 3 timed reps, each ONE pipeline launch of 5 tiles (4 ×
              2,048 + 1,808), all verdicts True, stages summed over the
-             tiles, every pairing kernel launched, one K12 launch per tile
-             in sig_decompress_s and one K11 (plus is_one's K1 sub) in
-             final_exp_s, under 1,000 K1 launches per flush; then a
-             2,048-entry batch with 6 bad entries whose verdicts must equal
-             the pure-Python oracle on the bad rows and on 4 random good
-             ones (its re-check one K11 launch over the rows).
+             tiles, K13, the fold and the RLC kernels launched and no K4/K5
+             step, one K12 launch per tile in sig_decompress_s, one K13 in
+             miller_s and one K11 (plus is_one's K1 sub) in final_exp_s,
+             under 1,000 K1 launches per flush; then a 2,048-entry batch
+             with 6 bad entries whose verdicts must equal the pure-Python
+             oracle on the bad rows and on 4 random good ones (its re-check
+             one K13 launch over the unscaled rows, one K5 product of the
+             halves and one K11 over the entries).
 5. h2c     — the distinct flush's first 2,048 messages (one verify tile)
              through the device hash-to-G2 (cuda_h2c.hash_to_g2_rows)
              must equal the same pipeline on the plain versions on the
@@ -63,7 +73,7 @@ Phases, in order; any failure raises and exits non-zero:
              stage launches adding up, K11 and K12 as in phase 4; then a
              2,048-entry batch with 4 entries carrying another entry's
              message, rejected exactly, agreeing with the pure-Python
-             oracle.
+             oracle, its re-check as in phase 4.
 
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
@@ -74,9 +84,11 @@ runs: `launches_combine` (one combine rep), `launches_verify` (one
 10,000-entry verify rep, warm caches) and `launches_verify_distinct` (one
 rep of the distinct-message flush), each counted from zero.  K10 addsel
 has no caller on any path (nor in the JAX package): only phase 2 launches
-it.  K11's ms, plain_ms and bound_ms are at the batch check's 1 row (its
-`recheck` key at 2,048), K12's at a verify tile's 2,048 (its `combine` key
-at 71,680).  Every bound_ms is at the card's full rate; K11 also gives
+it, as it does K4 and the K5 sqr/mul014 steps now.  K11's ms, plain_ms and
+bound_ms are at the batch check's 1 row (its `recheck` key at 2,048), K12's
+at a verify tile's 2,048 (its `combine` key at 71,680), K13's at a verify
+tile's 4,096 Miller rows (`steps_ms` the K4/K5 sequence's, `probe` the
+design probe).  Every bound_ms is at the card's full rate; K11 also gives
 `bound_one_warp_ms`, the bound at the rate of the SMs its rows can occupy
 under its one-warp-per-row design (one SM at 1 row).
 The second-to-last line is the `kernels` JSON object; the last line is
@@ -644,6 +656,133 @@ def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
     return results
 
 
+def miller_ops() -> np.ndarray:
+    """[IMAD, ALU] of one Miller row (K13, or the 198 K4/K5 launches):
+    63 doublings, 5 mixed additions, 62 squarings and 68 line multiplies
+    (the bits of |z| below its leading one, 5 of them set)."""
+    from charon_tpu_torch.ops import cuda_pairing
+
+    bits = cuda_pairing.LOOP_BITS
+    adds = sum(bits)
+    return (len(bits) * OPS["pp_dbl"] + adds * OPS["pp_add"]
+            + (len(bits) - 1) * OPS["pp_sqr"]
+            + (len(bits) + adds) * OPS["pp_mul014"])
+
+
+def miller_pairs(dev, pool: list[bytes], rows: int) -> tuple:
+    """`rows` real Miller rows in the re-check's layout [(−g1, sig_k) |
+    (s_k·G1, sig_k')]: the pool's signatures decompressed on the card, G1
+    multiples computed on the card; 16 rows with P at ∞ and 16 with Q at
+    ∞ (Q's planes zero).  → (p [3, 32, rows], q [4, 32, rows])."""
+    from charon_tpu_torch.ops import codec, cuda_codec, cuda_pairing as cp
+    from charon_tpu_torch.ops import curve as tcurve
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    half = rows // 2
+    raw = np.stack([np.frombuffer(pool[k % len(pool)], np.uint8)
+                    for k in range(rows)])
+    xc0, xc1, sign, inf, bad = codec.g2_bytes_split(raw)
+    if bad.any():
+        raise AssertionError("Miller rows: a pool signature does not decode")
+    sigs, ok = cuda_codec.g2_decompress(
+        *[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (xc0.T, xc1.T, sign, inf)])
+    if not bool(ok.all()):
+        raise AssertionError("Miller rows: a pool signature is not in G2")
+    rng = random.Random(29)
+    scalars = [rng.randrange(1, 2**64) for _ in range(64)]
+    g1 = torch.from_numpy(tcurve.g1_pack([rc.G1_GEN])).to(dev).expand(
+        3, NL, 64).contiguous()
+    bits = torch.from_numpy(np.ascontiguousarray(
+        tcurve.scalars_to_bits(scalars).T)).to(dev)
+    mults = tcurve.scalar_mul(tcurve.FP_OPS, g1, bits)
+    neg_g1 = torch.from_numpy(tcurve.g1_pack([rc.neg(rc.G1_GEN)])).to(dev)
+    pts = torch.cat([neg_g1.expand(3, NL, half),
+                     mults.repeat(1, 1, -(-half // 64))[..., :half]], -1)
+    pts[..., 100:116] = torch.from_numpy(tcurve.g1_pack([None])).to(dev)
+    p = cp.g1_proj_rows(pts.contiguous())
+    q = cp.g2_affine_rows(sigs)
+    q[..., rows - 116:rows - 100] = 0
+    return p.contiguous(), q.contiguous()
+
+
+def miller_phase(dev, pool: list[bytes], rows: int,
+                 sm_clocks_per_s: float) -> dict:
+    """K13 against `miller_loop_plain` at `rows` Miller rows (a verify
+    tile), bit for bit, on seeded random limbs, all-LMAX limbs and real
+    pairs with ∞ rows; timed beside the 198-launch K4/K5 sequence it
+    replaced (also held bit for bit), its bound and the plain version.
+    The probe that chose its design: pp_mul014 across row counts, the same
+    loop one thread per row (`miller_thread`), K13 at other row counts and
+    with 4 and 16 lanes a row."""
+    from charon_tpu_torch.ops import cuda_pairing as cp
+    from charon_tpu_torch.ops import miller_program as mp
+
+    gen = np.random.default_rng(20261021)
+    pats = {pat: (limbs(dev, gen, (3, NL, rows), pat),
+                  limbs(dev, gen, (4, NL, rows), pat))
+            for pat in ("random", "lmax")}
+    pats["pairs"] = miller_pairs(dev, pool, rows)
+    err = 0
+    plain_ms = None
+    for name, (p, q) in pats.items():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = cp.miller_loop_plain(p, q)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = plain_ms or start.elapsed_time(end)
+        for label, fn in (("K13", cp.miller_loop),
+                          ("the K4/K5 sequence", cp.miller_steps),
+                          ("the thread-per-row probe", cp.miller_thread)):
+            got = fn(p, q)
+            torch.cuda.synchronize()
+            diff = int((got.long() - want.long()).abs().max())
+            if diff:
+                raise AssertionError(f"{label} at {rows} rows ({name}): "
+                                     f"differs from miller_loop_plain (max "
+                                     f"abs err {diff})")
+            err = max(err, diff)
+    log(f"K13 at {rows:,} rows: bit-identical to miller_loop_plain on "
+        f"random, LMAX and real pairs with ∞ rows (the K4/K5 sequence and "
+        f"the thread-per-row probe too)")
+    p, q = pats["random"]
+    ms = time_ms(lambda: cp.miller_loop(p, q))
+    steps_ms = time_ms(lambda: cp.miller_steps(p, q), 3)
+    bms, by = bound(miller_ops() * rows, rows * (3 + 4 + 12) * EL_BYTES,
+                    sm_clocks_per_s)
+    prog = mp.miller_program()
+    probe = {"thread_per_row_ms": time_ms(lambda: cp.miller_thread(p, q), 3),
+             "pp_mul014_ms": {}, "k13_ms": {}, "k13_lanes_ms": {}}
+    for n in (132, 528, 1056, 2048, 4096, 8192):
+        f, ln, pp = (limbs(dev, gen, (k, NL, n), "random") for k in (12, 6, 3))
+        probe["pp_mul014_ms"][n] = time_ms(lambda: cp.pp_mul014(f, ln, pp))
+    for n in (132, 1056, 2048, 8192):
+        pn, qn = (limbs(dev, gen, (k, NL, n), "random") for k in (3, 4))
+        probe["k13_ms"][n] = time_ms(lambda: cp.miller_loop(pn, qn), 3)
+    probe["k13_ms"][rows] = ms
+    for cfg in ((4, 52, 60), (mp.LANES, mp.SLOTS, mp.WINDOW), (16, 110, 100)):
+        got = cp.miller_loop(p, q, *cfg)
+        if not torch.equal(got, cp.miller_loop(p, q)):
+            raise AssertionError(f"K13 with {cfg} differs from the default")
+        probe["k13_lanes_ms"][str(cfg)] = (
+            ms if cfg == (mp.LANES, mp.SLOTS, mp.WINDOW)
+            else time_ms(lambda: cp.miller_loop(p, q, *cfg), 3))
+    log(f"kernel miller_loop (K13, {mp.LANES} lanes a row, {mp.SLOTS} "
+        f"slots, {prog.steps} steps, {prog.cost():,} instructions a lane "
+        f"by the scheduler's count): {ms:.3f} ms at {rows:,} rows; the "
+        f"198-launch K4/K5 sequence {steps_ms:.3f} ms "
+        f"({steps_ms / ms:.2f}×); plain {plain_ms:.1f} ms; bound "
+        f"{bms:.4f} ms by {by}")
+    log(f"K13 probe: {json.dumps(probe)}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "rows": rows,
+            "steps_ms": steps_ms, "lanes": mp.LANES, "slots": mp.SLOTS,
+            "program_steps": prog.steps, "program_cost": prog.cost(),
+            "probe": probe}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the combine through SigAgg
 # ---------------------------------------------------------------------------
@@ -950,12 +1089,33 @@ def check_stage_launches(label: str, stage_launches: dict, stage: str,
 
 def check_redesigned_stages(label: str, stage_launches: dict,
                             tiles: int) -> None:
-    """One K12 launch per tile in sig_decompress_s; one K11 launch and
-    is_one's K1 sub per tile in final_exp_s."""
+    """One K12 launch per tile in sig_decompress_s; one K13 launch per
+    tile, and nothing else, in miller_s; one K11 launch and is_one's K1
+    sub per tile in final_exp_s."""
     check_stage_launches(label, stage_launches, "sig_decompress_s",
                          {"g2_decompress": tiles})
+    check_stage_launches(label, stage_launches, "miller_s",
+                         {"miller_loop": tiles})
     check_stage_launches(label, stage_launches, "final_exp_s",
                          {"final_exp": tiles, "fp_sub": tiles})
+
+
+#: the verify path's pairing kernels; the K4/K5 step kernels K13 replaced
+#: (and its thread-per-row probe) run only in the kernel phases
+VERIFY_PAIRING_KERNELS = ("miller_loop", "pp_f12mul", "g1_dblsel")
+PHASE_ONLY_KERNELS = ("pp_dbl", "pp_add", "pp_sqr", "pp_mul014",
+                      "miller_thread")
+
+
+def check_recheck(label: str, stage_launches: dict) -> None:
+    """The per-row re-check: one K13 launch over the unscaled rows, one
+    K5 product of the halves and one K11, plus K1 only for the p-side
+    negation and is_one."""
+    got = {k: n for k, n in stage_launches["recheck_s"].items() if n}
+    want = {"miller_loop": 1, "pp_f12mul": 1, "final_exp": 1}
+    if {k: got.get(k) for k in want} != want or \
+            set(got) - set(want) - {"fp_neg", "fp_sub"}:
+        raise AssertionError(f"{label}: recheck_s launched {got}")
 
 
 def check_stage_sums(label: str, counts: dict, stage_launches: dict) -> None:
@@ -990,7 +1150,7 @@ def bad_entries(entries, pool_rows):
 def verify_phase(dev):
     """→ (launch counts of one warm rep, the pool's pubkeys, sks and key
     bits on the card)."""
-    from charon_tpu_torch.ops import cuda_fp, cuda_pairing
+    from charon_tpu_torch.ops import cuda_fp
     from charon_tpu_torch.tbls import api, dispatch
 
     backend = api._backend()
@@ -1056,11 +1216,16 @@ def verify_phase(dev):
         log(f"verify rep {rep}: {VALIDATORS:,} entries, {tiles} tiles: "
             f"{wall:.3f} s wall; " + ", ".join(
                 f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
-    zero = [k for k in (*cuda_pairing.LAUNCHES, "final_exp", "g2_decompress")
-            if launch_counts[k] == 0]
+    zero = [k for k in (*VERIFY_PAIRING_KERNELS, "final_exp",
+                        "g2_decompress") if launch_counts[k] == 0]
     if zero:
         raise AssertionError(f"kernels never launched on the verify path: "
                              f"{zero}")
+    steps = {k: launch_counts[k] for k in PHASE_ONLY_KERNELS
+             if launch_counts[k]}
+    if steps:
+        raise AssertionError(f"verify: kernels K13 replaced launched on the "
+                             f"path: {steps}")
     check_stage_sums("verify", launch_counts, stage_launches)
     check_redesigned_stages("verify", stage_launches, tiles_want)
     k1 = sum(launch_counts[k] for k in cuda_fp.LAUNCHES)
@@ -1094,12 +1259,7 @@ def verify_phase(dev):
     if rejected != bad_rows:
         raise AssertionError(f"reject run: rows {rejected} rejected, want "
                              f"{bad_rows}")
-    # the re-check: the plain Miller loop (K1) and one K11 over the rows
-    recheck = {k: n for k, n in
-               backend.verify_launch_totals["recheck_s"].items() if n}
-    if recheck.get("final_exp") != 1 or \
-            set(recheck) - {"final_exp", *cuda_fp.LAUNCHES}:
-        raise AssertionError(f"reject run: recheck_s launched {recheck}")
+    check_recheck("reject run", backend.verify_launch_totals)
     sample = bad_rows + sorted(gen.choice(good_rows, 4,
                                           replace=False).tolist())
     t1 = time.perf_counter()
@@ -1111,7 +1271,9 @@ def verify_phase(dev):
         f"rejected, every other row accepted; {len(sample)} rows equal the "
         f"pure-Python oracle ({time.perf_counter() - t1:.1f} s); "
         f"{wall:.3f} s wall, recheck_s "
-        f"{backend.verify_totals['recheck_s']:.4f}")
+        f"{backend.verify_totals['recheck_s']:.4f}; launches per stage "
+        + json.dumps({st: {k: n for k, n in c.items() if n}
+                      for st, c in backend.verify_launch_totals.items()}))
     return launch_counts, [pk for pk, _, _ in entries], sks, bits
 
 
@@ -1358,6 +1520,7 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
     if rejected != bad_rows:
         raise AssertionError(f"distinct reject: rows {rejected} rejected, "
                              f"want {bad_rows}")
+    check_recheck("distinct reject", backend.verify_launch_totals)
     good = [r for r in range(len(batch)) if r not in bad_rows]
     sample = bad_rows + sorted(gen.choice(good, 2, replace=False).tolist())
     for r in sample:
@@ -1423,6 +1586,10 @@ SOURCES = {
                   "charon_tpu/ops/pallas_fp.py:78"),
     "g2_decompress": ("charon_tpu_torch/csrc/decompress.cu",
                       "charon_tpu/ops/pallas_fp.py:78"),
+    # K13 replaces the Miller loop's K4/K5 launch sequence (pallas_pairing
+    # miller_rows over the kernels of :328–:340)
+    "miller_loop": ("charon_tpu_torch/csrc/miller.cu",
+                    "charon_tpu/ops/pallas_pairing.py:489"),
 }
 
 
@@ -1480,6 +1647,8 @@ def main() -> int:
     kern["g2_decompress"] = {**redesign[f"g2_decompress@{tile}"],
                              "combine": redesign[
                                  f"g2_decompress@{vrows * SHARES}"]}
+    # K13 at a verify tile's Miller rows
+    kern["miller_loop"] = miller_phase(dev, pool, 2 * tile, sm_clocks_per_s)
     verify_launches, pks, sks, bits = verify_phase(dev)
     plain_planes = h2c_phase(dev, dispatch.VERIFY_TILE)
     distinct_launches = verify_distinct_phase(dev, pks, sks, bits,
