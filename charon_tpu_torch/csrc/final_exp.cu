@@ -41,7 +41,8 @@
 // the 18 of a product (three) are independent: one lane each, operands and
 // results in shared memory, `__syncwarp()` between the operand, product
 // and combination stages, and each stage one instruction stream for all
-// its lanes (operands chosen by pointer, not by branch).  Every product and
+// its lanes (operands chosen by pointer, not by branch; the product,
+// `w_mul`, is csrc/f12_warp.cuh, which K14 shares).  Every product and
 // sum is the same fp381.cuh function on the same inputs as the sequential
 // K5 tower, so the split cannot change a bit.  One warp alone on an SM
 // runs the unrolled field code at a small fraction of the schedulers'
@@ -53,7 +54,7 @@
 // its two reductions), the inverse spread over the warp, and more than one
 // warp per row.  Measured times: PERF.md.
 
-#include "fp381.cuh"
+#include "f12_warp.cuh"
 
 namespace {
 
@@ -61,16 +62,11 @@ using fp381::F12;
 using fp381::F2;
 using fp381::F6;
 using fp381::NL;
+using f12w::Ws;
+using f12w::w_f6_products;
+using f12w::w_mul;
 
 constexpr int WARP = 32;
-
-// One warp's working set in shared memory (15.75 KB).
-struct Ws {
-  F12 slot[5];   // x, t2, acc, base, tmp
-  F6 opd[2];     // the Fp6 operands a stage computes
-  F2 prod[18];   // Fp2 products, one per lane
-  F2 f6r[9];     // the Fp6 products' coefficients
-};
 
 __device__ __forceinline__ void fe_const(F2& o, int k) {
 #pragma unroll
@@ -78,45 +74,6 @@ __device__ __forceinline__ void fe_const(F2& o, int k) {
     o.c0[i] = fp381::FE_G[2 * k][i];
     o.c1[i] = fp381::FE_G[2 * k + 1][i];
   }
-}
-
-// K Toom-style Fp6 products a[k]·b[k] (fp381::f6_mul), written to
-// f6r[3k .. 3k + 2]: 6K product lanes, then 3K combination lanes.
-__device__ void w_f6_products(Ws& s, int lane, int K, const F6* const* a,
-                              const F6* const* b) {
-  if (lane < 6 * K) {
-    const int k = lane / 6, p = lane % 6;
-    F2 x, y;
-    const F2 *xp, *yp;
-    if (p < 3) {
-      xp = &a[k]->c[p];
-      yp = &b[k]->c[p];
-    } else {
-      // p = 3: (1, 2); p = 4: (0, 1); p = 5: (0, 2)
-      const int i = p == 3 ? 1 : 0, j = p == 4 ? 1 : 2;
-      fp381::f2_add_n(x, a[k]->c[i], a[k]->c[j]);
-      fp381::f2_add_n(y, b[k]->c[i], b[k]->c[j]);
-      xp = &x;
-      yp = &y;
-    }
-    fp381::f2_mul(s.prod[lane], *xp, *yp);
-  }
-  __syncwarp();
-  if (lane < 3 * K) {
-    // coefficient i of product k, every lane on the same instructions:
-    //   i = 0: v0 + ξ·(v3 − (v1 + v2))
-    //   i = 1: (v4 − (v0 + v1)) + ξ·v2
-    //   i = 2: (v5 − (v0 + v2)) + v1
-    // (lane i = 2 computes a ξ·v2 it does not use)
-    const int k = lane / 3, i = lane % 3;
-    const F2* v = &s.prod[6 * k];
-    F2 u, t, m;
-    fp381::f2_add_n(u, v[i == 0 ? 1 : 0], v[i == 1 ? 1 : 2]);
-    fp381::f2_sub_n(t, v[3 + i], u);
-    fp381::f2_mul_xi(m, i == 0 ? t : v[2]);
-    fp381::f2_add_n(s.f6r[lane], i == 0 ? v[0] : t, i == 2 ? v[1] : m);
-  }
-  __syncwarp();
 }
 
 // o = f² (fp381::f12_sqr); o may alias f
@@ -142,33 +99,6 @@ __device__ void w_sqr(Ws& s, int lane, F12& o, const F12& f) {
     fp381::f2_sub_n(o.c[0].c[i], d, i == 0 ? e : v0[i - 1]);
   } else if (lane < 6) {                // 2·v0
     fp381::f2_small_n(o.c[1].c[i], v0[i], 2);
-  }
-  __syncwarp();
-}
-
-// o = f·g (fp381::f12_mul); o may alias f or g
-__device__ void w_mul(Ws& s, int lane, F12& o, const F12& f, const F12& g) {
-  if (lane < 6) {                       // f0 + f1 (lanes 0–2), g0 + g1
-    const F12& a = lane < 3 ? f : g;
-    const int i = lane % 3;
-    fp381::f2_add_n(s.opd[lane / 3].c[i], a.c[0].c[i], a.c[1].c[i]);
-  }
-  __syncwarp();
-  const F6* a[3] = {&f.c[0], &f.c[1], &s.opd[0]};
-  const F6* b[3] = {&g.c[0], &g.c[1], &s.opd[1]};
-  w_f6_products(s, lane, 3, a, b);     // aa, bb, cross
-  if (lane < 6) {
-    const int i = lane % 3;
-    const F2* aa = &s.f6r[0];
-    const F2* bb = &s.f6r[3];
-    F2 w, t;
-    fp381::f2_mul_xi(w, bb[2]);
-    fp381::f2_add_n(t, aa[i], bb[i]);
-    if (lane < 3) {                     // aa + v·bb
-      fp381::f2_add_n(o.c[0].c[i], aa[i], i == 0 ? w : bb[i - 1]);
-    } else {                            // cross − (aa + bb)
-      fp381::f2_sub_n(o.c[1].c[i], s.f6r[6 + i], t);
-    }
   }
   __syncwarp();
 }
@@ -298,14 +228,20 @@ __device__ __noinline__ void f12_inv(F12& o, const F12& f) {
 
 __global__ void __launch_bounds__(WARP)
 final_exp_kernel(int* __restrict__ out, const int* __restrict__ in, int n) {
-  __shared__ Ws s;
+  // one warp's working set in shared memory (15.75 KB): the Fp12 values
+  // x, t2, acc, base, tmp, then a product's
+  __shared__ struct {
+    F12 slot[5];
+    Ws w;
+  } sh;
+  Ws& s = sh.w;
   const int r = blockIdx.x;
   const int lane = threadIdx.x;
-  F12& x = s.slot[0];
-  F12* t2 = &s.slot[1];
-  F12* acc = &s.slot[2];
-  F12* base = &s.slot[3];
-  F12& tmp = s.slot[4];
+  F12& x = sh.slot[0];
+  F12* t2 = &sh.slot[1];
+  F12* acc = &sh.slot[2];
+  F12* base = &sh.slot[3];
+  F12& tmp = sh.slot[4];
   {
     int* e = reinterpret_cast<int*>(&x);
 #pragma unroll 1

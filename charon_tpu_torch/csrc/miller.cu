@@ -15,18 +15,19 @@
 // out as a dataflow graph of fp381.cuh field ops and list-scheduled on the
 // host (ops/miller_program.py): a STEP is up to LANES independent ops of
 // one kind, the Fp2 product f2_mul, the Fp2 square f2_sqr, the Fp product
-// mul, or LIN — fp381's add, sub and mul_small as one function (below) —
-// and lane i of every row group runs op i of the step.  The kernel is the
-// interpreter of that program: it decodes each lane's op (operand and
-// output slots by pointer, no branch but the step's kind, which every
-// lane of a warp shares), runs it, and __syncwarp()s.  Slots are Fp
-// elements in the row's shared memory; P, Q and the constants one and
-// zero are read from the row's input block in device memory.  f is
-// written once, at the end.
+// mul, or LIN — fp381's add, sub and mul_small as one function — and lane
+// i of every row group runs op i of the step.  The kernel is the
+// interpreter of that program (csrc/program.cuh, which K15 shares): it
+// decodes each lane's op (operand and output slots by pointer, no branch
+// but the step's kind, which every lane of a warp shares), runs it, and
+// __syncwarp()s.  Slots are Fp elements in the row's shared memory; P, Q
+// and the constants one and zero are read from the row's input block in
+// device memory.  f is written once, at the end.
 //
 // Layout: in [n, 11, 32] int32, a row's input block (xP, −yP, zP, Q's x
-// and y as Fp2, (1, 0), (0, 0)); the program [steps, LANES] int2; out
-// [12, 32, n] (plane m = (k·3 + j)·2 + c), the K5 layout.
+// and y as Fp2, (1, 0), (0, 0)); the program [steps, LANES] int2; fout
+// the 12 output planes' codes; out [12, 32, n] (plane m = (k·3 + j)·2 +
+// c), the K5 layout.
 //
 // What bounds it on an H100: int32 instructions.  Counted from fp381.cuh
 // as [IMAD, other] per row (chip_smoke.py's OPS table): 63 K4 doublings
@@ -41,7 +42,7 @@
 // SM — with their Fp6/Fp12 temporaries on a 6–10 KB local-memory stack a
 // thread.  Here a warp holds 32 / LANES rows and each thread runs whole
 // field ops on shared-memory operands with its columns in registers:
-// with LANES = 8 and 52 slots a row (6,816 B with the padding below), a
+// with LANES = 8 and 52 slots a row (6,816 B with program.cuh's padding), a
 // block of one warp needs 27.3 KB, 8 blocks fit an SM — as many warps as
 // 255 registers a thread allow — and a tile's 1,024 warps run in one
 // wave (54 slots would not fit 8 blocks).  The scheduler runs the
@@ -58,7 +59,7 @@
 // loop, one thread per row, the K4/K5 functions on the thread's stack.
 // Measured times: PERF.md.
 
-#include "fp381.cuh"
+#include "program.cuh"
 
 namespace {
 
@@ -70,101 +71,18 @@ using fp381::Line;
 using fp381::NL;
 
 constexpr int WARP = 32;
-constexpr int GLOBAL = 192;    // operand codes >= GLOBAL: input planes
 constexpr int IN_PLANES = 11;
-// Shared memory holds a row's slots as Fp2 pairs (c1 right after c0, the
-// F2 layout), each pair followed by one pad word: the lanes of a group
-// read limb k of different pairs at once, and a stride of 65 words puts
-// them in different banks (a stride of 64 put every lane of the warp in
-// one bank: 32-way conflicts on every operand).
-constexpr int PAIRW = 2 * NL + 1;
 
-// A row's words: its pairs, rounded up to 8 (mod 32), so that the row
-// groups of a warp, which run the same op on the same slots, sit 8 banks
-// apart.
-__host__ __device__ constexpr int row_words(int slots) {
-  return slots / 2 * PAIRW + ((8 - slots / 2 * PAIRW) % 32 + 32) % 32;
-}
-
-enum Kind { NOP = 0, MUL2 = 1, SQR2 = 2, MUL = 3, LIN = 4 };
-
-// o = spread·48p + k·a + s·b, reduced with 1 or 2 rounds after the first
-// (fp381's add: k = s = 1, iters 1; sub: k = 1, s = −1, spread, iters 1;
-// mul_small: s = 0, iters 2).  The columns are the same integers as in
-// those functions, one zero column wider where they have none, which the
-// carry rounds and the fold carry through unchanged: the same bits.
-__device__ __forceinline__ void lin(int* o, const int* a, const int* b,
-                                    int k, int s, int iters, int spread) {
-  int c[NL + 3];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    c[i] = spread * fp381::SPREAD48P[i] + k * a[i] + s * b[i];
-  }
-  c[NL] = spread * fp381::SPREAD48P[NL];
-  fp381::reduce<NL + 1, 1>(c);
-  if (iters == 2) {
-    fp381::carry_round<NL>(c);
-    fp381::carry_round<NL + 1>(c);
-    fp381::fold<NL + 2>(c);
-  }
-  fp381::copy(o, c);
-}
-
-__device__ __forceinline__ const int* operand(int code, const int* sm,
-                                              const int* gin) {
-  return code >= GLOBAL ? gin + (code - GLOBAL) * NL
-                        : sm + (code >> 1) * PAIRW + (code & 1) * NL;
-}
-
-// One warp per block, 32 / lanes rows; rows past n run the last row's
-// program (so every lane reaches every __syncwarp) and write nothing.
+// The interpreter of program.cuh on the Miller program: no SEL; `digits`
+// is unused (the launcher's common signature).
 __global__ void __launch_bounds__(WARP)
 miller_loop_kernel(int* __restrict__ out, const int* __restrict__ in,
                    const int2* __restrict__ prog, int steps,
-                   const int* __restrict__ fout, int lanes, int slots,
+                   const int* __restrict__ fout,
+                   const int* __restrict__ digits, int lanes, int slots,
                    int n) {
-  extern __shared__ int smem[];
-  const int lane = threadIdx.x % lanes;
-  const int grp = threadIdx.x / lanes;
-  const int r = blockIdx.x * (WARP / lanes) + grp;
-  const int rr = r < n ? r : n - 1;
-  int* sm = smem + grp * row_words(slots);
-  const int* gin = in + (size_t)rr * IN_PLANES * NL;
-  int2 op = prog[lane];
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    const int2 next = s + 1 < steps ? prog[(s + 1) * lanes + lane]
-                                    : make_int2(0, 0);
-    const int kind = op.x & 0xff;
-    if (kind != NOP) {
-      int* o = const_cast<int*>(operand((op.x >> 8) & 0xff, sm, gin));
-      const int* a = operand((op.x >> 16) & 0xff, sm, gin);
-      const int* b = operand((op.x >> 24) & 0xff, sm, gin);
-      if (kind == MUL2) {
-        fp381::f2_mul(*reinterpret_cast<F2*>(o),
-                      *reinterpret_cast<const F2*>(a),
-                      *reinterpret_cast<const F2*>(b));
-      } else if (kind == SQR2) {
-        fp381::f2_sqr(*reinterpret_cast<F2*>(o),
-                      *reinterpret_cast<const F2*>(a));
-      } else if (kind == MUL) {
-        fp381::mul_n(o, a, b);
-      } else {
-        lin(o, a, b, op.y & 0xff, ((op.y >> 8) & 0xf) - 1,
-            (op.y >> 12) & 0xf, (op.y >> 16) & 1);
-      }
-    }
-    __syncwarp();
-    op = next;
-  }
-  if (r < n) {
-#pragma unroll 1
-    for (int i = lane; i < 12 * NL; i += lanes) {
-      const int m = i / NL, k = i % NL;
-      const int* e = operand(fout[m >> 1] + (m & 1), sm, gin);
-      out[(size_t)i * n + r] = e[k];
-    }
-  }
+  program::run<IN_PLANES, 12, false>(out, in, prog, steps, fout, digits,
+                                     lanes, slots, n);
 }
 
 // ---- the probe design: one thread per row, the K4/K5 functions ------------
@@ -233,21 +151,8 @@ extern "C" int charon_miller_loop(void* out, const void* in,
                                   const void* prog, int steps,
                                   const void* fout, int lanes, int slots,
                                   int n, void* stream) {
-  if (lanes <= 0 || WARP % lanes || slots <= 0 || slots % 2 ||
-      slots > GLOBAL || n <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int rows = WARP / lanes;
-  const int bytes = rows * row_words(slots) * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      miller_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  miller_loop_kernel<<<(n + rows - 1) / rows, WARP, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(out), static_cast<const int*>(in),
-      static_cast<const int2*>(prog), steps, static_cast<const int*>(fout),
-      lanes, slots, n);
-  return (int)cudaGetLastError();
+  return program::launch(miller_loop_kernel, out, in, prog, steps, fout,
+                         nullptr, lanes, slots, n, stream);
 }
 
 extern "C" int charon_miller_thread(void* out, const void* p, const void* q,

@@ -26,8 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu", "final_exp.cu",
-           "decompress.cu", "miller.cu")
-HEADERS = ("fp381.cuh", "fp381_consts.cuh")
+           "decompress.cu", "miller.cu", "fold.cu", "g1_scalar_mul.cu")
+HEADERS = ("fp381.cuh", "fp381_consts.cuh", "program.cuh", "f12_warp.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -127,13 +127,13 @@ def _kernel_name(mangled: str) -> str:
     return found
 
 
-def ptxas_report() -> str:
-    """One line per kernel of the current build: registers, stack frame,
-    and the largest spill of the kernel or the device functions it calls
-    (from the compiler's -Xptxas -v log)."""
+def ptxas_rows() -> list[dict]:
+    """One dict per kernel of the current build — its name, registers,
+    stack frame and the largest spill of the kernel or the device
+    functions it calls — from the compiler's -Xptxas -v log."""
     log = build_root() / source_hash() / "ptxas.log"
     if not log.exists():
-        return ""
+        return []
     rows, cur = [], None
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -148,9 +148,14 @@ def ptxas_report() -> str:
                 cur["stack"] = int(m.group(1))
             if (m := re.search(r"(\d+) bytes spill stores", line)):
                 cur["spill"] = max(cur["spill"], int(m.group(1)))
+    return rows
+
+
+def ptxas_report() -> str:
+    """One line per kernel of the current build (`ptxas_rows`)."""
     return "\n".join(f"ptxas {r['name']}: {r['regs']} registers, "
                      f"{r['stack']} B stack, {r['spill']} B largest spill"
-                     for r in rows)
+                     for r in ptxas_rows())
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -169,12 +174,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_g2_decompress.argtypes = [p, p, p, p, p, p, i, p]
     lib.charon_miller_loop.argtypes = [p, p, p, i, p, i, i, i, p]
     lib.charon_miller_thread.argtypes = [p, p, p, i, p]
+    lib.charon_f12_fold.argtypes = [p, p, p, p, i, p]
+    lib.charon_g1_scalar_mul.argtypes = [p, p, p, i, p, p, i, i, i, p]
     for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
                lib.charon_pp_step, lib.charon_f12_step,
                lib.charon_g1_dblsel, lib.charon_g2_sel, lib.charon_f2_chain,
                lib.charon_h2c_sswu, lib.charon_h2c_point,
                lib.charon_final_exp, lib.charon_g2_decompress,
-               lib.charon_miller_loop, lib.charon_miller_thread):
+               lib.charon_miller_loop, lib.charon_miller_thread,
+               lib.charon_f12_fold, lib.charon_g1_scalar_mul):
         fn.restype = i
 
 

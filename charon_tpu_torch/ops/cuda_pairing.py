@@ -1,5 +1,6 @@
-"""Kernels K4–K6 and K13 — the batched Miller loop on the card
-(csrc/pairing.cu, csrc/miller.cu).
+"""Kernels K4–K6 and K13–K15 — the batched Miller loop, its product fold
+and the RLC scaling on the card (csrc/pairing.cu, csrc/miller.cu,
+csrc/fold.cu, csrc/g1_scalar_mul.cu).
 
 The counterpart of the JAX package's ops/pallas_pairing.py:
 
@@ -20,6 +21,18 @@ The counterpart of the JAX package's ops/pallas_pairing.py:
   Miller loop and its per-row re-check) calls it; K4 and the K5
   sqr/mul014 steps remain for the smoke run's kernel phase and as the
   plain bodies K13 is held to (`miller_loop_plain`).
+- K14 `f12_fold` replaces the fold's log₂ R K5 F12MUL launches
+  (`fold_product_plain`; pallas_pairing `miller_product_tiled` :535):
+  the product of all rows in ONE cooperative launch, a warp per Fp12
+  product, the levels separated by a grid-wide barrier, dropped rows read
+  as one.  `fold_product` calls it.
+- K15 `g1_scalar_mul` replaces the 32 K6 launches of the RLC scaling
+  (`g1_scalar_mul_plain`; pallas_pairing `g1_scalar_mul_rows` :520): the
+  windows as one op program (ops/miller_program.py `g1_program`) run by
+  K13's interpreter, `G1_LANES` threads a row.  `g1_scalar_mul_rows`
+  calls it.  K6 and K5 F12MUL stay: K6 for the smoke run's kernel phase
+  and as the plain window K15 is held to, F12MUL for the re-check's one
+  product of halves.
 
 In K4–K6 one thread per pair row runs a whole step with every
 intermediate in its registers and local memory.  The field arithmetic is
@@ -305,7 +318,7 @@ def g1_dblsel_plain(acc, t1, t2, t3, w: torch.Tensor) -> torch.Tensor:
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"pp_dbl": 0, "pp_add": 0, "pp_sqr": 0, "pp_mul014": 0,
             "pp_f12mul": 0, "g1_dblsel": 0, "miller_loop": 0,
-            "miller_thread": 0}
+            "miller_thread": 0, "f12_fold": 0, "g1_scalar_mul": 0}
 
 
 def reset_launches() -> None:
@@ -520,15 +533,15 @@ def miller_steps(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 _CONST_PLANES = np.stack([fp.ONE, fp.ZERO, fp.ZERO, fp.ZERO])  # (1,0), (0,0)
+_G1_CONST_PLANES = np.stack([fp.ONE, fp.ZERO])
 _PROGRAMS: dict = {}
 
 
-def _device_program(device, lanes: int, slots: int, window: int):
-    """(code, f's output codes, steps) of the scheduled Miller loop on
-    `device`, uploaded once per device and shape."""
-    key = (str(device), lanes, slots, window)
+def _device_program(device, prog: miller_program.Program, key: tuple):
+    """(code, output plane codes, steps) of a scheduled program on
+    `device`, uploaded once per device and `key`."""
+    key = (str(device), *key)
     if key not in _PROGRAMS:
-        prog = miller_program.miller_program(lanes, slots, window)
         _PROGRAMS[key] = (torch.from_numpy(prog.code).to(device),
                           torch.from_numpy(prog.out).to(device), prog.steps)
     return _PROGRAMS[key]
@@ -554,7 +567,9 @@ def miller_loop(p: torch.Tensor, q: torch.Tensor,
     if p.device.type == "cpu":
         return miller_loop_plain(p, q)
     n = _check_pairs("miller_loop", p, q)
-    code, fout, steps = _device_program(p.device, lanes, slots, window)
+    code, fout, steps = _device_program(
+        p.device, miller_program.miller_program(lanes, slots, window),
+        ("miller", lanes, slots, window))
     consts = _rows_of(_CONST_PLANES, n, p.device)
     inp = torch.cat([p, q, consts]).permute(2, 0, 1).contiguous()
     out = p.new_empty((F12_PLANES, NL, n))
@@ -602,23 +617,110 @@ def mask_rows(f: torch.Tensor, drop: torch.Tensor) -> torch.Tensor:
     return torch.where(drop, fp.const(_F12_ONE, f.device).unsqueeze(-1), f)
 
 
-def fold_product(f: torch.Tensor) -> torch.Tensor:
+def fold_product_plain(f: torch.Tensor) -> torch.Tensor:
     """[12, 32, R] (R a power of two) → [12, 32, 1], the product of all
-    rows: log₂ R K5 multiplies of the lower half by the upper half."""
+    rows: log₂ R F12MUL plain bodies, the lower half times the upper."""
     s = f.shape[-1]
     assert s & (s - 1) == 0, f"R={s} must be a power of two"
+    while s > 1:
+        s //= 2
+        f = pp_f12mul_plain(f[..., :s], f[..., s:2 * s])
+    return f
+
+
+def fold_steps(f: torch.Tensor) -> torch.Tensor:
+    """The same fold through the K5 F12MUL wrapper (log₂ R launches on the
+    card): what K14 replaced, kept for the smoke run's comparison."""
+    s = f.shape[-1]
     while s > 1:
         s //= 2
         f = pp_f12mul(f[..., :s], f[..., s:2 * s])
     return f
 
 
-def g1_scalar_mul_rows(t1: torch.Tensor, t2: torch.Tensor, t3: torch.Tensor,
-                       windows: torch.Tensor) -> torch.Tensor:
-    """Per-row G1 scalar multiplication: one K6 launch per 2-bit window
-    (MSB first).  t1/t2/t3 [3, 32, R] are the tables {P, 2P, 3P}, windows
-    [nwin, R] int32 → [3, 32, R] projective r·P rows."""
+def fold_product(f: torch.Tensor, drop: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """K14: [12, 32, R] (R a power of two) → [12, 32, 1], the product of
+    all rows, rows flagged in `drop` [R] bool read as Fp12 one — ONE
+    launch on the card; `fold_product_plain(mask_rows(f, drop))` on the
+    CPU, bit for bit."""
+    if f.device.type == "cpu":
+        return fold_product_plain(f if drop is None else mask_rows(f, drop))
+    n = f.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"f12_fold: R={n} must be a power of two")
+    _check("f12_fold", f, F12_PLANES, n)
+    if drop is not None:
+        if drop.dtype != torch.bool or tuple(drop.shape) != (n,) \
+                or not drop.is_contiguous():
+            raise ValueError(f"f12_fold: drop must be a contiguous bool "
+                             f"[{n}] row")
+        _same_device("f12_fold", f, drop)
+    _cuda_ready("f12_fold", f)
+    out = f.new_empty((F12_PLANES, NL, 1))
+    scratch = f.new_empty((n * F12_PLANES * NL,))
+    err = build.library().charon_f12_fold(
+        out.data_ptr(), f.data_ptr(), 0 if drop is None else drop.data_ptr(),
+        scratch.data_ptr(), n, _stream(f))
+    _raise_on("f12_fold", err)
+    launch_count.bump(LAUNCHES, "f12_fold")
+    return out
+
+
+def g1_scalar_mul_plain(t1: torch.Tensor, t2: torch.Tensor, t3: torch.Tensor,
+                        windows: torch.Tensor) -> torch.Tensor:
+    """Per-row G1 scalar multiplication: the plain K6 window per 2-bit
+    window (MSB first) from ∞."""
+    acc = g1_inf(t1.shape[-1], t1.device)
+    for i in range(windows.shape[0]):
+        acc = g1_dblsel_plain(acc, t1, t2, t3, windows[i])
+    return acc
+
+
+def g1_scalar_mul_steps(t1: torch.Tensor, t2: torch.Tensor,
+                        t3: torch.Tensor, windows: torch.Tensor
+                        ) -> torch.Tensor:
+    """The same windows through the K6 wrapper (one launch each on the
+    card): what K15 replaced, kept for the smoke run's comparison."""
     acc = g1_inf(t1.shape[-1], t1.device)
     for i in range(windows.shape[0]):
         acc = g1_dblsel(acc, t1, t2, t3, windows[i])
     return acc
+
+
+def g1_scalar_mul_rows(t1: torch.Tensor, t2: torch.Tensor, t3: torch.Tensor,
+                       windows: torch.Tensor,
+                       lanes: int = miller_program.G1_LANES,
+                       slots: int = miller_program.G1_SLOTS,
+                       window: int = miller_program.G1_WINDOW
+                       ) -> torch.Tensor:
+    """K15: per-row G1 scalar multiplication in ONE launch, `lanes`
+    threads a row running ops/miller_program.py's `g1_program` with
+    `slots` Fp elements of shared memory a row; `g1_scalar_mul_plain` on
+    the CPU, bit for bit.  t1/t2/t3 [3, 32, R] are the tables {P, 2P, 3P},
+    windows [nwin, R] int32 in 0..3, MSB first → [3, 32, R] projective
+    r·P rows."""
+    if t1.device.type == "cpu":
+        return g1_scalar_mul_plain(t1, t2, t3, windows)
+    n = t1.shape[-1]
+    for t in (t1, t2, t3):
+        _check("g1_scalar_mul", t, P_PLANES, n)
+    nwin = windows.shape[0] if windows.dim() == 2 else 0
+    if windows.dtype != torch.int32 or tuple(windows.shape) != (nwin, n) \
+            or nwin == 0 or not windows.is_contiguous():
+        raise ValueError(f"g1_scalar_mul: windows must be a contiguous "
+                         f"int32 [nwin, {n}] array")
+    _same_device("g1_scalar_mul", t1, t2, t3, windows)
+    _cuda_ready("g1_scalar_mul", t1)
+    code, fout, steps = _device_program(
+        t1.device, miller_program.g1_program(nwin, lanes, slots, window),
+        ("g1", nwin, lanes, slots, window))
+    consts = _rows_of(_G1_CONST_PLANES, n, t1.device)
+    inp = torch.cat([t1, t2, t3, consts]).permute(2, 0, 1).contiguous()
+    out = t1.new_empty((P_PLANES, NL, n))
+    err = build.library().charon_g1_scalar_mul(
+        out.data_ptr(), inp.data_ptr(), code.data_ptr(), steps,
+        fout.data_ptr(), windows.data_ptr(), lanes, slots, n, _stream(t1))
+    _raise_on("g1_scalar_mul", err)
+    launch_count.bump(LAUNCHES, "g1_scalar_mul")
+    return out

@@ -1,5 +1,7 @@
-"""The batched Miller loop as a scheduled program of field ops — the data
-that kernel K13 (csrc/miller.cu) runs.
+"""The batched Miller loop and the RLC scalar multiplication as scheduled
+programs of field ops — the data that kernels K13 (csrc/miller.cu) and
+K15 (csrc/g1_scalar_mul.cu) run through the interpreter of
+csrc/program.cuh.
 
 K13 spreads one pair row over a group of `LANES` threads.  What each
 thread does at each step is fixed before the launch: this module writes
@@ -33,11 +35,22 @@ the program computes exactly the bits of `cuda_pairing.miller_loop_plain`
 program on CPU tensors with the plain field functions, and the CPU tests
 hold it to that bit for bit.
 
+K15's program (`g1_program`) is the same machinery on a G1 graph: 32
+windows of acc ← 4·acc + T[w] (`cuda_pairing.g1_dblsel_plain`), whose
+values are single Fp elements (one slot each, `Dag.fp_vals`).  Its one
+extra op kind, SEL, copies per row one of its operands, chosen by the
+row's digit of a window: the table point T[w] (T[0] stands in as P, so
+every row runs the same addition), then acc4 where w = 0 and the sum
+elsewhere.  `g1_run_plain` on the result equals the iterated plain
+windows bit for bit.
+
 ENCODING (`Program.code`, int32 [steps, LANES, 2]): word 0 is kind |
-out << 8 | a << 16 | b << 24, word 1 the small multiple k.  An operand
+out << 8 | a << 16 | b << 24, word 1 LIN's form (k | (s + 1) << 8 |
+iters << 12 | spread << 16) or SEL's (window | stride << 8).  An operand
 code below `GLOBAL` is a shared-memory slot; `GLOBAL + m` is plane m of
-the row's input block [IN_PLANES, 32] in device memory.  An Fp2 operand
-or output names the slot (plane) of its c0; c1 follows it.
+the row's input block [in planes, 32] in device memory.  An Fp2 operand
+or output names the slot (plane) of its c0; c1 follows it.  SEL writes
+a where the row's digit d of its window is 0, else b + stride·(d − 1).
 """
 
 from __future__ import annotations
@@ -50,16 +63,17 @@ import torch
 from ..tbls.ref.fields import BLS_X
 from . import fp
 
-# op kinds (csrc/miller.cu's switch): the Fp2 product and square, the Fp
-# product, and LIN — fp381's add, sub and mul_small as one function,
-# spread·48p + k·a + s·b reduced (see `lin_plain`)
-NOP, MUL2, SQR2, MUL, LIN = range(5)
-KIND_NAMES = ("nop", "f2_mul", "f2_sqr", "mul", "lin")
+# op kinds (csrc/program.cuh's switch): the Fp2 product and square, the Fp
+# product, LIN — fp381's add, sub and mul_small as one function,
+# spread·48p + k·a + s·b reduced (see `lin_plain`) — and SEL, the
+# per-row copy chosen by a window digit (K15 only)
+NOP, MUL2, SQR2, MUL, LIN, SEL = range(6)
+KIND_NAMES = ("nop", "f2_mul", "f2_sqr", "mul", "lin", "sel")
 
 #: int32 instructions per op, counted from csrc/fp381.cuh (chip_smoke.py's
-#: OPS table; LIN as its costliest form, mul_small): the scheduler's cost
-#: model
-COST = {MUL2: 11_720, SQR2: 9_172, MUL: 3_756, LIN: 809}
+#: OPS table; LIN as its costliest form, mul_small; SEL a digit load and a
+#: 32-limb copy): the scheduler's cost model
+COST = {MUL2: 11_720, SQR2: 9_172, MUL: 3_756, LIN: 809, SEL: 70}
 
 # LIN forms: (k, s, iters, spread)
 _ADD, _SUB = (1, 1, 1, 0), (1, -1, 1, 1)
@@ -80,6 +94,16 @@ IN_PLANES = 11
 # bits of |z| below the leading one, MSB first (cuda_pairing.LOOP_BITS)
 LOOP_BITS = tuple(int(b) for b in bin(BLS_X)[3:])
 
+# K15's input block: the tables T1 = P, T2 = 2P, T3 = 3P as (x, y, z)
+# planes, then the constants one and zero; a SEL of the table reads
+# plane c + G1_STRIDE·(w − 1)
+G1_T1, G1_ONE, G1_ZERO, G1_STRIDE = 0, 9, 10, 3
+#: K15's threads per row, slots a row and look-ahead (chip_smoke.py's
+#: sweep over 2, 4 and 8 lanes chose them)
+G1_LANES = 4
+G1_SLOTS = 20
+G1_WINDOW = 40
+
 
 # ---------------------------------------------------------------------------
 # The dataflow graph
@@ -92,20 +116,28 @@ class _Op:
     half: int | None          # the half written (Fp ops), None: both
     ins: tuple                # (value id, half | None) refs
     lin: tuple = (0, 0, 0, 0)  # LIN's (k, s, iters, spread)
+    sel: tuple = (0, 0)       # SEL's (window, stride)
 
 
 class Dag:
-    """Values are Fp2 elements (two halves) or device-memory inputs; ops
-    write one half (Fp ops) or a whole Fp2 (MUL2, SQR2)."""
+    """Values are Fp2 elements (two halves), Fp elements (one slot:
+    `fp_vals`) or device-memory inputs; ops write one half (Fp ops), a
+    whole Fp2 (MUL2, SQR2) or an Fp element."""
 
     def __init__(self):
         self.ops: list[_Op] = []
         self.glob: dict[int, int] = {}      # value id → input plane
+        self.fp_vals: set[int] = set()
         self.n = 0
 
     def _new(self) -> int:
         self.n += 1
         return self.n - 1
+
+    def _new_fp(self) -> int:
+        v = self._new()
+        self.fp_vals.add(v)
+        return v
 
     def input(self, plane: int) -> int:
         v = self._new()
@@ -265,6 +297,72 @@ class Dag:
                                    self.f2_mul_fp(c1b, px),
                                    self.f2_mul_fp(c4b, py))
 
+    # Fp values (cuda_g2._mulf / _addf / _subf / _msmall) and the G1 law
+    # (cuda_pairing._g1_double / _g1_add)
+    def fp_mul(self, a, b):
+        v = self._new_fp()
+        self.ops.append(_Op(MUL, v, 0, ((a, 0), (b, 0))))
+        return v
+
+    def _fp_lin(self, ins, form):
+        v = self._new_fp()
+        self.ops.append(_Op(LIN, v, 0, tuple((x, 0) for x in ins), form))
+        return v
+
+    def fp_add(self, a, b):
+        return self._fp_lin((a, b), _ADD)
+
+    def fp_sub(self, a, b):
+        return self._fp_lin((a, b), _SUB)
+
+    def fp_small(self, a, k):
+        return self._fp_lin((a,), (k, 0, 2, 0))
+
+    def sel(self, window, a, b, stride):
+        """a where the row's digit d of `window` is 0, else the value of
+        code b + stride·(d − 1)."""
+        v = self._new_fp()
+        self.ops.append(_Op(SEL, v, 0, ((a, 0), (b, 0)), sel=(window,
+                                                               stride)))
+        return v
+
+    def g1_double(self, p):
+        x, y, z = p
+        yy = self.fp_mul(y, y)
+        yz = self.fp_mul(y, z)
+        zz = self.fp_mul(z, z)
+        xy = self.fp_mul(x, y)
+        bzz = self.fp_small(zz, 12)
+        e8 = self.fp_small(yy, 8)
+        s = self.fp_add(yy, bzz)
+        d = self.fp_sub(yy, self.fp_small(bzz, 3))
+        x3 = self.fp_small(self.fp_mul(d, xy), 2)
+        y3 = self.fp_add(self.fp_mul(bzz, e8), self.fp_mul(d, s))
+        z3 = self.fp_mul(yz, e8)
+        return x3, y3, z3
+
+    def g1_add(self, p1, p2):
+        x1, y1, z1 = p1
+        x2, y2, z2 = p2
+        t0 = self.fp_mul(x1, x2)
+        t1 = self.fp_mul(y1, y2)
+        t2 = self.fp_mul(z1, z2)
+        pxy = self.fp_mul(self.fp_add(x1, y1), self.fp_add(x2, y2))
+        pyz = self.fp_mul(self.fp_add(y1, z1), self.fp_add(y2, z2))
+        pxz = self.fp_mul(self.fp_add(x1, z1), self.fp_add(x2, z2))
+        t3 = self.fp_sub(pxy, self.fp_add(t0, t1))
+        t4 = self.fp_sub(pyz, self.fp_add(t1, t2))
+        t5 = self.fp_sub(pxz, self.fp_add(t0, t2))
+        m = self.fp_small(t0, 3)
+        bz = self.fp_small(t2, 12)
+        s = self.fp_add(t1, bz)
+        d = self.fp_sub(t1, bz)
+        by = self.fp_small(t5, 12)
+        x3 = self.fp_sub(self.fp_mul(t3, d), self.fp_mul(t4, by))
+        y3 = self.fp_add(self.fp_mul(d, s), self.fp_mul(m, by))
+        z3 = self.fp_add(self.fp_mul(t4, s), self.fp_mul(t3, m))
+        return x3, y3, z3
+
 
 def miller_dag() -> tuple[Dag, list[int]]:
     """The unrolled loop of `cuda_pairing.miller_loop_plain` → (graph,
@@ -286,6 +384,22 @@ def miller_dag() -> tuple[Dag, list[int]]:
     return g, [*f[0], *f[1]]
 
 
+def g1_dag(nwin: int) -> tuple[Dag, list[int]]:
+    """`nwin` windows of `cuda_pairing.g1_dblsel_plain` from ∞ → (graph,
+    the three Fp values of acc).  Each window computes 4·acc + T[w] with
+    T[0] standing in as P, and SEL keeps 4·acc where w = 0."""
+    g = Dag()
+    t1 = tuple(g.input(G1_T1 + c) for c in range(3))
+    one, zero = g.input(G1_ONE), g.input(G1_ZERO)
+    acc = (zero, one, zero)
+    for i in range(nwin):
+        acc4 = g.g1_double(g.g1_double(acc))
+        t = tuple(g.sel(i, c, c, G1_STRIDE) for c in t1)
+        s = g.g1_add(acc4, t)
+        acc = tuple(g.sel(i, a, b, 0) for a, b in zip(acc4, s))
+    return g, list(acc)
+
+
 # ---------------------------------------------------------------------------
 # The schedule
 # ---------------------------------------------------------------------------
@@ -294,7 +408,7 @@ def miller_dag() -> tuple[Dag, list[int]]:
 class Program:
     code: np.ndarray          # int32 [steps, lanes, 2]
     kinds: np.ndarray         # int32 [steps]
-    out: np.ndarray           # int32 [6]: the codes of f's Fp2 values
+    out: np.ndarray           # int32 [planes]: each output plane's code
     lanes: int
     slots: int
 
@@ -315,7 +429,9 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
     are ready, so products wait until more of them are ready at once.
     Only ops within `window` of the oldest unscheduled one are candidates,
     which bounds how far the program runs ahead of the sequential order
-    (and so the slots it holds)."""
+    (and so the slots it holds).  An Fp2 value takes a free pair of
+    slots; an Fp value (`dag.fp_vals`) a free single slot, splitting a
+    pair when none is left."""
     ops = dag.ops
     nops = len(ops)
     prod: dict[tuple[int, int], int] = {}
@@ -341,7 +457,8 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
     scheduled = [False] * nops
     oldest = 0
     free = list(range(0, slots - 1, 2))[::-1]    # pairs, by their c0 slot
-    home: dict[int, int] = {}                    # value → c0 slot
+    free1: list[int] = []                        # single slots
+    home: dict[int, int] = {}                    # value → (c0) slot
     left = dict(users)
     code, kinds = [], []
     done = 0
@@ -360,13 +477,19 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
         best = None
         for kind, cand in by_kind.items():
             # the ops a step of this kind can take: a new value needs a
-            # free pair
+            # free pair (an Fp value a free slot)
             new, take = set(), []
+            avail2, avail1 = len(free), len(free1)
             for i in cand:
                 v = ops[i].out
                 if v not in home and v not in new:
-                    if len(new) == len(free):
+                    if v in dag.fp_vals and avail1:
+                        avail1 -= 1
+                    elif not avail2:
                         continue
+                    else:
+                        avail2 -= 1
+                        avail1 += v in dag.fp_vals
                     new.add(v)
                 take.append(i)
                 if len(take) == lanes:
@@ -381,27 +504,41 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
                                f"ready op needs a new pair)")
         _, kind, chosen = best
         for i in chosen:
-            if ops[i].out not in home:
-                home[ops[i].out] = free.pop()
-        freed = []
+            v = ops[i].out
+            if v in home:
+                continue
+            if v in dag.fp_vals:
+                if not free1:
+                    free1.append(free.pop() + 1)
+                    home[v] = free1[-1] - 1
+                else:
+                    home[v] = free1.pop()
+            else:
+                home[v] = free.pop()
+        freed, freed1 = [], []
         row = np.zeros((lanes, 2), np.uint32)
         for lane, i in enumerate(chosen):
             op = ops[i]
             out = home[op.out] + (op.half or 0)
             a = at(*op.ins[0])
             b = at(*op.ins[1]) if len(op.ins) > 1 else a
-            k, sg, iters, spread = op.lin
-            row[lane] = (op.kind | out << 8 | a << 16 | b << 24,
-                         k | (sg + 1) << 8 | iters << 12 | spread << 16)
+            if op.kind == SEL:
+                win, stride = op.sel
+                w1 = win | stride << 8
+            else:
+                k, sg, iters, spread = op.lin
+                w1 = k | (sg + 1) << 8 | iters << 12 | spread << 16
+            row[lane] = (op.kind | out << 8 | a << 16 | b << 24, w1)
             for v, _ in op.ins:
                 if v in dag.glob:
                     continue
                 left[v] -= 1
                 if left[v] == 0 and v not in keep:
-                    freed.append(home[v])
+                    (freed1 if v in dag.fp_vals else freed).append(home[v])
         code.append(row.view(np.int32))
         kinds.append(kind)
         free.extend(freed)
+        free1.extend(freed1)
         for i in chosen:
             ready.discard(i)
             scheduled[i] = True
@@ -410,39 +547,58 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
                 waiting[j] -= 1
                 if waiting[j] == 0:
                     ready.add(j)
-    out = np.array([GLOBAL + dag.glob[v] if v in dag.glob else home[v]
-                    for v in outs], np.int32)
+    out = np.array([at(v, h) for v in outs
+                    for h in ((0,) if v in dag.fp_vals else (0, 1))],
+                   np.int32)
     return Program(np.stack(code), np.asarray(kinds, np.int32), out, lanes,
                    slots)
 
 
-_PROGRAM: dict[tuple[int, int, int], Program] = {}
+_PROGRAM: dict[tuple, Program] = {}
 
 
 def miller_program(lanes: int = LANES, slots: int = SLOTS,
                    window: int = WINDOW) -> Program:
     """The scheduled Miller loop (built once per shape)."""
-    key = (lanes, slots, window)
+    key = ("miller", lanes, slots, window)
     if key not in _PROGRAM:
         dag, outs = miller_dag()
         _PROGRAM[key] = schedule(dag, outs, lanes, slots, window)
     return _PROGRAM[key]
 
 
+def g1_program(nwin: int, lanes: int = G1_LANES, slots: int = G1_SLOTS,
+               window: int = G1_WINDOW) -> Program:
+    """The scheduled `nwin`-window G1 scalar multiplication (built once
+    per shape)."""
+    key = ("g1", nwin, lanes, slots, window)
+    if key not in _PROGRAM:
+        dag, outs = g1_dag(nwin)
+        _PROGRAM[key] = schedule(dag, outs, lanes, slots, window)
+    return _PROGRAM[key]
+
+
 def _fields(code: np.ndarray):
-    """[..., 2] int32 words → (kind, out, a, b, k, s, iters, spread)."""
+    """[..., 2] int32 words → (kind, out, a, b, k, s, iters, spread,
+    stride); SEL's window is k."""
     w0 = code[..., 0].astype(np.int64) & 0xFFFFFFFF
     w1 = code[..., 1].astype(np.int64)
     return (w0 & 0xFF, (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF, w0 >> 24,
             w1 & 0xFF, ((w1 >> 8) & 0xF) - 1, (w1 >> 12) & 0xF,
-            (w1 >> 16) & 1)
+            (w1 >> 16) & 1, (w1 >> 8) & 0xFF)
+
+
+def _sel_codes(b: int, stride: int) -> list[int]:
+    """The codes a SEL may copy from besides a: b, or T[1..3] from b."""
+    return [b + stride * j for j in range(3 if stride else 1)]
 
 
 def check(prog: Program) -> None:
     """The invariants the kernel relies on: one kind a step; no op of a
     step reads or writes a slot another op of it writes; every slot read
-    was written at an earlier step; slots in range."""
-    kind, out, a, b = _fields(prog.code)[:4]
+    was written at an earlier step; slots in range; a SEL steps through
+    input planes only (its stride never walks the slots)."""
+    kind, out, a, b, *_, stride = _fields(prog.code)
     written: set[int] = set()
     for s in range(prog.steps):
         live = kind[s] != NOP
@@ -452,7 +608,14 @@ def check(prog: Program) -> None:
         reads, writes = set(), []
         for lane in np.flatnonzero(live):
             writes += [int(out[s, lane]) + h for h in range(1 + wide)]
-            for code in {int(a[s, lane]), int(b[s, lane])}:
+            srcs = {int(a[s, lane]), int(b[s, lane])}
+            if int(prog.kinds[s]) == SEL:
+                st = int(stride[s, lane])
+                if st and int(b[s, lane]) < GLOBAL:
+                    raise AssertionError(f"step {s}: SEL strides from slot "
+                                         f"{int(b[s, lane])}")
+                srcs |= set(_sel_codes(int(b[s, lane]), st))
+            for code in srcs:
                 if code < GLOBAL:
                     reads |= {code + h for h in range(1 + wide)}
         if len(set(writes)) != len(writes) or reads & set(writes):
@@ -477,17 +640,14 @@ def lin_plain(a: torch.Tensor, b: torch.Tensor, k: int, s: int, iters: int,
     return _reduce(d, iters)
 
 
-def run_plain(prog: Program, p: torch.Tensor, q: torch.Tensor
-              ) -> torch.Tensor:
-    """Execute the program on [3, 32, R] / [4, 32, R] CPU (or any) tensors
-    with the plain field functions, as the kernel's lanes do → f
-    [12, 32, R].  A step's writes land after all its reads."""
+def execute(prog: Program, planes: list, digits=None) -> torch.Tensor:
+    """Execute the program on CPU (or any) tensors with the plain field
+    functions, as the kernel's lanes do: `planes` the row's input block as
+    [32, R] tensors, `digits` [nwin, R] the window digits SEL reads → the
+    output planes [len(prog.out), 32, R].  A step's writes land after all
+    its reads."""
     from .cuda_g2 import _f2mul, _f2sqr, _mulf
 
-    n = p.shape[-1]
-    one = fp.const(fp.ONE, p.device).unsqueeze(-1).expand(fp.NLIMBS, n)
-    zero = torch.zeros_like(one)
-    planes = [*p, *q, one, zero, zero, zero]
     slots: dict[int, torch.Tensor] = {}
 
     def get(code: int) -> torch.Tensor:
@@ -497,9 +657,16 @@ def run_plain(prog: Program, p: torch.Tensor, q: torch.Tensor
     for s in range(prog.steps):
         writes = {}
         for lane in range(prog.lanes):
-            kind, o, a, b, k, sg, iters, spread = (int(f[s, lane])
-                                                   for f in fields)
-            if kind == MUL2:
+            kind, o, a, b, k, sg, iters, spread, stride = (
+                int(f[s, lane]) for f in fields)
+            if kind == SEL:
+                d = digits[k]
+                out = get(a)
+                for j, code in enumerate(_sel_codes(b, stride)):
+                    out = torch.where(d == j + 1 if stride else d != 0,
+                                      get(code), out)
+                writes[o] = out
+            elif kind == MUL2:
                 writes[o], writes[o + 1] = _f2mul((get(a), get(a + 1)),
                                                   (get(b), get(b + 1)))
             elif kind == SQR2:
@@ -509,5 +676,25 @@ def run_plain(prog: Program, p: torch.Tensor, q: torch.Tensor
             elif kind == LIN:
                 writes[o] = lin_plain(get(a), get(b), k, sg, iters, spread)
         slots.update(writes)
-    return torch.stack([get(int(prog.out[m // 2]) + m % 2)
-                        for m in range(12)])
+    return torch.stack([get(int(c)) for c in prog.out])
+
+
+def _consts(n: int, device, k: int) -> list[torch.Tensor]:
+    """The planes one, then k − 1 zeros, of n rows."""
+    one = fp.const(fp.ONE, device).unsqueeze(-1).expand(fp.NLIMBS, n)
+    return [one] + [torch.zeros_like(one)] * (k - 1)
+
+
+def run_plain(prog: Program, p: torch.Tensor, q: torch.Tensor
+              ) -> torch.Tensor:
+    """The Miller program on [3, 32, R] / [4, 32, R] tensors → f
+    [12, 32, R]."""
+    return execute(prog, [*p, *q, *_consts(p.shape[-1], p.device, 4)])
+
+
+def g1_run_plain(prog: Program, t1: torch.Tensor, t2: torch.Tensor,
+                 t3: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """K15's program on the [3, 32, R] tables and [nwin, R] windows →
+    [3, 32, R] projective rows."""
+    return execute(prog, [*t1, *t2, *t3, *_consts(t1.shape[-1], t1.device,
+                                                  2)], windows)

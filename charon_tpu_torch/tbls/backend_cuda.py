@@ -32,10 +32,10 @@ Verify (`batch_verify_bytes`), one RLC batch check per call:
   coefficient would let a forger cancel rows).
 - `verify_device_exec` (card): G2 decompression of the signatures (ψ
   check; one K12 launch), the G1 tables {P, 2P, 3P} of the pair-major rows
-  (−g1, pk_k), 32 K6 windows scaling both rows of entry k by r_k, the
-  Miller loop over the 2·V rows (one K13 launch), dropped / ∞ / padding
-  rows masked to one, the K5 product fold to one row, and ONE final
-  exponentiation (one K11 launch).  If the batch equation fails, every
+  (−g1, pk_k), the 32 windows scaling both rows of entry k by r_k (one
+  K15 launch), the Miller loop over the 2·V rows (one K13 launch), the
+  product fold to one row with dropped / ∞ / padding rows read as one
+  (one K14 launch), and ONE final exponentiation (one K11 launch).  If the batch equation fails, every
   entry is re-checked on its own — e(−g1, sig)·e(pk, H(m)) == 1 on the
   unscaled rows: one K13 launch, one K5 product of the two halves, K11
   over the entries — ANDed with the decode mask, so the verdicts are
@@ -387,8 +387,7 @@ class CUDABackend:
         q = torch.stack([sigs, hms], dim=-1).reshape(3, 2, NL, 2 * v)
         f = cuda_pairing.miller_rows(p_side, cuda_pairing.g2_affine_rows(q))
         clock.lap("miller_s")
-        drop = self._put(np.repeat(~live, 2))
-        prod = cuda_pairing.fold_product(cuda_pairing.mask_rows(f, drop))
+        prod = cuda_pairing.fold_product(f, self._put(np.repeat(~live, 2)))
         clock.lap("fold_s")
         all_ok = bool(tpair.is_one(cuda_final_exp.final_exp(
             prod.reshape(2, 3, 2, NL, 1)))[0])

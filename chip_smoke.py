@@ -14,8 +14,17 @@ Phases, in order; any failure raises and exits non-zero:
              Miller rows) against its plain PyTorch version ON THE CARD, on
              seeded random and all-LMAX limbs: the results must be
              bit-identical.  Kernel and plain times are CUDA-event medians
-             of 5 runs.  K4 and the K5 sqr/mul014 steps run only here now:
-             K13 replaced their launch sequence on the verify path.
+             of 5 runs.  K4, the K5 sqr/mul014 steps and K6 run only here
+             now: K13 and K15 replaced their launch sequences on the verify
+             path.  K3 also on the combine's own digit rows (one row for
+             all validators, 164 of 609 digits non-zero): a launch's mean
+             time over the combine's 87 heads and 522 tails.  K14 (the
+             fold in one cooperative launch) against the plain fold at
+             4,096 rows with drop flags, at R = 2 and at 32,768 rows; K15
+             (the 32 RLC windows in one launch) against the iterated plain
+             K6 window at 4,096 rows with every digit, ∞ rows, all-LMAX
+             and real tables; both timed beside the launch sequences they
+             replaced, K15 also with 2, 4 and 8 lanes a row.
 3. combine — a pool of 1,024 distinct signatures s·H(m) built on the card;
              a real-Shamir check (V = 128: the combined bytes must equal
              sk·H(m)); then 10,000 SigAgg.aggregate() calls in one event-loop
@@ -44,16 +53,19 @@ Phases, in order; any failure raises and exits non-zero:
              the oracle.  The G1 decompress of the 10,000 keys alone on the
              idle card; a cold BatchVerifier.verify_many of the 10,000
              entries (one peer's parsigex message) fills the pubkey LRU
-             (its decompress overlaps earlier tiles); then 3 timed reps, each ONE pipeline launch of 5 tiles (4 ×
-             2,048 + 1,808), all verdicts True, stages summed over the
-             tiles, K13, the fold and the RLC kernels launched and no K4/K5
-             step, one K12 launch per tile in sig_decompress_s, one K13 in
-             miller_s and one K11 (plus is_one's K1 sub) in final_exp_s,
-             under 1,000 K1 launches per flush; then a 2,048-entry batch
-             with 6 bad entries whose verdicts must equal the pure-Python
-             oracle on the bad rows and on 4 random good ones (its re-check
-             one K13 launch over the unscaled rows, one K5 product of the
-             halves and one K11 over the entries).
+             (its decompress overlaps earlier tiles); then 3 timed reps,
+             each ONE pipeline launch of 5 tiles (4 × 2,048 + 1,808), all
+             verdicts True, stages summed over the tiles, K13, K14 and K15
+             launched and no K4/K5 step or K6 window, one K12 launch per
+             tile in sig_decompress_s, one K15 (plus the p-side's K1 neg)
+             in rlc_scalar_mul_s, one K13 in miller_s, one K14 in fold_s
+             and one K11 (plus is_one's K1 sub) in final_exp_s, K5 F12MUL
+             only in a re-check, under 1,000 K1 launches per flush; then
+             a 2,048-entry batch with 6 bad entries whose verdicts must
+             equal the pure-Python oracle on the bad rows and on 4 random
+             good ones (its re-check one K13 launch over the unscaled
+             rows, one K5 product of the halves and one K11 over the
+             entries).
 5. h2c     — the distinct flush's first 2,048 messages (one verify tile)
              through the device hash-to-G2 (cuda_h2c.hash_to_g2_rows)
              must equal the same pipeline on the plain versions on the
@@ -88,7 +100,12 @@ it, as it does K4 and the K5 sqr/mul014 steps now.  K11's ms, plain_ms and
 bound_ms are at the batch check's 1 row (its `recheck` key at 2,048), K12's
 at a verify tile's 2,048 (its `combine` key at 71,680), K13's at a verify
 tile's 4,096 Miller rows (`steps_ms` the K4/K5 sequence's, `probe` the
-design probe).  Every bound_ms is at the card's full rate; K11 also gives
+design probe), K14's and K15's at 4,096 rows (`steps_ms` the 12 K5 and 32
+K6 launches they replaced; K14's `at_2` and `at_32768`, its `chain_ms`
+= log₂ 4,096 × its time at R = 2; K15's `lanes_ms` sweep), and K3's
+`combine_digits` the mean over the combine's own launches.  `regs`,
+`stack` and `spill` are the compiler's (-Xptxas -v) for each kernel's
+function.  Every bound_ms is at the card's full rate; K11 also gives
 `bound_one_warp_ms`, the bound at the rate of the SMs its rows can occupy
 under its one-warp-per-row design (one SM at 1 row).
 The second-to-last line is the `kernels` JSON object; the last line is
@@ -432,13 +449,71 @@ def kernels_phase(dev, rows: int, vrows: int, sm_clocks_per_s: float) -> dict:
         ops, nbytes = straus_work(d_np[row0:row0 + vrows], head)
         rec(name, cuda_g2.straus_step, cuda_g2.straus_step_plain, ops,
             nbytes, [lambda p=p: pat(p) for p in ("random", "lmax")])
+    straus_combine_digits(dev, gen, rows, vrows, results, sm_clocks_per_s)
     return results
+
+
+def straus_combine_digits(dev, gen, rows: int, vrows: int, results: dict,
+                          sm_clocks_per_s: float) -> None:
+    """K3 head and tail on the digit rows the combine really gives them:
+    every validator shares the index set 1..SHARES, so each (window,
+    share) digit is one value for all VALIDATORS rows (the padding rows
+    zero), and a zero digit skips the addition.  One head and one tail
+    launch held against the plain version on a window with non-zero
+    digits; then the mean launch time over the combine's 87 heads and
+    522 tails (as straus_loop runs them, on seeded tables), beside the
+    mean bound for those digits."""
+    from charon_tpu_torch.ops import cuda_g2
+    from charon_tpu_torch.tbls.backend_cuda import (STRAUS_NWIN,
+                                                    _lagrange_digits)
+
+    lag = _lagrange_digits(tuple(range(1, SHARES + 1)))     # [T, 87]
+    digits = np.zeros((SHARES, vrows, STRAUS_NWIN), np.int32)
+    digits[:, :VALIDATORS] = lag[:, None, :]
+    d_np = np.ascontiguousarray(digits.reshape(rows, STRAUS_NWIN).T)
+    drows = torch.from_numpy(d_np).to(dev)
+    tabs = tuple(limbs(dev, gen, (6, NL, rows), "random") for _ in range(4))
+    acc = limbs(dev, gen, (6, NL, vrows), "random")
+    win = int((lag != 0).sum(0).argmax())
+    nonzero = int((lag != 0).sum())
+    for name, head, row0 in (("straus_head", True, 0),
+                             ("straus_tail", False, vrows)):
+        args = (acc, tabs, row0, drows[win], head)
+        got = cuda_g2.straus_step(*args)
+        want = cuda_g2.straus_step_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} on the combine's digits differs "
+                                 f"from its plain version")
+        launches = [(i, k * vrows) for i in range(STRAUS_NWIN)
+                    for k in ((0,) if head else range(1, SHARES))]
+
+        def run(launches=launches, head=head):
+            for i, r0 in launches:
+                cuda_g2.straus_step(acc, tabs, r0, drows[i], head)
+
+        ms = time_ms(run, 3) / len(launches)
+        ops = sum(straus_work(d_np[i, r0:r0 + vrows], head)[0]
+                  for i, r0 in launches)
+        nbytes = sum(straus_work(d_np[i, r0:r0 + vrows], head)[1]
+                     for i, r0 in launches)
+        bms, by = bound(ops, nbytes, sm_clocks_per_s)
+        results[name]["combine_digits"] = {
+            "launches": len(launches), "ms": ms,
+            "bound_ms": bms / len(launches), "bound_by": by,
+            "nonzero_digits": nonzero, "digits": SHARES * STRAUS_NWIN}
+        log(f"kernel {name} on the combine's digits ({nonzero} of "
+            f"{SHARES * STRAUS_NWIN} non-zero, one row for all validators): "
+            f"bit-identical; {ms:.4f} ms a launch, mean of "
+            f"{len(launches)} (bound {bms / len(launches):.4f} ms by {by})")
 
 
 def pairing_kernels_phase(dev, rows: int, sm_clocks_per_s: float) -> dict:
     """K4–K6 against their plain versions at `rows` Miller rows (one
     verify tile), on seeded random and all-LMAX limbs; F12MUL also on the
-    fold's operands, the two row halves of one tensor."""
+    fold's operands, the two row halves of one tensor.  K14 (the fold in
+    one launch) and K15 (the RLC scaling in one launch) against the plain
+    fold and the iterated plain K6 window (`fold_phase`, `rlc_phase`)."""
     from charon_tpu_torch.ops import cuda_pairing as cp
 
     gen = np.random.default_rng(20261017)
@@ -478,7 +553,144 @@ def pairing_kernels_phase(dev, rows: int, sm_clocks_per_s: float) -> dict:
         rows * (6 * EL_BYTES + 4) + nz * 3 * EL_BYTES,
         [lambda p=p: (lim(3, p), lim(3, p), lim(3, p), lim(3, p), w)
          for p in pats])
+    results["f12_fold"] = fold_phase(dev, gen, rows, sm_clocks_per_s)
+    results["g1_scalar_mul"] = rlc_phase(dev, gen, rows, sm_clocks_per_s)
     return results
+
+
+def fold_phase(dev, gen, rows: int, sm_clocks_per_s: float) -> dict:
+    """K14 against `fold_product_plain(mask_rows(f, drop))`, bit for bit:
+    at `rows` on random limbs with a quarter of the rows dropped, all-LMAX
+    limbs with drops and random limbs with none; at R = 2 (one warp
+    product: the chain's unit) and at 32,768 rows (past one wave of
+    warps).  Timed beside the log₂ R K5 launches it replaced
+    (`fold_steps`), its bound and the plain version."""
+    from charon_tpu_torch.ops import cuda_pairing as cp
+
+    def plain(f, drop):
+        return cp.fold_product_plain(cp.mask_rows(f, drop))
+
+    def pat(pattern, n, drops=True):
+        f = limbs(dev, gen, (12, NL, n), pattern)
+        d = torch.from_numpy(gen.random(n) < (0.25 if drops else 0)).to(dev)
+        return f, d
+
+    def work(n):
+        return OPS["pp_f12mul"] * (n - 1), (12 * EL_BYTES + 1) * n \
+            + 12 * EL_BYTES
+
+    out = {}
+    record(out, "f12_fold", cp.fold_product, plain, *work(rows),
+           [lambda: pat("random", rows), lambda: pat("lmax", rows),
+            lambda: pat("random", rows, drops=False)], sm_clocks_per_s,
+           plain_reps=1)
+    res = out["f12_fold"]
+    f, d = pat("random", rows)
+    masked = cp.mask_rows(f, d)
+    if not torch.equal(cp.fold_steps(masked), cp.fold_product(f, d)):
+        raise AssertionError("K14 differs from the K5 launch sequence")
+    res["steps_ms"] = time_ms(lambda: cp.fold_steps(masked))
+    res["rows"] = rows
+    for n in (2, 32_768):
+        part = {}
+        record(part, "f12_fold", cp.fold_product, plain, *work(n),
+               [lambda n=n: pat("random", n), lambda n=n: pat("lmax", n)],
+               sm_clocks_per_s, plain_reps=1)
+        res[f"at_{n}"] = part["f12_fold"]
+    levels = rows.bit_length() - 1
+    res["chain_ms"] = levels * res["at_2"]["ms"]
+    log(f"K14 f12_fold at {rows:,} rows: {res['ms']:.4f} ms against "
+        f"{res['steps_ms']:.4f} ms for the {levels} K5 launches it "
+        f"replaced; the chain of {levels} warp products at R = 2's "
+        f"{res['at_2']['ms']:.4f} ms each: {res['chain_ms']:.4f} ms; "
+        f"{res['at_32768']['ms']:.4f} ms at 32,768 rows")
+    return res
+
+
+def rlc_tables(dev, rows: int, inf_rows: slice) -> tuple:
+    """Real RLC tables {P, 2P, 3P} of `rows` G1 points (64 distinct
+    multiples of the generator made on the card, repeated), ∞ at
+    `inf_rows`, built as verify_device_exec builds them."""
+    from charon_tpu_torch.ops import curve as tcurve
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    rng = random.Random(31)
+    scalars = [rng.randrange(1, 2**64) for _ in range(64)]
+    g1 = torch.from_numpy(tcurve.g1_pack([rc.G1_GEN])).to(dev).expand(
+        3, NL, 64).contiguous()
+    bits = torch.from_numpy(np.ascontiguousarray(
+        tcurve.scalars_to_bits(scalars).T)).to(dev)
+    pts = tcurve.scalar_mul(tcurve.FP_OPS, g1, bits)
+    base = pts.repeat(1, 1, -(-rows // 64))[..., :rows].contiguous()
+    base[..., inf_rows] = torch.from_numpy(tcurve.g1_pack([None])).to(dev)
+    p2 = tcurve.double_point(tcurve.FP_OPS, base)
+    p3 = tcurve.add_points(tcurve.FP_OPS, p2, base)
+    return base, p2.contiguous(), p3.contiguous()
+
+
+def rlc_phase(dev, gen, rows: int, sm_clocks_per_s: float) -> dict:
+    """K15 against the iterated `g1_dblsel_plain` at `rows` (a tile's
+    pair rows) over 32 windows with every digit 0–3 present, bit for bit:
+    on random-limb tables with ∞ rows, on all-LMAX tables and on real
+    tables of G1 points with ∞ rows.  Timed beside the 32 K6 launches it
+    replaced (`g1_scalar_mul_steps`), its bound (the additions of these
+    digits) and the plain version; the sweep over 2, 4 and 8 lanes a
+    row; the time at twice the rows."""
+    from charon_tpu_torch.ops import cuda_pairing as cp
+    from charon_tpu_torch.ops import miller_program as mp
+
+    nwin = 32
+    w = torch.from_numpy(gen.integers(0, 4, (nwin, rows),
+                                      dtype=np.int32)).to(dev)
+    inf = torch.from_numpy(cp._G1_INF).to(dev).unsqueeze(-1)
+
+    def pat(pattern):
+        tabs = [limbs(dev, gen, (3, NL, rows), pattern) for _ in range(3)]
+        if pattern == "random":
+            for t in tabs:
+                t[..., 100:116] = inf
+        return (*tabs, w)
+
+    real = rlc_tables(dev, rows, slice(200, 216))
+    nz = int((w != 0).sum())
+    ops = OPS["g1_dbl"] * 2 * nwin * rows + OPS["g1_add"] * nz
+    nbytes = rows * (9 * EL_BYTES + nwin * 4 + 3 * EL_BYTES)
+    out = {}
+    record(out, "g1_scalar_mul", cp.g1_scalar_mul_rows,
+           cp.g1_scalar_mul_plain, ops, nbytes,
+           [lambda: pat("random"), lambda: pat("lmax"),
+            lambda: (*real, w)], sm_clocks_per_s, plain_reps=1)
+    res = out["g1_scalar_mul"]
+    args = (*real, w)
+    want = cp.g1_scalar_mul_rows(*args)
+    if not torch.equal(cp.g1_scalar_mul_steps(*args), want):
+        raise AssertionError("K15 differs from the K6 launch sequence")
+    res["steps_ms"] = time_ms(lambda: cp.g1_scalar_mul_steps(*args))
+    res["rows"] = rows
+    res["lanes_ms"] = {}
+    for cfg in ((2, 16, 40), (4, 20, 40), (8, 20, 40)):
+        if not torch.equal(cp.g1_scalar_mul_rows(*args, *cfg), want):
+            raise AssertionError(f"K15 with {cfg} differs from the default")
+        prog = mp.g1_program(nwin, *cfg)
+        res["lanes_ms"][str(cfg)] = {
+            "ms": time_ms(lambda cfg=cfg: cp.g1_scalar_mul_rows(*args, *cfg)),
+            "steps": prog.steps, "cost": prog.cost()}
+    # a tile twice as large (ROADMAP B-1): twice the rows on the same SMs
+    big = [limbs(dev, gen, (3, NL, 2 * rows), "random") for _ in range(3)]
+    wbig = torch.from_numpy(gen.integers(0, 4, (nwin, 2 * rows),
+                                         dtype=np.int32)).to(dev)
+    res[f"at_{2 * rows}_ms"] = time_ms(
+        lambda: cp.g1_scalar_mul_rows(*big, wbig))
+    prog = mp.g1_program(nwin)
+    res.update(lanes=mp.G1_LANES, slots=mp.G1_SLOTS, program_steps=prog.steps,
+               program_cost=prog.cost())
+    log(f"K15 g1_scalar_mul at {rows:,} rows ({mp.G1_LANES} lanes a row, "
+        f"{mp.G1_SLOTS} slots, {prog.steps} steps, {prog.cost():,} "
+        f"instructions a lane): {res['ms']:.4f} ms against "
+        f"{res['steps_ms']:.4f} ms for the {nwin} K6 launches it replaced; "
+        f"{res[f'at_{2 * rows}_ms']:.4f} ms at {2 * rows:,} rows; sweep "
+        f"{json.dumps(res['lanes_ms'])}")
+    return res
 
 
 def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
@@ -1089,22 +1301,34 @@ def check_stage_launches(label: str, stage_launches: dict, stage: str,
 
 def check_redesigned_stages(label: str, stage_launches: dict,
                             tiles: int) -> None:
-    """One K12 launch per tile in sig_decompress_s; one K13 launch per
-    tile, and nothing else, in miller_s; one K11 launch and is_one's K1
-    sub per tile in final_exp_s."""
+    """One K12 launch per tile in sig_decompress_s; one K15 launch and the
+    p-side's K1 neg per tile in rlc_scalar_mul_s; one K13 launch per tile,
+    and nothing else, in miller_s; one K14 launch per tile, and nothing
+    else, in fold_s; one K11 launch and is_one's K1 sub per tile in
+    final_exp_s; K5 F12MUL nowhere but in a re-check."""
     check_stage_launches(label, stage_launches, "sig_decompress_s",
                          {"g2_decompress": tiles})
+    check_stage_launches(label, stage_launches, "rlc_scalar_mul_s",
+                         {"g1_scalar_mul": tiles, "fp_neg": tiles})
     check_stage_launches(label, stage_launches, "miller_s",
                          {"miller_loop": tiles})
+    check_stage_launches(label, stage_launches, "fold_s",
+                         {"f12_fold": tiles})
     check_stage_launches(label, stage_launches, "final_exp_s",
                          {"final_exp": tiles, "fp_sub": tiles})
+    f12mul = {st: c["pp_f12mul"] for st, c in stage_launches.items()
+              if st != "recheck_s" and c.get("pp_f12mul")}
+    if f12mul:
+        raise AssertionError(f"{label}: pp_f12mul launched outside the "
+                             f"re-check: {f12mul}")
 
 
 #: the verify path's pairing kernels; the K4/K5 step kernels K13 replaced
-#: (and its thread-per-row probe) run only in the kernel phases
-VERIFY_PAIRING_KERNELS = ("miller_loop", "pp_f12mul", "g1_dblsel")
+#: (and its thread-per-row probe) and the K6 window K15 replaced run only
+#: in the kernel phases; K5 F12MUL only in a re-check
+VERIFY_PAIRING_KERNELS = ("miller_loop", "f12_fold", "g1_scalar_mul")
 PHASE_ONLY_KERNELS = ("pp_dbl", "pp_add", "pp_sqr", "pp_mul014",
-                      "miller_thread")
+                      "miller_thread", "g1_dblsel")
 
 
 def check_recheck(label: str, stage_launches: dict) -> None:
@@ -1587,9 +1811,49 @@ SOURCES = {
     "g2_decompress": ("charon_tpu_torch/csrc/decompress.cu",
                       "charon_tpu/ops/pallas_fp.py:78"),
     # K13 replaces the Miller loop's K4/K5 launch sequence (pallas_pairing
-    # miller_rows over the kernels of :328–:340)
+    # miller_rows over the kernels of :328–:340), K14 the fold's F12MUL
+    # launches (miller_product_tiled over :345) and K15 the RLC scaling's
+    # K6 launches (g1_scalar_mul_rows over :349)
     "miller_loop": ("charon_tpu_torch/csrc/miller.cu",
                     "charon_tpu/ops/pallas_pairing.py:489"),
+    "f12_fold": ("charon_tpu_torch/csrc/fold.cu",
+                 "charon_tpu/ops/pallas_pairing.py:535"),
+    "g1_scalar_mul": ("charon_tpu_torch/csrc/g1_scalar_mul.cu",
+                      "charon_tpu/ops/pallas_pairing.py:520"),
+}
+
+#: each kernel's compiled function in the ptxas report (its registers,
+#: stack frame and largest spill go into the kernels line)
+PTXAS_NAMES = {
+    "fp_mul": "fp_ops.cu fp_op_kernel<0>",
+    "fp_add": "fp_ops.cu fp_op_kernel<1>",
+    "fp_sub": "fp_ops.cu fp_op_kernel<2>",
+    "fp_neg": "fp_ops.cu fp_op_kernel<3>",
+    "fp_mul_small": "fp_ops.cu fp_op_kernel<4>",
+    "g2_dbl": "g2.cu g2_step_kernel<1>",
+    "g2_add": "g2.cu g2_step_kernel<0>",
+    "straus_head": "g2.cu straus_step_kernel<1>",
+    "straus_tail": "g2.cu straus_step_kernel<0>",
+    "pp_dbl": "pairing.cu pp_step_kernel<0>",
+    "pp_add": "pairing.cu pp_step_kernel<1>",
+    "pp_sqr": "pairing.cu f12_step_kernel<0>",
+    "pp_mul014": "pairing.cu f12_step_kernel<1>",
+    "pp_f12mul": "pairing.cu f12_step_kernel<2>",
+    "g1_dblsel": "pairing.cu g1_dblsel_kernel",
+    "h2c_sswu": "h2c.cu h2c_sswu_kernel",
+    "h2c_sqr": "h2c.cu f2_chain_kernel<0>",
+    "h2c_mul": "h2c.cu f2_chain_kernel<1>",
+    "h2c_sqr4": "h2c.cu f2_chain_kernel<2>",
+    "h2c_sqr4mul": "h2c.cu f2_chain_kernel<3>",
+    "h2c_iso3": "h2c.cu h2c_point_kernel<0>",
+    "h2c_psi": "h2c.cu h2c_point_kernel<1>",
+    "g2_dblsel": "g2.cu g2_sel_kernel<1>",
+    "g2_addsel": "g2.cu g2_sel_kernel<0>",
+    "final_exp": "final_exp.cu final_exp_kernel",
+    "g2_decompress": "decompress.cu g2_decompress_kernel",
+    "miller_loop": "miller.cu miller_loop_kernel",
+    "f12_fold": "fold.cu f12_fold_kernel",
+    "g1_scalar_mul": "g1_scalar_mul.cu g1_scalar_mul_kernel",
 }
 
 
@@ -1609,6 +1873,10 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.INFO['build_seconds']:.1f} s) → {build.INFO['path']}")
     log(build.ptxas_report())
+    ptxas = {r["name"]: r for r in build.ptxas_rows()}
+    missing = [k for k in SOURCES if PTXAS_NAMES[k] not in ptxas]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
     card = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1670,7 +1938,10 @@ def main() -> int:
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
          "launches_verify_distinct": distinct_launches[name],
-         **kern[name], "library_ms": None}
+         **kern[name],
+         **{k: ptxas[PTXAS_NAMES[name]][k] for k in ("regs", "stack",
+                                                     "spill")},
+         "library_ms": None}
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

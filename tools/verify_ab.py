@@ -1,0 +1,79 @@
+"""Time the verify flushes of one checkout of the repository on the card,
+for comparing two commits in one call on one card.
+
+    python3 tools/verify_ab.py ROOT [REPS]
+
+ROOT is a checkout (this one, or an unpacked `git archive` of another
+commit); its `chip_smoke.py` and `charon_tpu_torch` are imported and its
+kernels built into ROOT/build/.  The run builds the 10,000-entry verify
+pool of `chip_smoke.verify_pool` (64 messages), fills the pubkey LRU with
+one cold flush, then times REPS (default 5) warm flushes; then the
+10,000-distinct-message flush of `chip_smoke.verify_distinct_phase`
+(the message LRU cleared before each of REPS reps).  Every verdict must
+be True.  Prints the card's name and power limit, then one JSON line:
+the commit's root, and per flush kind every rep's wall seconds and
+summed stage seconds.  Run parent, change, change, parent in one call:
+
+    for r in build/parent . . build/parent; do
+        python3 tools/verify_ab.py $r; done
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def main() -> int:
+    root = Path(sys.argv[1]).resolve()
+    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as cs
+    from charon_tpu_torch.ops import build
+    from charon_tpu_torch.tbls import api, dispatch
+
+    if not torch.cuda.is_available():
+        print("verify_ab: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    build.library()
+    backend = api._backend()
+    entries, _, bits = cs.verify_pool(dev, backend)
+    out = {"root": str(root), "warm": [], "distinct": []}
+
+    def flush(batch, kind):
+        backend.reset_verify_totals()
+        t0 = time.perf_counter()
+        oks, _, _ = asyncio.run(cs.verify_round(batch))
+        wall = time.perf_counter() - t0
+        if not all(oks):
+            raise AssertionError(f"{kind}: {oks.count(False)} rejected")
+        out[kind].append({"wall_s": wall, **backend.verify_totals})
+
+    flush(entries, "warm")            # cold: fills the pubkey LRU
+    out["warm"].clear()
+    for _ in range(reps):
+        flush(entries, "warm")
+    msgs = cs.distinct_messages(len(entries))
+    hms = backend._hash_points(msgs, {}, {})
+    sigs = cs.sign_on_card(dev, bits, hms)
+    distinct = [(entries[k][0], msgs[k], sigs[k])
+                for k in range(len(entries))]
+    for _ in range(reps):
+        backend._hm_cache.clear()
+        flush(distinct, "distinct")
+    pipe = dispatch.current_pipeline()
+    if pipe is not None:
+        pipe.shutdown()
+    print(cs.smi("name,power.limit"), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
