@@ -1,6 +1,7 @@
 // program.cuh — the interpreter of a scheduled op program: what kernels
-// K13 (miller.cu, the Miller loop) and K15 (g1_scalar_mul.cu, the RLC
-// scalar multiplication) run.
+// K13 (miller.cu, the Miller loop), K15 (g1_scalar_mul.cu, the RLC
+// scalar multiplication), K16 (straus.cu, the combine's Straus MSM) and
+// K17 (g2_zmul.cu, hash-to-G2's [|x|]-multiply) run.
 //
 // A group of `lanes` threads owns one row.  ops/miller_program.py writes
 // the row's whole computation as a dataflow graph of fp381.cuh field ops
@@ -18,7 +19,8 @@
 // (below) — and, where the kernel instantiates it, SEL: a per-row copy
 // chosen by the row's digit d of a window, operand a where d = 0, else
 // the operand coded b + stride·(d − 1) (K15's table point T[d], and its
-// choice between 4·acc and 4·acc + T[d]).
+// choice between 4·acc and 4·acc + T[d]; K16's table point, Y's sign and
+// the choice between acc and acc ± T[|d|]).
 //
 // Layout: in [n, IN_PLANES, 32] int32, a row's input block; the program
 // [steps, lanes] int2 (ops/miller_program.py ENCODING); fout, one code a
@@ -79,23 +81,13 @@ __device__ __forceinline__ const int* operand(int code, const int* sm,
                         : sm + (code >> 1) * PAIRW + (code & 1) * NL;
 }
 
-// The body of a program kernel: one warp per block, 32 / lanes rows;
-// rows past n run the last row's program (so every lane reaches every
-// __syncwarp) and write nothing.
-template <int IN_PLANES, int OUT_PLANES, bool HAS_SEL>
-__device__ __forceinline__ void run(int* __restrict__ out,
-                                    const int* __restrict__ in,
-                                    const int2* __restrict__ prog, int steps,
-                                    const int* __restrict__ fout,
-                                    const int* __restrict__ digits,
-                                    int lanes, int slots, int n) {
-  extern __shared__ int smem[];
-  const int lane = threadIdx.x % lanes;
-  const int grp = threadIdx.x / lanes;
-  const int r = blockIdx.x * (WARP / lanes) + grp;
-  const int rr = r < n ? r : n - 1;
-  int* sm = smem + grp * row_words(slots);
-  const int* gin = in + (size_t)rr * IN_PLANES * NL;
+// The step loop of a program on one row group: lane `lane` of `lanes`
+// runs its op of every step on the row's slots `sm` and input block
+// `gin`, and SEL reads the row's digit of window w as digit(w).
+template <bool HAS_SEL, class Digit>
+__device__ __forceinline__ void exec(const int2* __restrict__ prog,
+                                     int steps, int lanes, int lane, int* sm,
+                                     const int* gin, Digit digit) {
   int2 op = prog[lane];
 #pragma unroll 1
   for (int s = 0; s < steps; ++s) {
@@ -116,7 +108,7 @@ __device__ __forceinline__ void run(int* __restrict__ out,
       } else if (kind == MUL) {
         fp381::mul_n(o, a, b);
       } else if (HAS_SEL && kind == SEL) {
-        const int d = digits[(size_t)(op.y & 0xff) * n + rr];
+        const int d = digit(op.y & 0xff);
         const int code = d == 0 ? (op.x >> 16) & 0xff
                                 : ((op.x >> 24) & 0xff) +
                                       ((op.y >> 8) & 0xff) * (d - 1);
@@ -129,6 +121,27 @@ __device__ __forceinline__ void run(int* __restrict__ out,
     __syncwarp();
     op = next;
   }
+}
+
+// The body of a program kernel: one warp per block, 32 / lanes rows;
+// rows past n run the last row's program (so every lane reaches every
+// __syncwarp) and write nothing.
+template <int IN_PLANES, int OUT_PLANES, bool HAS_SEL>
+__device__ __forceinline__ void run(int* __restrict__ out,
+                                    const int* __restrict__ in,
+                                    const int2* __restrict__ prog, int steps,
+                                    const int* __restrict__ fout,
+                                    const int* __restrict__ digits,
+                                    int lanes, int slots, int n) {
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x % lanes;
+  const int grp = threadIdx.x / lanes;
+  const int r = blockIdx.x * (WARP / lanes) + grp;
+  const int rr = r < n ? r : n - 1;
+  int* sm = smem + grp * row_words(slots);
+  const int* gin = in + (size_t)rr * IN_PLANES * NL;
+  exec<HAS_SEL>(prog, steps, lanes, lane, sm, gin,
+                [&](int w) { return digits[(size_t)w * n + rr]; });
   if (r < n) {
 #pragma unroll 1
     for (int i = lane; i < OUT_PLANES * NL; i += lanes) {

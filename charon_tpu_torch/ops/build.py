@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu", "final_exp.cu",
-           "decompress.cu", "miller.cu", "fold.cu", "g1_scalar_mul.cu")
+           "decompress.cu", "miller.cu", "fold.cu", "g1_scalar_mul.cu",
+           "straus.cu", "g2_zmul.cu")
 HEADERS = ("fp381.cuh", "fp381_consts.cuh", "program.cuh", "f12_warp.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -176,13 +177,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_miller_thread.argtypes = [p, p, p, i, p]
     lib.charon_f12_fold.argtypes = [p, p, p, p, i, p]
     lib.charon_g1_scalar_mul.argtypes = [p, p, p, i, p, p, i, i, i, p]
+    lib.charon_straus_msm.argtypes = [p, p, p, p, p, i, p, p, i, p, i, i, i,
+                                      i, i, p]
+    lib.charon_g2_zmul.argtypes = [p, p, p, i, p, i, i, i, p]
     for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
                lib.charon_pp_step, lib.charon_f12_step,
                lib.charon_g1_dblsel, lib.charon_g2_sel, lib.charon_f2_chain,
                lib.charon_h2c_sswu, lib.charon_h2c_point,
                lib.charon_final_exp, lib.charon_g2_decompress,
                lib.charon_miller_loop, lib.charon_miller_thread,
-               lib.charon_f12_fold, lib.charon_g1_scalar_mul):
+               lib.charon_f12_fold, lib.charon_g1_scalar_mul,
+               lib.charon_straus_msm, lib.charon_g2_zmul):
         fn.restype = i
 
 

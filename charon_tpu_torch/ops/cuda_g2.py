@@ -7,6 +7,13 @@ The counterpart of the JAX package's ops/pallas_g2.py:
 - K3 `straus_step<HEAD>` replaces `_dbl3sel_s_kernel` (HEAD: acc ← 8·acc
   ± table[|d|]) and `_addsel_s_kernel` (acc ← acc ± table[|d|]); a zero
   digit keeps the accumulator.
+- K16 `straus_msm` (csrc/straus.cu) replaces the launch sequence of
+  `straus_combine` (:797): the whole window loop — 87 heads and 87·(T −
+  1) tails, 609 K3 launches a 7-share combine — in ONE launch, a group
+  of `ST_LANES` threads per validator row running ops/miller_program.py's
+  HEAD and TAIL programs on the row's accumulator in shared memory.
+  The combine calls it; K3 remains for the smoke run's
+  kernel phase and as the steps K16 is held to (`straus_steps`).
 - K10 `g2_sel<DBL>` replaces `_dblsel_kernel` (DBL: acc ← 4·acc +
   table[w]) and `_addsel_kernel` (acc ← acc + table[w]) with an UNSIGNED
   window w ∈ {0, 1, 2, 3} over the table {Q, 2Q, 3Q}; w = 0 keeps the
@@ -41,7 +48,7 @@ import numpy as np
 import torch
 
 from ..tbls.ref.fields import P
-from . import build, fp, launch_count
+from . import build, fp, launch_count, miller_program
 
 NL = fp.NLIMBS
 MASK = fp.MASK
@@ -308,7 +315,7 @@ def addsel_plain(acc, t1, t2, t3, w: torch.Tensor) -> torch.Tensor:
 #: kernel launches since the last `reset_launches()` (all threads;
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "straus_head": 0, "straus_tail": 0,
-            "g2_dblsel": 0, "g2_addsel": 0}
+            "g2_dblsel": 0, "g2_addsel": 0, "straus_msm": 0}
 
 
 def reset_launches() -> None:
@@ -502,10 +509,10 @@ def straus_combine(pts: torch.Tensor, digits: torch.Tensor,
     digits [nwin, R]   balanced base-8 digits, iteration-major,
     → [6, 32, Vpad] combined points (Vpad = R / t_count).
 
-    acc ← 8·acc + Σ_t d_{t,i}·P_t per window i: one K3 head step (t = 0)
-    and T − 1 tail steps per window, on tables {P, 2P, 3P, 4P} built once
-    by K2 over all rows."""
-    return straus_loop(straus_tables(pts), digits, t_count)
+    acc ← 8·acc + Σ_t d_{t,i}·P_t per window i — one head step (t = 0)
+    and T − 1 tail steps per window, all in one K16 launch — on tables
+    {P, 2P, 3P, 4P} built once by K2 over all rows."""
+    return straus_msm(straus_tables(pts), digits, t_count)
 
 
 def straus_tables(pts: torch.Tensor) -> tuple:
@@ -516,16 +523,84 @@ def straus_tables(pts: torch.Tensor) -> tuple:
     return (pts, p2, p3, p4)
 
 
-def straus_loop(tables: tuple, digits: torch.Tensor,
-                t_count: int) -> torch.Tensor:
-    """The window loop of `straus_combine` over prebuilt tables."""
+def _straus_iterate(step, tables, digits, t_count):
     r = tables[0].shape[-1]
     assert r % t_count == 0
     sv = r // t_count
     acc = inf_planes(sv, tables[0].device)
     for i in range(digits.shape[0]):
         row = digits[i]
-        acc = straus_step(acc, tables, 0, row, head=True)
+        acc = step(acc, tables, 0, row, True)
         for k in range(1, t_count):
-            acc = straus_step(acc, tables, k * sv, row, head=False)
+            acc = step(acc, tables, k * sv, row, False)
     return acc
+
+
+def straus_msm_plain(tables: tuple, digits: torch.Tensor,
+                     t_count: int) -> torch.Tensor:
+    """The window loop as iterated plain steps (`straus_step_plain`): one
+    head (share 0) and T − 1 tails a window."""
+    return _straus_iterate(straus_step_plain, tables, digits, t_count)
+
+
+def straus_steps(tables: tuple, digits: torch.Tensor,
+                 t_count: int) -> torch.Tensor:
+    """The same loop through the K3 wrapper (87·T launches on the card):
+    what K16 replaced, kept for the smoke run's comparison."""
+    return _straus_iterate(straus_step, tables, digits, t_count)
+
+
+def straus_block(tables: tuple) -> torch.Tensor:
+    """The four [6, 32, T·n] tables as K16's input blocks [T·n, 24, 32]:
+    row k·n + r holds share k's P, 2P, 3P, 4P of row r (one copy a
+    table)."""
+    rt = tables[0].shape[-1]
+    blk = tables[0].new_empty((rt, miller_program.ST_PLANES, NL))
+    for j, t in enumerate(tables):
+        blk[:, 6 * j:6 * j + 6] = t.permute(2, 0, 1)
+    return blk
+
+
+def straus_msm(tables: tuple, digits: torch.Tensor, t_count: int,
+               lanes: int = miller_program.ST_LANES,
+               slots: int = miller_program.ST_SLOTS,
+               window: int = miller_program.ST_WINDOW) -> torch.Tensor:
+    """K16: the whole joint-T Straus loop in one launch.  tables: four
+    [6, 32, T·n] point batches (P, 2P, 3P, 4P; rows t-major), digits
+    [nwin, T·n] int32 balanced base-8 digits in [−4, 3] → [6, 32, n]
+    Σ_k Σ_i d_{k,i}·8^(nwin−1−i)·P_k per row, bit for bit
+    `straus_msm_plain` (its CPU route).  `lanes` threads a row run
+    ops/miller_program.py's HEAD and TAIL programs with `slots` Fp
+    elements of shared memory a row (and look-ahead `window`)."""
+    if tables[0].device.type == "cpu":
+        return straus_msm_plain(tables, digits, t_count)
+    name = "straus_msm"
+    _check_pts(name, *tables)
+    rt = tables[0].shape[2]
+    if any(t.shape != tables[0].shape for t in tables):
+        raise ValueError(f"{name}: table shapes differ")
+    if t_count <= 0 or rt % t_count:
+        raise ValueError(f"{name}: {rt} table rows are not {t_count} shares")
+    nwin = digits.shape[0] if digits.dim() == 2 else 0
+    if (digits.dtype != torch.int32 or tuple(digits.shape) != (nwin, rt)
+            or nwin == 0 or not digits.is_contiguous()
+            or digits.device != tables[0].device):
+        raise ValueError(f"{name}: digits must be a contiguous int32 "
+                         f"[nwin, {rt}] array on {tables[0].device}")
+    _cuda_ready(name, tables[0])
+    n = rt // t_count
+    (hcode, hout, hsteps), (tcode, tout, tsteps) = (
+        miller_program.on_device(prog, tables[0].device)
+        for prog in miller_program.straus_programs(lanes, slots, window))
+    blk = straus_block(tables)
+    # share k's TAIL of window i runs unless its digits are 0 on every row
+    live = (digits.view(nwin, t_count, n) != 0).any(dim=2).to(torch.int32)
+    out = tables[0].new_empty((6, NL, n))
+    err = build.library().charon_straus_msm(
+        out.data_ptr(), blk.data_ptr(), digits.data_ptr(), live.data_ptr(),
+        hcode.data_ptr(), hsteps, hout.data_ptr(), tcode.data_ptr(), tsteps,
+        tout.data_ptr(), nwin, t_count, n, lanes, slots,
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _raise_on(name, err)
+    launch_count.bump(LAUNCHES, name)
+    return out

@@ -1,4 +1,5 @@
-"""Kernels K7–K9 and the batched device hash-to-G2 (csrc/h2c.cu).
+"""Kernels K7–K9, K17 and the batched device hash-to-G2 (csrc/h2c.cu,
+csrc/g2_zmul.cu).
 
 The counterpart of the JAX package's ops/pallas_h2c.py: the host keeps
 expand_message_xmd + hash_to_field (SHA-256, `pack_messages`), and the
@@ -17,11 +18,20 @@ Budroni–Pintore ψ cofactor clearing:
   isogeny table to a projective point) and `_h2c_psi_kernel` (ψ as two
   conjugations and two constant products).
 
-The [|x|]-multiplies of the cofactor clearing run K10 `dblsel`, its
-doublings and additions K2 (ops/cuda_g2.py).  The exactness boundaries —
-sgn0, the candidate-square test, the ∞ guard of the isogeny — and the
-negations between launches run on K1 and the plain exact-carry code of
-ops/fp.py, as the JAX package keeps them at the jnp level.
+- K17 `g2_zmul` (csrc/g2_zmul.cu) replaces the launch sequence of
+  `_zmul` (:537): one [|x|]-multiply — the table {Q, 2Q, 3Q} by K2 and
+  32 K10 `dblsel` windows, 34 launches — in ONE launch, a group of
+  `ZM_LANES` threads per row running ops/miller_program.py's straight-
+  line `zmul_program`.  The cofactor clearing runs [|x|]P and [|x|]ψ(P)
+  as one launch over both row sets, then [x²]P; K10 remains for the
+  smoke run's kernel phase and as the steps K17 is held to
+  (`zmul_steps`).
+
+The clearing's other doublings and additions run K2 (ops/cuda_g2.py).
+The exactness boundaries — sgn0, the candidate-square test, the ∞ guard
+of the isogeny — and the negations between launches run on K1 and the
+plain exact-carry code of ops/fp.py, as the JAX package keeps them at
+the jnp level.
 
 Each kernel is bit-identical to its plain version here, which is the JAX
 `_DIRECT_FNS` body line for line on `cuda_g2`'s plain field library.
@@ -45,7 +55,8 @@ import torch
 from ..tbls.ref import sswu as refsswu
 from ..tbls.ref.fields import BLS_X, FQ2, P
 from ..tbls.ref.hash_to_curve import DST_G2, hash_to_field_fp2
-from . import build, codec, cuda_g2, fp, launch_count, tower
+from . import (build, codec, cuda_g2, cuda_pairing, fp, launch_count,
+               miller_program, tower)
 from .cuda_g2 import (_cuda_ready, _f2add, _f2mul, _f2sqr, _negf,
                       _raise_on, _table_f2)
 
@@ -208,7 +219,7 @@ def psi_plain(pt: torch.Tensor) -> torch.Tensor:
 #: kernel launches since the last `reset_launches()` (all threads;
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"h2c_sswu": 0, "h2c_sqr": 0, "h2c_mul": 0, "h2c_sqr4": 0,
-            "h2c_sqr4mul": 0, "h2c_iso3": 0, "h2c_psi": 0}
+            "h2c_sqr4mul": 0, "h2c_iso3": 0, "h2c_psi": 0, "g2_zmul": 0}
 
 #: K7 op codes (csrc/h2c.cu) and K9 kinds
 _CHAIN = {"h2c_sqr": 0, "h2c_mul": 1, "h2c_sqr4": 2, "h2c_sqr4mul": 3}
@@ -439,22 +450,60 @@ def f2_inv_rows(a: torch.Tensor) -> torch.Tensor:
 
 #: Static 2-bit window schedule of |x| (the 64-bit BLS parameter): one
 #: window for every row of a dblsel launch.
-_Z_WINDOWS = tuple((BLS_X >> (62 - 2 * i)) & 3 for i in range(32))
+_Z_WINDOWS = miller_program.Z_WINDOWS
 assert BLS_X.bit_length() == 64
 
 
-def _zmul(q: torch.Tensor) -> torch.Tensor:
-    """[|x|]Q over [6, 32, R]: the table {Q, 2Q, 3Q} (K2) and 32 K10
-    dblsel steps, each with one window for every row."""
-    q2 = cuda_g2.dbl(q)
-    q3 = cuda_g2.add(q2, q)
+def _zmul_with(q, dbl, add, dblsel) -> torch.Tensor:
+    """[|x|]Q over [6, 32, R]: the table {Q, 2Q, 3Q} and 32 dblsel
+    windows, each with one window for every row."""
+    q2 = dbl(q)
+    q3 = add(q2, q)
     n = q.shape[-1]
     rows = [torch.full((n,), w, dtype=torch.int32, device=q.device)
             for w in range(4)]
     acc = cuda_g2.inf_planes(n, q.device)
     for w in _Z_WINDOWS:
-        acc = cuda_g2.dblsel(acc, q, q2, q3, rows[w])
+        acc = dblsel(acc, q, q2, q3, rows[w])
     return acc
+
+
+def zmul_plain(q: torch.Tensor) -> torch.Tensor:
+    """[|x|]Q on the plain K2 and K10 bodies (pallas_h2c `_zmul`)."""
+    return _zmul_with(q, cuda_g2.dbl_plain, cuda_g2.add_plain,
+                      cuda_g2.dblsel_plain)
+
+
+def zmul_steps(q: torch.Tensor) -> torch.Tensor:
+    """The same through the K2 and K10 wrappers (34 launches on the
+    card): what K17 replaced, kept for the smoke run's comparison."""
+    return _zmul_with(q, cuda_g2.dbl, cuda_g2.add, cuda_g2.dblsel)
+
+
+def zmul(q: torch.Tensor, lanes: int = miller_program.ZM_LANES,
+         slots: int = miller_program.ZM_SLOTS,
+         window: int = miller_program.ZM_WINDOW) -> torch.Tensor:
+    """K17: [|x|]Q over [6, 32, R] projective points in ONE launch,
+    `lanes` threads a row running ops/miller_program.py's `zmul_program`
+    with `slots` Fp elements of shared memory a row (and look-ahead
+    `window`); `zmul_plain` on the CPU, bit for bit."""
+    if q.device.type == "cpu":
+        return zmul_plain(q)
+    n = q.shape[-1]
+    _check("g2_zmul", q, 6, n)
+    _cuda_ready("g2_zmul", q)
+    code, fout, steps = miller_program.on_device(
+        miller_program.zmul_program(lanes, slots, window), q.device)
+    consts = cuda_pairing._rows_of(cuda_pairing._CONST_PLANES, n, q.device)
+    inp = torch.cat([q, consts]).permute(2, 0, 1).contiguous()
+    out = q.new_empty((6, NL, n))
+    err = build.library().charon_g2_zmul(
+        out.data_ptr(), inp.data_ptr(), code.data_ptr(), steps,
+        fout.data_ptr(), lanes, slots, n,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on("g2_zmul", err)
+    launch_count.bump(LAUNCHES, "g2_zmul")
+    return out
 
 
 def clear_cofactor_rows(p: torch.Tensor) -> torch.Tensor:
@@ -463,12 +512,14 @@ def clear_cofactor_rows(p: torch.Tensor) -> torch.Tensor:
         h_eff·P = [x²−x−1]P + [x−1]ψ(P) + ψ²([2]P),   x = −|x|
 
     i.e. ([x²]P + [|x|]P − P) + (−[|x|]ψ(P) − ψ(P)) + ψ²(2P): three
-    [|x|]-multiplies, three ψ launches, one doubling, five additions."""
-    t0 = _zmul(p)                          # [|x|]P
-    t1 = _zmul(t0)                         # [x²]P
-    part1 = cuda_g2.add(cuda_g2.add(t1, t0), _pt_neg_t(p))
+    [|x|]-multiplies in two K17 launches ([|x|]P and [|x|]ψ(P) over both
+    row sets at once), three ψ launches, one doubling, five additions."""
+    m = p.shape[-1]
     psip = h2c_psi(p)
-    xpsip = _zmul(psip)
+    t0, xpsip = (x.contiguous() for x in
+                 zmul(torch.cat([p, psip], dim=-1)).split(m, dim=-1))
+    t1 = zmul(t0)                          # [x²]P
+    part1 = cuda_g2.add(cuda_g2.add(t1, t0), _pt_neg_t(p))
     part2 = cuda_g2.add(_pt_neg_t(xpsip), _pt_neg_t(psip))
     part3 = h2c_psi(h2c_psi(cuda_g2.dbl(p)))
     return cuda_g2.add(cuda_g2.add(part1, part2), part3)

@@ -534,17 +534,6 @@ def miller_steps(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 _CONST_PLANES = np.stack([fp.ONE, fp.ZERO, fp.ZERO, fp.ZERO])  # (1,0), (0,0)
 _G1_CONST_PLANES = np.stack([fp.ONE, fp.ZERO])
-_PROGRAMS: dict = {}
-
-
-def _device_program(device, prog: miller_program.Program, key: tuple):
-    """(code, output plane codes, steps) of a scheduled program on
-    `device`, uploaded once per device and `key`."""
-    key = (str(device), *key)
-    if key not in _PROGRAMS:
-        _PROGRAMS[key] = (torch.from_numpy(prog.code).to(device),
-                          torch.from_numpy(prog.out).to(device), prog.steps)
-    return _PROGRAMS[key]
 
 
 def _check_pairs(name: str, p: torch.Tensor, q: torch.Tensor) -> int:
@@ -567,9 +556,8 @@ def miller_loop(p: torch.Tensor, q: torch.Tensor,
     if p.device.type == "cpu":
         return miller_loop_plain(p, q)
     n = _check_pairs("miller_loop", p, q)
-    code, fout, steps = _device_program(
-        p.device, miller_program.miller_program(lanes, slots, window),
-        ("miller", lanes, slots, window))
+    code, fout, steps = miller_program.on_device(
+        miller_program.miller_program(lanes, slots, window), p.device)
     consts = _rows_of(_CONST_PLANES, n, p.device)
     inp = torch.cat([p, q, consts]).permute(2, 0, 1).contiguous()
     out = p.new_empty((F12_PLANES, NL, n))
@@ -712,9 +700,8 @@ def g1_scalar_mul_rows(t1: torch.Tensor, t2: torch.Tensor, t3: torch.Tensor,
                          f"int32 [nwin, {n}] array")
     _same_device("g1_scalar_mul", t1, t2, t3, windows)
     _cuda_ready("g1_scalar_mul", t1)
-    code, fout, steps = _device_program(
-        t1.device, miller_program.g1_program(nwin, lanes, slots, window),
-        ("g1", nwin, lanes, slots, window))
+    code, fout, steps = miller_program.on_device(
+        miller_program.g1_program(nwin, lanes, slots, window), t1.device)
     consts = _rows_of(_G1_CONST_PLANES, n, t1.device)
     inp = torch.cat([t1, t2, t3, consts]).permute(2, 0, 1).contiguous()
     out = t1.new_empty((P_PLANES, NL, n))

@@ -44,6 +44,24 @@ every row runs the same addition), then acc4 where w = 0 and the sum
 elsewhere.  `g1_run_plain` on the result equals the iterated plain
 windows bit for bit.
 
+The G2 window loops are the same machinery on the complete G2 law
+(`Dag.g2_double` / `g2_add`, op for op `cuda_g2._g2_double` /
+`_g2_add`):
+
+- K16 (csrc/straus.cu, the combine's Straus MSM) runs two small
+  programs in a loop on the device, the accumulator resident in slots
+  0–5 (`Program.preset`): HEAD (`straus_head_dag`, acc ← 8·acc) once a
+  window, TAIL (`straus_tail_dag`, acc ← acc ± T[|d|], d = 0 keeping
+  acc) once a share, its input block share k's four table points.  A
+  program cannot address the 609 (window, share) digits or a 7-share
+  row's 168 table planes, so the kernel points the input block and the
+  digit at share k before each TAIL run; TAIL's SELs read three fields
+  of the one digit d (`ST_ABS`, `ST_NEG`, `ST_NZ`).  `straus_run_plain`
+  loops the two programs as the kernel does.
+- K17 (csrc/g2_zmul.cu, hash-to-G2's [|x|]-multiply) is one straight-
+  line program (`zmul_dag`): the windows of |x| are host constants, so
+  it needs no SEL.
+
 ENCODING (`Program.code`, int32 [steps, LANES, 2]): word 0 is kind |
 out << 8 | a << 16 | b << 24, word 1 LIN's form (k | (s + 1) << 8 |
 iters << 12 | spread << 16) or SEL's (window | stride << 8).  An operand
@@ -66,7 +84,7 @@ from . import fp
 # op kinds (csrc/program.cuh's switch): the Fp2 product and square, the Fp
 # product, LIN — fp381's add, sub and mul_small as one function,
 # spread·48p + k·a + s·b reduced (see `lin_plain`) — and SEL, the
-# per-row copy chosen by a window digit (K15 only)
+# per-row copy chosen by a window digit (K15, K16)
 NOP, MUL2, SQR2, MUL, LIN, SEL = range(6)
 KIND_NAMES = ("nop", "f2_mul", "f2_sqr", "mul", "lin", "sel")
 
@@ -104,6 +122,30 @@ G1_LANES = 4
 G1_SLOTS = 20
 G1_WINDOW = 40
 
+# K16's accumulator: Fp2 pairs at slots 0, 2, 4 (x, y, z), resident
+# across the window loop.  TAIL's input block is one share's table
+# points T1 = P .. T4 = 4P as (x, y, z) Fp2 planes, ST_STRIDE planes
+# apart; its SEL windows are fields of the share's digit d: |d| mod 4
+# (T4 stands in for 0 and 4, as cuda_g2._signed_sel takes it), d < 0
+# and d ≠ 0
+ST_ACC = (0, 2, 4)
+ST_T1, ST_T4, ST_STRIDE, ST_PLANES = 0, 18, 6, 24
+ST_ABS, ST_NEG, ST_NZ = 0, 1, 2
+#: K16's threads per row, slots a row and look-ahead
+ST_LANES = 4
+ST_SLOTS = 34
+ST_WINDOW = 40
+
+# K17's input block: Q as (x, y, z) Fp2 planes, then the Fp2 constants
+# one (1, 0) and zero (0, 0)
+ZM_Q, ZM_ONE, ZM_ZERO, ZM_PLANES = 0, 6, 8, 10
+#: the 2-bit windows of |x| (the BLS parameter), MSB first
+Z_WINDOWS = tuple((BLS_X >> (62 - 2 * i)) & 3 for i in range(32))
+#: K17's threads per row, slots a row and look-ahead
+ZM_LANES = 4
+ZM_SLOTS = 36
+ZM_WINDOW = 80
+
 
 # ---------------------------------------------------------------------------
 # The dataflow graph
@@ -121,12 +163,14 @@ class _Op:
 
 class Dag:
     """Values are Fp2 elements (two halves), Fp elements (one slot:
-    `fp_vals`) or device-memory inputs; ops write one half (Fp ops), a
-    whole Fp2 (MUL2, SQR2) or an Fp element."""
+    `fp_vals`), device-memory inputs or Fp2 inputs resident in slots
+    (`pinned`); ops write one half (Fp ops), a whole Fp2 (MUL2, SQR2) or
+    an Fp element."""
 
     def __init__(self):
         self.ops: list[_Op] = []
         self.glob: dict[int, int] = {}      # value id → input plane
+        self.pinned: dict[int, int] = {}    # value id → its pair's c0 slot
         self.fp_vals: set[int] = set()
         self.n = 0
 
@@ -142,6 +186,14 @@ class Dag:
     def input(self, plane: int) -> int:
         v = self._new()
         self.glob[v] = plane
+        return v
+
+    def slot_input(self, slot: int) -> int:
+        """An Fp2 input the kernel keeps in the pair at `slot` (even): the
+        scheduler never gives that pair to another value."""
+        assert slot % 2 == 0
+        v = self._new()
+        self.pinned[v] = slot
         return v
 
     # Fp2 helpers, each the fp381.cuh function of the same name
@@ -176,6 +228,24 @@ class Dag:
         """(a0 − a1) + (a0 + a1)·u"""
         return self._lin([(((a, 0), (a, 1)), _SUB),
                           (((a, 0), (a, 1)), _ADD)])
+
+    def f2_neg(self, a):
+        """0 − a per half: LIN with k = 0 gives fp381 neg's columns."""
+        form = (0, -1, 1, 1)
+        return self._lin([(((a, 0), (a, 0)), form), (((a, 1), (a, 1)),
+                                                     form)])
+
+    def f2_mul_b3(self, a):
+        """×3b = ×12·(1 + u): (a0 − a1, a0 + a1), then ×12."""
+        return self.f2_small(self.f2_mul_xi(a), 12)
+
+    def f2_sel(self, window, a, b, stride):
+        """`sel` on both halves of an Fp2 value."""
+        v = self._new()
+        for h in (0, 1):
+            self.ops.append(_Op(SEL, v, h, ((a, h), (b, h)),
+                                sel=(window, stride)))
+        return v
 
     def f2_mul_fp(self, a, s):
         v = self._new()
@@ -364,6 +434,45 @@ class Dag:
         return x3, y3, z3
 
 
+    # the G2 law (cuda_g2._g2_double / _g2_add, fp381 g2_double / g2_add)
+    def g2_double(self, p):
+        x, y, z = p
+        yy = self.f2_sqr(y)
+        yz = self.f2_mul(y, z)
+        zz = self.f2_sqr(z)
+        xy = self.f2_mul(x, y)
+        bzz = self.f2_mul_b3(zz)
+        e8 = self.f2_small(yy, 8)
+        s = self.f2_add(yy, bzz)
+        d = self.f2_sub(yy, self.f2_small(bzz, 3))
+        x3 = self.f2_small(self.f2_mul(d, xy), 2)
+        y3 = self.f2_add(self.f2_mul(bzz, e8), self.f2_mul(d, s))
+        z3 = self.f2_mul(yz, e8)
+        return x3, y3, z3
+
+    def g2_add(self, p1, p2):
+        x1, y1, z1 = p1
+        x2, y2, z2 = p2
+        t0 = self.f2_mul(x1, x2)
+        t1 = self.f2_mul(y1, y2)
+        t2 = self.f2_mul(z1, z2)
+        pxy = self.f2_mul(self.f2_add(x1, y1), self.f2_add(x2, y2))
+        pyz = self.f2_mul(self.f2_add(y1, z1), self.f2_add(y2, z2))
+        pxz = self.f2_mul(self.f2_add(x1, z1), self.f2_add(x2, z2))
+        t3 = self.f2_sub(pxy, self.f2_add(t0, t1))
+        t4 = self.f2_sub(pyz, self.f2_add(t1, t2))
+        t5 = self.f2_sub(pxz, self.f2_add(t0, t2))
+        m = self.f2_small(t0, 3)
+        bz = self.f2_mul_b3(t2)
+        s = self.f2_add(t1, bz)
+        d = self.f2_sub(t1, bz)
+        by = self.f2_mul_b3(t5)
+        x3 = self.f2_sub(self.f2_mul(t3, d), self.f2_mul(t4, by))
+        y3 = self.f2_add(self.f2_mul(d, s), self.f2_mul(m, by))
+        z3 = self.f2_add(self.f2_mul(t4, s), self.f2_mul(t3, m))
+        return x3, y3, z3
+
+
 def miller_dag() -> tuple[Dag, list[int]]:
     """The unrolled loop of `cuda_pairing.miller_loop_plain` → (graph,
     the six Fp2 values of f)."""
@@ -400,6 +509,46 @@ def g1_dag(nwin: int) -> tuple[Dag, list[int]]:
     return g, list(acc)
 
 
+def straus_head_dag() -> tuple[Dag, list[int]]:
+    """K16's HEAD: acc ← 8·acc, three doublings of the resident acc."""
+    g = Dag()
+    acc = tuple(g.slot_input(s) for s in ST_ACC)
+    for _ in range(3):
+        acc = g.g2_double(acc)
+    return g, list(acc)
+
+
+def straus_tail_dag() -> tuple[Dag, list[int]]:
+    """K16's TAIL, one share's step of `cuda_g2.straus_step_plain`:
+    acc ← acc + T[|d|] with T's y negated where d < 0; d = 0 keeps acc
+    (the sum is computed and dropped, as the plain step computes it)."""
+    g = Dag()
+    acc = tuple(g.slot_input(s) for s in ST_ACC)
+    t = tuple(g.f2_sel(ST_ABS, g.input(ST_T4 + 2 * c), g.input(ST_T1 + 2 * c),
+                       ST_STRIDE) for c in range(3))
+    y = g.f2_sel(ST_NEG, t[1], g.f2_neg(t[1]), 0)
+    s = g.g2_add(acc, (t[0], y, t[2]))
+    return g, [g.f2_sel(ST_NZ, a, b, 0) for a, b in zip(acc, s)]
+
+
+def zmul_dag() -> tuple[Dag, list[int]]:
+    """K17: [|x|]Q as `cuda_h2c.zmul_plain` computes it — the table {Q,
+    2Q, 3Q} (one doubling, one addition), then per 2-bit window two
+    doublings and, for a non-zero window, one addition (a zero window
+    keeps 4·acc, so it needs none)."""
+    g = Dag()
+    q = tuple(g.input(ZM_Q + 2 * c) for c in range(3))
+    one, zero = g.input(ZM_ONE), g.input(ZM_ZERO)
+    q2 = g.g2_double(q)
+    table = (None, q, q2, g.g2_add(q2, q))
+    acc = (zero, one, zero)
+    for w in Z_WINDOWS:
+        acc = g.g2_double(g.g2_double(acc))
+        if w:
+            acc = g.g2_add(acc, table[w])
+    return g, list(acc)
+
+
 # ---------------------------------------------------------------------------
 # The schedule
 # ---------------------------------------------------------------------------
@@ -411,6 +560,7 @@ class Program:
     out: np.ndarray           # int32 [planes]: each output plane's code
     lanes: int
     slots: int
+    preset: tuple = ()        # slots that hold the kernel's values on entry
 
     @property
     def steps(self) -> int:
@@ -431,7 +581,7 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
     which bounds how far the program runs ahead of the sequential order
     (and so the slots it holds).  An Fp2 value takes a free pair of
     slots; an Fp value (`dag.fp_vals`) a free single slot, splitting a
-    pair when none is left."""
+    pair when none is left.  A pinned input keeps its pair throughout."""
     ops = dag.ops
     nops = len(ops)
     prod: dict[tuple[int, int], int] = {}
@@ -444,9 +594,11 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
         for v, h in op.ins:
             if v in dag.glob:
                 continue
+            users[v] = users.get(v, 0) + 1
+            if v in dag.pinned:
+                continue
             for hh in ((0, 1) if h is None else (h,)):
                 deps[i].add(prod[(v, hh)])
-            users[v] = users.get(v, 0) + 1
     succ = [[] for _ in ops]
     for i, d in enumerate(deps):
         for j in d:
@@ -456,9 +608,11 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
     ready = {i for i in range(nops) if not deps[i]}
     scheduled = [False] * nops
     oldest = 0
-    free = list(range(0, slots - 1, 2))[::-1]    # pairs, by their c0 slot
+    # pairs, by their c0 slot
+    free = [p for p in range(0, slots - 1, 2)
+            if p not in dag.pinned.values()][::-1]
     free1: list[int] = []                        # single slots
-    home: dict[int, int] = {}                    # value → (c0) slot
+    home: dict[int, int] = dict(dag.pinned)      # value → (c0) slot
     left = dict(users)
     code, kinds = [], []
     done = 0
@@ -533,7 +687,7 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
                 if v in dag.glob:
                     continue
                 left[v] -= 1
-                if left[v] == 0 and v not in keep:
+                if left[v] == 0 and v not in keep and v not in dag.pinned:
                     (freed1 if v in dag.fp_vals else freed).append(home[v])
         code.append(row.view(np.int32))
         kinds.append(kind)
@@ -550,8 +704,9 @@ def schedule(dag: Dag, outs: list[int], lanes: int = LANES,
     out = np.array([at(v, h) for v in outs
                     for h in ((0,) if v in dag.fp_vals else (0, 1))],
                    np.int32)
+    preset = tuple(sorted(s + h for s in dag.pinned.values() for h in (0, 1)))
     return Program(np.stack(code), np.asarray(kinds, np.int32), out, lanes,
-                   slots)
+                   slots, preset)
 
 
 _PROGRAM: dict[tuple, Program] = {}
@@ -578,6 +733,39 @@ def g1_program(nwin: int, lanes: int = G1_LANES, slots: int = G1_SLOTS,
     return _PROGRAM[key]
 
 
+def straus_programs(lanes: int = ST_LANES, slots: int = ST_SLOTS,
+                    window: int = ST_WINDOW) -> tuple[Program, Program]:
+    """K16's scheduled (HEAD, TAIL) programs (built once per shape)."""
+    key = ("straus", lanes, slots, window)
+    if key not in _PROGRAM:
+        _PROGRAM[key] = tuple(schedule(*dag(), lanes, slots, window)
+                              for dag in (straus_head_dag, straus_tail_dag))
+    return _PROGRAM[key]
+
+
+def zmul_program(lanes: int = ZM_LANES, slots: int = ZM_SLOTS,
+                 window: int = ZM_WINDOW) -> Program:
+    """K17's scheduled [|x|]-multiply (built once per shape)."""
+    key = ("zmul", lanes, slots, window)
+    if key not in _PROGRAM:
+        _PROGRAM[key] = schedule(*zmul_dag(), lanes, slots, window)
+    return _PROGRAM[key]
+
+
+_ON_DEVICE: dict = {}
+
+
+def on_device(prog: Program, device) -> tuple:
+    """(code, output plane codes, steps) of a scheduled program as
+    tensors on `device`, uploaded once per program and device."""
+    key = (id(prog), str(device))
+    if key not in _ON_DEVICE:
+        # the entry holds the program, so its id is never reused
+        _ON_DEVICE[key] = (prog, torch.from_numpy(prog.code).to(device),
+                           torch.from_numpy(prog.out).to(device))
+    return (*_ON_DEVICE[key][1:], prog.steps)
+
+
 def _fields(code: np.ndarray):
     """[..., 2] int32 words → (kind, out, a, b, k, s, iters, spread,
     stride); SEL's window is k."""
@@ -596,10 +784,16 @@ def _sel_codes(b: int, stride: int) -> list[int]:
 def check(prog: Program) -> None:
     """The invariants the kernel relies on: one kind a step; no op of a
     step reads or writes a slot another op of it writes; every slot read
-    was written at an earlier step; slots in range; a SEL steps through
-    input planes only (its stride never walks the slots)."""
+    was written at an earlier step (or is preset); slots in range; a SEL
+    steps through input planes only (its stride never walks the slots);
+    with preset slots, every output is a slot outside them, so the kernel
+    can copy the outputs into them."""
     kind, out, a, b, *_, stride = _fields(prog.code)
-    written: set[int] = set()
+    written: set[int] = set(prog.preset)
+    if prog.preset and not all(int(c) < prog.slots and int(c) not in
+                               prog.preset for c in prog.out):
+        raise AssertionError(f"outputs {prog.out.tolist()} are not slots "
+                             f"outside the preset {prog.preset}")
     for s in range(prog.steps):
         live = kind[s] != NOP
         if set(kind[s][live].tolist()) != {int(prog.kinds[s])}:
@@ -640,15 +834,17 @@ def lin_plain(a: torch.Tensor, b: torch.Tensor, k: int, s: int, iters: int,
     return _reduce(d, iters)
 
 
-def execute(prog: Program, planes: list, digits=None) -> torch.Tensor:
+def execute(prog: Program, planes: list, digits=None,
+            preset=None) -> torch.Tensor:
     """Execute the program on CPU (or any) tensors with the plain field
     functions, as the kernel's lanes do: `planes` the row's input block as
-    [32, R] tensors, `digits` [nwin, R] the window digits SEL reads → the
-    output planes [len(prog.out), 32, R].  A step's writes land after all
-    its reads."""
+    [32, R] tensors, `digits` [nwin, R] the window digits SEL reads,
+    `preset` the [32, R] contents of `prog.preset`'s slots → the output
+    planes [len(prog.out), 32, R].  A step's writes land after all its
+    reads."""
     from .cuda_g2 import _f2mul, _f2sqr, _mulf
 
-    slots: dict[int, torch.Tensor] = {}
+    slots: dict[int, torch.Tensor] = dict(zip(prog.preset, preset or ()))
 
     def get(code: int) -> torch.Tensor:
         return planes[code - GLOBAL] if code >= GLOBAL else slots[code]
@@ -698,3 +894,34 @@ def g1_run_plain(prog: Program, t1: torch.Tensor, t2: torch.Tensor,
     [3, 32, R] projective rows."""
     return execute(prog, [*t1, *t2, *t3, *_consts(t1.shape[-1], t1.device,
                                                   2)], windows)
+
+
+def straus_run_plain(head: Program, tail: Program, tables, digits:
+                     torch.Tensor, t_count: int) -> torch.Tensor:
+    """K16's loop on CPU tensors: the four [6, 32, T·n] tables (rows
+    t-major), digits [nwin, T·n] → [6, 32, n].  From ∞, per window one
+    HEAD run, then per share one TAIL run on that share's table rows and
+    digit fields, skipped where every digit is 0 (as the kernel skips
+    it); each run's outputs become the next run's preset
+    accumulator."""
+    from .cuda_g2 import inf_planes
+
+    n = tables[0].shape[-1] // t_count
+    acc = list(inf_planes(n, tables[0].device))
+    for i in range(digits.shape[0]):
+        acc = list(execute(head, [], None, acc))
+        for k in range(t_count):
+            d = digits[i, k * n:(k + 1) * n]
+            if not bool((d != 0).any()):
+                continue
+            planes = [t[j, :, k * n:(k + 1) * n] for t in tables
+                      for j in range(6)]
+            fields = torch.stack([d.abs() & 3, (d < 0).int(),
+                                  (d != 0).int()])
+            acc = list(execute(tail, planes, fields, acc))
+    return torch.stack(acc)
+
+
+def zmul_run_plain(prog: Program, q: torch.Tensor) -> torch.Tensor:
+    """K17's program on [6, 32, R] points → [|x|]Q [6, 32, R]."""
+    return execute(prog, [*q, *_consts(q.shape[-1], q.device, 4)])

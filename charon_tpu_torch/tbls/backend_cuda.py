@@ -481,7 +481,7 @@ class CUDABackend:
                              "in the G2 subgroup")
         tables = cuda_g2.straus_tables(cuda_g2.as_planes(pts))
         clock.lap("tables_s")
-        out = cuda_g2.straus_loop(tables, put(p["digits"]), p["t"])
+        out = cuda_g2.straus_msm(tables, put(p["digits"]), p["t"])
         clock.lap("straus_s")
         xc0, xc1, yc0, yc1, inf = codec.g2_normalize(cuda_g2.as_points(out))
         host = [a.cpu().numpy() for a in (xc0, xc1, yc0, yc1)]

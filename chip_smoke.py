@@ -24,7 +24,16 @@ Phases, in order; any failure raises and exits non-zero:
              (the 32 RLC windows in one launch) against the iterated plain
              K6 window at 4,096 rows with every digit, ∞ rows, all-LMAX
              and real tables; both timed beside the launch sequences they
-             replaced, K15 also with 2, 4 and 8 lanes a row.
+             replaced, K15 also with 2, 4 and 8 lanes a row.  K16 (the
+             combine's whole Straus loop in one launch) against the 609 K3
+             launches it replaced, bit for bit, at the combine's shape
+             (10,240 accumulator rows, T = 7, 87 windows) on the combine's
+             own digits and on random digits, tables with ∞ rows built by
+             K2, and against the plain loop (one run) on the combine's
+             digits; K17 (one [|x|]-multiply in one launch) against its
+             plain version and the 34 K2/K10 launches it replaced at a hash
+             batch's 4,096 rows and the slot-start batch's 128; both timed
+             beside their bounds, with 2, 4 and 8 lanes a row.
 3. combine — a pool of 1,024 distinct signatures s·H(m) built on the card;
              a real-Shamir check (V = 128: the combined bytes must equal
              sk·H(m)); then 10,000 SigAgg.aggregate() calls in one event-loop
@@ -32,8 +41,9 @@ Phases, in order; any failure raises and exits non-zero:
              combine, 4 random rows checked against the pure-Python oracle;
              malformed and off-curve signatures must raise ValueError; the
              p50 of 3 full combines split into stages, with every kernel's
-             launch count on the combine path (each must be > 0) and ONE
-             K12 launch in its decompress stage.
+             launch count on the combine path (each must be > 0; K3 must
+             not launch), ONE K12 launch in its decompress stage and ONE
+             K16 launch in its Straus stage.
    redesign — K11 (the final exponentiation in one launch, a warp per
              row) against its plain version at 1 row and at a verify
              tile's 2,048, and K12 (the G2 decompression in one launch, a
@@ -65,7 +75,12 @@ Phases, in order; any failure raises and exits non-zero:
              equal the pure-Python oracle on the bad rows and on 4 random
              good ones (its re-check one K13 launch over the unscaled
              rows, one K5 product of the halves and one K11 over the
-             entries).
+             entries).  Then the slot's first flush: the same 10,000
+             keys over 64 messages that are new each rep (the next slot's
+             attestation data), signed on the card, so the first tile
+             misses every message and hashes them on the card as one batch
+             of 64 on the prep thread (2 K17 launches, no K10): all
+             verdicts True, p50 of 3 with its h2c stages.
 5. h2c     — the distinct flush's first 2,048 messages (one verify tile)
              through the device hash-to-G2 (cuda_h2c.hash_to_g2_rows)
              must equal the same pipeline on the plain versions on the
@@ -89,25 +104,31 @@ Phases, in order; any failure raises and exits non-zero:
 
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
-2,048-message batch's shapes) against their plain versions.
+2,048-message batch's shapes) against their plain versions.  Every device
+hash batch (phases 4–6) must launch 2 K17, no K10 dblsel and 7 K2.
 
 A kernel's `launches` in the JSON line is its count over the main-path
 runs: `launches_combine` (one combine rep), `launches_verify` (one
-10,000-entry verify rep, warm caches) and `launches_verify_distinct` (one
-rep of the distinct-message flush), each counted from zero.  K10 addsel
-has no caller on any path (nor in the JAX package): only phase 2 launches
-it, as it does K4 and the K5 sqr/mul014 steps now.  K11's ms, plain_ms and
-bound_ms are at the batch check's 1 row (its `recheck` key at 2,048), K12's
-at a verify tile's 2,048 (its `combine` key at 71,680), K13's at a verify
-tile's 4,096 Miller rows (`steps_ms` the K4/K5 sequence's, `probe` the
-design probe), K14's and K15's at 4,096 rows (`steps_ms` the 12 K5 and 32
-K6 launches they replaced; K14's `at_2` and `at_32768`, its `chain_ms`
-= log₂ 4,096 × its time at R = 2; K15's `lanes_ms` sweep), and K3's
-`combine_digits` the mean over the combine's own launches.  `regs`,
-`stack` and `spill` are the compiler's (-Xptxas -v) for each kernel's
-function.  Every bound_ms is at the card's full rate; K11 also gives
-`bound_one_warp_ms`, the bound at the rate of the SMs its rows can occupy
-under its one-warp-per-row design (one SM at 1 row).
+10,000-entry verify rep, warm caches), `launches_verify_slot_start` (one
+rep of the slot's first flush) and `launches_verify_distinct` (one rep of
+the distinct-message flush), each counted from zero. K10 addsel has no
+caller on any path (nor in the JAX package): only phase 2 launches it, as
+it does K3, K4, the K5 sqr/mul014 steps, K6 and K10 dblsel now. K11's ms,
+plain_ms and bound_ms are at the batch check's 1 row (its `recheck` key at
+2,048), K12's at a verify tile's 2,048 (its `combine` key at 71,680),
+K13's at a verify tile's 4,096 Miller rows (`steps_ms` the K4/K5
+sequence's, `probe` the design probe), K14's and K15's at 4,096 rows
+(`steps_ms` the 12 K5 and 32 K6 launches they replaced; K14's `at_2` and
+`at_32768`, its `chain_ms` = log₂ 4,096 × its time at R = 2; K15's
+`lanes_ms` sweep), K16's on the combine's digits at its shape (`steps_ms`
+the 609 K3 launches, `random` the same on random digits, `repack_ms` the
+table repack, `lanes_ms`), K17's at 4,096 rows (`steps_ms` the 34 K2/K10
+launches, `at_128`, `lanes_ms`), and K3's `combine_digits` the mean over
+the combine's own launches. `regs`, `stack` and `spill` are the compiler's
+(-Xptxas -v) for each kernel's function. Every bound_ms is at the card's
+full rate; K11 also gives `bound_one_warp_ms`, the bound at the rate of
+the SMs its rows can occupy under its one-warp-per-row design (one SM at 1
+row).
 The second-to-last line is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -461,7 +482,7 @@ def straus_combine_digits(dev, gen, rows: int, vrows: int, results: dict,
     zero), and a zero digit skips the addition.  One head and one tail
     launch held against the plain version on a window with non-zero
     digits; then the mean launch time over the combine's 87 heads and
-    522 tails (as straus_loop runs them, on seeded tables), beside the
+    522 tails (as straus_steps runs them, on seeded tables), beside the
     mean bound for those digits."""
     from charon_tpu_torch.ops import cuda_g2
     from charon_tpu_torch.tbls.backend_cuda import (STRAUS_NWIN,
@@ -691,6 +712,157 @@ def rlc_phase(dev, gen, rows: int, sm_clocks_per_s: float) -> dict:
         f"{res[f'at_{2 * rows}_ms']:.4f} ms at {2 * rows:,} rows; sweep "
         f"{json.dumps(res['lanes_ms'])}")
     return res
+
+
+def straus_msm_work(d_np: np.ndarray, vrows: int) -> tuple[np.ndarray, int]:
+    """([IMAD, ALU], bytes) of the whole Straus loop on these digits
+    [nwin, T·vrows]: the per-step work of `straus_work` summed over the
+    windows and shares; device memory sees the digits, the table rows of
+    the non-zero digits and the output once."""
+    ops = sum(straus_work(d_np[i, r0:r0 + vrows], r0 == 0)[0]
+              for i in range(d_np.shape[0])
+              for r0 in range(0, d_np.shape[1], vrows))
+    return ops, 4 * d_np.size + (int((d_np != 0).sum()) + vrows) * PT_BYTES
+
+
+def straus_msm_phase(dev, rows: int, vrows: int,
+                     sm_clocks_per_s: float) -> dict:
+    """K16 against the iterated K3 steps (`straus_steps`: the 87 heads and
+    87·(T − 1) tails it replaced), bit for bit, at the combine's shape —
+    `vrows` accumulator rows, T = SHARES, all 87 windows — on the
+    combine's own digits (one index set for every validator, the padding
+    rows zero) and on random digits; the tables built by K2 from random
+    limbs with ∞ rows, as the combine builds them.  Against the plain loop
+    (`straus_msm_plain`, one run: it takes ~43 s on the card) on the
+    combine's digits.  Timed beside the K3 sequence and the bound of these
+    digits' work; the table repack alone; the sweep over 2, 4 and 8
+    lanes."""
+    from charon_tpu_torch.ops import cuda_g2
+    from charon_tpu_torch.ops import miller_program as mp
+    from charon_tpu_torch.tbls.backend_cuda import (STRAUS_NWIN,
+                                                    _lagrange_digits)
+
+    gen = np.random.default_rng(20261021)
+    pts = limbs(dev, gen, (6, NL, rows), "random")
+    inf = torch.arange(3, rows, 997, device=dev)
+    pts[..., inf] = cuda_g2.inf_planes(len(inf), dev)
+    tables = cuda_g2.straus_tables(pts)
+    lag = _lagrange_digits(tuple(range(1, SHARES + 1)))     # [T, 87]
+    comb = np.zeros((SHARES, vrows, STRAUS_NWIN), np.int32)
+    comb[:, :VALIDATORS] = lag[:, None, :]
+    digit_sets = {
+        "combine": np.ascontiguousarray(comb.reshape(rows, STRAUS_NWIN).T),
+        "random": gen.integers(-4, 4, (STRAUS_NWIN, rows), dtype=np.int32)}
+    res, outs = {}, {}
+    for label, d_np in digit_sets.items():
+        d = torch.from_numpy(d_np).to(dev)
+        outs[label] = got = cuda_g2.straus_msm(tables, d, SHARES)
+        steps = cuda_g2.straus_steps(tables, d, SHARES)
+        torch.cuda.synchronize()
+        err = int((got.long() - steps.long()).abs().max())
+        if err:
+            raise AssertionError(f"K16 on {label} digits differs from the "
+                                 f"K3 launch sequence (max abs err {err})")
+        ops, nbytes = straus_msm_work(d_np, vrows)
+        bms, by = bound(ops, nbytes, sm_clocks_per_s)
+        res[label] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda d=d: cuda_g2.straus_msm(tables, d, SHARES)),
+            "steps_ms": time_ms(
+                lambda d=d: cuda_g2.straus_steps(tables, d, SHARES), 3),
+            "bound_ms": bms, "bound_by": by,
+            "nonzero_digits": int((d_np != 0).sum())}
+    comb_d = torch.from_numpy(digit_sets["combine"]).to(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = cuda_g2.straus_msm_plain(tables, comb_d, SHARES)
+    end.record()
+    torch.cuda.synchronize()
+    if not torch.equal(plain, outs["combine"]):
+        raise AssertionError("K16 differs from the plain loop")
+    out = {**res["combine"], "plain_ms": start.elapsed_time(end),
+           "random": res["random"], "rows": vrows, "shares": SHARES,
+           "windows": STRAUS_NWIN,
+           "repack_ms": time_ms(lambda: cuda_g2.straus_block(tables)),
+           "lanes_ms": {}}
+    for cfg in ((2, 26, 40), (4, 34, 40), (8, 36, 40)):
+        if not torch.equal(cuda_g2.straus_msm(tables, comb_d, SHARES, *cfg),
+                           outs["combine"]):
+            raise AssertionError(f"K16 with {cfg} differs from the default")
+        head, tail = mp.straus_programs(*cfg)
+        out["lanes_ms"][str(cfg)] = {
+            "ms": time_ms(lambda cfg=cfg: cuda_g2.straus_msm(
+                tables, comb_d, SHARES, *cfg)),
+            "head_steps": head.steps, "tail_steps": tail.steps,
+            "head_cost": head.cost(), "tail_cost": tail.cost()}
+    head, tail = mp.straus_programs()
+    out.update(lanes=mp.ST_LANES, slots=mp.ST_SLOTS, head_steps=head.steps,
+               tail_steps=tail.steps)
+    log(f"K16 straus_msm at {vrows:,} rows × {SHARES} shares × "
+        f"{STRAUS_NWIN} windows ({mp.ST_LANES} lanes a row, {mp.ST_SLOTS} "
+        f"slots; HEAD {head.steps} steps, TAIL {tail.steps}): on the "
+        f"combine's digits {out['ms']:.4f} ms against {out['steps_ms']:.4f} "
+        f"ms for the K3 launches it replaced (bound {out['bound_ms']:.4f} "
+        f"ms; plain loop {out['plain_ms']:.1f} ms, one run); on random "
+        f"digits {res['random']['ms']:.4f} ms against "
+        f"{res['random']['steps_ms']:.4f} ms (bound "
+        f"{res['random']['bound_ms']:.4f}); table repack "
+        f"{out['repack_ms']:.4f} ms; sweep {json.dumps(out['lanes_ms'])}")
+    return out
+
+
+def zmul_phase(dev, sm_clocks_per_s: float) -> dict:
+    """K17 against `zmul_plain` bit for bit at a 2,048-message hash
+    batch's [|x|]P, [|x|]ψ(P) launch (4,096 rows) and at the slot-start
+    batch's (128 rows), on random limbs with ∞ rows and all-LMAX limbs,
+    and against the 34 K2/K10 launches it replaced (`zmul_steps`); timed
+    beside them, its bound and the plain version; the sweep over 2, 4 and
+    8 lanes at 4,096 rows."""
+    from charon_tpu_torch.ops import cuda_g2, cuda_h2c as ch
+    from charon_tpu_torch.ops import miller_program as mp
+
+    gen = np.random.default_rng(20261022)
+    row_ops = 65 * OPS["g2_dbl"] + 6 * OPS["g2_add"]
+    res = {}
+    for n in (4096, 128):
+        def pat(pattern, n=n):
+            q = limbs(dev, gen, (6, NL, n), pattern)
+            if pattern == "random":
+                q[..., 5:21] = cuda_g2.inf_planes(16, dev)
+            return (q,)
+
+        part = {}
+        record(part, "g2_zmul", ch.zmul, ch.zmul_plain, row_ops * n,
+               2 * PT_BYTES * n, [lambda: pat("random"), lambda: pat("lmax")],
+               sm_clocks_per_s, plain_reps=1)
+        q, = pat("random")
+        if not torch.equal(ch.zmul_steps(q), ch.zmul(q)):
+            raise AssertionError(f"K17 at {n} rows differs from the K2/K10 "
+                                 f"launch sequence")
+        part["g2_zmul"]["steps_ms"] = time_ms(lambda q=q: ch.zmul_steps(q))
+        res[n] = part["g2_zmul"]
+    out = {**res[4096], "rows": 4096, "at_128": res[128], "lanes_ms": {}}
+    q = limbs(dev, gen, (6, NL, 4096), "random")
+    want = ch.zmul(q)
+    for cfg in ((2, 30, 40), (4, 36, 80), (8, 38, 20)):
+        if not torch.equal(ch.zmul(q, *cfg), want):
+            raise AssertionError(f"K17 with {cfg} differs from the default")
+        prog = mp.zmul_program(*cfg)
+        out["lanes_ms"][str(cfg)] = {
+            "ms": time_ms(lambda cfg=cfg: ch.zmul(q, *cfg)),
+            "steps": prog.steps, "cost": prog.cost()}
+    prog = mp.zmul_program()
+    out.update(lanes=mp.ZM_LANES, slots=mp.ZM_SLOTS, program_steps=prog.steps,
+               program_cost=prog.cost())
+    log(f"K17 g2_zmul ({mp.ZM_LANES} lanes a row, {mp.ZM_SLOTS} slots, "
+        f"{prog.steps} steps): at 4,096 rows {out['ms']:.4f} ms against "
+        f"{out['steps_ms']:.4f} ms for the 34 K2/K10 launches it replaced "
+        f"(bound {out['bound_ms']:.4f} ms); at 128 rows "
+        f"{res[128]['ms']:.4f} ms against {res[128]['steps_ms']:.4f} ms "
+        f"(bound {res[128]['bound_ms']:.4f}); sweep "
+        f"{json.dumps(out['lanes_ms'])}")
+    return out
 
 
 def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
@@ -1069,6 +1241,12 @@ def parsigs_for(sig_sets: list[dict[int, bytes]], epoch: int) -> dict:
             for v, sigs in enumerate(sig_sets)}
 
 
+#: cuda_g2's kernels that no combine launches: K3 (K16 replaced its 609
+#: launches) and K10 (hash-to-G2's; K17 replaced dblsel there)
+COMBINE_PHASE_ONLY = ("straus_head", "straus_tail", "g2_dblsel",
+                      "g2_addsel")
+
+
 def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
     """→ (launch counts of one combine rep, its stage p50s, the pool of
     1,024 signatures)."""
@@ -1152,7 +1330,12 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
             launch_counts = {k: n for k, n in {
                 **cuda_fp.LAUNCHES, **cuda_g2.LAUNCHES,
                 **cuda_codec.LAUNCHES}.items()
-                if k not in ("g2_dblsel", "g2_addsel")}
+                if k not in COMBINE_PHASE_ONLY}
+            replaced = {k: cuda_g2.LAUNCHES[k] for k in COMBINE_PHASE_ONLY
+                        if cuda_g2.LAUNCHES[k]}
+            if replaced:
+                raise AssertionError(f"combine: kernels K16 and K17 replaced "
+                                     f"launched on the path: {replaced}")
             stage_launches = backend.last_launches
         if launches != 1 or len(got) != v:
             raise AssertionError(f"rep {rep}: {launches} combines for "
@@ -1186,6 +1369,8 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
          for st, c in stage_launches.items()}))
     check_stage_launches("combine", stage_launches, "decompress_s",
                          {"g2_decompress": 1})
+    check_stage_launches("combine", stage_launches, "straus_s",
+                         {"straus_msm": 1})
     return launch_counts, p50, pool
 
 
@@ -1329,6 +1514,19 @@ def check_redesigned_stages(label: str, stage_launches: dict,
 VERIFY_PAIRING_KERNELS = ("miller_loop", "f12_fold", "g1_scalar_mul")
 PHASE_ONLY_KERNELS = ("pp_dbl", "pp_add", "pp_sqr", "pp_mul014",
                       "miller_thread", "g1_dblsel")
+
+
+def check_h2c_launches(label: str, h2c: dict, batches: int) -> None:
+    """`batches` device hash batches in one h2c_s stage: per batch one K8
+    launch, 2 K17 launches ([|x|]P with [|x|]ψ(P), then [x²]P), no K10
+    window and 7 K2 (the halves' sum, the clearing's doubling and its
+    five additions)."""
+    got = {k: h2c.get(k, 0) for k in ("h2c_sswu", "g2_zmul", "g2_dblsel")}
+    got["g2_dbl+g2_add"] = h2c.get("g2_dbl", 0) + h2c.get("g2_add", 0)
+    want = {"h2c_sswu": batches, "g2_zmul": 2 * batches, "g2_dblsel": 0,
+            "g2_dbl+g2_add": 7 * batches}
+    if got != want:
+        raise AssertionError(f"{label}: h2c_s launched {got}, want {want}")
 
 
 def check_recheck(label: str, stage_launches: dict) -> None:
@@ -1501,13 +1699,73 @@ def verify_phase(dev):
     return launch_counts, [pk for pk, _, _ in entries], sks, bits
 
 
+def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
+                            bits: torch.Tensor) -> dict:
+    """The slot's first flush: the warm flush's 10,000 keys over MESSAGES
+    messages that are new each rep (the next slot's attestation data), so
+    the message LRU misses every one and the first tile hashes them on the
+    card as one batch on the prep thread.  Signatures made on the card
+    over H(m) from the device pipeline (the LRU emptied after), one row
+    oracle-checked.  All verdicts True; one device hash batch with 2 K17
+    launches and no K10; p50 of REPS reps.  → the launch counts of one
+    rep."""
+    from charon_tpu_torch.tbls import api, dispatch
+    from charon_tpu_torch.tbls.ref import bls
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    backend = api._backend()
+    v = VALIDATORS
+    tiles_want = len(dispatch.tile_sizes(v, dispatch.VERIFY_TILE))
+    runs, launch_counts, stage_launches = [], None, None
+    for rep in range(REPS):
+        msgs = [f"charon-tpu-torch chip smoke: slot {97 + rep} committee "
+                f"{c}".encode() for c in range(MESSAGES)]
+        hms = backend._hash_points(msgs, {}, {})
+        sigs = sign_on_card(dev, bits, hms[..., np.arange(v) % MESSAGES])
+        entries = [(pks[k], msgs[k % MESSAGES], sigs[k]) for k in range(v)]
+        if rep == 0 and sigs[1] != rc.g2_to_bytes(bls.sign(sks[1], msgs[1])):
+            raise AssertionError("slot-start row 1: sig != the oracle's")
+        backend._hm_cache.clear()
+        backend.reset_verify_totals()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        oks, launches, tiles = asyncio.run(verify_round(entries))
+        wall = time.perf_counter() - t0
+        if rep == 0:
+            launch_counts = all_launches()
+            stage_launches = {k: dict(c) for k, c in
+                              backend.verify_launch_totals.items()}
+        if not all(oks) or launches != 1 or tiles != tiles_want:
+            raise AssertionError(
+                f"slot-start rep {rep}: {oks.count(False)} rejected, "
+                f"{launches} pipeline launches, {tiles} tiles")
+        check_h2c_launches(f"slot-start rep {rep}",
+                           backend.verify_launch_totals.get("h2c_s", {}), 1)
+        if len(backend._hm_cache) != MESSAGES:
+            raise AssertionError(f"slot-start rep {rep}: "
+                                 f"{len(backend._hm_cache)} messages cached")
+        runs.append({"wall_s": wall, **backend.verify_totals})
+        log(f"slot-start rep {rep}: {v:,} entries, {MESSAGES} new messages, "
+            f"{tiles} tiles: {wall:.3f} s wall; " + ", ".join(
+                f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
+    check_stage_sums("slot-start", launch_counts, stage_launches)
+    check_redesigned_stages("slot-start", stage_launches, tiles_want)
+    p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    log("slot-start p50 over %d reps (stages summed over tiles): %s" % (
+        REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
+    log("slot-start launches per stage: " + json.dumps(
+        {st: {k: n for k, n in c.items() if n}
+         for st, c in stage_launches.items()}))
+    return launch_counts
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: the device hash-to-G2 against its plain pipeline and the oracle
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every kernel wrapper the h2c pipeline reaches (K1, K2, K7–K10)
+    """Every kernel wrapper the h2c pipeline reaches (K1, K2, K7–K9, K17)
     replaced by its plain version, on any device."""
     from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_h2c as ch, fp
 
@@ -1515,6 +1773,7 @@ def plain_kernels():
                    "h2c_sqr4": ch.sqr4_plain, "h2c_sqr4mul": ch.sqr4mul_plain,
                    "h2c_sswu": ch.sswu_plain, "h2c_iso3": ch.iso3_plain,
                    "h2c_psi": ch.psi_plain}),
+             (ch, {"zmul": ch.zmul_plain}),
              (cuda_g2, {"dbl": cuda_g2.dbl_plain, "add": cuda_g2.add_plain,
                         "dblsel": cuda_g2.dblsel_plain}),
              (cuda_fp, {"mul": fp.mul_plain, "add": fp.add_plain,
@@ -1579,6 +1838,7 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
         if rep == 0:
             counts = all_launches()
             check_stage_sums("h2c batch", counts, launches)
+            check_h2c_launches("h2c batch", launches["h2c_s"], 1)
         else:
             runs.append(stages)
     rng = random.Random(13)
@@ -1639,7 +1899,7 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 H2C_PATH_KERNELS = ("h2c_sswu", "h2c_sqr", "h2c_mul", "h2c_sqr4",
-                    "h2c_sqr4mul", "h2c_iso3", "h2c_psi", "g2_dblsel")
+                    "h2c_sqr4mul", "h2c_iso3", "h2c_psi", "g2_zmul")
 
 
 def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
@@ -1719,6 +1979,7 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
                              f"flush: {zero}")
     check_stage_sums("distinct", launch_counts, stage_launches)
     check_redesigned_stages("distinct", stage_launches, tiles_want)
+    check_h2c_launches("distinct", stage_launches["h2c_s"], tiles_want)
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     log("distinct p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
@@ -1820,6 +2081,13 @@ SOURCES = {
                  "charon_tpu/ops/pallas_pairing.py:535"),
     "g1_scalar_mul": ("charon_tpu_torch/csrc/g1_scalar_mul.cu",
                       "charon_tpu/ops/pallas_pairing.py:520"),
+    # K16 replaces the combine's K3 launch sequence (pallas_g2
+    # straus_combine over the kernels of :700 and :706), K17 each
+    # [|x|]-multiply's K2/K10 launches (pallas_h2c _zmul over :389)
+    "straus_msm": ("charon_tpu_torch/csrc/straus.cu",
+                   "charon_tpu/ops/pallas_g2.py:797"),
+    "g2_zmul": ("charon_tpu_torch/csrc/g2_zmul.cu",
+                "charon_tpu/ops/pallas_h2c.py:537"),
 }
 
 #: each kernel's compiled function in the ptxas report (its registers,
@@ -1854,6 +2122,8 @@ PTXAS_NAMES = {
     "miller_loop": "miller.cu miller_loop_kernel",
     "f12_fold": "fold.cu f12_fold_kernel",
     "g1_scalar_mul": "g1_scalar_mul.cu g1_scalar_mul_kernel",
+    "straus_msm": "straus.cu straus_msm_kernel",
+    "g2_zmul": "g2_zmul.cu g2_zmul_kernel",
 }
 
 
@@ -1902,6 +2172,10 @@ def main() -> int:
                                   sm_clocks_per_s))
     for name, at in k1_main_shapes(dev, sm_clocks_per_s).items():
         kern[name]["main_shapes"] = at
+    # K16 at the combine's shape, K17 at a hash batch's
+    kern["straus_msm"] = straus_msm_phase(dev, vrows * SHARES, vrows,
+                                          sm_clocks_per_s)
+    kern["g2_zmul"] = zmul_phase(dev, sm_clocks_per_s)
     combine_launches, _, pool = combine_phase(dev)
     # K11 at the batch check's 1 row and a re-check tile's rows, K12 at a
     # verify tile and at the combine's padded 10,240 × 7 rows
@@ -1918,6 +2192,7 @@ def main() -> int:
     # K13 at a verify tile's Miller rows
     kern["miller_loop"] = miller_phase(dev, pool, 2 * tile, sm_clocks_per_s)
     verify_launches, pks, sks, bits = verify_phase(dev)
+    slot_launches = verify_slot_start_phase(dev, pks, sks, bits)
     plain_planes = h2c_phase(dev, dispatch.VERIFY_TILE)
     distinct_launches = verify_distinct_phase(dev, pks, sks, bits,
                                               plain_planes)
@@ -1934,9 +2209,10 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": (combine_launches.get(name, 0) + verify_launches[name]
-                      + distinct_launches[name]),
+                      + slot_launches[name] + distinct_launches[name]),
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
+         "launches_verify_slot_start": slot_launches[name],
          "launches_verify_distinct": distinct_launches[name],
          **kern[name],
          **{k: ptxas[PTXAS_NAMES[name]][k] for k in ("regs", "stack",
