@@ -55,6 +55,7 @@
 // warp per row.  Measured times: PERF.md.
 
 #include "f12_warp.cuh"
+#include "fp_inv.cuh"
 
 namespace {
 
@@ -62,6 +63,7 @@ using fp381::F12;
 using fp381::F2;
 using fp381::F6;
 using fp381::NL;
+using fp381::fp_inv;
 using f12w::Ws;
 using f12w::w_f6_products;
 using f12w::w_mul;
@@ -152,23 +154,8 @@ __device__ void w_exp_z(Ws& s, int lane, F12& o, const F12& g) {
   w_conj(lane, o, o);
 }
 
-// ---- the inverse (one lane; sequential fp381 functions) -------------------
-
-// a^(p−2), LSB first (fp.pow_fixed's schedule)
-__device__ __noinline__ void fp_inv(int* o, const int* a) {
-  int result[NL], base[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) result[i] = i == 0;
-  fp381::copy(base, a);
-#pragma unroll 1
-  for (int i = 0; i < fp381::EXP_PM2_BITS; ++i) {
-    if ((fp381::EXP_PM2[i >> 5] >> (i & 31)) & 1u) {
-      fp381::mul_n(result, result, base);
-    }
-    if (i != fp381::EXP_PM2_BITS - 1) fp381::mul_n(base, base, base);
-  }
-  fp381::copy(o, result);
-}
+// ---- the inverse (one lane; sequential fp381 functions; its Fp inverse
+// fp_inv, LSB first, is csrc/fp_inv.cuh's) ----------------------------------
 
 __device__ __noinline__ void f2_inv(F2& o, const F2& a) {
   int s0[NL], s1[NL], n[NL], t0[NL], t1[NL];

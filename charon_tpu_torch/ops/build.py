@@ -27,8 +27,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu", "final_exp.cu",
            "decompress.cu", "miller.cu", "fold.cu", "g1_scalar_mul.cu",
-           "straus.cu", "g2_zmul.cu")
-HEADERS = ("fp381.cuh", "fp381_consts.cuh", "program.cuh", "f12_warp.cuh")
+           "straus.cu", "g2_zmul.cu", "f2_chain.cu", "normalize.cu",
+           "g1_tables.cu")
+HEADERS = ("fp381.cuh", "fp381_consts.cuh", "program.cuh", "f12_warp.cuh",
+           "fp_inv.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -180,6 +182,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_straus_msm.argtypes = [p, p, p, p, p, i, p, p, i, p, i, i, i,
                                       i, i, p]
     lib.charon_g2_zmul.argtypes = [p, p, p, i, p, i, i, i, p]
+    lib.charon_f2_chain_program.argtypes = [p, p, p, i, p, i, i, i, i, i, p]
+    lib.charon_g2_normalize.argtypes = [p, p, p, i, p]
+    lib.charon_g1_tables.argtypes = [p, p, p, i, p, i, i, i, p]
     for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
                lib.charon_pp_step, lib.charon_f12_step,
                lib.charon_g1_dblsel, lib.charon_g2_sel, lib.charon_f2_chain,
@@ -187,7 +192,9 @@ def _bind(lib: ctypes.CDLL) -> None:
                lib.charon_final_exp, lib.charon_g2_decompress,
                lib.charon_miller_loop, lib.charon_miller_thread,
                lib.charon_f12_fold, lib.charon_g1_scalar_mul,
-               lib.charon_straus_msm, lib.charon_g2_zmul):
+               lib.charon_straus_msm, lib.charon_g2_zmul,
+               lib.charon_f2_chain_program, lib.charon_g2_normalize,
+               lib.charon_g1_tables):
         fn.restype = i
 
 

@@ -1,4 +1,5 @@
-"""Kernel K12 — the whole G2 decompression on the card (csrc/decompress.cu).
+"""Kernels K12 and K19 — the whole G2 decompression and the whole G2
+normalisation on the card (csrc/decompress.cu, csrc/normalize.cu).
 
 Everything `codec.g2_decompress` (the JAX package's ops/codec.py
 `g2_decompress`) does on the device, as ONE launch per batch: rhs = x³ +
@@ -27,6 +28,16 @@ inf flags [R] bool.  Output: (projective points [3, 2, 32, R], ok [R]
 bool) — `codec.g2_decompress`'s contract.  The wrapper routes CPU tensors
 to the plain version and launches the kernel for CUDA tensors (or
 raises); `LAUNCHES` counts kernel launches.
+
+K19 `g2_normalize` is `codec.g2_normalize` (the JAX package's ops/
+codec.py :319, `curve.to_affine` then the standard form) in ONE launch,
+one thread per row: the norm Z0² + Z1², its Fp inverse by 4-bit windows
+(`fp_inv_w4`, 489 products where `fp.pow_fixed`'s square-and-multiply
+launches 397 K1 products a call, 609 Fp products), Z⁻¹ = (Z0, −Z1)/norm,
+x = X·Z⁻¹, y = Y·Z⁻¹ and the exact canonicalisation, ∞ (Z ≡ 0) giving
+(0, 0, True).  The outputs are canonical, so any chain gives the same
+bytes: the plain version `g2_normalize_plain` runs the kernel's sequence
+and equals `codec.g2_normalize` and JAX's bit for bit.
 """
 
 from __future__ import annotations
@@ -35,9 +46,10 @@ import numpy as np
 import torch
 
 from ..tbls.ref.fields import P
-from . import build, codec, fp, launch_count
-from .cuda_g2 import (_cuda_ready, _f2add, _f2mul, _f2sqr, _f2sub,
-                      _g2_add, _g2_double, _negf, _raise_on, _table_f2)
+from . import build, codec, fp, launch_count, miller_program
+from .cuda_g2 import (_addf, _cuda_ready, _f2add, _f2mul, _f2sqr, _f2sub,
+                      _g2_add, _g2_double, _mulf, _negf, _raise_on,
+                      _table_f2)
 from .curve import F2_OPS
 
 NL = fp.NLIMBS
@@ -160,11 +172,12 @@ def g2_decompress_plain(xc0: torch.Tensor, xc1: torch.Tensor,
 
 #: kernel launches since the last `reset_launches()` (all threads;
 #: `launch_count.this_thread()` has the calling thread's own)
-LAUNCHES = {"g2_decompress": 0}
+LAUNCHES = {"g2_decompress": 0, "g2_normalize": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["g2_decompress"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def g2_decompress(xc0: torch.Tensor, xc1: torch.Tensor, sign: torch.Tensor,
@@ -199,3 +212,64 @@ def g2_decompress(xc0: torch.Tensor, xc1: torch.Tensor, sign: torch.Tensor,
     _raise_on("g2_decompress", err)
     launch_count.bump(LAUNCHES, "g2_decompress")
     return pts, ok
+
+
+# ---------------------------------------------------------------------------
+# K19: projective G2 → canonical affine
+# ---------------------------------------------------------------------------
+
+#: the 4-bit windows of p − 2, MSB first (csrc/fp_inv.cuh reads them from
+#: EXP_PM2's words)
+_INV_DIGITS = miller_program.pow_digits(P - 2, 4)
+
+
+def _fp_inv_w4(a: torch.Tensor) -> torch.Tensor:
+    """a^(p−2) (inv(0) = 0): the table a¹..a¹⁵, then per 4-bit window
+    four squarings and a product for a non-zero digit (csrc/fp_inv.cuh
+    `fp_inv_w4`)."""
+    tbl = [None, a, _mulf(a, a)]
+    for k in range(3, 16):
+        tbl.append(_mulf(tbl[k - 1], a))
+    acc = tbl[_INV_DIGITS[0]]
+    for d in _INV_DIGITS[1:]:
+        for _ in range(4):
+            acc = _mulf(acc, acc)
+        if d:
+            acc = _mulf(acc, tbl[d])
+    return acc
+
+
+def g2_normalize_plain(pt: torch.Tensor):
+    """The kernel's sequence on projective [3, 2, 32, R] → (xc0, xc1, yc0,
+    yc1 canonical std [32, R], inf [R] bool)."""
+    x, y, z = pt[0], pt[1], pt[2]
+    ninv = _fp_inv_w4(_addf(_mulf(z[0], z[0]), _mulf(z[1], z[1])))
+    zinv = (_mulf(z[0], ninv), _negf(_mulf(z[1], ninv)))
+    xa = _f2mul((x[0], x[1]), zinv)
+    ya = _f2mul((y[0], y[1]), zinv)
+    inf = fp.is_zero(z[0]) & fp.is_zero(z[1])
+    return (*(fp.canon_std(t) for t in (*xa, *ya)), inf)
+
+
+def g2_normalize(pt: torch.Tensor):
+    """K19: projective G2 [3, 2, 32, R] → (xc0, xc1, yc0, yc1 canonical
+    std [32, R], inf [R] bool), `codec.g2_normalize`'s contract (∞ → (0,
+    0, True)), in ONE launch, one thread per row."""
+    if pt.device.type == "cpu":
+        return g2_normalize_plain(pt)
+    r = pt.shape[-1]
+    if pt.dtype != torch.int32 or tuple(pt.shape) != (3, 2, NL, r) \
+            or r == 0 or not pt.is_contiguous():
+        raise ValueError(f"g2_normalize: expected a contiguous int32 "
+                         f"[3, 2, 32, R], got {pt.dtype} {tuple(pt.shape)}")
+    if 6 * NL * r >= 2 ** 31:
+        raise ValueError(f"g2_normalize: {r} rows exceed the int index")
+    _cuda_ready("g2_normalize", pt)
+    out = pt.new_empty((4, NL, r))
+    inf = torch.empty(r, dtype=torch.bool, device=pt.device)
+    err = build.library().charon_g2_normalize(
+        out.data_ptr(), inf.data_ptr(), pt.data_ptr(), r,
+        torch.cuda.current_stream(pt.device).cuda_stream)
+    _raise_on("g2_normalize", err)
+    launch_count.bump(LAUNCHES, "g2_normalize")
+    return (*out.unbind(0), inf)

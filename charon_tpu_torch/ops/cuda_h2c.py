@@ -1,5 +1,5 @@
-"""Kernels K7–K9, K17 and the batched device hash-to-G2 (csrc/h2c.cu,
-csrc/g2_zmul.cu).
+"""Kernels K7–K9, K17, K18 and the batched device hash-to-G2 (csrc/h2c.cu,
+csrc/g2_zmul.cu, csrc/f2_chain.cu).
 
 The counterpart of the JAX package's ops/pallas_h2c.py: the host keeps
 expand_message_xmd + hash_to_field (SHA-256, `pack_messages`), and the
@@ -26,15 +26,26 @@ Budroni–Pintore ψ cofactor clearing:
   as one launch over both row sets, then [x²]P; K10 remains for the
   smoke run's kernel phase and as the steps K17 is held to
   (`zmul_steps`).
+- K18 `f2_chain` (csrc/f2_chain.cu) replaces the K7 launch sequences of
+  the fixed-exponent chains (`f2_pow_rows` :482, `f2_sqrt_rows` :497,
+  `f2_inv_rows` :517): a batch's Fp2 square root (both pows, α, both
+  candidate roots and their squares) and its inversion-and-affine step
+  are ONE launch each, ops/miller_program.py's straight-line
+  `chain_program`s with each Fp2 op split into Fp products that lanes
+  of a row run side by side (the norm's pow in Fp alone).  K7 remains
+  for the smoke run's kernel phase and as the sequences K18 is held to
+  (`f2_sqrt_steps`, `f2_inv_steps`, `f2_affine_steps`).
 
 The clearing's other doublings and additions run K2 (ops/cuda_g2.py).
-The exactness boundaries — sgn0, the candidate-square test, the ∞ guard
-of the isogeny — and the negations between launches run on K1 and the
-plain exact-carry code of ops/fp.py, as the JAX package keeps them at
-the jnp level.
+The exactness boundaries — sgn0, the tests α = −1 and root² = v, the ∞
+guard of the isogeny — and the negations between launches run on K1 and
+the plain exact-carry code of ops/fp.py, as the JAX package keeps them
+at the jnp level.
 
-Each kernel is bit-identical to its plain version here, which is the JAX
-`_DIRECT_FNS` body line for line on `cuda_g2`'s plain field library.
+Each kernel is bit-identical to its plain version here: for K7–K9 the
+JAX `_DIRECT_FNS` body line for line on `cuda_g2`'s plain field library;
+for K18 its program executed on PyTorch tensors, which equals the K7
+chains (and JAX's) in value, every field element the same residue.
 
 LAYOUT.  A batch of n-plane rows is ``[n, 32, R]`` int32; an Fp2 batch
 ``[2, 32, R]`` is also the port tower's element layout.  The u rows are
@@ -219,7 +230,8 @@ def psi_plain(pt: torch.Tensor) -> torch.Tensor:
 #: kernel launches since the last `reset_launches()` (all threads;
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"h2c_sswu": 0, "h2c_sqr": 0, "h2c_mul": 0, "h2c_sqr4": 0,
-            "h2c_sqr4mul": 0, "h2c_iso3": 0, "h2c_psi": 0, "g2_zmul": 0}
+            "h2c_sqr4mul": 0, "h2c_iso3": 0, "h2c_psi": 0, "g2_zmul": 0,
+            "f2_chain": 0}
 
 #: K7 op codes (csrc/h2c.cu) and K9 kinds
 _CHAIN = {"h2c_sqr": 0, "h2c_mul": 1, "h2c_sqr4": 2, "h2c_sqr4mul": 3}
@@ -393,16 +405,16 @@ def _pow_digits(e: int) -> tuple[int, ...]:
     """Base-16 digits of a positive exponent, MSB first (first nonzero) —
     the static window schedule of the fixed addition chain."""
     assert e > 0
-    return tuple(int(c, 16) for c in f"{e:x}")
+    return miller_program.pow_digits(e, 4)
 
 
 #: The three chain exponents: Alg-9's two pows and the Fermat inversion.
-EXP_SQRT_A1 = (P - 3) // 4
-EXP_SQRT_B = (P - 1) // 2
-EXP_INV = P - 2
+EXP_SQRT_A1 = miller_program.EXP_SQRT_A1
+EXP_SQRT_B = miller_program.EXP_SQRT_B
+EXP_INV = miller_program.EXP_INV
 
 
-def f2_pow_rows(a: torch.Tensor, e: int) -> torch.Tensor:
+def f2_pow_steps(a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e over [2, 32, R] for a host-known exponent: a 15-entry window
     table (14 launches), then one K7 sqr4mul / sqr4 launch per 4-bit
     window, MSB first."""
@@ -416,17 +428,18 @@ def f2_pow_rows(a: torch.Tensor, e: int) -> torch.Tensor:
     return acc
 
 
-def f2_sqrt_rows(v: torch.Tensor):
-    """Batched Fp2 square root (Adj–Rodríguez-Henríquez Alg. 9) → (root,
-    ok [R]); the root is garbage where ok is False."""
-    a1 = f2_pow_rows(v, EXP_SQRT_A1)
+def f2_sqrt_steps(v: torch.Tensor):
+    """Alg. 9 as K7 launches (2 pows, ~200 launches) and K1 glue: what
+    K18's square-root program replaced, kept for the smoke run's
+    comparison → (root, ok [R])."""
+    a1 = f2_pow_steps(v, EXP_SQRT_A1)
     alpha = h2c_mul(h2c_sqr(a1), v)
     x0 = h2c_mul(a1, v)
     # branch 1: α = −1 ⇒ root = u·x0 = (−x0c1) + x0c0·u
     root_u = _planes(fp.neg(x0[1]), x0[0])
     # branch 2: root = (α+1)^((p−1)/2) · x0
     ap1 = _planes(fp.add(alpha[0], fp.elem(fp.ONE, v.device)), alpha[1])
-    b = f2_pow_rows(ap1, EXP_SQRT_B)
+    b = f2_pow_steps(ap1, EXP_SQRT_B)
     root_b = h2c_mul(b, x0)
     is_m1 = f2_eq_const_rows(alpha, _F2_MINUS_ONE)
     root = torch.where(is_m1, root_u, root_b)
@@ -434,14 +447,85 @@ def f2_sqrt_rows(v: torch.Tensor):
     return root, ok
 
 
-def f2_inv_rows(a: torch.Tensor) -> torch.Tensor:
-    """Batched Fp2 inversion via the norm: a⁻¹ = ā·(a·ā)^(p−2); the norm
-    has a value-zero imaginary part, so its Fermat pow runs on the same
-    chain kernels (inv(0) = 0)."""
+def f2_inv_steps(a: torch.Tensor) -> torch.Tensor:
+    """a⁻¹ = ā·(a·ā)^(p−2) as K7 launches (inv(0) = 0): what K18's
+    inverse program replaced."""
     ac = _planes(a[0], fp.neg(a[1]))
     n = h2c_mul(a, ac)
-    ninv = f2_pow_rows(n, EXP_INV)
+    ninv = f2_pow_steps(n, EXP_INV)
     return h2c_mul(ac, ninv)
+
+
+def f2_affine_steps(xd, xn, zu2, root):
+    """The map's affine step as K7 launches: what K18's affine program
+    replaced → (xn·xd⁻¹, Z·u²·xn·xd⁻¹, root·xd⁻²)."""
+    xdi = f2_inv_steps(xd)
+    return (h2c_mul(xn, xdi), h2c_mul(h2c_mul(zu2, xn), xdi),
+            h2c_mul(root, h2c_sqr(xdi)))
+
+
+def chain_config(kind: str, rows: int, device) -> tuple:
+    """The configuration K18 runs program `kind` with on `rows` rows of
+    `device` (`miller_program.chain_config`; the CPU's plain version takes
+    the default)."""
+    device = torch.device(device)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 0)
+    return miller_program.chain_config(kind, rows, sms)
+
+
+def _run_chain(kind: str, inp: torch.Tensor, cfg) -> torch.Tensor:
+    """K18: run program `kind` (miller_program.chain_program) on the
+    [in planes, 32, R] input block under `cfg` (None: `chain_config`'s)
+    → [out planes, 32, R]; on the CPU its plain version,
+    `chain_run_plain`, bit for bit."""
+    prog = miller_program.chain_program(
+        kind, cfg or chain_config(kind, inp.shape[-1], inp.device))
+    if inp.device.type == "cpu":
+        return miller_program.chain_run_plain(prog, list(inp))
+    _, in_planes, out_planes = miller_program.CHAINS[kind]
+    n = inp.shape[-1]
+    inp = inp.contiguous()
+    _check("f2_chain", inp, in_planes, n)
+    _cuda_ready("f2_chain", inp)
+    code, fout, steps = miller_program.on_device(prog, inp.device)
+    block = inp.permute(2, 0, 1).contiguous()
+    out = inp.new_empty((out_planes, NL, n))
+    err = build.library().charon_f2_chain_program(
+        out.data_ptr(), block.data_ptr(), code.data_ptr(), steps,
+        fout.data_ptr(), in_planes, out_planes, prog.lanes, prog.slots, n,
+        _stream(inp))
+    _raise_on("f2_chain", err)
+    launch_count.bump(LAUNCHES, "f2_chain")
+    return out
+
+
+def f2_sqrt_rows(v: torch.Tensor, cfg: tuple | None = None):
+    """Batched Fp2 square root (Adj–Rodríguez-Henríquez Alg. 9) → (root,
+    ok [R]); the root is garbage where ok is False.  The chain — both
+    pows, α, both candidate roots and their squares — is ONE K18 launch;
+    the exact tests α = −1 and root² = v and the select stay here."""
+    n = v.shape[-1]
+    one = fp.const(fp.ONE, v.device).unsqueeze(-1).expand(NL, n)
+    out = _run_chain("sqrt", torch.cat([v, one[None]]), cfg)
+    alpha, root_u, root_b, sq_u, sq_b = out.split(2)
+    is_m1 = f2_eq_const_rows(alpha, _F2_MINUS_ONE)
+    root = torch.where(is_m1, root_u, root_b)
+    ok = f2_eq_rows(torch.where(is_m1, sq_u, sq_b), v)
+    return root, ok
+
+
+def f2_inv_rows(a: torch.Tensor, cfg: tuple | None = None) -> torch.Tensor:
+    """Batched Fp2 inversion, a⁻¹ = ā·(a·ā)^(p−2) (inv(0) = 0), in ONE K18
+    launch."""
+    return _run_chain("inv", a, cfg)
+
+
+def f2_affine_rows(xd, xn, zu2, root, cfg: tuple | None = None):
+    """The map's affine step in ONE K18 launch: xd⁻¹ and the products →
+    (xn·xd⁻¹, Z·u²·xn·xd⁻¹, root·xd⁻²), each [2, 32, R]."""
+    out = _run_chain("affine", torch.cat([xd, xn, zu2, root]), cfg)
+    return out.split(2)
 
 
 # ---------------------------------------------------------------------------
@@ -540,16 +624,13 @@ def map_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
     v1, v2 = out[6:8], out[8:10]
     # ONE chain for both candidates, candidate 2 rows after candidate 1
     root, ok = f2_sqrt_rows(torch.cat([v1, v2], dim=-1))
-    root1, root2 = root[..., :s], root[..., s:]
     ok1 = ok[:s]
-    x2n = h2c_mul(zu2, xn)
-    xnum = torch.where(ok1, xn, x2n)
-    rootsel = torch.where(ok1, root1, root2)
-    # affine x, y via ONE inversion chain: x = xnum·xd⁻¹,
-    # y = sqrt(gx_num·xd)·xd⁻² (the xd³ fraction trick)
-    xdi = f2_inv_rows(xd)
-    x_aff = h2c_mul(xnum, xdi)
-    y_aff = h2c_mul(rootsel, h2c_sqr(xdi))
+    rootsel = torch.where(ok1, root[..., :s], root[..., s:])
+    # affine x, y via ONE inversion chain: x = xnum·xd⁻¹ with xnum = xn
+    # where the first candidate's root checked, else Z·u²·xn; y =
+    # sqrt(gx_num·xd)·xd⁻² (the xd³ fraction trick)
+    x1, x2, y_aff = f2_affine_rows(xd, xn, zu2, rootsel)
+    x_aff = torch.where(ok1, x1, x2)
     # RFC sgn0 sign fix: sgn0(y) must equal sgn0(u)
     flip = f2_sgn0_rows(y_aff) != (sgn != 0)
     y_aff = torch.where(flip, _f2_neg_t(y_aff), y_aff)

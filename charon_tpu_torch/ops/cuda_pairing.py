@@ -33,6 +33,11 @@ The counterpart of the JAX package's ops/pallas_pairing.py:
   calls it.  K6 and K5 F12MUL stay: K6 for the smoke run's kernel phase
   and as the plain window K15 is held to, F12MUL for the re-check's one
   product of halves.
+- K20 `g1_tables` replaces the K1 launches of the RLC tables (31 a tile:
+  `curve.double_point` and `add_points` on `FP_OPS`, the JAX backend's
+  `_rlc_g1_tables_kernel`): 2P and 3P of the pair rows as ONE straight-
+  line program (ops/miller_program.py `g1_tables_program`, `Dag.
+  g1_double` then `g1_add`) on K15's interpreter settings.
 
 In K4–K6 one thread per pair row runs a whole step with every
 intermediate in its registers and local memory.  The field arithmetic is
@@ -318,7 +323,8 @@ def g1_dblsel_plain(acc, t1, t2, t3, w: torch.Tensor) -> torch.Tensor:
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"pp_dbl": 0, "pp_add": 0, "pp_sqr": 0, "pp_mul014": 0,
             "pp_f12mul": 0, "g1_dblsel": 0, "miller_loop": 0,
-            "miller_thread": 0, "f12_fold": 0, "g1_scalar_mul": 0}
+            "miller_thread": 0, "f12_fold": 0, "g1_scalar_mul": 0,
+            "g1_tables": 0}
 
 
 def reset_launches() -> None:
@@ -711,3 +717,31 @@ def g1_scalar_mul_rows(t1: torch.Tensor, t2: torch.Tensor, t3: torch.Tensor,
     _raise_on("g1_scalar_mul", err)
     launch_count.bump(LAUNCHES, "g1_scalar_mul")
     return out
+
+
+def g1_tables_plain(base: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K20's program on CPU (or any) tensors: [3, 32, R] → (2P, 3P)."""
+    out = miller_program.g1_tables_run_plain(
+        miller_program.g1_tables_program(), base)
+    return out[:P_PLANES], out[P_PLANES:]
+
+
+def g1_tables(base: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K20: the RLC tables (2P, 3P) of [3, 32, R] projective G1 rows in
+    ONE launch, `G1_LANES` threads a row; `g1_tables_plain` on the CPU,
+    bit for bit."""
+    if base.device.type == "cpu":
+        return g1_tables_plain(base)
+    n = base.shape[-1]
+    _check("g1_tables", base, P_PLANES, n)
+    _cuda_ready("g1_tables", base)
+    prog = miller_program.g1_tables_program()
+    code, fout, steps = miller_program.on_device(prog, base.device)
+    inp = base.permute(2, 0, 1).contiguous()
+    out = base.new_empty((2 * P_PLANES, NL, n))
+    err = build.library().charon_g1_tables(
+        out.data_ptr(), inp.data_ptr(), code.data_ptr(), steps,
+        fout.data_ptr(), prog.lanes, prog.slots, n, _stream(base))
+    _raise_on("g1_tables", err)
+    launch_count.bump(LAUNCHES, "g1_tables")
+    return out[:P_PLANES], out[P_PLANES:]

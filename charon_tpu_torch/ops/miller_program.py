@@ -62,6 +62,13 @@ The G2 window loops are the same machinery on the complete G2 law
   line program (`zmul_dag`): the windows of |x| are host constants, so
   it needs no SEL.
 
+K18 (csrc/f2_chain.cu) runs hash-to-G2's fixed-exponent chains as
+straight-line programs (`chain_program`: `sqrt_dag`, `inv_dag`,
+`affine_dag`): each pow is its constant windows, and each Fp2 square or
+product is split into Fp ops (`_F2Split`) so that the lanes of a row
+share it.  K20 (csrc/g1_tables.cu) is one G1 doubling and one addition
+(`g1_tables_dag`).
+
 ENCODING (`Program.code`, int32 [steps, LANES, 2]): word 0 is kind |
 out << 8 | a << 16 | b << 24, word 1 LIN's form (k | (s + 1) << 8 |
 iters << 12 | spread << 16) or SEL's (window | stride << 8).  An operand
@@ -78,7 +85,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..tbls.ref.fields import BLS_X
+from ..tbls.ref.fields import BLS_X, P
 from . import fp
 
 # op kinds (csrc/program.cuh's switch): the Fp2 product and square, the Fp
@@ -94,7 +101,7 @@ KIND_NAMES = ("nop", "f2_mul", "f2_sqr", "mul", "lin", "sel")
 COST = {MUL2: 11_720, SQR2: 9_172, MUL: 3_756, LIN: 809, SEL: 70}
 
 # LIN forms: (k, s, iters, spread)
-_ADD, _SUB = (1, 1, 1, 0), (1, -1, 1, 1)
+_ADD, _SUB, _NEG = (1, 1, 1, 0), (1, -1, 1, 1), (0, -1, 1, 1)
 
 #: threads per pair row, and the shared-memory slots of a row
 LANES = 8
@@ -388,6 +395,10 @@ class Dag:
     def fp_small(self, a, k):
         return self._fp_lin((a,), (k, 0, 2, 0))
 
+    def fp_neg(self, a):
+        """0 − a: LIN with k = 0 gives fp381 neg's columns."""
+        return self._fp_lin((a, a), _NEG)
+
     def sel(self, window, a, b, stride):
         """a where the row's digit d of `window` is 0, else the value of
         code b + stride·(d − 1)."""
@@ -547,6 +558,149 @@ def zmul_dag() -> tuple[Dag, list[int]]:
         if w:
             acc = g.g2_add(acc, table[w])
     return g, list(acc)
+
+
+class _F2Split:
+    """Fp2 values as (c0, c1) pairs of Fp values, each op split into
+    independent Fp ops that lanes of a row run side by side: a square is
+    (a0 + a1)(a0 − a1) and (a0 + a0)·a1 (one LIN step, one product step),
+    a product the four schoolbook products and two LINs.  The same values
+    as MUL2 / SQR2, other redundant limbs."""
+
+    def __init__(self, g: Dag):
+        self.g = g
+
+    def sqr(self, a):
+        g = self.g
+        a0, a1 = a
+        return (g.fp_mul(g.fp_add(a0, a1), g.fp_sub(a0, a1)),
+                g.fp_mul(g.fp_add(a0, a0), a1))
+
+    def mul(self, a, b):
+        g = self.g
+        (a0, a1), (b0, b1) = a, b
+        return (g.fp_sub(g.fp_mul(a0, b0), g.fp_mul(a1, b1)),
+                g.fp_add(g.fp_mul(a0, b1), g.fp_mul(a1, b0)))
+
+
+class _FpOps:
+    """Fp values, for the norm's Fermat pow."""
+
+    def __init__(self, g: Dag):
+        self.g = g
+
+    def sqr(self, a):
+        return self.g.fp_mul(a, a)
+
+    def mul(self, a, b):
+        return self.g.fp_mul(a, b)
+
+
+# K18's three exponents (cuda_h2c's): Alg. 9's two pows and Fermat's
+EXP_SQRT_A1 = (P - 3) // 4
+EXP_SQRT_B = (P - 1) // 2
+EXP_INV = P - 2
+
+
+def pow_digits(e: int, bits: int) -> tuple[int, ...]:
+    """Base-2^bits digits of a positive exponent, MSB first."""
+    out = []
+    while e:
+        out.append(e & ((1 << bits) - 1))
+        e >>= bits
+    return tuple(reversed(out))
+
+
+def _pow(F, a, e: int, bits: int):
+    """a^e by fixed windows of `bits`, MSB first: the table a..a^top (top
+    the largest digit), then per window `bits` squarings and, for a
+    non-zero digit, one product — with bits = 4 the schedule of cuda_h2c
+    `f2_pow_steps` (its 14 table launches and its sqr4 / sqr4mul
+    windows)."""
+    digs = pow_digits(e, bits)
+    tbl = [None, a]
+    if max(digs) >= 2:
+        tbl.append(F.sqr(a))
+    for k in range(3, max(digs) + 1):
+        tbl.append(F.mul(tbl[k - 1], a))
+    acc = tbl[digs[0]]
+    for d in digs[1:]:
+        for _ in range(bits):
+            acc = F.sqr(acc)
+        if d:
+            acc = F.mul(acc, tbl[d])
+    return acc
+
+
+# K18's input blocks: the root's v (Fp2) and the constant one; the
+# inverse's a; the map's affine step's xd, xn, Z·u² and the chosen root
+# (Fp2 each)
+CH_V, CH_ONE, CH_SQRT_PLANES = 0, 2, 3
+CH_INV_PLANES = 2
+CH_XD, CH_XN, CH_ZU2, CH_ROOT, CH_AFFINE_PLANES = 0, 2, 4, 6, 8
+
+
+def _f2_in(g: Dag, plane: int):
+    return g.input(plane), g.input(plane + 1)
+
+
+def sqrt_dag(bits: int) -> tuple[Dag, list[int]]:
+    """Alg. 9 as `cuda_h2c.f2_sqrt_steps` computes it: a1 = v^((p−3)/4),
+    α = a1²·v, x0 = a1·v, root_u = u·x0 = (−x0c1, x0c0), root_b =
+    (α + 1)^((p−1)/2)·x0 → outputs α, root_u, root_b, root_u², root_b²
+    (10 planes).  The exact tests — α = −1, root² = v — and the select
+    stay with the caller."""
+    g = Dag()
+    one = g.input(CH_ONE)
+    v = _f2_in(g, CH_V)
+    F = _F2Split(g)
+    a1 = _pow(F, v, EXP_SQRT_A1, bits)
+    alpha = F.mul(F.sqr(a1), v)
+    x0 = F.mul(a1, v)
+    root_u = (g.fp_neg(x0[1]), x0[0])
+    ap1 = (g.fp_add(alpha[0], one), alpha[1])
+    root_b = F.mul(_pow(F, ap1, EXP_SQRT_B, bits), x0)
+    outs = [alpha, root_u, root_b, F.sqr(root_u), F.sqr(root_b)]
+    return g, [x for o in outs for x in o]
+
+
+def _inv(g: Dag, a, bits: int):
+    """a⁻¹ = ā·(a·ā)^(p−2) (inv(0) = 0), with the norm a0² + a1² and its
+    pow in Fp alone (the norm's imaginary part is zero in value)."""
+    a0, a1 = a
+    n = g.fp_add(g.fp_mul(a0, a0), g.fp_mul(a1, a1))
+    ninv = _pow(_FpOps(g), n, EXP_INV, bits)
+    return g.fp_mul(a0, ninv), g.fp_mul(g.fp_neg(a1), ninv)
+
+
+def inv_dag(bits: int) -> tuple[Dag, list[int]]:
+    """The Fp2 inverse of the input block's a → 2 planes."""
+    g = Dag()
+    return g, list(_inv(g, _f2_in(g, 0), bits))
+
+
+def affine_dag(bits: int) -> tuple[Dag, list[int]]:
+    """The map's step from the root to affine E' points (`cuda_h2c.
+    map_to_g2_rows`): xdi = xd⁻¹, then x = xn·xdi and (Z·u²·xn)·xdi for
+    both choices of the numerator, y = root·xdi² → 6 planes; the caller
+    picks the numerator where the first candidate's root checked."""
+    g = Dag()
+    xd, xn, zu2, root = (_f2_in(g, p) for p in (CH_XD, CH_XN, CH_ZU2,
+                                                CH_ROOT))
+    F = _F2Split(g)
+    xdi = _inv(g, xd, bits)
+    outs = [F.mul(xn, xdi), F.mul(F.mul(zu2, xn), xdi),
+            F.mul(root, F.sqr(xdi))]
+    return g, [x for o in outs for x in o]
+
+
+def g1_tables_dag() -> tuple[Dag, list[int]]:
+    """K20: the RLC tables 2P = `g1_double`(P), 3P = `g1_add`(2P, P) of
+    `cuda_pairing._g1_double` / `_g1_add` → 6 planes."""
+    g = Dag()
+    base = tuple(g.input(c) for c in range(3))
+    p2 = g.g1_double(base)
+    return g, [*p2, *g.g1_add(p2, base)]
 
 
 # ---------------------------------------------------------------------------
@@ -752,6 +906,56 @@ def zmul_program(lanes: int = ZM_LANES, slots: int = ZM_SLOTS,
     return _PROGRAM[key]
 
 
+#: K18's programs: the function that makes each graph, and its input /
+#: output planes
+CHAINS = {"sqrt": (sqrt_dag, CH_SQRT_PLANES, 10),
+          "inv": (inv_dag, CH_INV_PLANES, 2),
+          "affine": (affine_dag, CH_AFFINE_PLANES, 6)}
+#: each program's (lanes, slots, look-ahead, window bits), chosen
+#: by chip_smoke.py's sweep (PERF.md): the root's at a batch that fills
+#: the card, where the rows' shared memory decides (3-bit windows keep 24
+#: slots a row, 2 lanes the issued instructions few); the inverse's and
+#: the affine step's, whose Fp pow runs on one lane, at every size
+CH_CONFIG = {"sqrt": (2, 24, 40, 3), "inv": (2, 18, 40, 4),
+             "affine": (2, 18, 40, 4)}
+#: the root's configuration for a batch of at most `CH_WIDE_WARPS` warps
+#: an SM at its lanes: there each row's chain is what the launch costs,
+#: and 4 lanes shorten it
+CH_WIDE = {"sqrt": (4, 24, 40, 3)}
+CH_WIDE_WARPS = 4
+
+
+def chain_config(kind: str, rows: int, sms: int) -> tuple:
+    """The configuration K18 runs `kind` with on `rows` rows of a card with
+    `sms` SMs (0: no card, the plain version's default)."""
+    wide = CH_WIDE.get(kind)
+    if wide and sms and rows * wide[0] <= 32 * CH_WIDE_WARPS * sms:
+        return wide
+    return CH_CONFIG[kind]
+
+
+def chain_program(kind: str, cfg: tuple | None = None) -> Program:
+    """K18's scheduled `kind` program ("sqrt", "inv" or "affine") under
+    cfg = (lanes, slots, look-ahead, window bits) (built once per
+    configuration)."""
+    lanes, slots, window, bits = cfg or CH_CONFIG[kind]
+    key = ("chain", kind, lanes, slots, window, bits)
+    if key not in _PROGRAM:
+        dag = CHAINS[kind][0](bits)
+        _PROGRAM[key] = schedule(*dag, lanes, slots, window)
+    return _PROGRAM[key]
+
+
+def g1_tables_program() -> Program:
+    """K20's scheduled doubling and addition, on K15's lanes, slots and
+    look-ahead (built once)."""
+    key = ("g1_tables",)
+    if key not in _PROGRAM:
+        _PROGRAM[key] = schedule(*g1_tables_dag(), G1_LANES, G1_SLOTS,
+                                 G1_WINDOW)
+    return _PROGRAM[key]
+
+
 _ON_DEVICE: dict = {}
 
 
@@ -925,3 +1129,14 @@ def straus_run_plain(head: Program, tail: Program, tables, digits:
 def zmul_run_plain(prog: Program, q: torch.Tensor) -> torch.Tensor:
     """K17's program on [6, 32, R] points → [|x|]Q [6, 32, R]."""
     return execute(prog, [*q, *_consts(q.shape[-1], q.device, 4)])
+
+
+def chain_run_plain(prog: Program, planes) -> torch.Tensor:
+    """K18's program on CPU (or any) tensors: `planes` the input block as
+    [32, R] tensors → the output planes."""
+    return execute(prog, list(planes))
+
+
+def g1_tables_run_plain(prog: Program, base: torch.Tensor) -> torch.Tensor:
+    """K20's program on [3, 32, R] points → [6, 32, R]: 2P then 3P."""
+    return execute(prog, list(base))

@@ -14,8 +14,8 @@ Combine (`threshold_combine_bytes`):
   t·Vpad + v) with validators padded to a multiple of `ROW_TILE`.
 - `combine_device_exec` (card): decompress (Fp2 square roots + ψ
   subgroup check, one launch of kernel K12), the Straus tables (K2) and
-  window loop (K3), normalisation (K1), then the host compresses the
-  affine points.
+  window loop (one K16 launch), normalisation (one K19 launch), then the
+  host compresses the affine points.
 
 Verify (`batch_verify_bytes`), one RLC batch check per call:
 
@@ -25,14 +25,15 @@ Verify (`batch_verify_bytes`), one RLC batch check per call:
   up the decompressed-pubkey LRU (a miss decompresses G1 on the card,
   [r]P subgroup check included, once per distinct key) and the
   hashed-message LRU (a batch of 8 or more distinct misses hashes to G2
-  on the card — SHA-256 and hash_to_field on the host, then the K7–K10
-  pipeline of ops/cuda_h2c.py and normalisation; fewer run the
+  on the card — SHA-256 and hash_to_field on the host, then the
+  pipeline of ops/cuda_h2c.py (K8, K18, K9, K17, K2) and normalisation
+  (K19); fewer run the
   pure-Python `hash_to_g2`, the JAX backend's size rule); draw FRESH
   64-bit coefficients r_k from OS entropy on every call (a predictable
   coefficient would let a forger cancel rows).
 - `verify_device_exec` (card): G2 decompression of the signatures (ψ
   check; one K12 launch), the G1 tables {P, 2P, 3P} of the pair-major rows
-  (−g1, pk_k), the 32 windows scaling both rows of entry k by r_k (one
+  (−g1, pk_k) (one K20 launch), the 32 windows scaling both rows of entry k by r_k (one
   K15 launch), the Miller loop over the 2·V rows (one K13 launch), the
   product fold to one row with dropped / ∞ / padding rows read as one
   (one K14 launch), and ONE final exponentiation (one K11 launch).  If the batch equation fails, every
@@ -376,8 +377,7 @@ class CUDABackend:
         pks = self._put(p["pks"])
         neg_g1 = fp.const(_NEG_G1, dev).unsqueeze(-1).expand(3, NL, v)
         base = torch.stack([neg_g1, pks], dim=-1).reshape(3, NL, 2 * v)
-        p2 = tcurve.double_point(FP_OPS, base)
-        p3 = tcurve.add_points(FP_OPS, p2, base)
+        p2, p3 = cuda_pairing.g1_tables(base)
         clock.lap("rlc_tables_s")
         acc = cuda_pairing.g1_scalar_mul_rows(base, p2, p3,
                                               self._put(p["windows"]))
@@ -483,7 +483,8 @@ class CUDABackend:
         clock.lap("tables_s")
         out = cuda_g2.straus_msm(tables, put(p["digits"]), p["t"])
         clock.lap("straus_s")
-        xc0, xc1, yc0, yc1, inf = codec.g2_normalize(cuda_g2.as_points(out))
+        xc0, xc1, yc0, yc1, inf = cuda_codec.g2_normalize(
+            cuda_g2.as_points(out))
         host = [a.cpu().numpy() for a in (xc0, xc1, yc0, yc1)]
         inf = inf.cpu().numpy()
         clock.lap("normalize_s")
@@ -503,8 +504,8 @@ class CUDABackend:
 def _affine_planes(pts: torch.Tensor) -> torch.Tensor:
     """Projective G2 [3, 2, 32, m] → the message LRU's packed affine
     planes [3, 2, 32, m] (canonical x, y and z = 1; ∞ as (0, 1, 0)), the
-    layout `curve.g2_pack` gives the host hash."""
-    xc0, xc1, yc0, yc1, inf = codec.g2_normalize(pts)
+    layout `curve.g2_pack` gives the host hash: one K19 launch."""
+    xc0, xc1, yc0, yc1, inf = cuda_codec.g2_normalize(pts)
     zero = torch.zeros_like(xc0)
     one = fp.elem(fp.ONE, xc0.device).expand_as(xc0)
     x = torch.stack([torch.where(inf, zero, xc0), torch.where(inf, zero, xc1)])

@@ -33,7 +33,21 @@ Phases, in order; any failure raises and exits non-zero:
              digits; K17 (one [|x|]-multiply in one launch) against its
              plain version and the 34 K2/K10 launches it replaced at a hash
              batch's 4,096 rows and the slot-start batch's 128; both timed
-             beside their bounds, with 2, 4 and 8 lanes a row.
+             beside their bounds, with 2, 4 and 8 lanes a row.  K18 (a
+             hash batch's Fp2 root, and its inversion-and-affine step, one
+             launch each) against its plain programs bit for bit and
+             against the K7 launch sequences it replaced by value at the
+             slot-start batch's 256 / 128 rows and a 2,048-message
+             batch's 8,192 / 4,096, with zero rows, rows of the α = −1
+             branch and squares, timed beside them and the bound of the
+             function (`chain_ops`), the sweep over lanes, slots and
+             window widths; K19 (the G2
+             normalisation in one launch) against its plain version and
+             the K1 chain of codec.g2_normalize, bit for bit, at the
+             combine's 10,240 rows and a batch's 64 and 2,048, with ∞ rows
+             and Z ≠ 1; K20 (the RLC tables in one launch) against its
+             plain program bit for bit and the K1 chain by value at a
+             verify tile's 4,096 rows, ∞ and −g1 rows among them.
 3. combine — a pool of 1,024 distinct signatures s·H(m) built on the card;
              a real-Shamir check (V = 128: the combined bytes must equal
              sk·H(m)); then 10,000 SigAgg.aggregate() calls in one event-loop
@@ -41,9 +55,10 @@ Phases, in order; any failure raises and exits non-zero:
              combine, 4 random rows checked against the pure-Python oracle;
              malformed and off-curve signatures must raise ValueError; the
              p50 of 3 full combines split into stages, with every kernel's
-             launch count on the combine path (each must be > 0; K3 must
-             not launch), ONE K12 launch in its decompress stage and ONE
-             K16 launch in its Straus stage.
+             launch count on the combine path (each must be > 0; K3 and
+             K1 must not launch), ONE K12 launch in its decompress stage,
+             ONE K16 launch in its Straus stage and ONE K19 launch in its
+             normalise stage.
    redesign — K11 (the final exponentiation in one launch, a warp per
              row) against its plain version at 1 row and at a verify
              tile's 2,048, and K12 (the G2 decompression in one launch, a
@@ -65,9 +80,10 @@ Phases, in order; any failure raises and exits non-zero:
              entries (one peer's parsigex message) fills the pubkey LRU
              (its decompress overlaps earlier tiles); then 3 timed reps,
              each ONE pipeline launch of 5 tiles (4 × 2,048 + 1,808), all
-             verdicts True, stages summed over the tiles, K13, K14 and K15
-             launched and no K4/K5 step or K6 window, one K12 launch per
-             tile in sig_decompress_s, one K15 (plus the p-side's K1 neg)
+             verdicts True, stages summed over the tiles, K13, K14, K15
+             and K20 launched and no K4/K5 step or K6 window, one K12
+             launch per tile in sig_decompress_s, one K20 and nothing else
+             in rlc_tables_s, one K15 (plus the p-side's K1 neg)
              in rlc_scalar_mul_s, one K13 in miller_s, one K14 in fold_s
              and one K11 (plus is_one's K1 sub) in final_exp_s, K5 F12MUL
              only in a re-check, under 1,000 K1 launches per flush; then
@@ -105,7 +121,8 @@ Phases, in order; any failure raises and exits non-zero:
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
 2,048-message batch's shapes) against their plain versions.  Every device
-hash batch (phases 4–6) must launch 2 K17, no K10 dblsel and 7 K2.
+hash batch (phases 4–6) must launch 2 K18, no K7, 2 K17, no K10 dblsel, 7
+K2, one K19 and K1 only for its glue (2 sub, 8 neg).
 
 A kernel's `launches` in the JSON line is its count over the main-path
 runs: `launches_combine` (one combine rep), `launches_verify` (one
@@ -123,8 +140,13 @@ sequence's, `probe` the design probe), K14's and K15's at 4,096 rows
 `lanes_ms` sweep), K16's on the combine's digits at its shape (`steps_ms`
 the 609 K3 launches, `random` the same on random digits, `repack_ms` the
 table repack, `lanes_ms`), K17's at 4,096 rows (`steps_ms` the 34 K2/K10
-launches, `at_128`, `lanes_ms`), and K3's `combine_digits` the mean over
-the combine's own launches. `regs`, `stack` and `spill` are the compiler's
+launches, `at_128`, `lanes_ms`), K18's the root's at a 2,048-message
+batch's 8,192 rows (`plain_ms` its plain program at the slot-start
+batch's 256; `programs` each program's times at both batches beside the
+K7 sequences', `steps_ms`, and the sweep), K19's at the combine's 10,240
+rows (`steps_ms` the K1 chain; `at_64`, `at_2048`), K20's at 4,096
+(`steps_ms` the K1 chain), and K3's `combine_digits` the mean over the
+combine's own launches. `regs`, `stack` and `spill` are the compiler's
 (-Xptxas -v) for each kernel's function. Every bound_ms is at the card's
 full rate; K11 also gives `bound_one_warp_ms`, the bound at the rate of
 the SMs its rows can occupy under its one-warp-per-row design (one SM at 1
@@ -865,6 +887,320 @@ def zmul_phase(dev, sm_clocks_per_s: float) -> dict:
     return out
 
 
+def program_ops(prog) -> np.ndarray:
+    """[IMAD, ALU] one row of a scheduled program needs: each live op its
+    csrc/fp381.cuh function's count (a LIN by its form: the small multiple
+    with two rounds, the spread difference or negation, the sum; a SEL a
+    32-limb copy)."""
+    from charon_tpu_torch.ops import miller_program as mp
+
+    kind, *_, iters, spread, _ = mp._fields(prog.code)
+    cost = {mp.MUL2: _F2MUL, mp.SQR2: _F2SQR, mp.MUL: OPS["fp_mul"],
+            mp.SEL: _alu(NL)}
+    total = np.zeros(2, np.int64)
+    for k, it, sp in zip(kind.ravel(), iters.ravel(), spread.ravel()):
+        if k == mp.LIN:
+            total += OPS["fp_mul_small" if it == 2 else
+                         "fp_sub" if sp else "fp_add"]
+        elif k != mp.NOP:
+            total += cost[int(k)]
+    return total
+
+
+def _pow_w4_ops(e: int, sqr, mul):
+    """A fixed-exponent pow by 4-bit windows, MSB first: the table
+    a..a^top (one squaring, top − 2 products), then per window 4
+    squarings and, for a non-zero digit, one product."""
+    digs = [int(d, 16) for d in f"{e:x}"]
+    top = max(digs)
+    return ((top >= 2) * sqr + max(top - 2, 0) * mul
+            + 4 * (len(digs) - 1) * sqr + sum(map(bool, digs[1:])) * mul)
+
+
+def chain_ops(kind: str, rows: int, alpha_m1: int = 0) -> np.ndarray:
+    """[IMAD, ALU] of K18's function `kind` on `rows` rows, not of the
+    program it launches: whole MUL2 / SQR2 ops (`_F2MUL`, `_F2SQR`) and
+    4-bit windows.  The root (`alpha_m1` of its rows take the α = −1
+    branch): a1's pow, α = a1²·v, x0 = a1·v, then u·x0 and its square,
+    or (α + 1)'s pow, its product with x0 and its square.  The inverse:
+    the norm a0² + a1², its Fp pow p − 2, ā·norm⁻¹.  The affine step: the
+    inverse, xn·xd⁻¹, Z·u²·xn·xd⁻¹ and root·xd⁻²."""
+    from charon_tpu_torch.ops import miller_program as mp
+
+    fmul = OPS["fp_mul"]
+    inv = (4 * fmul + OPS["fp_add"] + OPS["fp_neg"]
+           + _pow_w4_ops(mp.EXP_INV, fmul, fmul))
+    if kind == "inv":
+        return rows * inv
+    if kind == "affine":
+        return rows * (inv + 4 * _F2MUL + _F2SQR)
+    every = _pow_w4_ops(mp.EXP_SQRT_A1, _F2SQR, _F2MUL) + _F2SQR + 2 * _F2MUL
+    branch_b = (OPS["fp_add"] + _pow_w4_ops(mp.EXP_SQRT_B, _F2SQR, _F2MUL)
+                + _F2MUL + _F2SQR)
+    return (rows * every + alpha_m1 * (OPS["fp_neg"] + _F2SQR)
+            + (rows - alpha_m1) * branch_b)
+
+
+#: K18's function's planes: read (the root's v, the inverse's a, the
+#: affine step's xd, xn, Z·u², root) and written (the root and its ok
+#: byte; the inverse; x for both numerators and y)
+CHAIN_IO_PLANES = {"sqrt": (2, 2), "inv": (2, 2), "affine": (8, 6)}
+
+
+def canon_planes(t: torch.Tensor) -> torch.Tensor:
+    """[planes, 32, R] → each plane's canonical standard form."""
+    from charon_tpu_torch.ops import fp
+
+    return torch.stack([fp.canon_std(p) for p in t])
+
+
+#: K18's sweep: (lanes, slots, look-ahead, window bits) per program
+CHAIN_SWEEP = {
+    "sqrt": ((2, 38, 40, 4), (4, 38, 40, 4), (1, 24, 40, 3),
+             (2, 24, 40, 3), (4, 24, 40, 3), (8, 26, 40, 3),
+             (2, 16, 40, 2), (4, 16, 40, 2)),
+    "affine": ((1, 18, 40, 4), (2, 18, 40, 4), (4, 18, 40, 4),
+               (2, 12, 40, 3)),
+}
+
+
+def chains_phase(dev, sm_clocks_per_s: float, batches=(64, 2048)) -> dict:
+    """K18's three programs at a hash batch's shapes (`batches` messages:
+    the slot-start batch's 64 and a verify tile's 2,048 — the root on 4·m
+    rows, the inverse and the affine step on 2·m): each against its plain
+    program on the card, bit for bit, under the configuration
+    `chain_config` picks at that shape, and against the K7 launch
+    sequence it replaced (`f2_sqrt_steps`, `f2_inv_steps`,
+    `f2_affine_steps`) by value, on random and all-LMAX limbs with zero
+    rows, rows of the α = −1 branch and squares; timed beside those
+    sequences, the bound of the function (`chain_ops`) and that of the
+    program's own ops (`program_ops`); the sweep over lanes, slots and
+    window widths."""
+    from charon_tpu_torch.ops import cuda_h2c as ch, fp
+    from charon_tpu_torch.ops import miller_program as mp
+    from charon_tpu_torch.tbls.ref.fields import P
+
+    gen = np.random.default_rng(20261024)
+
+    def inputs(kind, n, pattern):
+        planes = mp.CHAINS[kind][1] - (kind == "sqrt")
+        x = limbs(dev, gen, (planes, NL, n), pattern)
+        x[..., 0] = 0                               # v = 0, a = 0, xd = 0
+        if kind == "sqrt":
+            # an Fp non-residue (α = −1) and a square of Fp2
+            x[:, :, 1] = torch.from_numpy(np.stack(
+                [fp.to_limbs(P - 1), fp.ZERO])).to(dev)
+            x[:, :, 2] = torch.from_numpy(np.stack(
+                [fp.to_limbs(9), fp.to_limbs(16)])).to(dev)
+        return x
+
+    def block(kind, x):
+        """The kernel's input block: the root's v gains the constant one."""
+        if kind != "sqrt":
+            return x
+        one = fp.const(fp.ONE, dev).unsqueeze(-1).expand(NL, x.shape[-1])
+        return torch.cat([x, one[None]])
+
+    def run(kind, x, cfg=None):
+        if kind == "sqrt":
+            return ch.f2_sqrt_rows(x, cfg)
+        if kind == "inv":
+            return (ch.f2_inv_rows(x, cfg),)
+        return tuple(ch.f2_affine_rows(*x.split(2), cfg))
+
+    def steps(kind, x):
+        if kind == "sqrt":
+            return ch.f2_sqrt_steps(x)
+        if kind == "inv":
+            return (ch.f2_inv_steps(x),)
+        return tuple(ch.f2_affine_steps(*x.split(2)))
+
+    def same_value(kind, got, want):
+        if kind == "sqrt":
+            (r, ok), (r2, ok2) = got, want
+            return bool(torch.equal(ok, ok2)) and bool(torch.equal(
+                canon_planes(r[..., ok]), canon_planes(r2[..., ok2])))
+        return all(torch.equal(canon_planes(a), canon_planes(b))
+                   for a, b in zip(got, want))
+
+    res = {}
+    for kind in ("sqrt", "affine", "inv"):
+        prog = mp.chain_program(kind)
+        part = {"lanes": prog.lanes, "slots": prog.slots,
+                "window_bits": mp.CH_CONFIG[kind][3], "steps": prog.steps,
+                "cost": prog.cost()}
+        rd, wr = CHAIN_IO_PLANES[kind]
+        for m in batches:
+            n = (4 if kind == "sqrt" else 2) * m
+            for pattern in ("random", "lmax"):
+                x = inputs(kind, n, pattern)
+                if not same_value(kind, run(kind, x), steps(kind, x)):
+                    raise AssertionError(f"K18 {kind} at {n} rows "
+                                         f"({pattern}) differs from the K7 "
+                                         f"sequence in value")
+            x = inputs(kind, n, "random")
+            blk = block(kind, x)
+            cfg = ch.chain_config(kind, n, dev)
+            cprog = mp.chain_program(kind, cfg)
+            # the kernel against its plain program on the card
+            got = ch._run_chain(kind, blk, cfg)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = mp.chain_run_plain(cprog, list(blk))
+            end.record()
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            if err:
+                raise AssertionError(f"K18 {kind} at {n} rows: kernel "
+                                     f"differs from its plain program "
+                                     f"(max abs err {err})")
+            # the rows of the α = −1 branch, which need no second pow
+            alpha_m1 = (int(ch.f2_eq_const_rows(got[:2], ch._F2_MINUS_ONE)
+                            .sum()) if kind == "sqrt" else 0)
+            nbytes = n * ((rd + wr) * EL_BYTES + (kind == "sqrt"))
+            bms, by = bound(chain_ops(kind, n, alpha_m1), nbytes,
+                            sm_clocks_per_s)
+            ims, _ = bound(program_ops(cprog) * n,
+                           n * sum(mp.CHAINS[kind][1:]) * EL_BYTES,
+                           sm_clocks_per_s)
+            part[f"at_{n}"] = {
+                "rows": n, "config": cfg, "alpha_m1_rows": alpha_m1,
+                "ms": time_ms(lambda: run(kind, x)),
+                "steps_ms": time_ms(lambda: steps(kind, x), 3),
+                "bound_ms": bms, "bound_by": by, "issued_bound_ms": ims,
+                "max_abs_err": err, "plain_ms": start.elapsed_time(end)}
+        if kind in CHAIN_SWEEP:
+            part["sweep"] = {}
+            for m in batches:
+                n = (4 if kind == "sqrt" else 2) * m
+                x = inputs(kind, n, "random")
+                want = run(kind, x)
+                for cfg in CHAIN_SWEEP[kind]:
+                    if not same_value(kind, run(kind, x, cfg), want):
+                        raise AssertionError(f"K18 {kind} with {cfg} "
+                                             f"differs from the default")
+                    p = mp.chain_program(kind, cfg)
+                    part["sweep"][f"{cfg}@{n}"] = {
+                        "ms": time_ms(lambda cfg=cfg: run(kind, x, cfg)),
+                        "steps": p.steps, "cost": p.cost()}
+        res[kind] = part
+        log(f"K18 f2_chain {kind} ({prog.lanes} lanes a row, {prog.slots} "
+            f"slots, {prog.steps} steps, {prog.cost():,} instructions a "
+            f"lane): " + "; ".join(
+                f"at {a['rows']:,} rows {a['ms']:.4f} ms against "
+                f"{a['steps_ms']:.4f} ms for the K7 sequence (bound "
+                f"{a['bound_ms']:.4f} ms, the program's ops "
+                f"{a['issued_bound_ms']:.4f}; plain {a['plain_ms']:.1f} ms)"
+                for k, a in part.items() if k.startswith("at_"))
+            + (f"; sweep {json.dumps(part['sweep'])}"
+               if "sweep" in part else ""))
+    # the main path's shapes: the root at a 2,048-message batch's rows
+    big = res["sqrt"][f"at_{4 * batches[-1]}"]
+    small = res["sqrt"][f"at_{4 * batches[0]}"]
+    return {"ms": big["ms"], "plain_ms": small["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "max_abs_err": max(a["max_abs_err"] for part in res.values()
+                               for k, a in part.items()
+                               if k.startswith("at_")),
+            "programs": res}
+
+
+def normalize_phase(dev, sm_clocks_per_s: float,
+                    sizes=(10_240, 64, 2048)) -> dict:
+    """K19 against its plain version bit for bit and against the K1 chain
+    it replaced (`codec.g2_normalize`, canonical, so bit for bit too) at
+    the combine's 10,240 rows and a hash batch's 64 and 2,048: random
+    limbs with Z ≠ 1, ∞ rows (Z = 0 and Z = (p, 0), zero in value only)
+    and all-LMAX limbs; timed beside the K1 chain and the bound."""
+    from charon_tpu_torch.ops import codec, cuda_codec, fp
+    from charon_tpu_torch.tbls.ref.fields import P
+
+    gen = np.random.default_rng(20261025)
+    digits = cuda_codec._INV_DIGITS
+    row_ops = (2 * OPS["fp_mul"] + OPS["fp_add"]
+               + (14 + 4 * (len(digits) - 1)
+                  + sum(1 for d in digits[1:] if d)) * OPS["fp_mul"]
+               + 2 * OPS["fp_mul"] + OPS["fp_neg"] + 2 * _F2MUL
+               + 4 * _CANON + 2 * _ISZERO)
+
+    def pat(n, pattern):
+        pt = limbs(dev, gen, (3, 2, NL, n), pattern)
+        if pattern == "random":
+            pt[2, :, :, 3::97] = 0
+            pt[2, 0, :, 5::97] = torch.from_numpy(fp.to_limbs(P)).to(
+                dev).unsqueeze(-1)
+            pt[2, 1, :, 5::97] = 0
+        return (pt,)
+
+    res = {}
+    for n in sizes:
+        part = {}
+        record(part, "g2_normalize", cuda_codec.g2_normalize,
+               cuda_codec.g2_normalize_plain, row_ops * n,
+               n * (6 + 4) * EL_BYTES + n,
+               [lambda: pat(n, "random"), lambda: pat(n, "lmax")],
+               sm_clocks_per_s, plain_reps=1)
+        pt, = pat(n, "random")
+        got, want = cuda_codec.g2_normalize(pt), codec.g2_normalize(pt)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K19 at {n} rows differs from the K1 "
+                                 f"chain of codec.g2_normalize")
+        if not bool(got[4][3::97].all()) or not bool(got[4][5::97].all()):
+            raise AssertionError("K19: an ∞ row was not flagged")
+        part["g2_normalize"]["steps_ms"] = time_ms(
+            lambda: codec.g2_normalize(pt), 3)
+        res[n] = part["g2_normalize"]
+    log("K19 g2_normalize: " + "; ".join(
+        f"at {n:,} rows {r['ms']:.4f} ms against {r['steps_ms']:.4f} ms for "
+        f"the K1 chain (bound {r['bound_ms']:.4f} ms)"
+        for n, r in res.items()))
+    return {**res[sizes[0]], "rows": sizes[0],
+            **{f"at_{n}": res[n] for n in sizes[1:]}}
+
+
+def tables_phase(dev, rows: int, sm_clocks_per_s: float) -> dict:
+    """K20 against its plain program bit for bit at a verify tile's
+    `rows` pair rows (real G1 points with ∞ and −g1 rows; random and
+    all-LMAX limbs), and against the K1 chain it replaced (`curve.
+    double_point` / `add_points`) by value; timed beside it and the
+    bound."""
+    from charon_tpu_torch.ops import cuda_pairing as cp
+    from charon_tpu_torch.ops import curve as tcurve
+    from charon_tpu_torch.ops import miller_program as mp
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    gen = np.random.default_rng(20261026)
+    real = rlc_tables(dev, rows, slice(200, 216))[0]
+    real[..., 0::2] = torch.from_numpy(tcurve.g1_pack(
+        [rc.neg(rc.G1_GEN)])).to(dev)
+    real = real.contiguous()
+    prog = mp.g1_tables_program()
+
+    def k1_chain(base):
+        p2 = tcurve.double_point(tcurve.FP_OPS, base)
+        return p2, tcurve.add_points(tcurve.FP_OPS, p2, base)
+
+    out = {}
+    record(out, "g1_tables", cp.g1_tables, cp.g1_tables_plain,
+           program_ops(prog) * rows, rows * 9 * EL_BYTES,
+           [lambda: (real,),
+            lambda: (limbs(dev, gen, (3, NL, rows), "random"),),
+            lambda: (limbs(dev, gen, (3, NL, rows), "lmax"),)],
+           sm_clocks_per_s)
+    res = out["g1_tables"]
+    for a, b in zip(cp.g1_tables(real), k1_chain(real)):
+        if not torch.equal(canon_planes(a), canon_planes(b)):
+            raise AssertionError("K20 differs from the K1 chain in value")
+    res.update(steps_ms=time_ms(lambda: k1_chain(real)), rows=rows,
+               lanes=prog.lanes, slots=prog.slots, program_steps=prog.steps)
+    log(f"K20 g1_tables at {rows:,} rows ({prog.lanes} lanes a row, "
+        f"{prog.steps} steps): {res['ms']:.4f} ms against "
+        f"{res['steps_ms']:.4f} ms for the K1 chain (bound "
+        f"{res['bound_ms']:.4f} ms)")
+    return res
+
+
 def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
     """K7–K9 and K10 (dblsel, addsel) against their plain versions at the
     shapes of one `msgs`-message hash batch: the sqrt chain's 4·msgs rows
@@ -1245,6 +1581,11 @@ def parsigs_for(sig_sets: list[dict[int, bytes]], epoch: int) -> dict:
 #: launches) and K10 (hash-to-G2's; K17 replaced dblsel there)
 COMBINE_PHASE_ONLY = ("straus_head", "straus_tail", "g2_dblsel",
                       "g2_addsel")
+#: the combine's kernels: K12 decompresses, K2 builds the Straus tables,
+#: K16 runs the window loop and K19 normalises; no K1 (K19 replaced the
+#: normalisation's 397 launches)
+COMBINE_PATH_KERNELS = ("g2_decompress", "g2_dbl", "g2_add", "straus_msm",
+                        "g2_normalize")
 
 
 def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
@@ -1348,13 +1689,13 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
         if got[f"0x{r:096x}"] != oracle_combine(sig_sets[r]):
             raise AssertionError(f"row {r}: combine != oracle")
     log("combine: 4 random rows equal the pure-Python oracle")
-    # K12 decompresses, so the combine's only K1 work is the normalisation,
-    # which takes no small multiple
-    zero = [k for k, n in launch_counts.items()
-            if n == 0 and k != "fp_mul_small"]
+    zero = [k for k in COMBINE_PATH_KERNELS if launch_counts[k] == 0]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{zero}")
+    k1 = {k: launch_counts[k] for k in cuda_fp.LAUNCHES if launch_counts[k]}
+    if k1:
+        raise AssertionError(f"combine: K1 launched on the path: {k1}")
     by_stage = {k: sum(st[k] for st in stage_launches.values())
                 for k in launch_counts}
     if by_stage != launch_counts:
@@ -1371,6 +1712,8 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
                          {"g2_decompress": 1})
     check_stage_launches("combine", stage_launches, "straus_s",
                          {"straus_msm": 1})
+    check_stage_launches("combine", stage_launches, "normalize_s",
+                         {"g2_normalize": 1})
     return launch_counts, p50, pool
 
 
@@ -1486,13 +1829,16 @@ def check_stage_launches(label: str, stage_launches: dict, stage: str,
 
 def check_redesigned_stages(label: str, stage_launches: dict,
                             tiles: int) -> None:
-    """One K12 launch per tile in sig_decompress_s; one K15 launch and the
+    """One K12 launch per tile in sig_decompress_s; one K20 launch per
+    tile, and nothing else, in rlc_tables_s; one K15 launch and the
     p-side's K1 neg per tile in rlc_scalar_mul_s; one K13 launch per tile,
     and nothing else, in miller_s; one K14 launch per tile, and nothing
     else, in fold_s; one K11 launch and is_one's K1 sub per tile in
     final_exp_s; K5 F12MUL nowhere but in a re-check."""
     check_stage_launches(label, stage_launches, "sig_decompress_s",
                          {"g2_decompress": tiles})
+    check_stage_launches(label, stage_launches, "rlc_tables_s",
+                         {"g1_tables": tiles})
     check_stage_launches(label, stage_launches, "rlc_scalar_mul_s",
                          {"g1_scalar_mul": tiles, "fp_neg": tiles})
     check_stage_launches(label, stage_launches, "miller_s",
@@ -1511,20 +1857,39 @@ def check_redesigned_stages(label: str, stage_launches: dict,
 #: the verify path's pairing kernels; the K4/K5 step kernels K13 replaced
 #: (and its thread-per-row probe) and the K6 window K15 replaced run only
 #: in the kernel phases; K5 F12MUL only in a re-check
-VERIFY_PAIRING_KERNELS = ("miller_loop", "f12_fold", "g1_scalar_mul")
+VERIFY_PAIRING_KERNELS = ("miller_loop", "f12_fold", "g1_scalar_mul",
+                          "g1_tables")
 PHASE_ONLY_KERNELS = ("pp_dbl", "pp_add", "pp_sqr", "pp_mul014",
                       "miller_thread", "g1_dblsel")
 
 
+#: K7's four chain kernels, which K18 replaced on the path
+K7_KERNELS = ("h2c_sqr", "h2c_mul", "h2c_sqr4", "h2c_sqr4mul")
+#: K1 launches a device hash batch keeps for its exactness glue: the
+#: root's tests α = −1 and root² = v (two differences), the sign fix's
+#: negation of y (two coefficients) and the clearing's three point
+#: negations (two Y coefficients each)
+H2C_K1_GLUE = {"fp_sub": 2, "fp_neg": 8}
+
+
 def check_h2c_launches(label: str, h2c: dict, batches: int) -> None:
     """`batches` device hash batches in one h2c_s stage: per batch one K8
-    launch, 2 K17 launches ([|x|]P with [|x|]ψ(P), then [x²]P), no K10
-    window and 7 K2 (the halves' sum, the clearing's doubling and its
-    five additions)."""
-    got = {k: h2c.get(k, 0) for k in ("h2c_sswu", "g2_zmul", "g2_dblsel")}
+    launch, 2 K18 (the root, then the inversion and affine step), no K7,
+    2 K17 launches ([|x|]P with [|x|]ψ(P), then [x²]P), no K10 window, 7
+    K2 (the halves' sum, the clearing's doubling and its five additions),
+    one K19 (the normalisation) and K1 only for `H2C_K1_GLUE`."""
+    got = {k: h2c.get(k, 0) for k in ("h2c_sswu", "f2_chain", "g2_zmul",
+                                      "g2_dblsel", "g2_normalize",
+                                      *H2C_K1_GLUE)}
+    got["K7"] = sum(h2c.get(k, 0) for k in K7_KERNELS)
     got["g2_dbl+g2_add"] = h2c.get("g2_dbl", 0) + h2c.get("g2_add", 0)
-    want = {"h2c_sswu": batches, "g2_zmul": 2 * batches, "g2_dblsel": 0,
-            "g2_dbl+g2_add": 7 * batches}
+    got["fp_mul+fp_add+fp_mul_small"] = sum(
+        h2c.get(k, 0) for k in ("fp_mul", "fp_add", "fp_mul_small"))
+    want = {"h2c_sswu": batches, "f2_chain": 2 * batches,
+            "g2_zmul": 2 * batches, "g2_dblsel": 0,
+            "g2_normalize": batches, "K7": 0,
+            "g2_dbl+g2_add": 7 * batches, "fp_mul+fp_add+fp_mul_small": 0,
+            **{k: n * batches for k, n in H2C_K1_GLUE.items()}}
     if got != want:
         raise AssertionError(f"{label}: h2c_s launched {got}, want {want}")
 
@@ -1765,15 +2130,23 @@ def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every kernel wrapper the h2c pipeline reaches (K1, K2, K7–K9, K17)
-    replaced by its plain version, on any device."""
-    from charon_tpu_torch.ops import cuda_fp, cuda_g2, cuda_h2c as ch, fp
+    """Every kernel wrapper the h2c pipeline and its normalisation reach
+    (K1, K2, K7–K9, K17–K19) replaced by its plain version, on any
+    device."""
+    from charon_tpu_torch.ops import cuda_codec, cuda_fp, cuda_g2, fp
+    from charon_tpu_torch.ops import cuda_h2c as ch
+    from charon_tpu_torch.ops import miller_program as mp
+
+    def chain_plain(kind, inp, cfg):
+        cfg = cfg or ch.chain_config(kind, inp.shape[-1], inp.device)
+        return mp.chain_run_plain(mp.chain_program(kind, cfg), list(inp))
 
     swaps = [(ch, {"h2c_sqr": ch.sqr_plain, "h2c_mul": ch.mul_plain,
                    "h2c_sqr4": ch.sqr4_plain, "h2c_sqr4mul": ch.sqr4mul_plain,
                    "h2c_sswu": ch.sswu_plain, "h2c_iso3": ch.iso3_plain,
-                   "h2c_psi": ch.psi_plain}),
+                   "h2c_psi": ch.psi_plain, "_run_chain": chain_plain}),
              (ch, {"zmul": ch.zmul_plain}),
+             (cuda_codec, {"g2_normalize": cuda_codec.g2_normalize_plain}),
              (cuda_g2, {"dbl": cuda_g2.dbl_plain, "add": cuda_g2.add_plain,
                         "dblsel": cuda_g2.dblsel_plain}),
              (cuda_fp, {"mul": fp.mul_plain, "add": fp.add_plain,
@@ -1898,8 +2271,8 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
 # Phase 6: a flush of 10,000 distinct messages
 # ---------------------------------------------------------------------------
 
-H2C_PATH_KERNELS = ("h2c_sswu", "h2c_sqr", "h2c_mul", "h2c_sqr4",
-                    "h2c_sqr4mul", "h2c_iso3", "h2c_psi", "g2_zmul")
+H2C_PATH_KERNELS = ("h2c_sswu", "f2_chain", "h2c_iso3", "h2c_psi",
+                    "g2_zmul", "g2_normalize")
 
 
 def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
@@ -2088,6 +2461,17 @@ SOURCES = {
                    "charon_tpu/ops/pallas_g2.py:797"),
     "g2_zmul": ("charon_tpu_torch/csrc/g2_zmul.cu",
                 "charon_tpu/ops/pallas_h2c.py:537"),
+    # K18 replaces the K7 launch sequences of the Fp2 root and inversion
+    # (pallas_h2c f2_sqrt_rows / f2_inv_rows over f2_pow_rows :482), K19
+    # the K1 chain of codec.g2_normalize (:319, its products the pallas_fp
+    # kernel :78) and K20 the RLC tables' K1 chain (backend_tpu
+    # _rlc_g1_tables_kernel :543)
+    "f2_chain": ("charon_tpu_torch/csrc/f2_chain.cu",
+                 "charon_tpu/ops/pallas_h2c.py:482"),
+    "g2_normalize": ("charon_tpu_torch/csrc/normalize.cu",
+                     "charon_tpu/ops/codec.py:319"),
+    "g1_tables": ("charon_tpu_torch/csrc/g1_tables.cu",
+                  "charon_tpu/tbls/backend_tpu.py:543"),
 }
 
 #: each kernel's compiled function in the ptxas report (its registers,
@@ -2124,6 +2508,9 @@ PTXAS_NAMES = {
     "g1_scalar_mul": "g1_scalar_mul.cu g1_scalar_mul_kernel",
     "straus_msm": "straus.cu straus_msm_kernel",
     "g2_zmul": "g2_zmul.cu g2_zmul_kernel",
+    "f2_chain": "f2_chain.cu f2_chain_program_kernel",
+    "g2_normalize": "normalize.cu g2_normalize_kernel",
+    "g1_tables": "g1_tables.cu g1_tables_kernel",
 }
 
 
@@ -2162,6 +2549,10 @@ def main() -> int:
     # validator rows (one Straus step) times the shares (decompress, tables)
     from charon_tpu_torch.tbls import api, dispatch
     vrows = api.combine_padded_rows(VALIDATORS, SHARES)
+    def mark(phase: str) -> None:
+        log(f"phase {phase}: starts at {time.perf_counter() - t_start:.1f} s")
+
+    mark("kernels")
     kern = kernels_phase(dev, vrows * SHARES, vrows, sm_clocks_per_s)
     # the pairing kernels at one verify tile: 2 Miller rows per entry
     kern.update(pairing_kernels_phase(
@@ -2173,10 +2564,24 @@ def main() -> int:
     for name, at in k1_main_shapes(dev, sm_clocks_per_s).items():
         kern[name]["main_shapes"] = at
     # K16 at the combine's shape, K17 at a hash batch's
+    mark("straus_msm")
     kern["straus_msm"] = straus_msm_phase(dev, vrows * SHARES, vrows,
                                           sm_clocks_per_s)
+    mark("zmul")
     kern["g2_zmul"] = zmul_phase(dev, sm_clocks_per_s)
+    mark("chains, normalize, tables")
+    # K18 at the slot-start and a verify tile's hash batches, K19 at the
+    # combine's rows and those batches, K20 at a verify tile's pair rows
+    kern["f2_chain"] = chains_phase(dev, sm_clocks_per_s,
+                                    (MESSAGES, dispatch.VERIFY_TILE))
+    kern["g2_normalize"] = normalize_phase(
+        dev, sm_clocks_per_s, (vrows, MESSAGES, dispatch.VERIFY_TILE))
+    kern["g1_tables"] = tables_phase(
+        dev, 2 * api.verify_padded_rows(dispatch.VERIFY_TILE),
+        sm_clocks_per_s)
+    mark("combine")
     combine_launches, _, pool = combine_phase(dev)
+    mark("redesign")
     # K11 at the batch check's 1 row and a re-check tile's rows, K12 at a
     # verify tile and at the combine's padded 10,240 × 7 rows
     tile = api.verify_padded_rows(dispatch.VERIFY_TILE)
@@ -2190,10 +2595,15 @@ def main() -> int:
                              "combine": redesign[
                                  f"g2_decompress@{vrows * SHARES}"]}
     # K13 at a verify tile's Miller rows
+    mark("miller")
     kern["miller_loop"] = miller_phase(dev, pool, 2 * tile, sm_clocks_per_s)
+    mark("verify")
     verify_launches, pks, sks, bits = verify_phase(dev)
+    mark("slot-start")
     slot_launches = verify_slot_start_phase(dev, pks, sks, bits)
+    mark("h2c")
     plain_planes = h2c_phase(dev, dispatch.VERIFY_TILE)
+    mark("distinct")
     distinct_launches = verify_distinct_phase(dev, pks, sks, bits,
                                               plain_planes)
 

@@ -27,7 +27,7 @@ from charon_tpu.tbls.ref import curve as jrc, sswu as jsswu
 from charon_tpu.tbls.ref.fields import FQ2 as JFQ2
 from charon_tpu.tbls.ref.hash_to_curve import DST_G2, hash_to_g2
 from charon_tpu_torch import convert
-from charon_tpu_torch.ops import cuda_g2, cuda_h2c, curve as tcurve
+from charon_tpu_torch.ops import cuda_g2, cuda_h2c, curve as tcurve, fp
 from charon_tpu_torch.tbls import backend_cuda
 
 PAD = 128
@@ -77,10 +77,18 @@ def outputs():
 
 
 def test_pipeline_bit_identical_to_jax(outputs):
+    """A check of values, not of raw limbs, whatever the name says:
+    every coordinate plane equals JAX's bit for bit after `canon_std`.
+    The port's root and inversion programs (K18) split the Fp2 products
+    JAX runs whole, so they compute the same values in other redundant
+    limbs.  The normalised output, canonical, is held bit for bit in
+    `test_normalised_points_equal_the_oracle` and in
+    test_torch_h2c_chains.py."""
     got, want = outputs
     assert tuple(got.shape) == (6, 32, PAD)
-    np.testing.assert_array_equal(got.numpy(),
-                                  convert.points_from_jax(want))
+    want = torch.from_numpy(convert.points_from_jax(want))
+    for c in range(6):
+        assert torch.equal(fp.canon_std(got[c]), fp.canon_std(want[c])), c
 
 
 def test_normalised_points_equal_the_oracle(outputs):

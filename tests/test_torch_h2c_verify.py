@@ -133,13 +133,13 @@ def test_a_failing_h2c_launch_raises_with_no_host_fallback(port_backend,
     host_calls = []
 
     def fail(*args):
-        raise RuntimeError("h2c_sqr4mul: kernel launch failed (injected)")
+        raise RuntimeError("f2_chain: kernel launch failed (injected)")
 
     def host_spy(msg, *args):
         host_calls.append(msg)
         return hash_to_g2(msg, *args)
 
-    monkeypatch.setattr(cuda_h2c, "h2c_sqr4mul", fail)
+    monkeypatch.setattr(cuda_h2c, "_run_chain", fail)
     monkeypatch.setattr(backend_cuda, "hash_to_g2", host_spy)
     port_backend._hm_cache.clear()
     with pytest.raises(RuntimeError, match="injected"):
