@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu", "final_exp.cu",
            "decompress.cu", "miller.cu", "fold.cu", "g1_scalar_mul.cu",
            "straus.cu", "g2_zmul.cu", "f2_chain.cu", "normalize.cu",
-           "g1_tables.cu")
+           "g1_tables.cu", "g1_decompress.cu", "g2_law.cu")
 HEADERS = ("fp381.cuh", "fp381_consts.cuh", "program.cuh", "f12_warp.cuh",
            "fp_inv.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
@@ -116,8 +116,11 @@ def build() -> Path:
 def _kernel_name(mangled: str) -> str:
     """'_ZN…_pairing_cu_…15f12_step_kernelILi2EE…' → 'pairing.cu
     f12_step_kernel<2>' (the length-prefixed name ending in _kernel)."""
-    src = next((f"{stem}.cu" for stem in (Path(x).stem for x in SOURCES)
-                if f"_{stem}_cu_" in mangled), "?")
+    # the longest source stem in the name: "_decompress_cu_" is also in
+    # g1_decompress.cu's names
+    stems = [s for s in (Path(x).stem for x in SOURCES)
+             if f"_{s}_cu_" in mangled]
+    src = f"{max(stems, key=len)}.cu" if stems else "?"
     # the length prefix may follow hash digits: try every suffix of each
     # digit run as the length, and keep the last (innermost) name
     found = f"{src} {mangled}"
@@ -185,6 +188,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_f2_chain_program.argtypes = [p, p, p, i, p, i, i, i, i, i, p]
     lib.charon_g2_normalize.argtypes = [p, p, p, i, p]
     lib.charon_g1_tables.argtypes = [p, p, p, i, p, i, i, i, p]
+    lib.charon_g1_decompress.argtypes = [p, p, p, p, p, i, p]
+    lib.charon_g2_law.argtypes = [i, p, p, p, i, p, i, i, i, p]
     for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
                lib.charon_pp_step, lib.charon_f12_step,
                lib.charon_g1_dblsel, lib.charon_g2_sel, lib.charon_f2_chain,
@@ -194,7 +199,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                lib.charon_f12_fold, lib.charon_g1_scalar_mul,
                lib.charon_straus_msm, lib.charon_g2_zmul,
                lib.charon_f2_chain_program, lib.charon_g2_normalize,
-               lib.charon_g1_tables):
+               lib.charon_g1_tables, lib.charon_g1_decompress,
+               lib.charon_g2_law):
         fn.restype = i
 
 
@@ -219,7 +225,7 @@ def render_consts_header() -> str:
     """The text of csrc/fp381_consts.cuh, from the Python constant tables
     (the committed header must equal this; a test pins it)."""
     from . import cuda_codec, cuda_final_exp, cuda_g2, cuda_h2c, fp
-    from ..tbls.ref.fields import P
+    from ..tbls.ref.fields import P, R
 
     def rows(arr) -> str:
         return ",\n".join("    {" + ", ".join(str(int(v)) for v in row) + "}"
@@ -274,6 +280,8 @@ def render_consts_header() -> str:
         + exponent("EXP_PM2", P - 2, "p - 2 (the Fp inverse)")
         + exponent("EXP_P34", cuda_codec.EXP_P34, "(p - 3) / 4")
         + exponent("EXP_P12", cuda_codec.EXP_P12, "(p - 1) / 2")
+        + exponent("EXP_P14", cuda_codec.EXP_P14, "(p + 1) / 4 (the Fp root)")
+        + exponent("EXP_R", R, "r (the G1 subgroup order)")
         + "\n// |z| and the sign of the BLS parameter z\n"
         f"constexpr unsigned long long ABS_Z = {cuda_codec.ABS_Z}ull;\n"
         f"constexpr int Z_NEG = {int(cuda_codec.Z_NEG)};\n\n"

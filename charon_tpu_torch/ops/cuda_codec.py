@@ -1,5 +1,6 @@
-"""Kernels K12 and K19 — the whole G2 decompression and the whole G2
-normalisation on the card (csrc/decompress.cu, csrc/normalize.cu).
+"""Kernels K12, K19 and K21 — the whole G2 decompression, the whole G2
+normalisation and the whole G1 decompression on the card
+(csrc/decompress.cu, csrc/normalize.cu, csrc/g1_decompress.cu).
 
 Everything `codec.g2_decompress` (the JAX package's ops/codec.py
 `g2_decompress`) does on the device, as ONE launch per batch: rhs = x³ +
@@ -38,6 +39,18 @@ x = X·Z⁻¹, y = Y·Z⁻¹ and the exact canonicalisation, ∞ (Z ≡ 0) givin
 (0, 0, True).  The outputs are canonical, so any chain gives the same
 bytes: the plain version `g2_normalize_plain` runs the kernel's sequence
 and equals `codec.g2_normalize` and JAX's bit for bit.
+
+K21 `g1_decompress` is `codec.g1_decompress` (the JAX package's ops/
+codec.py :266, the subgroup check `g1_in_subgroup` :254) with the
+backend's ∞ mask, in ONE launch per key batch, one thread per row: rhs =
+x³ + 4, the root rhs^((p+1)/4) by `fp.pow_fixed`'s LSB-first square-and-
+multiply, ok = (root² == rhs), the ZCash sign of the canonical root and
+the flip, `from_affine` with the ∞ flag, and the verdict ok ∧ ¬∞ ∧ [r]P
+= ∞.  The points are bit for bit codec's (the same products in the same
+order); [r]P runs 4-bit windows of r over the table P..15P on the
+complete G1 law — another schedule than codec's 2-bit one, the same
+group element, so the same verdict.  `g1_decompress_plain` runs the
+kernel's sequence in plain PyTorch (the CPU route).
 """
 
 from __future__ import annotations
@@ -45,11 +58,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..tbls.ref.fields import P
+from ..tbls.ref.fields import P, R
 from . import build, codec, fp, launch_count, miller_program
 from .cuda_g2 import (_addf, _cuda_ready, _f2add, _f2mul, _f2sqr, _f2sub,
                       _g2_add, _g2_double, _mulf, _negf, _raise_on,
                       _table_f2)
+from .cuda_pairing import _g1_add, _g1_double
 from .curve import F2_OPS
 
 NL = fp.NLIMBS
@@ -62,6 +76,11 @@ _DC_B, _DC_M1, _DC_CX, _DC_CY = 0, 1, 2, 3
 
 EXP_P34 = (P - 3) // 4      # a^((p−3)/4): the root candidate's pow
 EXP_P12 = (P - 1) // 2      # (α + 1)^((p−1)/2)
+EXP_P14 = (P + 1) // 4      # the Fp root rhs^((p+1)/4) (codec.fp_sqrt)
+#: the 4-bit digits of r, MSB first (csrc/g1_decompress.cu reads them from
+#: EXP_R's words; the top one, 7, is the multiplication's start)
+R_DIGITS = miller_program.pow_digits(R, 4)
+assert len(R_DIGITS) == 64 and R_DIGITS[0] != 0
 
 #: |z| and the sign of z (codec's derived, checked values)
 ABS_Z = abs(codec._Z_SIGNED)
@@ -172,7 +191,7 @@ def g2_decompress_plain(xc0: torch.Tensor, xc1: torch.Tensor,
 
 #: kernel launches since the last `reset_launches()` (all threads;
 #: `launch_count.this_thread()` has the calling thread's own)
-LAUNCHES = {"g2_decompress": 0, "g2_normalize": 0}
+LAUNCHES = {"g2_decompress": 0, "g2_normalize": 0, "g1_decompress": 0}
 
 
 def reset_launches() -> None:
@@ -273,3 +292,86 @@ def g2_normalize(pt: torch.Tensor):
     _raise_on("g2_normalize", err)
     launch_count.bump(LAUNCHES, "g2_normalize")
     return (*out.unbind(0), inf)
+
+
+# ---------------------------------------------------------------------------
+# K21: the G1 pubkey decompression
+# ---------------------------------------------------------------------------
+
+_G1_B = fp.to_limbs(4)          # y² = x³ + 4
+
+
+def _fp_pow(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e, LSB first (fp.pow_fixed's products, one at a time)."""
+    result = fp.const(fp.ONE, a.device).unsqueeze(-1).expand_as(a)
+    base, nbits = a, e.bit_length()
+    for i in range(nbits):
+        if (e >> i) & 1:
+            result = fp.mul_plain(result, base)
+        if i != nbits - 1:
+            base = fp.mul_plain(base, base)
+    return result
+
+
+def _g1_r_is_inf(pt: torch.Tensor) -> torch.Tensor:
+    """[r]P == ∞ per row of [3, 32, R] points: 4-bit windows of r, MSB
+    first, over the table P..15P; a zero digit adds nothing."""
+    tbl = [None, pt, _g1_double(pt)]
+    for k in range(3, 16):
+        tbl.append(_g1_add(tbl[k - 1], pt))
+    acc = tbl[R_DIGITS[0]]
+    for d in R_DIGITS[1:]:
+        for _ in range(4):
+            acc = _g1_double(acc)
+        if d:
+            acc = _g1_add(acc, tbl[d])
+    return fp.is_zero(acc[2])
+
+
+def g1_decompress_plain(x: torch.Tensor, sign: torch.Tensor,
+                        inf: torch.Tensor):
+    """The kernel's sequence: (points [3, 32, R], verdicts [R] bool)."""
+    rhs = fp.add_plain(fp.mul_plain(fp.mul_plain(x, x), x),
+                       fp.elem(_G1_B, x.device))
+    y = _fp_pow(rhs, EXP_P14)
+    ok = fp.is_zero(fp.sub_plain(fp.mul_plain(y, y), rhs))
+    flip = fp.sgn(fp.canon_std(y)) != sign
+    y = torch.where(flip, fp.neg_plain(y), y)
+    zero = torch.zeros_like(x)
+    one = fp.const(fp.ONE, x.device).unsqueeze(-1).expand_as(x)
+    pt = torch.stack([torch.where(inf, zero, x), torch.where(inf, one, y),
+                      torch.where(inf, zero, one)])
+    return pt, ok & ~inf & _g1_r_is_inf(pt)
+
+
+def g1_decompress(x: torch.Tensor, sign: torch.Tensor, inf: torch.Tensor):
+    """K21: std-form x limb planes [32, R] (int32) + sign/inf flags [R]
+    (bool) → (projective points [3, 32, R], verdicts [R] bool) in ONE
+    launch, one thread per row: the points are `codec.g1_decompress`'s,
+    bit for bit, and a verdict is its ok with ∞ rows false (the key is
+    on the curve, in G1 and not ∞)."""
+    r = x.shape[-1]
+    if x.dtype != torch.int32 or tuple(x.shape) != (NL, r) or r == 0:
+        raise ValueError(f"g1_decompress: x must be int32 [32, R], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    for name, t in (("sign", sign), ("inf", inf)):
+        if t.dtype != torch.bool or tuple(t.shape) != (r,):
+            raise ValueError(f"g1_decompress: {name} must be bool [{r}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if any(t.device != x.device for t in (sign, inf)):
+        raise ValueError("g1_decompress: operands on different devices")
+    if x.device.type == "cpu":
+        return g1_decompress_plain(x, sign, inf)
+    if not all(t.is_contiguous() for t in (x, sign, inf)):
+        raise ValueError("g1_decompress: operands must be contiguous")
+    if 3 * NL * r >= 2 ** 31:
+        raise ValueError(f"g1_decompress: {r} rows exceed the int index")
+    _cuda_ready("g1_decompress", x)
+    pts = x.new_empty((3, NL, r))
+    ok = torch.empty(r, dtype=torch.bool, device=x.device)
+    err = build.library().charon_g1_decompress(
+        pts.data_ptr(), ok.data_ptr(), x.data_ptr(), sign.data_ptr(),
+        inf.data_ptr(), r, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on("g1_decompress", err)
+    launch_count.bump(LAUNCHES, "g1_decompress")
+    return pts, ok

@@ -1,4 +1,5 @@
-"""Kernels K2 and K3 — whole G2 group-law steps on the card (csrc/g2.cu).
+"""Kernels K2, K3 and K22 — whole G2 group-law steps on the card
+(csrc/g2.cu, csrc/g2_law.cu).
 
 The counterpart of the JAX package's ops/pallas_g2.py:
 
@@ -20,6 +21,12 @@ The counterpart of the JAX package's ops/pallas_g2.py:
   (quadrupled) accumulator.  dblsel runs the hash-to-G2 cofactor
   clearing's [|x|]-multiplies (ops/cuda_h2c.py); addsel has no caller in
   the JAX package and is ported for parity.
+- K22 `g2_law` (csrc/g2_law.cu) replaces K2's launch sequences: the
+  combine's tables 2P, 3P, 4P (3 launches) and hash-to-G2's group law
+  around the clearing (7 launches and 6 K1 negations a batch), each one
+  straight-line program of ops/miller_program.py (`LAWS`) in ONE launch.
+  K2 remains for the smoke run's kernel phase and as the sequences K22 is
+  held to (`straus_tables_steps`, `cuda_h2c.law_steps`).
 
 One thread per point row holds the whole step: every intermediate stays
 in the thread's registers and local memory, and device memory sees only
@@ -315,7 +322,7 @@ def addsel_plain(acc, t1, t2, t3, w: torch.Tensor) -> torch.Tensor:
 #: kernel launches since the last `reset_launches()` (all threads;
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "straus_head": 0, "straus_tail": 0,
-            "g2_dblsel": 0, "g2_addsel": 0, "straus_msm": 0}
+            "g2_dblsel": 0, "g2_addsel": 0, "straus_msm": 0, "g2_law": 0}
 
 
 def reset_launches() -> None:
@@ -511,16 +518,23 @@ def straus_combine(pts: torch.Tensor, digits: torch.Tensor,
 
     acc ← 8·acc + Σ_t d_{t,i}·P_t per window i — one head step (t = 0)
     and T − 1 tail steps per window, all in one K16 launch — on tables
-    {P, 2P, 3P, 4P} built once by K2 over all rows."""
+    {P, 2P, 3P, 4P} built once by K22 over all rows."""
     return straus_msm(straus_tables(pts), digits, t_count)
 
 
 def straus_tables(pts: torch.Tensor) -> tuple:
-    """The window tables (P, 2P, 3P, 4P) over all rows, by K2."""
+    """The window tables (P, 2P, 3P, 4P) over all rows: 2P, 3P and 4P in
+    one K22 launch (`g2_law("tables")`), views of its [18, 32, R]
+    output."""
+    out = g2_law("tables", pts)
+    return (pts, out[0:6], out[6:12], out[12:18])
+
+
+def straus_tables_steps(pts: torch.Tensor) -> tuple:
+    """The same tables by the 3 K2 launches K22 replaced, kept for the
+    smoke run's comparison."""
     p2 = dbl(pts)
-    p3 = add(p2, pts)
-    p4 = dbl(p2)
-    return (pts, p2, p3, p4)
+    return (pts, p2, add(p2, pts), dbl(p2))
 
 
 def _straus_iterate(step, tables, digits, t_count):
@@ -603,4 +617,44 @@ def straus_msm(tables: tuple, digits: torch.Tensor, t_count: int,
         torch.cuda.current_stream(out.device).cuda_stream)
     _raise_on(name, err)
     launch_count.bump(LAUNCHES, name)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K22: K2's launch sequences as one launch each
+# ---------------------------------------------------------------------------
+
+#: the kind codes of csrc/g2_law.cu's charon_g2_law
+_LAW_KIND = {"tables": 0, "pre": 1, "post": 2}
+
+
+def g2_law(kind: str, block: torch.Tensor, cfg=None) -> torch.Tensor:
+    """K22: program `kind` of ops/miller_program.py (`LAWS`: "tables" 2P,
+    3P, 4P of P; "pre" R = M₀ + M₁ and 2R; "post" the clearing's five
+    additions) on the input points' planes [in planes, 32, R] → the
+    output points' planes [out planes, 32, R], in ONE launch, under `cfg`
+    = (lanes, slots, look-ahead) (None: `miller_program.LW_CONFIG`'s).
+    Bit for bit the K2 launch sequence it replaced; on the CPU the plain
+    program (`law_run_plain`)."""
+    _, in_planes, out_planes = miller_program.LAWS[kind]
+    n = block.shape[-1]
+    if tuple(block.shape) != (in_planes, NL, n) or n == 0 \
+            or block.dtype != torch.int32:
+        raise ValueError(f"g2_law {kind}: expected int32 [{in_planes}, 32, "
+                         f"R], got {block.dtype} {tuple(block.shape)}")
+    prog = miller_program.law_program(kind, cfg)
+    if block.device.type == "cpu":
+        return miller_program.law_run_plain(prog, block)
+    _cuda_ready("g2_law", block)
+    if max(in_planes, out_planes) * NL * n >= 2 ** 31:
+        raise ValueError(f"g2_law: {n} rows exceed the int index")
+    code, fout, steps = miller_program.on_device(prog, block.device)
+    inp = block.permute(2, 0, 1).contiguous()
+    out = block.new_empty((out_planes, NL, n))
+    err = build.library().charon_g2_law(
+        _LAW_KIND[kind], out.data_ptr(), inp.data_ptr(), code.data_ptr(),
+        steps, fout.data_ptr(), prog.lanes, prog.slots, n,
+        torch.cuda.current_stream(block.device).cuda_stream)
+    _raise_on("g2_law", err)
+    launch_count.bump(LAUNCHES, "g2_law")
     return out

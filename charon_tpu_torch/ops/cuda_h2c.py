@@ -36,11 +36,13 @@ Budroni–Pintore ψ cofactor clearing:
   for the smoke run's kernel phase and as the sequences K18 is held to
   (`f2_sqrt_steps`, `f2_inv_steps`, `f2_affine_steps`).
 
-The clearing's other doublings and additions run K2 (ops/cuda_g2.py).
+The group law around the clearing runs K22 (ops/cuda_g2.py `g2_law`):
+the halves' sum R and its double 2R in one launch, the clearing's five
+additions, with their three point negations as LIN forms, in another.
 The exactness boundaries — sgn0, the tests α = −1 and root² = v, the ∞
-guard of the isogeny — and the negations between launches run on K1 and
-the plain exact-carry code of ops/fp.py, as the JAX package keeps them
-at the jnp level.
+guard of the isogeny — and the sign fix's negation run on K1 and the
+plain exact-carry code of ops/fp.py, as the JAX package keeps them at
+the jnp level.
 
 Each kernel is bit-identical to its plain version here: for K7–K9 the
 JAX `_DIRECT_FNS` body line for line on `cuda_g2`'s plain field library;
@@ -590,23 +592,43 @@ def zmul(q: torch.Tensor, lanes: int = miller_program.ZM_LANES,
     return out
 
 
-def clear_cofactor_rows(p: torch.Tensor) -> torch.Tensor:
-    """Budroni–Pintore clearing over projective points [6, 32, R]:
+def clear_cofactor_rows(p: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Budroni–Pintore clearing over projective points P [6, 32, R], with
+    p2 = 2P (`h2c_pre`'s):
 
         h_eff·P = [x²−x−1]P + [x−1]ψ(P) + ψ²([2]P),   x = −|x|
 
-    i.e. ([x²]P + [|x|]P − P) + (−[|x|]ψ(P) − ψ(P)) + ψ²(2P): three
+    i.e. ([x²]P + [|x|]P − P) + (−[|x|]ψ(P) − ψ(P)) + ψ²(2P): ψ(P) and
+    ψ(2P) in one ψ launch over both row sets, ψ²(2P) in a second, three
     [|x|]-multiplies in two K17 launches ([|x|]P and [|x|]ψ(P) over both
-    row sets at once), three ψ launches, one doubling, five additions."""
+    row sets at once), and the five additions with their three negations
+    in one K22 launch (`g2_law("post")`)."""
     m = p.shape[-1]
-    psip = h2c_psi(p)
-    t0, xpsip = (x.contiguous() for x in
-                 zmul(torch.cat([p, psip], dim=-1)).split(m, dim=-1))
-    t1 = zmul(t0)                          # [x²]P
+    psip, psip2 = h2c_psi(torch.cat([p, p2], dim=-1)).split(m, dim=-1)
+    psi2p2 = h2c_psi(psip2.contiguous())
+    t0, xpsip = zmul(torch.cat([p, psip], dim=-1)).split(m, dim=-1)
+    t1 = zmul(t0.contiguous())             # [x²]P
+    return cuda_g2.g2_law("post", torch.cat([t1, t0, p, xpsip, psip,
+                                             psi2p2]))
+
+
+def law_steps(kind: str, block: torch.Tensor) -> torch.Tensor:
+    """The K2 launch sequence (K1 for the negations) that K22's program
+    `kind` replaced, on the same [in planes, 32, R] input block → the
+    same output planes: kept for the smoke run's comparison.  "tables" is
+    `cuda_g2.straus_tables_steps`; "pre" the halves' sum and its double;
+    "post" the clearing's additions as `clear_cofactor_rows` launched
+    them before K22."""
+    pts = list(block.split(6))
+    if kind == "tables":
+        return torch.cat(cuda_g2.straus_tables_steps(pts[0])[1:])
+    if kind == "pre":
+        r = cuda_g2.add(*pts)
+        return torch.cat([r, cuda_g2.dbl(r)])
+    t1, t0, p, xpsip, psip, psi2p2 = pts
     part1 = cuda_g2.add(cuda_g2.add(t1, t0), _pt_neg_t(p))
     part2 = cuda_g2.add(_pt_neg_t(xpsip), _pt_neg_t(psip))
-    part3 = h2c_psi(h2c_psi(cuda_g2.dbl(p)))
-    return cuda_g2.add(cuda_g2.add(part1, part2), part3)
+    return cuda_g2.add(cuda_g2.add(part1, part2), psi2p2)
 
 
 # ---------------------------------------------------------------------------
@@ -646,13 +668,13 @@ def hash_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
                     ) -> torch.Tensor:
     """The device hash-to-G2 over a u-major batch of 2m rows (`pack_
     messages`) → [6, 32, m] cleared projective G2 points, one per
-    message.  The two mapped halves are added by ONE K2 launch on copies
-    of the two row ranges (K2 takes contiguous operands)."""
+    message.  The two mapped halves' sum R and its double 2R are ONE K22
+    launch (`g2_law("pre")`) on the halves' planes side by side."""
     half = u.shape[-1] // 2
     mapped = map_to_g2_rows(u, exc, sgn)
-    r = cuda_g2.add(mapped[..., :half].contiguous(),
-                    mapped[..., half:].contiguous())
-    return clear_cofactor_rows(r)
+    r, r2 = cuda_g2.g2_law("pre", torch.cat([mapped[..., :half],
+                                             mapped[..., half:]])).split(6)
+    return clear_cofactor_rows(r, r2)
 
 
 # ---------------------------------------------------------------------------

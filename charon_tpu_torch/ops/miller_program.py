@@ -67,7 +67,10 @@ straight-line programs (`chain_program`: `sqrt_dag`, `inv_dag`,
 `affine_dag`): each pow is its constant windows, and each Fp2 square or
 product is split into Fp ops (`_F2Split`) so that the lanes of a row
 share it.  K20 (csrc/g1_tables.cu) is one G1 doubling and one addition
-(`g1_tables_dag`).
+(`g1_tables_dag`).  K22 (csrc/g2_law.cu) runs K2's launch sequences as
+straight-line programs on the G2 law (`law_program`): the combine's
+Straus tables, and hash-to-G2's halves' sum with its double and the
+clearing's five additions.
 
 ENCODING (`Program.code`, int32 [steps, LANES, 2]): word 0 is kind |
 out << 8 | a << 16 | b << 24, word 1 LIN's form (k | (s + 1) << 8 |
@@ -703,6 +706,53 @@ def g1_tables_dag() -> tuple[Dag, list[int]]:
     return g, [*p2, *g.g1_add(p2, base)]
 
 
+# K22's programs (csrc/g2_law.cu): K2's launch sequences on the complete
+# G2 law.  Each input block holds whole points, (x, y, z) as Fp2 planes,
+# 6 planes a point; the outputs are points too.
+
+def _g2_in(g: Dag, plane: int):
+    return tuple(g.input(plane + 2 * c) for c in range(3))
+
+
+def _g2_neg(g: Dag, p):
+    """−P = (x, −y, z), y negated by LIN (fp381 neg's columns)."""
+    return p[0], g.f2_neg(p[1]), p[2]
+
+
+def g2_tables_dag() -> tuple[Dag, list[int]]:
+    """The combine's Straus tables (the K2 launches of
+    `cuda_g2.straus_tables_steps`): 2P = dbl(P), 3P = add(2P, P), 4P =
+    dbl(2P) → 18 planes."""
+    g = Dag()
+    p = _g2_in(g, 0)
+    p2 = g.g2_double(p)
+    return g, [*p2, *g.g2_add(p2, p), *g.g2_double(p2)]
+
+
+def h2c_pre_dag() -> tuple[Dag, list[int]]:
+    """Hash-to-G2 before the clearing: R = M₀ + M₁, the two mapped
+    halves' sum, and D = 2R, ψ²(2R)'s doubling → 12 planes."""
+    g = Dag()
+    r = g.g2_add(_g2_in(g, 0), _g2_in(g, 6))
+    return g, [*r, *g.g2_double(r)]
+
+
+def h2c_post_dag() -> tuple[Dag, list[int]]:
+    """The clearing's five additions (`cuda_h2c.law_steps("post")`):
+    ((t1 + t0) + −R) + (−[|x|]ψ(R) + −ψ(R)), plus ψ²(2R); inputs t1 =
+    [x²]R, t0 = [|x|]R, R, [|x|]ψ(R), ψ(R), ψ²(2R) → 6 planes."""
+    g = Dag()
+    t1, t0, r, xpsir, psir, psi2d = (_g2_in(g, 6 * k) for k in range(6))
+    part1 = g.g2_add(g.g2_add(t1, t0), _g2_neg(g, r))
+    part2 = g.g2_add(_g2_neg(g, xpsir), _g2_neg(g, psir))
+    return g, list(g.g2_add(g.g2_add(part1, part2), psi2d))
+
+
+#: kind → (the graph, input planes, output planes)
+LAWS = {"tables": (g2_tables_dag, 6, 18), "pre": (h2c_pre_dag, 12, 12),
+        "post": (h2c_post_dag, 36, 6)}
+
+
 # ---------------------------------------------------------------------------
 # The schedule
 # ---------------------------------------------------------------------------
@@ -946,6 +996,24 @@ def chain_program(kind: str, cfg: tuple | None = None) -> Program:
     return _PROGRAM[key]
 
 
+#: K22's configurations (lanes, slots, look-ahead) per program: 8 lanes
+#: were fastest at every shape of chip_smoke.py's sweep (the combine's
+#: 71,680 table rows, a hash batch's 64 and 2,048; PERF.md), where 16
+#: lanes tie or lose; the slots are those with the fewest issued
+#: instructions a lane (`Program.cost`) at 8 lanes
+LW_CONFIG = {"tables": (8, 34, 40), "pre": (8, 26, 40), "post": (8, 36, 40)}
+
+
+def law_program(kind: str, cfg: tuple | None = None) -> Program:
+    """K22's scheduled `kind` program ("tables", "pre" or "post") under
+    cfg = (lanes, slots, look-ahead) (built once per configuration)."""
+    lanes, slots, window = cfg or LW_CONFIG[kind]
+    key = ("law", kind, lanes, slots, window)
+    if key not in _PROGRAM:
+        _PROGRAM[key] = schedule(*LAWS[kind][0](), lanes, slots, window)
+    return _PROGRAM[key]
+
+
 def g1_tables_program() -> Program:
     """K20's scheduled doubling and addition, on K15's lanes, slots and
     look-ahead (built once)."""
@@ -1135,6 +1203,12 @@ def chain_run_plain(prog: Program, planes) -> torch.Tensor:
     """K18's program on CPU (or any) tensors: `planes` the input block as
     [32, R] tensors → the output planes."""
     return execute(prog, list(planes))
+
+
+def law_run_plain(prog: Program, block: torch.Tensor) -> torch.Tensor:
+    """K22's program on CPU (or any) tensors: `block` the input points'
+    planes [in planes, 32, R] → the output planes."""
+    return execute(prog, list(block))
 
 
 def g1_tables_run_plain(prog: Program, base: torch.Tensor) -> torch.Tensor:

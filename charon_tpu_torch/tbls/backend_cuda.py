@@ -13,21 +13,21 @@ Combine (`threshold_combine_bytes`):
   per-index-set Lagrange digit rows, lay rows out T-MAJOR (row =
   t·Vpad + v) with validators padded to a multiple of `ROW_TILE`.
 - `combine_device_exec` (card): decompress (Fp2 square roots + ψ
-  subgroup check, one launch of kernel K12), the Straus tables (K2) and
-  window loop (one K16 launch), normalisation (one K19 launch), then the
-  host compresses the affine points.
+  subgroup check, one launch of kernel K12), the Straus tables (one K22
+  launch) and window loop (one K16 launch), normalisation (one K19
+  launch), then the host compresses the affine points.
 
 Verify (`batch_verify_bytes`), one RLC batch check per call:
 
     Π_k [ e(−g1, sig_k) · e(pk_k, H(m_k)) ]^{r_k}  ==  1
 
 - `verify_host_prep` (host): split the signatures into limb planes; look
-  up the decompressed-pubkey LRU (a miss decompresses G1 on the card,
-  [r]P subgroup check included, once per distinct key) and the
-  hashed-message LRU (a batch of 8 or more distinct misses hashes to G2
-  on the card — SHA-256 and hash_to_field on the host, then the
-  pipeline of ops/cuda_h2c.py (K8, K18, K9, K17, K2) and normalisation
-  (K19); fewer run the
+  up the decompressed-pubkey LRU (a batch of misses decompresses G1 on
+  the card, [r]P subgroup check included, in one K21 launch, once per
+  distinct key) and the hashed-message LRU (a batch of 8 or more
+  distinct misses hashes to G2 on the card — SHA-256 and hash_to_field
+  on the host, then the pipeline of ops/cuda_h2c.py (K8, K18, K9, K17,
+  K22) and normalisation (K19); fewer run the
   pure-Python `hash_to_g2`, the JAX backend's size rule); draw FRESH
   64-bit coefficients r_k from OS entropy on every call (a predictable
   coefficient would let a forger cancel rows).
@@ -74,7 +74,7 @@ from ..ops import (codec, cuda_codec, cuda_final_exp, cuda_fp, cuda_g2,
                    cuda_h2c, cuda_pairing, fp, launch_count)
 from ..ops import curve as tcurve
 from ..ops import pairing as tpair
-from ..ops.curve import F2_OPS, FP_OPS
+from ..ops.curve import F2_OPS
 
 _G2_INF_BYTES = np.zeros(96, np.uint8)
 _G2_INF_BYTES[0] = 0xC0
@@ -266,7 +266,7 @@ class CUDABackend:
                           launches: dict) -> tuple[np.ndarray, np.ndarray]:
         """[m × 48-byte pk] → (planes [3, 32, m], ok [m]) through the LRU;
         misses are deduplicated and decompressed in one batch on the
-        device (curve, [r]P subgroup and non-∞ checks)."""
+        device (curve, [r]P subgroup and non-∞ checks: one K21 launch)."""
         m = len(pk_bytes_list)
         planes = np.zeros((3, NL, m), np.int32)
         ok = np.zeros(m, bool)
@@ -289,10 +289,9 @@ class CUDABackend:
         x, sign, inf, bad = codec.g1_bytes_split(raw)
         with _own_stream_stage(self._prep_stream, "pk_decompress_s", stages,
                                launches):
-            pts, dec = codec.g1_decompress(
+            pts, dec = cuda_codec.g1_decompress(
                 self._put(np.ascontiguousarray(x.T)), self._put(sign),
                 self._put(inf))
-            dec = dec & ~tcurve.is_inf(FP_OPS, pts)
             pts, dec = pts.cpu().numpy(), dec.cpu().numpy() & ~bad
         with self._cache_lock:
             for j, pk in enumerate(keys):

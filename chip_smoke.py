@@ -47,7 +47,14 @@ Phases, in order; any failure raises and exits non-zero:
              combine's 10,240 rows and a batch's 64 and 2,048, with ∞ rows
              and Z ≠ 1; K20 (the RLC tables in one launch) against its
              plain program bit for bit and the K1 chain by value at a
-             verify tile's 4,096 rows, ∞ and −g1 rows among them.
+             verify tile's 4,096 rows, ∞ and −g1 rows among them.  K22
+             (K2's launch sequences, one launch each: the combine's
+             tables, and a hash batch's halves' sum with its double and
+             the clearing's five additions) against its plain programs
+             and the K2 sequences, bit for bit, at the combine's 71,680
+             rows and the batches' 64 and 2,048, with ∞ and all-LMAX
+             rows; the sweep over lanes; K2's own times at 64 and 2,048
+             rows.
 3. combine — a pool of 1,024 distinct signatures s·H(m) built on the card;
              a real-Shamir check (V = 128: the combined bytes must equal
              sk·H(m)); then 10,000 SigAgg.aggregate() calls in one event-loop
@@ -55,10 +62,11 @@ Phases, in order; any failure raises and exits non-zero:
              combine, 4 random rows checked against the pure-Python oracle;
              malformed and off-curve signatures must raise ValueError; the
              p50 of 3 full combines split into stages, with every kernel's
-             launch count on the combine path (each must be > 0; K3 and
-             K1 must not launch), ONE K12 launch in its decompress stage,
-             ONE K16 launch in its Straus stage and ONE K19 launch in its
-             normalise stage.
+             launch count on the combine path (each must be > 0; K1, K2
+             and K3 must not launch), ONE K12 launch in its decompress
+             stage, ONE K22 launch in its tables stage, ONE K16 launch in
+             its Straus stage and ONE K19 launch in its normalise
+             stage.
    redesign — K11 (the final exponentiation in one launch, a warp per
              row) against its plain version at 1 row and at a verify
              tile's 2,048, and K12 (the G2 decompression in one launch, a
@@ -76,9 +84,13 @@ Phases, in order; any failure raises and exits non-zero:
 4. verify  — 10,000 keys and 64 messages (one per committee); pk = sk·G1
              and sig = sk·H(m) computed on the card, 3 rows checked against
              the oracle.  The G1 decompress of the 10,000 keys alone on the
-             idle card; a cold BatchVerifier.verify_many of the 10,000
-             entries (one peer's parsigex message) fills the pubkey LRU
-             (its decompress overlaps earlier tiles); then 3 timed reps,
+             idle card (ONE K21 launch); a cold BatchVerifier.verify_many
+             of the 10,000 entries (one peer's parsigex message) fills the
+             pubkey LRU (its decompress, one K21 launch a tile and no K1,
+             overlaps earlier tiles); then K21 against its plain version
+             and the K1 chain of codec.g1_decompress at 2,048 and 10,000
+             of those keys with ∞, off-curve and off-subgroup rows mixed
+             in; then 3 timed reps,
              each ONE pipeline launch of 5 tiles (4 × 2,048 + 1,808), all
              verdicts True, stages summed over the tiles, K13, K14, K15
              and K20 launched and no K4/K5 step or K6 window, one K12
@@ -121,12 +133,14 @@ Phases, in order; any failure raises and exits non-zero:
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
 2,048-message batch's shapes) against their plain versions.  Every device
-hash batch (phases 4–6) must launch 2 K18, no K7, 2 K17, no K10 dblsel, 7
-K2, one K19 and K1 only for its glue (2 sub, 8 neg).
+hash batch (phases 4–6) must launch 2 K18, no K7, one iso3 and 2 ψ, 2
+K17, no K10 dblsel, 2 K22 and no K2, one K19 and K1 only for its glue (2
+sub, 2 neg).
 
 A kernel's `launches` in the JSON line is its count over the main-path
 runs: `launches_combine` (one combine rep), `launches_verify` (one
-10,000-entry verify rep, warm caches), `launches_verify_slot_start` (one
+10,000-entry verify rep, warm caches), `launches_verify_cold` (the
+flush that fills the pubkey LRU), `launches_verify_slot_start` (one
 rep of the slot's first flush) and `launches_verify_distinct` (one rep of
 the distinct-message flush), each counted from zero. K10 addsel has no
 caller on any path (nor in the JAX package): only phase 2 launches it, as
@@ -145,8 +159,12 @@ batch's 8,192 rows (`plain_ms` its plain program at the slot-start
 batch's 256; `programs` each program's times at both batches beside the
 K7 sequences', `steps_ms`, and the sweep), K19's at the combine's 10,240
 rows (`steps_ms` the K1 chain; `at_64`, `at_2048`), K20's at 4,096
-(`steps_ms` the K1 chain), and K3's `combine_digits` the mean over the
-combine's own launches. `regs`, `stack` and `spill` are the compiler's
+(`steps_ms` the K1 chain), K21's at a verify tile's 2,048 keys
+(`steps_ms` the K1 chain; `at_10000`), K22's the tables at the combine's
+71,680 rows (`steps_ms` the K2 sequence, `sweep`; `programs` the hash
+batch's two at 64 and 2,048 messages; `k2_at_batches` K2's own times
+there), and K3's `combine_digits` the mean over the combine's own
+launches. `regs`, `stack` and `spill` are the compiler's
 (-Xptxas -v) for each kernel's function. Every bound_ms is at the card's
 full rate; K11 also gives `bound_one_warp_ms`, the bound at the rate of
 the SMs its rows can occupy under its one-warp-per-row design (one SM at 1
@@ -753,7 +771,7 @@ def straus_msm_phase(dev, rows: int, vrows: int,
     87·(T − 1) tails it replaced), bit for bit, at the combine's shape —
     `vrows` accumulator rows, T = SHARES, all 87 windows — on the
     combine's own digits (one index set for every validator, the padding
-    rows zero) and on random digits; the tables built by K2 from random
+    rows zero) and on random digits; the tables built by K22 from random
     limbs with ∞ rows, as the combine builds them.  Against the plain loop
     (`straus_msm_plain`, one run: it takes ~43 s on the card) on the
     combine's digits.  Timed beside the K3 sequence and the bound of these
@@ -1201,6 +1219,185 @@ def tables_phase(dev, rows: int, sm_clocks_per_s: float) -> dict:
     return res
 
 
+def g1_decompress_ops(n: int, n_live: int) -> np.ndarray:
+    """[IMAD, ALU] of one K21 launch (csrc/g1_decompress.cu) over n rows,
+    n_live of them a key on the curve and not ∞: every row computes x³ +
+    4, the root's pow (LSB first), its check, the canonical root and its
+    negation (counted on every row: at most one Fp negation a row too
+    many); a live row then [r]P by 4-bit windows — the table (1
+    doubling, 13 additions), 4 doublings a window, an addition a non-zero
+    digit — and the test Z ≡ 0."""
+    from charon_tpu_torch.ops import cuda_codec
+
+    fmul = OPS["fp_mul"]
+    every = (2 * fmul + OPS["fp_add"]
+             + _pow_ops(cuda_codec.EXP_P14, fmul, fmul) + fmul
+             + OPS["fp_sub"] + _ISZERO + _CANON + OPS["fp_neg"])
+    digits = cuda_codec.R_DIGITS
+    live = ((1 + 4 * (len(digits) - 1)) * OPS["g1_dbl"]
+            + (13 + sum(1 for d in digits[1:] if d)) * OPS["g1_add"]
+            + _ISZERO)
+    return n * every + n_live * live
+
+
+def g1_decompress_rows(pks: list[bytes]) -> tuple[list[bytes], list[str]]:
+    """The keys with a bad row every 97th: ∞, an x off the curve, a point
+    on E(Fp) outside G1 and its negation, in turn (the CPU test's
+    kinds)."""
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.tbls.ref.fields import FQ, R
+
+    x = 1
+    while (FQ(x) ** 3 + 4).sqrt() is not None:
+        x += 1
+    off_curve = bytes([0x80]) + x.to_bytes(48, "big")[1:]
+    x = 1
+    while True:
+        y = (FQ(x) ** 3 + 4).sqrt()
+        if y is not None and rc.multiply_raw((FQ(x), y), R) is not None:
+            break
+        x += 1
+    special = [("inf", rc.g1_to_bytes(None)), ("off_curve", off_curve),
+               ("off_subgroup", rc.g1_to_bytes((FQ(x), y))),
+               ("off_subgroup_neg", rc.g1_to_bytes(rc.neg((FQ(x), y))))]
+    rows, kinds = list(pks), ["valid"] * len(pks)
+    for j, r in enumerate(range(3, len(rows), 97)):
+        kinds[r], rows[r] = special[j % len(special)]
+    return rows, kinds
+
+
+def g1_decompress_phase(dev, pks: list[bytes], sm_clocks_per_s: float,
+                        sizes=(2048, VALIDATORS)) -> dict:
+    """K21 against its plain version bit for bit, and against the K1 chain
+    it replaced (`codec.g1_decompress` and the backend's ∞ mask) — points
+    bit for bit, the same verdicts — at a verify tile's 2,048 keys and at
+    the flush's 10,000: the verify pool's keys (both signs of y) with ∞,
+    off-curve and off-subgroup rows mixed in, each verdict as its row's
+    kind wants; timed beside the K1 chain, its plain version and the
+    bound of this data's work."""
+    from charon_tpu_torch.ops import codec, cuda_codec, fp
+
+    rows, kinds = g1_decompress_rows(pks)
+    res = {}
+    for n in sizes:
+        x, sign, inf, bad = codec.g1_bytes_split(
+            np.stack([np.frombuffer(b, np.uint8) for b in rows[:n]]))
+        if bad.any():
+            raise AssertionError("K21 phase: a malformed key row")
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (x.T, sign, inf))
+        valid = np.array([k == "valid" for k in kinds[:n]])
+        part = {}
+        record(part, "g1_decompress", cuda_codec.g1_decompress,
+               cuda_codec.g1_decompress_plain,
+               g1_decompress_ops(n, int(valid.sum())),
+               n * (4 * EL_BYTES + 3), [lambda: args], sm_clocks_per_s,
+               plain_reps=1)
+        pts, ok = cuda_codec.g1_decompress(*args)
+        cpts, cok = codec.g1_decompress(*args)
+        cok = cok & ~fp.is_zero(cpts[2])
+        if not torch.equal(pts, cpts) or not torch.equal(ok, cok):
+            raise AssertionError(f"K21 at {n} rows differs from the K1 chain "
+                                 f"of codec.g1_decompress")
+        if not np.array_equal(ok.cpu().numpy(), valid):
+            wrong = sorted({kinds[r] for r in np.flatnonzero(
+                ok.cpu().numpy() != valid)})
+            raise AssertionError(f"K21 at {n} rows: wrong verdicts on {wrong}")
+        part["g1_decompress"]["steps_ms"] = time_ms(
+            lambda: codec.g1_decompress(*args), 3)
+        res[n] = part["g1_decompress"]
+    log("K21 g1_decompress: " + "; ".join(
+        f"at {n:,} keys {r['ms']:.4f} ms against {r['steps_ms']:.4f} ms for "
+        f"the K1 chain (bound {r['bound_ms']:.4f} ms by {r['bound_by']}; "
+        f"plain {r['plain_ms']:.1f} ms)" for n, r in res.items()))
+    return {**res[sizes[0]], "rows": sizes[0],
+            **{f"at_{n}": res[n] for n in sizes[1:]}}
+
+
+#: K22's programs' [IMAD, ALU] a row, from the law's OPS counts: the
+#: tables 2 doublings and an addition; the halves' sum and its double; the
+#: clearing's 5 additions and 3 point negations (an Fp2 negation each)
+LAW_OPS = {"tables": 2 * OPS["g2_dbl"] + OPS["g2_add"],
+           "pre": OPS["g2_dbl"] + OPS["g2_add"],
+           "post": 5 * OPS["g2_add"] + 6 * OPS["fp_neg"]}
+#: K22's sweep: (lanes, slots, look-ahead) per program
+LAW_SWEEP = {"tables": ((4, 30, 40), (8, 34, 40), (16, 34, 40)),
+             "pre": ((4, 24, 40), (8, 22, 40), (8, 26, 40), (16, 24, 40)),
+             "post": ((4, 30, 40), (8, 34, 40), (8, 36, 40), (16, 40, 40))}
+
+
+def g2_law_phase(dev, sm_clocks_per_s: float, combine_rows: int,
+                 batches=(MESSAGES, 2048)) -> dict:
+    """K22's three programs against their plain programs and against the
+    K2 launch sequences they replaced (`cuda_h2c.law_steps`), bit for bit:
+    the tables at the combine's `combine_rows` point rows, the hash
+    batch's two at the slot-start batch's and a verify tile's message
+    counts; random limbs with ∞ rows and all-LMAX limbs; timed beside the
+    K2 sequences, the plain programs and the bound; the sweep over lanes;
+    K2's own times at the hash batches' rows."""
+    from charon_tpu_torch.ops import cuda_g2, cuda_h2c
+    from charon_tpu_torch.ops import miller_program as mp
+
+    gen = np.random.default_rng(20261027)
+    shapes = {"tables": (combine_rows,), "pre": batches, "post": batches}
+    res = {}
+    for kind, sizes in shapes.items():
+        _, nin, nout = mp.LAWS[kind]
+        for n in sizes:
+            def pat(pattern, n=n, nin=nin):
+                blk = limbs(dev, gen, (nin, NL, n), pattern)
+                if pattern == "random":
+                    for k in range(nin // 6):
+                        blk[6 * k:6 * k + 6, :, 3 + k::61] = \
+                            cuda_g2.inf_planes(len(range(3 + k, n, 61)), dev)
+                return (blk,)
+
+            part = {}
+            record(part, "g2_law", lambda b, kind=kind: cuda_g2.g2_law(kind, b),
+                   lambda b, kind=kind: mp.law_run_plain(
+                       mp.law_program(kind), b),
+                   LAW_OPS[kind] * n, n * (nin + nout) * EL_BYTES,
+                   [lambda: pat("random"), lambda: pat("lmax")],
+                   sm_clocks_per_s, plain_reps=1)
+            r = part["g2_law"]
+            blk, = pat("random")
+            if not torch.equal(cuda_g2.g2_law(kind, blk),
+                               cuda_h2c.law_steps(kind, blk)):
+                raise AssertionError(f"K22 {kind} at {n} rows differs from "
+                                     f"the K2 launch sequence")
+            r["steps_ms"] = time_ms(lambda: cuda_h2c.law_steps(kind, blk))
+            r["config"] = mp.LW_CONFIG[kind]
+            r["sweep"] = {}
+            want = cuda_g2.g2_law(kind, blk)
+            for cfg in LAW_SWEEP[kind]:
+                if not torch.equal(cuda_g2.g2_law(kind, blk, cfg), want):
+                    raise AssertionError(f"K22 {kind} with {cfg} differs "
+                                         f"from the default")
+                prog = mp.law_program(kind, cfg)
+                r["sweep"][str(cfg)] = {
+                    "ms": time_ms(lambda cfg=cfg: cuda_g2.g2_law(kind, blk,
+                                                                 cfg)),
+                    "steps": prog.steps, "cost": prog.cost()}
+            res[f"{kind}@{n}"] = r
+            log(f"K22 g2_law {kind} at {n:,} rows ({r['config']}): "
+                f"{r['ms']:.4f} ms against {r['steps_ms']:.4f} ms for the K2 "
+                f"sequence (bound {r['bound_ms']:.4f} ms; plain "
+                f"{r['plain_ms']:.1f} ms); sweep {json.dumps(r['sweep'])}")
+    k2 = {}
+    for n in batches:
+        p = limbs(dev, gen, (6, NL, n), "random")
+        q = limbs(dev, gen, (6, NL, n), "random")
+        k2[n] = {"dbl_ms": time_ms(lambda: cuda_g2.dbl(p)),
+                 "add_ms": time_ms(lambda: cuda_g2.add(p, q))}
+    log(f"K2 at the hash batches' rows: {json.dumps(k2)}")
+    top = res[f"tables@{combine_rows}"]
+    return {**top, "rows": combine_rows,
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "programs": {k: r for k, r in res.items()
+                         if not k.startswith("tables@")},
+            "k2_at_batches": k2}
+
+
 def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
     """K7–K9 and K10 (dblsel, addsel) against their plain versions at the
     shapes of one `msgs`-message hash batch: the sqrt chain's 4·msgs rows
@@ -1578,13 +1775,14 @@ def parsigs_for(sig_sets: list[dict[int, bytes]], epoch: int) -> dict:
 
 
 #: cuda_g2's kernels that no combine launches: K3 (K16 replaced its 609
-#: launches) and K10 (hash-to-G2's; K17 replaced dblsel there)
+#: launches), K10 (hash-to-G2's; K17 replaced dblsel there) and K2 (K22
+#: replaced its 3 table launches)
 COMBINE_PHASE_ONLY = ("straus_head", "straus_tail", "g2_dblsel",
-                      "g2_addsel")
-#: the combine's kernels: K12 decompresses, K2 builds the Straus tables,
+                      "g2_addsel", "g2_dbl", "g2_add")
+#: the combine's kernels: K12 decompresses, K22 builds the Straus tables,
 #: K16 runs the window loop and K19 normalises; no K1 (K19 replaced the
 #: normalisation's 397 launches)
-COMBINE_PATH_KERNELS = ("g2_decompress", "g2_dbl", "g2_add", "straus_msm",
+COMBINE_PATH_KERNELS = ("g2_decompress", "g2_law", "straus_msm",
                         "g2_normalize")
 
 
@@ -1675,8 +1873,9 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
             replaced = {k: cuda_g2.LAUNCHES[k] for k in COMBINE_PHASE_ONLY
                         if cuda_g2.LAUNCHES[k]}
             if replaced:
-                raise AssertionError(f"combine: kernels K16 and K17 replaced "
-                                     f"launched on the path: {replaced}")
+                raise AssertionError(f"combine: kernels K16, K17 and K22 "
+                                     f"replaced launched on the path: "
+                                     f"{replaced}")
             stage_launches = backend.last_launches
         if launches != 1 or len(got) != v:
             raise AssertionError(f"rep {rep}: {launches} combines for "
@@ -1710,6 +1909,8 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
          for st, c in stage_launches.items()}))
     check_stage_launches("combine", stage_launches, "decompress_s",
                          {"g2_decompress": 1})
+    check_stage_launches("combine", stage_launches, "tables_s",
+                         {"g2_law": 1})
     check_stage_launches("combine", stage_launches, "straus_s",
                          {"straus_msm": 1})
     check_stage_launches("combine", stage_launches, "normalize_s",
@@ -1866,29 +2067,32 @@ PHASE_ONLY_KERNELS = ("pp_dbl", "pp_add", "pp_sqr", "pp_mul014",
 #: K7's four chain kernels, which K18 replaced on the path
 K7_KERNELS = ("h2c_sqr", "h2c_mul", "h2c_sqr4", "h2c_sqr4mul")
 #: K1 launches a device hash batch keeps for its exactness glue: the
-#: root's tests α = −1 and root² = v (two differences), the sign fix's
-#: negation of y (two coefficients) and the clearing's three point
-#: negations (two Y coefficients each)
-H2C_K1_GLUE = {"fp_sub": 2, "fp_neg": 8}
+#: root's tests α = −1 and root² = v (two differences) and the sign fix's
+#: negation of y (two coefficients); K22 took the clearing's three point
+#: negations (6 fp_neg) into its program
+H2C_K1_GLUE = {"fp_sub": 2, "fp_neg": 2}
 
 
 def check_h2c_launches(label: str, h2c: dict, batches: int) -> None:
     """`batches` device hash batches in one h2c_s stage: per batch one K8
     launch, 2 K18 (the root, then the inversion and affine step), no K7,
-    2 K17 launches ([|x|]P with [|x|]ψ(P), then [x²]P), no K10 window, 7
-    K2 (the halves' sum, the clearing's doubling and its five additions),
-    one K19 (the normalisation) and K1 only for `H2C_K1_GLUE`."""
-    got = {k: h2c.get(k, 0) for k in ("h2c_sswu", "f2_chain", "g2_zmul",
-                                      "g2_dblsel", "g2_normalize",
+    one K9 iso3 and 2 ψ (ψ(R) with ψ(2R), then ψ²(2R)), 2 K17 launches
+    ([|x|]R with [|x|]ψ(R), then [x²]R), no K10 window, 2 K22 (the
+    halves' sum with its double, then the clearing's five additions) and
+    no K2, one K19 (the normalisation) and K1 only for `H2C_K1_GLUE`."""
+    got = {k: h2c.get(k, 0) for k in ("h2c_sswu", "f2_chain", "h2c_iso3",
+                                      "h2c_psi", "g2_zmul", "g2_dblsel",
+                                      "g2_law", "g2_normalize",
                                       *H2C_K1_GLUE)}
     got["K7"] = sum(h2c.get(k, 0) for k in K7_KERNELS)
     got["g2_dbl+g2_add"] = h2c.get("g2_dbl", 0) + h2c.get("g2_add", 0)
     got["fp_mul+fp_add+fp_mul_small"] = sum(
         h2c.get(k, 0) for k in ("fp_mul", "fp_add", "fp_mul_small"))
     want = {"h2c_sswu": batches, "f2_chain": 2 * batches,
-            "g2_zmul": 2 * batches, "g2_dblsel": 0,
+            "h2c_iso3": batches, "h2c_psi": 2 * batches,
+            "g2_zmul": 2 * batches, "g2_dblsel": 0, "g2_law": 2 * batches,
             "g2_normalize": batches, "K7": 0,
-            "g2_dbl+g2_add": 7 * batches, "fp_mul+fp_add+fp_mul_small": 0,
+            "g2_dbl+g2_add": 0, "fp_mul+fp_add+fp_mul_small": 0,
             **{k: n * batches for k, n in H2C_K1_GLUE.items()}}
     if got != want:
         raise AssertionError(f"{label}: h2c_s launched {got}, want {want}")
@@ -1935,8 +2139,8 @@ def bad_entries(entries, pool_rows):
 
 
 def verify_phase(dev):
-    """→ (launch counts of one warm rep, the pool's pubkeys, sks and key
-    bits on the card)."""
+    """→ (launch counts of one warm rep, of the cold run, the pool's
+    pubkeys, sks and key bits on the card)."""
     from charon_tpu_torch.ops import cuda_fp
     from charon_tpu_torch.tbls import api, dispatch
 
@@ -1952,6 +2156,8 @@ def verify_phase(dev):
     if not ok.all():
         raise AssertionError(f"{int((~ok).sum())} valid keys failed to "
                              f"decompress")
+    check_stage_launches("pk decompress alone", stage_launches,
+                         "pk_decompress_s", {"g1_decompress": 1})
     log(f"pk decompress alone: {VALIDATORS:,} keys, "
         f"{stages['pk_decompress_s']:.4f} s (CUDA events); launches "
         + json.dumps({k: n for k, n in
@@ -1968,8 +2174,11 @@ def verify_phase(dev):
     if not all(oks) or len(oks) != VALIDATORS:
         raise AssertionError(f"cold run: {oks.count(False)} of {len(oks)} "
                              f"valid entries rejected")
-    check_stage_sums("cold run", all_launches(),
-                     backend.verify_launch_totals)
+    cold_launches = all_launches()
+    check_stage_sums("cold run", cold_launches, backend.verify_launch_totals)
+    # every tile brings new keys: one K21 launch each, no K1 chain
+    check_stage_launches("cold run", backend.verify_launch_totals,
+                         "pk_decompress_s", {"g1_decompress": tiles})
     log(f"verify cold: {VALIDATORS:,} entries, {tiles} tiles, {wall:.3f} s "
         f"wall; pk_decompress_s "
         f"{backend.verify_totals['pk_decompress_s']:.4f} summed over tiles, "
@@ -2061,7 +2270,8 @@ def verify_phase(dev):
         f"{backend.verify_totals['recheck_s']:.4f}; launches per stage "
         + json.dumps({st: {k: n for k, n in c.items() if n}
                       for st, c in backend.verify_launch_totals.items()}))
-    return launch_counts, [pk for pk, _, _ in entries], sks, bits
+    return (launch_counts, cold_launches, [pk for pk, _, _ in entries], sks,
+            bits)
 
 
 def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
@@ -2131,7 +2341,7 @@ def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel wrapper the h2c pipeline and its normalisation reach
-    (K1, K2, K7–K9, K17–K19) replaced by its plain version, on any
+    (K1, K2, K7–K9, K17–K19, K22) replaced by its plain version, on any
     device."""
     from charon_tpu_torch.ops import cuda_codec, cuda_fp, cuda_g2, fp
     from charon_tpu_torch.ops import cuda_h2c as ch
@@ -2141,6 +2351,9 @@ def plain_kernels():
         cfg = cfg or ch.chain_config(kind, inp.shape[-1], inp.device)
         return mp.chain_run_plain(mp.chain_program(kind, cfg), list(inp))
 
+    def law_plain(kind, block, cfg=None):
+        return mp.law_run_plain(mp.law_program(kind), block)
+
     swaps = [(ch, {"h2c_sqr": ch.sqr_plain, "h2c_mul": ch.mul_plain,
                    "h2c_sqr4": ch.sqr4_plain, "h2c_sqr4mul": ch.sqr4mul_plain,
                    "h2c_sswu": ch.sswu_plain, "h2c_iso3": ch.iso3_plain,
@@ -2148,7 +2361,8 @@ def plain_kernels():
              (ch, {"zmul": ch.zmul_plain}),
              (cuda_codec, {"g2_normalize": cuda_codec.g2_normalize_plain}),
              (cuda_g2, {"dbl": cuda_g2.dbl_plain, "add": cuda_g2.add_plain,
-                        "dblsel": cuda_g2.dblsel_plain}),
+                        "dblsel": cuda_g2.dblsel_plain,
+                        "g2_law": law_plain}),
              (cuda_fp, {"mul": fp.mul_plain, "add": fp.add_plain,
                         "sub": fp.sub_plain, "neg": fp.neg_plain,
                         "mul_small": fp.mul_small_plain})]
@@ -2272,7 +2486,7 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 H2C_PATH_KERNELS = ("h2c_sswu", "f2_chain", "h2c_iso3", "h2c_psi",
-                    "g2_zmul", "g2_normalize")
+                    "g2_zmul", "g2_law", "g2_normalize")
 
 
 def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
@@ -2472,6 +2686,15 @@ SOURCES = {
                      "charon_tpu/ops/codec.py:319"),
     "g1_tables": ("charon_tpu_torch/csrc/g1_tables.cu",
                   "charon_tpu/tbls/backend_tpu.py:543"),
+    # K21 replaces the K1 chain of codec.g1_decompress (:266, its subgroup
+    # check :254), K22 the K2 launch sequences (pallas_g2 :350 / :354) of
+    # the combine's tables (straus_combine :811-813) and of hash-to-G2's
+    # group law (pallas_h2c hash_to_g2_rows :614, clear_cofactor_rows
+    # :550)
+    "g1_decompress": ("charon_tpu_torch/csrc/g1_decompress.cu",
+                      "charon_tpu/ops/codec.py:266"),
+    "g2_law": ("charon_tpu_torch/csrc/g2_law.cu",
+               "charon_tpu/ops/pallas_g2.py:811"),
 }
 
 #: each kernel's compiled function in the ptxas report (its registers,
@@ -2511,6 +2734,8 @@ PTXAS_NAMES = {
     "f2_chain": "f2_chain.cu f2_chain_program_kernel",
     "g2_normalize": "normalize.cu g2_normalize_kernel",
     "g1_tables": "g1_tables.cu g1_tables_kernel",
+    "g1_decompress": "g1_decompress.cu g1_decompress_kernel",
+    "g2_law": "g2_law.cu g2_law_kernel<6>",
 }
 
 
@@ -2579,6 +2804,10 @@ def main() -> int:
     kern["g1_tables"] = tables_phase(
         dev, 2 * api.verify_padded_rows(dispatch.VERIFY_TILE),
         sm_clocks_per_s)
+    # K22 at the combine's table rows and the hash batches' messages
+    mark("g2_law")
+    kern["g2_law"] = g2_law_phase(dev, sm_clocks_per_s, vrows * SHARES,
+                                  (MESSAGES, dispatch.VERIFY_TILE))
     mark("combine")
     combine_launches, _, pool = combine_phase(dev)
     mark("redesign")
@@ -2598,7 +2827,11 @@ def main() -> int:
     mark("miller")
     kern["miller_loop"] = miller_phase(dev, pool, 2 * tile, sm_clocks_per_s)
     mark("verify")
-    verify_launches, pks, sks, bits = verify_phase(dev)
+    verify_launches, cold_launches, pks, sks, bits = verify_phase(dev)
+    # K21 at a verify tile's keys and the flush's, on the pool's keys
+    mark("g1_decompress")
+    kern["g1_decompress"] = g1_decompress_phase(
+        dev, pks, sm_clocks_per_s, (dispatch.VERIFY_TILE, VALIDATORS))
     mark("slot-start")
     slot_launches = verify_slot_start_phase(dev, pks, sks, bits)
     mark("h2c")
@@ -2619,9 +2852,11 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": (combine_launches.get(name, 0) + verify_launches[name]
-                      + slot_launches[name] + distinct_launches[name]),
+                      + cold_launches[name] + slot_launches[name]
+                      + distinct_launches[name]),
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
+         "launches_verify_cold": cold_launches[name],
          "launches_verify_slot_start": slot_launches[name],
          "launches_verify_distinct": distinct_launches[name],
          **kern[name],

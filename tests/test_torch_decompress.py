@@ -124,7 +124,8 @@ def test_wrapper_takes_the_plain_path_on_the_cpu(split, plain):
     pts, ok = ccodec.g2_decompress(*args, *flags)
     np.testing.assert_array_equal(pts.numpy(), plain[0].numpy())
     np.testing.assert_array_equal(ok.numpy(), plain[1].numpy())
-    assert ccodec.LAUNCHES == {"g2_decompress": 0, "g2_normalize": 0}
+    assert ccodec.LAUNCHES == {"g2_decompress": 0, "g2_normalize": 0,
+                               "g1_decompress": 0}
     with pytest.raises(ValueError):
         ccodec.g2_decompress(*args, flags[0].to(torch.int32), flags[1])
     with pytest.raises(ValueError):

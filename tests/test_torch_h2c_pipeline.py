@@ -1,10 +1,10 @@
 """The port's whole device hash-to-G2 pipeline (cuda_h2c.hash_to_g2_rows:
 SSWU, the two square-root chains, the inversion chain, sign fix, isogeny,
-the two-point addition and the ψ cofactor clearing) on the CPU, with the
-kernels' plain versions, against the JAX package's pallas_h2c.
-hash_to_g2_rows in DIRECT mode, bit for bit, at pad = 128 messages (256 u
-rows), and after normalisation against the JAX package's pure-Python
-`hash_to_g2`.
+the two-point addition and the ψ cofactor clearing, their group law in
+two K22 programs) on the CPU, with the kernels' plain versions, against
+the JAX package's pallas_h2c.hash_to_g2_rows in DIRECT mode, bit for bit,
+at pad = 128 messages (256 u rows), and after normalisation against the
+JAX package's pure-Python `hash_to_g2`.
 
 One batch holds the five RFC 9380 J.10.1 messages under the QUUX DST,
 eleven random messages under the eth2 DST, and 112 padding messages whose
@@ -70,10 +70,25 @@ def outputs():
     finally:
         pallas_g2.DIRECT = False
     pu, pexc, psgn = convert.h2c_inputs_from_jax(u_rows, exc, sgn)
-    got = cuda_h2c.hash_to_g2_rows(torch.from_numpy(pu),
-                                   torch.from_numpy(pexc),
-                                   torch.from_numpy(psgn))
-    return got, want
+    calls, saved = [], {k: getattr(cuda_g2, k) for k in ("g2_law", "dbl",
+                                                         "add")}
+
+    def spy(name):
+        def wrapper(*args, **kw):
+            calls.append(f"{name} {args[0]}" if name == "g2_law" else name)
+            return saved[name](*args, **kw)
+        return wrapper
+
+    try:
+        for k in saved:
+            setattr(cuda_g2, k, spy(k))
+        got = cuda_h2c.hash_to_g2_rows(torch.from_numpy(pu),
+                                       torch.from_numpy(pexc),
+                                       torch.from_numpy(psgn))
+    finally:
+        for k, fn in saved.items():
+            setattr(cuda_g2, k, fn)
+    return got, want, calls
 
 
 def test_pipeline_bit_identical_to_jax(outputs):
@@ -84,7 +99,7 @@ def test_pipeline_bit_identical_to_jax(outputs):
     limbs.  The normalised output, canonical, is held bit for bit in
     `test_normalised_points_equal_the_oracle` and in
     test_torch_h2c_chains.py."""
-    got, want = outputs
+    got, want, _ = outputs
     assert tuple(got.shape) == (6, 32, PAD)
     want = torch.from_numpy(convert.points_from_jax(want))
     for c in range(6):
@@ -92,7 +107,7 @@ def test_pipeline_bit_identical_to_jax(outputs):
 
 
 def test_normalised_points_equal_the_oracle(outputs):
-    got, _ = outputs
+    got, _, _ = outputs
     planes = backend_cuda._affine_planes(cuda_g2.as_points(got)).numpy()
     for k, (msg, dst) in enumerate(MSGS):
         want = tcurve.g2_pack([_to_port(hash_to_g2(msg, dst))])[..., 0]
@@ -102,13 +117,20 @@ def test_normalised_points_equal_the_oracle(outputs):
 
 def test_u0_padding_rows_equal_the_oracle(outputs):
     """u₀ = u₁ = 0: h_eff·(map(0) + map(0)), the exceptional SSWU branch."""
-    got, _ = outputs
+    got, _, _ = outputs
     planes = backend_cuda._affine_planes(cuda_g2.as_points(got)).numpy()
     q = jsswu.map_to_g2(JFQ2.zero())
     want = tcurve.g2_pack([_to_port(jsswu.clear_cofactor_h_eff(
         jrc.add(q, q)))])[..., 0]
     for k in range(len(MSGS), PAD):
         np.testing.assert_array_equal(planes[..., k], want)
+
+
+def test_group_law_runs_two_k22_programs_and_no_k2(outputs):
+    """The halves' sum with its double, and the clearing's additions, are
+    one K22 program each (`cuda_g2.g2_law`); K2 runs nowhere."""
+    _, _, calls = outputs
+    assert calls == ["g2_law pre", "g2_law post"]
 
 
 def _to_port(pt):

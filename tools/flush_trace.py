@@ -1,14 +1,18 @@
-"""Trace one 10,000-distinct-message verify flush of one checkout of the
-repository on the card with torch.profiler, to see how the prep thread's
-hash-to-G2 kernels and the launch thread's verify kernels share the card.
+"""Trace one 10,000-entry verify flush of one checkout of the repository
+on the card with torch.profiler, to see how the prep thread's kernels
+(hash-to-G2, the pubkey decompression) and the launch thread's verify
+kernels share the card.
 
-    python3 tools/flush_trace.py ROOT [OUT_JSON]
+    python3 tools/flush_trace.py ROOT [OUT_JSON] [--cold]
 
 ROOT is a checkout (this one, or an unpacked `git archive` of another
 commit), imported and built as `tools/verify_ab.py` does.  The run builds
 the verify pool and the distinct flush of `chip_smoke.verify_distinct_phase`,
 runs that flush once untraced, then once under torch.profiler (CUDA
-activity only), with the message LRU cleared before each.  From the
+activity only), with the message LRU cleared before each.  With --cold
+it traces the pool's own flush (64 messages, hashed once) with the pubkey
+LRU emptied before each run instead: the first flush after a node starts,
+each tile's key misses decompressed on the prep thread.  From the
 profiler's chrome trace it reports, per kernel function: its launches,
 its summed and median device time and the streams it ran on; the device's
 busy and idle share over the traced flush (the union of kernel intervals
@@ -43,7 +47,8 @@ KERNELS = {
     "g1_scalar_mul_kernel": "K15", "g1_dblsel_kernel": "K15",
     "straus_msm_kernel": "K16", "g2_zmul_kernel": "K17",
     "f2_chain_program_kernel": "K18", "g2_normalize_kernel": "K19",
-    "g1_tables_kernel": "K20",
+    "g1_tables_kernel": "K20", "g1_decompress_kernel": "K21",
+    "g2_law_kernel": "K22",
 }
 #: the verify stages' kernels, run by the launch thread
 VERIFY = ("K11", "K12", "K13", "K14", "K15", "K20")
@@ -129,8 +134,10 @@ def analyse(trace: dict) -> dict:
 
 
 def main() -> int:
-    root = Path(sys.argv[1]).resolve()
-    dest = Path(sys.argv[2]) if len(sys.argv) > 2 else None
+    args = [a for a in sys.argv[1:] if a != "--cold"]
+    cold = "--cold" in sys.argv[1:]
+    root = Path(args[0]).resolve()
+    dest = Path(args[1]) if len(args) > 1 else None
     sys.path.insert(0, str(root))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -146,18 +153,21 @@ def main() -> int:
     build.library()
     backend = api._backend()
     entries, _, bits = cs.verify_pool(dev, backend)
-    msgs = cs.distinct_messages(len(entries))
-    hms = backend._hash_points(msgs, {}, {})
-    sigs = cs.sign_on_card(dev, bits, hms)
-    distinct = [(entries[k][0], msgs[k], sigs[k])
-                for k in range(len(entries))]
+    if cold:
+        batch = entries
+    else:
+        msgs = cs.distinct_messages(len(entries))
+        hms = backend._hash_points(msgs, {}, {})
+        sigs = cs.sign_on_card(dev, bits, hms)
+        batch = [(entries[k][0], msgs[k], sigs[k])
+                 for k in range(len(entries))]
 
     def flush():
-        backend._hm_cache.clear()
+        (backend._pk_cache if cold else backend._hm_cache).clear()
         backend.reset_verify_totals()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        oks, _, _ = asyncio.run(cs.verify_round(distinct))
+        oks, _, _ = asyncio.run(cs.verify_round(batch))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         if not all(oks):
@@ -174,8 +184,8 @@ def main() -> int:
     pipe = dispatch.current_pipeline()
     if pipe is not None:
         pipe.shutdown()
-    res = {"root": str(root), "untraced": untraced, "traced": traced,
-           **analyse(trace)}
+    res = {"root": str(root), "flush": "cold" if cold else "distinct",
+           "untraced": untraced, "traced": traced, **analyse(trace)}
     print(cs.smi("name,power.limit"), flush=True)
     print(json.dumps(res), flush=True)
     if dest is not None:

@@ -6,13 +6,16 @@ for comparing two commits in one call on one card.
 ROOT is a checkout (this one, or an unpacked `git archive` of another
 commit); its `chip_smoke.py` and `charon_tpu_torch` are imported and its
 kernels built into ROOT/build/.  The run builds the 10,000-entry verify
-pool of `chip_smoke.verify_pool` (64 messages), fills the pubkey LRU with
-one cold flush, then times REPS (default 5) warm flushes; then the
-10,000-distinct-message flush of `chip_smoke.verify_distinct_phase`
-(the message LRU cleared before each of REPS reps).  Every verdict must
-be True.  Prints the card's name and power limit, then one JSON line:
-the commit's root, and per flush kind every rep's wall seconds and
-summed stage seconds.  Run parent, change, change, parent in one call:
+pool of `chip_smoke.verify_pool` (64 messages), times the G1 decompress
+of its 10,000 keys alone on the idle card (a fresh backend's pubkey LRU,
+REPS times: `pk_alone`), then REPS cold flushes (the pubkey LRU emptied
+before each: the first flush after a node starts) and REPS (default 5)
+warm flushes; then the 10,000-distinct-message flush of
+`chip_smoke.verify_distinct_phase` (the message LRU cleared before each
+of REPS reps).  Every verdict must be True.  Prints the card's name and
+power limit, then one JSON line: the commit's root, and per flush kind
+every rep's wall seconds and summed stage seconds.  Run parent, change,
+change, parent in one call:
 
     for r in build/parent . . build/parent; do
         python3 tools/verify_ab.py $r; done
@@ -44,7 +47,8 @@ def main() -> int:
     build.library()
     backend = api._backend()
     entries, _, bits = cs.verify_pool(dev, backend)
-    out = {"root": str(root), "warm": [], "distinct": []}
+    out = {"root": str(root), "pk_alone": [], "cold": [], "warm": [],
+           "distinct": []}
 
     def flush(batch, kind):
         backend.reset_verify_totals()
@@ -55,8 +59,14 @@ def main() -> int:
             raise AssertionError(f"{kind}: {oks.count(False)} rejected")
         out[kind].append({"wall_s": wall, **backend.verify_totals})
 
-    flush(entries, "warm")            # cold: fills the pubkey LRU
-    out["warm"].clear()
+    keys = [pk for pk, _, _ in entries]
+    for _ in range(reps):
+        stages = {}
+        type(backend)()._pk_planes_cached(keys, stages, {})
+        out["pk_alone"].append(stages["pk_decompress_s"])
+    for _ in range(reps):
+        backend._pk_cache.clear()
+        flush(entries, "cold")
     for _ in range(reps):
         flush(entries, "warm")
     msgs = cs.distinct_messages(len(entries))
