@@ -13,9 +13,11 @@
 // ops/miller_program.py builds and schedules (`chain_program`) —
 //   sqrt    Alg. 9 on v: a1 = v^((p−3)/4), α = a1²·v, x0 = a1·v, root_u =
 //           u·x0, root_b = (α + 1)^((p−1)/2)·x0 → α, both roots and
-//           their squares; the exact tests α = −1 and root² = v and the
-//           select stay on the host side of the wrapper (cuda_h2c
-//           `f2_sqrt_rows`);
+//           their squares; then the kernel's epilogue, the exact tests
+//           α = −1 and root² = v (fp381's sub and is_zero, the two
+//           coefficients on two lanes) and the select → the root and an
+//           ok byte a row (cuda_h2c `f2_sqrt_rows`; their plain version
+//           `sqrt_select_plain`);
 //   inv     a⁻¹ = ā·(a·ā)^(p−2), inv(0) = 0 (`f2_inv_rows`);
 //   affine  the map's step after the root: xd⁻¹, xn·xd⁻¹, Z·u²·xn·xd⁻¹
 //           and root·xd⁻² (`f2_affine_rows`).
@@ -34,7 +36,8 @@
 //
 // Layout: in [n, in planes, 32] int32, a row's input block (sqrt: v, one;
 // inv: a; affine: xd, xn, Z·u², root); the program [steps, lanes] int2;
-// fout one code a output plane; out [out planes, 32, n].
+// fout one code a output plane; out [out planes, 32, n] (sqrt: the root
+// [2, 32, n] and ok [n] uint8).
 //
 // What bounds it on an H100: int32 instructions.  chip_smoke.py counts
 // the function's ops with its OPS table (`chain_ops`: whole Fp2 ops,
@@ -58,8 +61,21 @@ using fp381::NL;
 
 constexpr int WARP = 32;
 
+// The sqrt program's output planes (miller_program.sqrt_dag): α, root_u,
+// root_b, root_u², root_b², an Fp2 each; its input block's v (planes 0,
+// 1).
+constexpr int SQ_ALPHA = 0, SQ_ROOT_U = 2, SQ_ROOT_B = 4, SQ_SQ_U = 6,
+              SQ_SQ_B = 8;
+
+// SQRT = 1: the root's exact boundary after the program — α = −1 (the
+// root is root_u, else root_b) and root² = v, each an exact zero test of
+// the difference, c0 and c1 on two lanes of the row's group — then the
+// chosen root's 2 planes and the ok byte.  SQRT = 0: the program's output
+// planes as they are.
+template <int SQRT>
 __global__ void __launch_bounds__(WARP)
-f2_chain_program_kernel(int* __restrict__ out, const int* __restrict__ in,
+f2_chain_program_kernel(int* __restrict__ out, unsigned char* __restrict__ ok,
+                        const int* __restrict__ in,
                         const int2* __restrict__ prog, int steps,
                         const int* __restrict__ fout, int in_planes,
                         int out_planes, int lanes, int slots, int n) {
@@ -72,7 +88,41 @@ f2_chain_program_kernel(int* __restrict__ out, const int* __restrict__ in,
   const int* gin = in + (size_t)rr * in_planes * NL;
   program::exec<false>(prog, steps, lanes, lane, sm, gin,
                        [](int) { return 0; });
-  if (r < n) {
+  if (SQRT) {
+    // −1 = (p − 1, 0): p's canonical digits less one
+    int m1 = 1;
+#pragma unroll 1
+    for (int j = lane; j < 2; j += lanes) {
+      int c[NL], d[NL];
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        c[i] = j == 0 ? fp381::PMULT[1][i] - (i == 0) : 0;
+      }
+      fp381::sub(d, program::operand(fout[SQ_ALPHA + j], sm, gin), c);
+      m1 &= fp381::is_zero(d);
+    }
+    m1 = program::group_and(m1, lanes);
+    int good = 1;
+#pragma unroll 1
+    for (int j = lane; j < 2; j += lanes) {
+      int d[NL];
+      fp381::sub(d,
+                 program::operand(fout[(m1 ? SQ_SQ_U : SQ_SQ_B) + j], sm,
+                                  gin),
+                 gin + j * NL);
+      good &= fp381::is_zero(d);
+    }
+    good = program::group_and(good, lanes);
+    if (r < n) {
+      const int root = m1 ? SQ_ROOT_U : SQ_ROOT_B;
+#pragma unroll 1
+      for (int i = lane; i < 2 * NL; i += lanes) {
+        out[(size_t)i * n + r] =
+            program::operand(fout[root + i / NL], sm, gin)[i % NL];
+      }
+      if (lane == 0) ok[r] = (unsigned char)good;
+    }
+  } else if (r < n) {
 #pragma unroll 1
     for (int i = lane; i < out_planes * NL; i += lanes) {
       const int* e = program::operand(fout[i / NL], sm, gin);
@@ -83,27 +133,29 @@ f2_chain_program_kernel(int* __restrict__ out, const int* __restrict__ in,
 
 }  // namespace
 
+// ok == nullptr: the program's out_planes planes into out; else the sqrt
+// program's root (2 planes) into out and its ok byte a row into ok.
 // Returns the cudaError of the launch (or of the shared-memory attribute).
-extern "C" int charon_f2_chain_program(void* out, const void* in,
+extern "C" int charon_f2_chain_program(void* out, void* ok, const void* in,
                                        const void* prog, int steps,
                                        const void* fout, int in_planes,
                                        int out_planes, int lanes, int slots,
                                        int n, void* stream) {
   if (lanes <= 0 || WARP % lanes || slots <= 0 || slots % 2 ||
       slots > program::GLOBAL || n <= 0 || in_planes <= 0 ||
-      out_planes <= 0) {
+      out_planes <= 0 || (ok && out_planes != 10)) {
     return (int)cudaErrorInvalidValue;
   }
   const int rows = WARP / lanes;
   const int bytes = rows * program::row_words(slots) * (int)sizeof(int);
+  auto kernel = ok ? f2_chain_program_kernel<1> : f2_chain_program_kernel<0>;
   cudaError_t err = cudaFuncSetAttribute(
-      f2_chain_program_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  f2_chain_program_kernel<<<(n + rows - 1) / rows, WARP, bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(out), static_cast<const int*>(in),
-      static_cast<const int2*>(prog), steps, static_cast<const int*>(fout),
-      in_planes, out_planes, lanes, slots, n);
+  kernel<<<(n + rows - 1) / rows, WARP, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(out), static_cast<unsigned char*>(ok),
+      static_cast<const int*>(in), static_cast<const int2*>(prog), steps,
+      static_cast<const int*>(fout), in_planes, out_planes, lanes, slots, n);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,9 @@
 // formula, its Fp inverse the fixed pow p − 2, LSB first.
 //
 // Layout: [12, 32, R] int32 planes in and out (plane m = (k·3 + j)·2 + c),
-// the ops/pairing.py Fp12 [2, 3, 2, 32, R] with no copy.
+// the ops/pairing.py Fp12 [2, 3, 2, 32, R] with no copy; on request a
+// verdict byte a row, the result = 1 (`pairing.is_one`), which the batch
+// check and the re-check read.
 //
 // What bounds it on an H100: int32 instructions.  Counted from fp381.cuh
 // as [IMAD, other] (chip_smoke.py's OPS table, final_exp_ops): a squaring
@@ -214,7 +216,8 @@ __device__ __noinline__ void f12_inv(F12& o, const F12& f) {
 // ---- the kernel ------------------------------------------------------------
 
 __global__ void __launch_bounds__(WARP)
-final_exp_kernel(int* __restrict__ out, const int* __restrict__ in, int n) {
+final_exp_kernel(int* __restrict__ out, unsigned char* __restrict__ verdict,
+                 const int* __restrict__ in, int n) {
   // one warp's working set in shared memory (15.75 KB): the Fp12 values
   // x, t2, acc, base, tmp, then a product's
   __shared__ struct {
@@ -274,14 +277,30 @@ final_exp_kernel(int* __restrict__ out, const int* __restrict__ in, int n) {
 #pragma unroll 1
     for (int i = lane; i < 12 * NL; i += WARP) out[(size_t)i * n + r] = e[i];
   }
+  if (verdict) {
+    // "f = 1" (pairing.is_one): lane m < 12 tests coefficient m of f − 1
+    // (fp381 sub, then the exact zero test); the warp ANDs the twelve
+    int one = 1;
+    if (lane < 12) {
+      int c[NL], d[NL];
+#pragma unroll
+      for (int i = 0; i < NL; ++i) c[i] = lane == 0 && i == 0;
+      fp381::sub(d, reinterpret_cast<const int*>(acc) + lane * NL, c);
+      one = fp381::is_zero(d);
+    }
+    one = __all_sync(0xffffffffu, one);
+    if (lane == 0) verdict[r] = (unsigned char)one;
+  }
 }
 
 }  // namespace
 
-// out, in: [12, 32, n] int32.  Returns the cudaError of the launch.
-extern "C" int charon_final_exp(void* out, const void* in, int n,
-                                void* stream) {
+// out, in: [12, 32, n] int32; verdict: [n] uint8, each row's "= 1", or
+// nullptr.  Returns the cudaError of the launch.
+extern "C" int charon_final_exp(void* out, const void* in, void* verdict,
+                                int n, void* stream) {
   final_exp_kernel<<<n, WARP, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(out), static_cast<const int*>(in), n);
+      static_cast<int*>(out), static_cast<unsigned char*>(verdict),
+      static_cast<const int*>(in), n);
   return (int)cudaGetLastError();
 }

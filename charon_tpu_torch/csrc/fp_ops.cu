@@ -29,6 +29,13 @@
 // the same FOLDC[j][i] and the constant cache broadcasts it as an IMAD
 // operand; device memory sees each input limb once and each output limb
 // once.  No shared memory, no synchronisation.
+//
+// Where it runs: since K11–K23 took its chains and its last glue (the
+// verify tile's p-side negation and is_one's difference into K15 and
+// K11, a hash batch's exact tests and sign fix into K18 and K23), no
+// flush and no combine launches K1.  The re-check of a rejected tile
+// negates its unscaled p-side with it; chip_smoke.py holds it against
+// its plain versions in its kernel phase.
 
 #include "fp381.cuh"
 

@@ -9,7 +9,11 @@
 //     launches over 71,680 rows; pallas_g2.py :811-813);
 //   - a hash batch's halves' sum R = M₀ + M₁ and the clearing's doubling
 //     2R (pallas_h2c.py `hash_to_g2_rows` :614 / `clear_cofactor_rows`
-//     :550);
+//     :550), and since the K9 redesign the clearing's ψ(R) and ψ²(2R)
+//     (K9 PSI, h2c.cu `h2c_point_kernel<PSI>`, two launches: pallas_h2c.py
+//     `_h2c_psi_kernel` :311): each ψ a conjugation — a copy of c0 and
+//     fp381 neg's columns for c1 as LIN forms — and two MUL2 by the ψ
+//     constants, which ride in each row's input block;
 //   - the clearing's five additions ((t1 + t0) − R) + (−[|x|]ψ(R) − ψ(R))
 //     + ψ²(2R), whose three point negations K1 launched (6 fp_neg).
 //
@@ -64,14 +68,15 @@ g2_law_kernel(int* __restrict__ out, const int* __restrict__ in,
 
 }  // namespace
 
-// kind 0: the tables (6 planes in, 18 out); 1: the halves' sum and its
-// double (12, 12); 2: the clearing's additions (36, 6).  Returns the
-// cudaError of the launch (or of the shared-memory attribute).
+// kind 0: the tables (6 planes in, 18 out); 1: the halves' sum, its
+// double, ψ of the sum and ψ² of the double (12 planes and ψ's two Fp2
+// constants in, 24 out); 2: the clearing's additions (36, 6).  Returns
+// the cudaError of the launch (or of the shared-memory attribute).
 extern "C" int charon_g2_law(int kind, void* out, const void* in,
                              const void* prog, int steps, const void* fout,
                              int lanes, int slots, int n, void* stream) {
   const program::Kernel kernels[3] = {g2_law_kernel<6, 18>,
-                                      g2_law_kernel<12, 12>,
+                                      g2_law_kernel<16, 24>,
                                       g2_law_kernel<36, 6>};
   if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   return program::launch(kernels[kind], out, in, prog, steps, fout,

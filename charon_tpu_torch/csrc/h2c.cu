@@ -12,6 +12,11 @@
 //   K9 h2c_point<PSI>     _h2c_psi_kernel      ψ endomorphism
 // (The cofactor clearing's pallas_g2.dblsel is K10 in g2.cu.)
 //
+// K9 runs only in the smoke run's kernel phase and as the reference the
+// kernels that replaced it are held to: K23 (h2c_map.cu) takes ISO3 with
+// the map tail's exact boundary, K22's "pre" program (g2_law.cu) the two
+// ψ launches of the cofactor clearing.
+//
 // Layout: a batch of n-plane rows is [n, 32, stride] int32 (plane, limb,
 // row); an Fp2 is 2 planes (c0, c1), a projective point 6 (X0 X1 Y0 Y1 Z0
 // Z1).  K8 reads u [2, 32, n] and the exceptional flag row w [n] and

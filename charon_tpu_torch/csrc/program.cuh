@@ -1,7 +1,8 @@
 // program.cuh — the interpreter of a scheduled op program: what kernels
 // K13 (miller.cu, the Miller loop), K15 (g1_scalar_mul.cu, the RLC
-// scalar multiplication), K16 (straus.cu, the combine's Straus MSM) and
-// K17 (g2_zmul.cu, hash-to-G2's [|x|]-multiply) run.
+// scalar multiplication), K16 (straus.cu, the combine's Straus MSM),
+// K17 (g2_zmul.cu, hash-to-G2's [|x|]-multiply), K18 (f2_chain.cu), K20
+// (g1_tables.cu), K22 (g2_law.cu) and K23 (h2c_map.cu) run.
 //
 // A group of `lanes` threads owns one row.  ops/miller_program.py writes
 // the row's whole computation as a dataflow graph of fp381.cuh field ops
@@ -15,8 +16,8 @@
 // are written once, at the end.
 //
 // The op kinds: the Fp2 product f2_mul, the Fp2 square f2_sqr, the Fp
-// product mul, LIN — fp381's add, sub and mul_small as one function
-// (below) — and, where the kernel instantiates it, SEL: a per-row copy
+// product mul, LIN — fp381's add, sub, neg and mul_small as one function,
+// or a copy (below) — and, where the kernel instantiates it, SEL: a per-row copy
 // chosen by the row's digit d of a window, operand a where d = 0, else
 // the operand coded b + stride·(d − 1) (K15's table point T[d], and its
 // choice between 4·acc and 4·acc + T[d]; K16's table point, Y's sign and
@@ -58,8 +59,13 @@ enum Kind { NOP = 0, MUL2 = 1, SQR2 = 2, MUL = 3, LIN = 4, SEL = 5 };
 // mul_small: s = 0, iters 2).  The columns are the same integers as in
 // those functions, one zero column wider where they have none, which the
 // carry rounds and the fold carry through unchanged: the same bits.
+// iters = 0 copies a unreduced (ψ's conjugation keeps c0's limbs).
 __device__ __forceinline__ void lin(int* o, const int* a, const int* b,
                                     int k, int s, int iters, int spread) {
+  if (iters == 0) {
+    fp381::copy(o, a);
+    return;
+  }
   int c[NL + 3];
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
@@ -79,6 +85,17 @@ __device__ __forceinline__ const int* operand(int code, const int* sm,
                                               const int* gin) {
   return code >= GLOBAL ? gin + (code - GLOBAL) * NL
                         : sm + (code >> 1) * PAIRW + (code & 1) * NL;
+}
+
+// The AND of a flag over the `lanes` lanes of each row group (lanes a
+// power of two dividing the warp, groups aligned: every thread of the
+// warp must call it).
+__device__ __forceinline__ int group_and(int v, int lanes) {
+#pragma unroll 1
+  for (int off = 1; off < lanes; off <<= 1) {
+    v &= __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
 }
 
 // The step loop of a program on one row group: lane `lane` of `lanes`

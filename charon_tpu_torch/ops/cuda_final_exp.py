@@ -262,22 +262,39 @@ def reset_launches() -> None:
 def final_exp(f: torch.Tensor) -> torch.Tensor:
     """f^(3·(p¹²−1)/r) per row of an int32 [2, 3, 2, 32, R] Fp12 batch: one
     launch, one warp per row."""
+    return _final_exp(f, False)
+
+
+def final_exp_is_one(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f^(3·(p¹²−1)/r), its verdict "= 1" [R] bool) per row of an int32
+    [2, 3, 2, 32, R] Fp12 batch: one launch, which also writes the
+    verdict (lanes 0–11 each test one coefficient of the result minus
+    one); on the CPU `pairing.is_one(final_exp_plain(f))`."""
+    return _final_exp(f, True)
+
+
+def _final_exp(f: torch.Tensor, verdict: bool):
     if f.dtype != torch.int32:
         raise TypeError(f"final_exp: int32 limbs expected, got {f.dtype}")
     if f.dim() != 5 or tuple(f.shape[:4]) != F12_SHAPE or f.shape[4] == 0:
         raise ValueError(f"final_exp: expected [2, 3, 2, 32, R], got "
                          f"{tuple(f.shape)}")
     if f.device.type == "cpu":
-        return final_exp_plain(f)
+        from .pairing import is_one
+
+        out = final_exp_plain(f)
+        return (out, is_one(out)) if verdict else out
     if not f.is_contiguous():
         raise ValueError("final_exp: the operand must be contiguous")
     if f.numel() >= 2 ** 31:
         raise ValueError(f"final_exp: {f.numel()} limbs exceed the int index")
     _cuda_ready("final_exp", f)
     out = torch.empty_like(f)
+    ok = torch.empty(f.shape[-1], dtype=torch.bool, device=f.device) \
+        if verdict else None
     err = build.library().charon_final_exp(
-        out.data_ptr(), f.data_ptr(), f.shape[-1],
-        torch.cuda.current_stream(f.device).cuda_stream)
+        out.data_ptr(), f.data_ptr(), 0 if ok is None else ok.data_ptr(),
+        f.shape[-1], torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on("final_exp", err)
     launch_count.bump(LAUNCHES, "final_exp")
-    return out
+    return (out, ok) if verdict else out

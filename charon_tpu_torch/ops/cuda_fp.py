@@ -6,7 +6,10 @@ One thread per Fp row reads its 32 limbs of each operand, runs the whole
 convolution / carry / fold schedule of ops/fp.py in registers and writes
 the 32 reduced limbs: bit-identical to the plain versions `fp.*_plain`.
 
-Every wrapper takes contiguous int32 tensors ``[..., 32, R]`` of one
+No flush and no combine launches K1: the kernels that produce the
+operands hold their exact boundaries.  The re-check of a rejected tile
+negates its unscaled p-side here, and the smoke run holds K1 against its
+plain versions.  Every wrapper takes contiguous int32 tensors ``[..., 32, R]`` of one
 shape.  A CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel on the current stream, or raises.  `LAUNCHES` counts kernel
 launches per op (plain-version calls are not counted).

@@ -23,10 +23,11 @@ The counterpart of the JAX package's ops/pallas_g2.py:
   the JAX package and is ported for parity.
 - K22 `g2_law` (csrc/g2_law.cu) replaces K2's launch sequences: the
   combine's tables 2P, 3P, 4P (3 launches) and hash-to-G2's group law
-  around the clearing (7 launches and 6 K1 negations a batch), each one
-  straight-line program of ops/miller_program.py (`LAWS`) in ONE launch.
-  K2 remains for the smoke run's kernel phase and as the sequences K22 is
-  held to (`straus_tables_steps`, `cuda_h2c.law_steps`).
+  around the clearing (7 launches and 6 K1 negations a batch) with its
+  ψ maps (2 K9 launches), each one straight-line program of
+  ops/miller_program.py (`LAWS`) in ONE launch.  K2 and K9 ψ remain for
+  the smoke run's kernel phase and as the sequences K22 is held to
+  (`straus_tables_steps`, `cuda_h2c.law_steps`).
 
 One thread per point row holds the whole step: every intermediate stays
 in the thread's registers and local memory, and device memory sees only
@@ -630,12 +631,14 @@ _LAW_KIND = {"tables": 0, "pre": 1, "post": 2}
 
 def g2_law(kind: str, block: torch.Tensor, cfg=None) -> torch.Tensor:
     """K22: program `kind` of ops/miller_program.py (`LAWS`: "tables" 2P,
-    3P, 4P of P; "pre" R = M₀ + M₁ and 2R; "post" the clearing's five
-    additions) on the input points' planes [in planes, 32, R] → the
-    output points' planes [out planes, 32, R], in ONE launch, under `cfg`
-    = (lanes, slots, look-ahead) (None: `miller_program.LW_CONFIG`'s).
-    Bit for bit the K2 launch sequence it replaced; on the CPU the plain
-    program (`law_run_plain`)."""
+    3P, 4P of P; "pre" R = M₀ + M₁, 2R, ψ(R) and ψ²(2R); "post" the
+    clearing's five additions) on the input points' planes [in planes,
+    32, R] → the output points' planes [out planes, 32, R], in ONE
+    launch, under `cfg` = (lanes, slots, look-ahead) (None:
+    `miller_program.LW_CONFIG`'s).  The program's constant planes (ψ's,
+    for "pre") join each row's input block here.  Bit for bit the launch
+    sequence it replaced; on the CPU the plain program
+    (`law_run_plain`)."""
     _, in_planes, out_planes = miller_program.LAWS[kind]
     n = block.shape[-1]
     if tuple(block.shape) != (in_planes, NL, n) or n == 0 \
@@ -649,6 +652,9 @@ def g2_law(kind: str, block: torch.Tensor, cfg=None) -> torch.Tensor:
     if max(in_planes, out_planes) * NL * n >= 2 ** 31:
         raise ValueError(f"g2_law: {n} rows exceed the int index")
     code, fout, steps = miller_program.on_device(prog, block.device)
+    consts = miller_program.const_rows(prog, n, block.device)
+    if consts:
+        block = torch.cat([block, torch.stack(consts)])
     inp = block.permute(2, 0, 1).contiguous()
     out = block.new_empty((out_planes, NL, n))
     err = build.library().charon_g2_law(

@@ -1,5 +1,5 @@
-"""Kernels K7–K9, K17, K18 and the batched device hash-to-G2 (csrc/h2c.cu,
-csrc/g2_zmul.cu, csrc/f2_chain.cu).
+"""Kernels K7–K9, K17, K18, K23 and the batched device hash-to-G2
+(csrc/h2c.cu, csrc/g2_zmul.cu, csrc/f2_chain.cu, csrc/h2c_map.cu).
 
 The counterpart of the JAX package's ops/pallas_h2c.py: the host keeps
 expand_message_xmd + hash_to_field (SHA-256, `pack_messages`), and the
@@ -16,7 +16,14 @@ Budroni–Pintore ψ cofactor clearing:
   reading the host's exceptional flag (tv1 = 0: u = 0 or Z·u² = −1).
 - K9 `h2c_point<ISO3|PSI>` replaces `_h2c_iso3_kernel` (Horner over the
   isogeny table to a projective point) and `_h2c_psi_kernel` (ψ as two
-  conjugations and two constant products).
+  conjugations and two constant products).  It remains for the smoke
+  run's kernel phase and as the steps K23 and K22 are held to
+  (`map_tail_steps`, `law_steps("pre")`).
+- K23 `h2c_map_tail` (csrc/h2c_map.cu) replaces K9 ISO3 and the map
+  tail's exact boundary around it (pallas_h2c `map_to_g2_rows` :601-612):
+  x's select by ok₁, the RFC 9380 sgn0 sign fix, the 3-isogeny as one
+  straight-line program on `MT_CONFIG`'s lanes a row (ops/miller_program.py
+  `iso3_dag`) and the ∞ guard, in ONE launch.
 
 - K17 `g2_zmul` (csrc/g2_zmul.cu) replaces the launch sequence of
   `_zmul` (:537): one [|x|]-multiply — the table {Q, 2Q, 3Q} by K2 and
@@ -37,17 +44,23 @@ Budroni–Pintore ψ cofactor clearing:
   (`f2_sqrt_steps`, `f2_inv_steps`, `f2_affine_steps`).
 
 The group law around the clearing runs K22 (ops/cuda_g2.py `g2_law`):
-the halves' sum R and its double 2R in one launch, the clearing's five
-additions, with their three point negations as LIN forms, in another.
-The exactness boundaries — sgn0, the tests α = −1 and root² = v, the ∞
-guard of the isogeny — and the sign fix's negation run on K1 and the
-plain exact-carry code of ops/fp.py, as the JAX package keeps them at
-the jnp level.
+the halves' sum R, its double 2R, ψ(R) and ψ²(2R) in one launch, the
+clearing's five additions, with their three point negations as LIN
+forms, in another.  The exactness boundaries, which the JAX package
+keeps at the jnp level, run inside the kernels that produce their
+operands, on csrc/fp381.cuh's exact `canon` / `is_zero`: the tests α =
+−1 and root² = v and the root's select in K18's epilogue, sgn0 with the
+sign fix and the isogeny's ∞ guard in K23.  A hash batch is 9 launches:
+K8, 2 K18, K23, 2 K17, 2 K22 and the normalisation's K19.  Their plain
+versions (`sqrt_select_plain`, `map_tail_plain`) are the same boundary
+in plain tensor code.
 
 Each kernel is bit-identical to its plain version here: for K7–K9 the
 JAX `_DIRECT_FNS` body line for line on `cuda_g2`'s plain field library;
 for K18 its program executed on PyTorch tensors, which equals the K7
-chains (and JAX's) in value, every field element the same residue.
+chains (and JAX's) in value, every field element the same residue; for
+K23 its program executed on tensors inside the plain boundary, which
+equals K9 ISO3 and JAX's map tail bit for bit.
 
 LAYOUT.  A batch of n-plane rows is ``[n, 32, R]`` int32; an Fp2 batch
 ``[2, 32, R]`` is also the port tower's element layout.  The u rows are
@@ -71,7 +84,7 @@ from ..tbls.ref.hash_to_curve import DST_G2, hash_to_field_fp2
 from . import (build, codec, cuda_g2, cuda_pairing, fp, launch_count,
                miller_program, tower)
 from .cuda_g2 import (_cuda_ready, _f2add, _f2mul, _f2sqr, _negf,
-                      _raise_on, _table_f2)
+                      _raise_on, _subf, _table_f2)
 
 NL = fp.NLIMBS
 
@@ -111,6 +124,19 @@ def _build_hc() -> np.ndarray:
 
 _HC_NP = _build_hc()
 assert refsswu._XD[2] == FQ2.one() and refsswu._YD[3] == FQ2.one()
+
+
+def iso3_const_planes() -> np.ndarray:
+    """The isogeny's 13 Fp2 coefficients as [26, 32] limb planes, in the
+    order of K23's constant block (`miller_program.MT_XN`..): the table's
+    rows from k1_0 to k4_2."""
+    return _HC_NP[2 * _HC_XN:2 * (_HC_YD + 3)].copy()
+
+
+def psi_const_planes() -> np.ndarray:
+    """ψ's constants c_x, c_y as [4, 32] limb planes (K22's "pre" reads
+    them as input planes)."""
+    return _HC_NP[2 * _HC_PSI_CX:2 * _HC_PSI_CY + 2].copy()
 
 
 def h2c_consts() -> np.ndarray:
@@ -233,7 +259,7 @@ def psi_plain(pt: torch.Tensor) -> torch.Tensor:
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"h2c_sswu": 0, "h2c_sqr": 0, "h2c_mul": 0, "h2c_sqr4": 0,
             "h2c_sqr4mul": 0, "h2c_iso3": 0, "h2c_psi": 0, "g2_zmul": 0,
-            "f2_chain": 0}
+            "f2_chain": 0, "h2c_map_tail": 0}
 
 #: K7 op codes (csrc/h2c.cu) and K9 kinds
 _CHAIN = {"h2c_sqr": 0, "h2c_mul": 1, "h2c_sqr4": 2, "h2c_sqr4mul": 3}
@@ -397,6 +423,16 @@ def _pt_neg_t(p: torch.Tensor) -> torch.Tensor:
 
 
 _F2_MINUS_ONE = np.stack([fp.to_limbs(P - 1), fp.ZERO])
+#: K18 root's input block: v, then the constant one
+CH_V = miller_program.CH_V
+
+
+def _f2_sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _planes(_subf(a[0], b[0]), _subf(a[1], b[1]))
+
+
+def _f2_is_zero_plain(a: torch.Tensor) -> torch.Tensor:
+    return fp.is_zero(a[0]) & fp.is_zero(a[1])
 
 
 # ---------------------------------------------------------------------------
@@ -476,15 +512,40 @@ def chain_config(kind: str, rows: int, device) -> tuple:
     return miller_program.chain_config(kind, rows, sms)
 
 
-def _run_chain(kind: str, inp: torch.Tensor, cfg) -> torch.Tensor:
-    """K18: run program `kind` (miller_program.chain_program) on the
-    [in planes, 32, R] input block under `cfg` (None: `chain_config`'s)
-    → [out planes, 32, R]; on the CPU its plain version,
-    `chain_run_plain`, bit for bit."""
+def sqrt_select_plain(out: torch.Tensor, v: torch.Tensor):
+    """The root's exact boundary on the sqrt program's 10 output planes
+    (α, root_u, root_b, root_u², root_b²) and its v: the tests α = −1 and
+    root² = v and the select → (root, ok [R]), plain tensor code (K18's
+    epilogue computes the same on the card)."""
+    alpha, root_u, root_b, sq_u, sq_b = out.split(2)
+    is_m1 = _f2_is_zero_plain(_f2_sub_plain(alpha, fp.elem(_F2_MINUS_ONE,
+                                                            v.device)))
+    root = torch.where(is_m1, root_u, root_b)
+    ok = _f2_is_zero_plain(_f2_sub_plain(torch.where(is_m1, sq_u, sq_b), v))
+    return root, ok
+
+
+def chain_plain(kind: str, inp: torch.Tensor, cfg=None):
+    """K18's plain version: program `kind` executed on tensors
+    (`chain_run_plain`), and for "sqrt" its exact boundary
+    (`sqrt_select_plain`) → what `_run_chain` returns."""
     prog = miller_program.chain_program(
         kind, cfg or chain_config(kind, inp.shape[-1], inp.device))
+    out = miller_program.chain_run_plain(prog, list(inp))
+    return sqrt_select_plain(out, inp[CH_V:CH_V + 2]) if kind == "sqrt" \
+        else out
+
+
+def _run_chain(kind: str, inp: torch.Tensor, cfg):
+    """K18: run program `kind` (miller_program.chain_program) on the
+    [in planes, 32, R] input block under `cfg` (None: `chain_config`'s)
+    → [out planes, 32, R]; for "sqrt" the kernel's epilogue takes the
+    exact tests and the select, → (root [2, 32, R], ok [R] bool).  On the
+    CPU its plain version, `chain_plain`, bit for bit."""
     if inp.device.type == "cpu":
-        return miller_program.chain_run_plain(prog, list(inp))
+        return chain_plain(kind, inp, cfg)
+    prog = miller_program.chain_program(
+        kind, cfg or chain_config(kind, inp.shape[-1], inp.device))
     _, in_planes, out_planes = miller_program.CHAINS[kind]
     n = inp.shape[-1]
     inp = inp.contiguous()
@@ -492,29 +553,28 @@ def _run_chain(kind: str, inp: torch.Tensor, cfg) -> torch.Tensor:
     _cuda_ready("f2_chain", inp)
     code, fout, steps = miller_program.on_device(prog, inp.device)
     block = inp.permute(2, 0, 1).contiguous()
-    out = inp.new_empty((out_planes, NL, n))
+    sqrt = kind == "sqrt"
+    out = inp.new_empty((2 if sqrt else out_planes, NL, n))
+    ok = torch.empty(n, dtype=torch.bool, device=inp.device) if sqrt \
+        else None
     err = build.library().charon_f2_chain_program(
-        out.data_ptr(), block.data_ptr(), code.data_ptr(), steps,
-        fout.data_ptr(), in_planes, out_planes, prog.lanes, prog.slots, n,
-        _stream(inp))
+        out.data_ptr(), 0 if ok is None else ok.data_ptr(), block.data_ptr(),
+        code.data_ptr(), steps, fout.data_ptr(), in_planes, out_planes,
+        prog.lanes, prog.slots, n, _stream(inp))
     _raise_on("f2_chain", err)
     launch_count.bump(LAUNCHES, "f2_chain")
-    return out
+    return (out, ok) if sqrt else out
 
 
 def f2_sqrt_rows(v: torch.Tensor, cfg: tuple | None = None):
     """Batched Fp2 square root (Adj–Rodríguez-Henríquez Alg. 9) → (root,
-    ok [R]); the root is garbage where ok is False.  The chain — both
-    pows, α, both candidate roots and their squares — is ONE K18 launch;
-    the exact tests α = −1 and root² = v and the select stay here."""
+    ok [R] bool); the root is garbage where ok is False.  ONE K18 launch:
+    the chain — both pows, α, both candidate roots and their squares —
+    and its exact boundary, the tests α = −1 and root² = v and the
+    select (the kernel's epilogue)."""
     n = v.shape[-1]
     one = fp.const(fp.ONE, v.device).unsqueeze(-1).expand(NL, n)
-    out = _run_chain("sqrt", torch.cat([v, one[None]]), cfg)
-    alpha, root_u, root_b, sq_u, sq_b = out.split(2)
-    is_m1 = f2_eq_const_rows(alpha, _F2_MINUS_ONE)
-    root = torch.where(is_m1, root_u, root_b)
-    ok = f2_eq_rows(torch.where(is_m1, sq_u, sq_b), v)
-    return root, ok
+    return _run_chain("sqrt", torch.cat([v, one[None]]), cfg)
 
 
 def f2_inv_rows(a: torch.Tensor, cfg: tuple | None = None) -> torch.Tensor:
@@ -592,20 +652,18 @@ def zmul(q: torch.Tensor, lanes: int = miller_program.ZM_LANES,
     return out
 
 
-def clear_cofactor_rows(p: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+def clear_cofactor_rows(p: torch.Tensor, psip: torch.Tensor,
+                        psi2p2: torch.Tensor) -> torch.Tensor:
     """Budroni–Pintore clearing over projective points P [6, 32, R], with
-    p2 = 2P (`h2c_pre`'s):
+    ψ(P) and ψ²(2P) from `g2_law("pre")`:
 
         h_eff·P = [x²−x−1]P + [x−1]ψ(P) + ψ²([2]P),   x = −|x|
 
-    i.e. ([x²]P + [|x|]P − P) + (−[|x|]ψ(P) − ψ(P)) + ψ²(2P): ψ(P) and
-    ψ(2P) in one ψ launch over both row sets, ψ²(2P) in a second, three
+    i.e. ([x²]P + [|x|]P − P) + (−[|x|]ψ(P) − ψ(P)) + ψ²(2P): three
     [|x|]-multiplies in two K17 launches ([|x|]P and [|x|]ψ(P) over both
     row sets at once), and the five additions with their three negations
     in one K22 launch (`g2_law("post")`)."""
     m = p.shape[-1]
-    psip, psip2 = h2c_psi(torch.cat([p, p2], dim=-1)).split(m, dim=-1)
-    psi2p2 = h2c_psi(psip2.contiguous())
     t0, xpsip = zmul(torch.cat([p, psip], dim=-1)).split(m, dim=-1)
     t1 = zmul(t0.contiguous())             # [x²]P
     return cuda_g2.g2_law("post", torch.cat([t1, t0, p, xpsip, psip,
@@ -613,22 +671,92 @@ def clear_cofactor_rows(p: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
 
 
 def law_steps(kind: str, block: torch.Tensor) -> torch.Tensor:
-    """The K2 launch sequence (K1 for the negations) that K22's program
-    `kind` replaced, on the same [in planes, 32, R] input block → the
-    same output planes: kept for the smoke run's comparison.  "tables" is
-    `cuda_g2.straus_tables_steps`; "pre" the halves' sum and its double;
-    "post" the clearing's additions as `clear_cofactor_rows` launched
-    them before K22."""
+    """The K2 launch sequence (K1 for the negations, K9 for ψ) that K22's
+    program `kind` replaced, on the same [in planes, 32, R] input block →
+    the same output planes: kept for the smoke run's comparison.
+    "tables" is `cuda_g2.straus_tables_steps`; "pre" the halves' sum R,
+    its double, ψ(R) and ψ²(2R); "post" the clearing's additions as
+    `clear_cofactor_rows` launched them before K22."""
     pts = list(block.split(6))
     if kind == "tables":
         return torch.cat(cuda_g2.straus_tables_steps(pts[0])[1:])
     if kind == "pre":
         r = cuda_g2.add(*pts)
-        return torch.cat([r, cuda_g2.dbl(r)])
+        d = cuda_g2.dbl(r)
+        return torch.cat([r, d, h2c_psi(r), h2c_psi(h2c_psi(d))])
     t1, t0, p, xpsip, psip, psi2p2 = pts
     part1 = cuda_g2.add(cuda_g2.add(t1, t0), _pt_neg_t(p))
     part2 = cuda_g2.add(_pt_neg_t(xpsip), _pt_neg_t(psip))
     return cuda_g2.add(cuda_g2.add(part1, part2), psi2p2)
+
+
+# ---------------------------------------------------------------------------
+# K23: the map's tail — x's select, the sign fix, the isogeny, the ∞ guard
+# ---------------------------------------------------------------------------
+
+def map_tail_plain(aff: torch.Tensor, ok1: torch.Tensor, sgn: torch.Tensor,
+                   prog=None) -> torch.Tensor:
+    """K23's plain version: the prologue (x = ok₁ ? x₁ : x₂; y negated
+    where RFC 9380's sgn0(y) ≠ sgn0(u)) and the epilogue (the exact
+    (0 : 1 : 0) where Z ≡ 0) as plain tensor code, the isogeny the
+    kernel's program executed on tensors (`map_tail_run_plain`).
+    aff [6, 32, R] = (x₁, x₂, y), ok1 [R] bool, sgn [R] int32 →
+    [6, 32, R]."""
+    prog = prog or miller_program.map_tail_program()
+    x = torch.where(ok1, aff[0:2], aff[2:4])
+    y = aff[4:6]
+    flip = f2_sgn0_rows(y) != (sgn != 0)
+    y = torch.where(flip, _planes(_negf(y[0]), _negf(y[1])), y)
+    pt = miller_program.map_tail_run_plain(prog, x, y)
+    inf_pt = fp.const(cuda_g2._INF_PLANES, aff.device).unsqueeze(-1)
+    return torch.where(_f2_is_zero_plain(pt[4:6]), inf_pt, pt)
+
+
+def map_tail_steps(aff: torch.Tensor, ok1: torch.Tensor, sgn: torch.Tensor
+                   ) -> torch.Tensor:
+    """The same tail as K9 ISO3, the K1 negation and the plain exact
+    boundary launched it before K23 (`map_to_g2_rows` of the parent): kept
+    for the smoke run's comparison."""
+    x = torch.where(ok1, aff[0:2], aff[2:4])
+    y = aff[4:6]
+    flip = f2_sgn0_rows(y) != (sgn != 0)
+    y = torch.where(flip, _f2_neg_t(y), y)
+    pt = h2c_iso3(torch.cat([x, y]))
+    inf_pt = fp.const(cuda_g2._INF_PLANES, aff.device).unsqueeze(-1)
+    return torch.where(f2_is_zero_rows(pt[4:6]), inf_pt, pt)
+
+
+def h2c_map_tail(aff: torch.Tensor, ok1: torch.Tensor, sgn: torch.Tensor,
+                 cfg: tuple | None = None) -> torch.Tensor:
+    """K23: the map's tail in ONE launch — x's select by ok₁, the sign
+    fix, the 3-isogeny (ops/miller_program.py's `iso3_dag` on `lanes`
+    threads a row, cfg = (lanes, slots, look-ahead), None: `MT_CONFIG`)
+    and the ∞ guard.  aff [6, 32, R] = (x₁, x₂, y) as K18's affine step
+    writes them, ok1 [R] bool, sgn [R] int32 → projective E points
+    [6, 32, R]; `map_tail_plain` on the CPU, bit for bit."""
+    prog = miller_program.map_tail_program(cfg)
+    if aff.device.type == "cpu":
+        return map_tail_plain(aff, ok1, sgn, prog)
+    n = aff.shape[-1]
+    _check("h2c_map_tail", aff, 6, n)
+    for name, t, dtype in (("ok1", ok1, torch.bool), ("sgn", sgn,
+                                                      torch.int32)):
+        if t.dtype != dtype or tuple(t.shape) != (n,) or \
+                not t.is_contiguous():
+            raise ValueError(f"h2c_map_tail: {name} must be a contiguous "
+                             f"{dtype} [{n}] row")
+    _same_device("h2c_map_tail", aff, ok1, sgn)
+    _cuda_ready("h2c_map_tail", aff)
+    code, fout, steps = miller_program.on_device(prog, aff.device)
+    consts = fp.const(prog.consts, aff.device)     # one block, every row
+    out = aff.new_empty((6, NL, n))
+    err = build.library().charon_h2c_map_tail(
+        out.data_ptr(), aff.data_ptr(), ok1.data_ptr(), sgn.data_ptr(),
+        consts.data_ptr(), code.data_ptr(), steps, fout.data_ptr(),
+        prog.lanes, prog.slots, n, _stream(aff))
+    _raise_on("h2c_map_tail", err)
+    launch_count.bump(LAUNCHES, "h2c_map_tail")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -639,7 +767,8 @@ def map_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
                    ) -> torch.Tensor:
     """SSWU + sqrt + sign fix + 3-isogeny: u [2, 32, R], exc / sgn [R]
     int32 host flags (tv1 = 0, sgn0(u)) → [6, 32, R] projective points on
-    E, one per u row (NOT cofactor-cleared)."""
+    E, one per u row (NOT cofactor-cleared): K8, the root (K18, its exact
+    tests on the card), the affine step (K18) and the tail (K23)."""
     s = u.shape[-1]
     out = h2c_sswu(u, exc)
     xn, xd, zu2 = out[0:2], out[2:4], out[4:6]
@@ -649,32 +778,26 @@ def map_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
     ok1 = ok[:s]
     rootsel = torch.where(ok1, root[..., :s], root[..., s:])
     # affine x, y via ONE inversion chain: x = xnum·xd⁻¹ with xnum = xn
-    # where the first candidate's root checked, else Z·u²·xn; y =
-    # sqrt(gx_num·xd)·xd⁻² (the xd³ fraction trick)
-    x1, x2, y_aff = f2_affine_rows(xd, xn, zu2, rootsel)
-    x_aff = torch.where(ok1, x1, x2)
-    # RFC sgn0 sign fix: sgn0(y) must equal sgn0(u)
-    flip = f2_sgn0_rows(y_aff) != (sgn != 0)
-    y_aff = torch.where(flip, _f2_neg_t(y_aff), y_aff)
-    pt = h2c_iso3(torch.cat([x_aff, y_aff]))
-    # isogeny ∞ guard (zero denominator ⇒ Zo ≡ 0): the exact (0 : 1 : 0)
-    # the complete group law requires
-    inf_flag = f2_is_zero_rows(pt[4:6])
-    inf_pt = fp.const(cuda_g2._INF_PLANES, u.device).unsqueeze(-1)
-    return torch.where(inf_flag, inf_pt, pt)
+    # where the first candidate's root checked, else Z·u²·xn (K23 picks);
+    # y = sqrt(gx_num·xd)·xd⁻² (the xd³ fraction trick)
+    aff = _run_chain("affine", torch.cat([xd, xn, zu2, rootsel]), None)
+    # RFC sgn0 sign fix, the isogeny and its ∞ guard (zero denominator ⇒
+    # Zo ≡ 0: the exact (0 : 1 : 0) the complete group law requires)
+    return h2c_map_tail(aff, ok1, sgn)
 
 
 def hash_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
                     ) -> torch.Tensor:
     """The device hash-to-G2 over a u-major batch of 2m rows (`pack_
     messages`) → [6, 32, m] cleared projective G2 points, one per
-    message.  The two mapped halves' sum R and its double 2R are ONE K22
-    launch (`g2_law("pre")`) on the halves' planes side by side."""
+    message.  The two mapped halves' sum R, its double, ψ(R) and ψ²(2R)
+    are ONE K22 launch (`g2_law("pre")`) on the halves' planes side by
+    side."""
     half = u.shape[-1] // 2
     mapped = map_to_g2_rows(u, exc, sgn)
-    r, r2 = cuda_g2.g2_law("pre", torch.cat([mapped[..., :half],
-                                             mapped[..., half:]])).split(6)
-    return clear_cofactor_rows(r, r2)
+    r, _, psir, psi2r2 = cuda_g2.g2_law(
+        "pre", torch.cat([mapped[..., :half], mapped[..., half:]])).split(6)
+    return clear_cofactor_rows(r, psir, psi2r2)
 
 
 # ---------------------------------------------------------------------------

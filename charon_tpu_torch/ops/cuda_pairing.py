@@ -30,7 +30,8 @@ The counterpart of the JAX package's ops/pallas_pairing.py:
   (`g1_scalar_mul_plain`; pallas_pairing `g1_scalar_mul_rows` :520): the
   windows as one op program (ops/miller_program.py `g1_program`) run by
   K13's interpreter, `G1_LANES` threads a row.  `g1_scalar_mul_rows`
-  calls it.  K6 and K5 F12MUL stay: K6 for the smoke run's kernel phase
+  calls it; on the verify path its program also negates y (`neg_y`), so
+  the Miller p-side comes out of the launch with no K1 negation.  K6 and K5 F12MUL stay: K6 for the smoke run's kernel phase
   and as the plain window K15 is held to, F12MUL for the re-check's one
   product of halves.
 - K20 `g1_tables` replaces the K1 launches of the RLC tables (31 a tile:
@@ -686,16 +687,19 @@ def g1_scalar_mul_rows(t1: torch.Tensor, t2: torch.Tensor, t3: torch.Tensor,
                        windows: torch.Tensor,
                        lanes: int = miller_program.G1_LANES,
                        slots: int = miller_program.G1_SLOTS,
-                       window: int = miller_program.G1_WINDOW
-                       ) -> torch.Tensor:
+                       window: int = miller_program.G1_WINDOW,
+                       neg_y: bool = False) -> torch.Tensor:
     """K15: per-row G1 scalar multiplication in ONE launch, `lanes`
     threads a row running ops/miller_program.py's `g1_program` with
     `slots` Fp elements of shared memory a row; `g1_scalar_mul_plain` on
     the CPU, bit for bit.  t1/t2/t3 [3, 32, R] are the tables {P, 2P, 3P},
     windows [nwin, R] int32 in 0..3, MSB first → [3, 32, R] projective
-    r·P rows."""
+    r·P rows; with `neg_y` the Miller p-side (x, −y, z) of those rows, y
+    negated inside the program (on the CPU `g1_proj_rows` of the plain
+    rows)."""
     if t1.device.type == "cpu":
-        return g1_scalar_mul_plain(t1, t2, t3, windows)
+        acc = g1_scalar_mul_plain(t1, t2, t3, windows)
+        return g1_proj_rows(acc) if neg_y else acc
     n = t1.shape[-1]
     for t in (t1, t2, t3):
         _check("g1_scalar_mul", t, P_PLANES, n)
@@ -707,7 +711,8 @@ def g1_scalar_mul_rows(t1: torch.Tensor, t2: torch.Tensor, t3: torch.Tensor,
     _same_device("g1_scalar_mul", t1, t2, t3, windows)
     _cuda_ready("g1_scalar_mul", t1)
     code, fout, steps = miller_program.on_device(
-        miller_program.g1_program(nwin, lanes, slots, window), t1.device)
+        miller_program.g1_program(nwin, lanes, slots, window, neg_y),
+        t1.device)
     consts = _rows_of(_G1_CONST_PLANES, n, t1.device)
     inp = torch.cat([t1, t2, t3, consts]).permute(2, 0, 1).contiguous()
     out = t1.new_empty((P_PLANES, NL, n))

@@ -69,8 +69,14 @@ product is split into Fp ops (`_F2Split`) so that the lanes of a row
 share it.  K20 (csrc/g1_tables.cu) is one G1 doubling and one addition
 (`g1_tables_dag`).  K22 (csrc/g2_law.cu) runs K2's launch sequences as
 straight-line programs on the G2 law (`law_program`): the combine's
-Straus tables, and hash-to-G2's halves' sum with its double and the
-clearing's five additions.
+Straus tables, hash-to-G2's halves' sum with its double, ψ of the sum
+and ψ² of the double (`g2_psi`: each conjugation a copy of c0 — LIN's
+copy form, iters 0 — and c1's negation, then two MUL2 by the constants,
+which the program reads as input planes, `Program.consts`), and the
+clearing's five additions.  K23 (csrc/h2c_map.cu) runs the 3-isogeny
+(`iso3_dag`): the four Horner evaluations of K9 ISO3 side by side, on
+the affine (x, y) that the kernel's prologue pins in slots, the
+isogeny's coefficients one block of input planes that every row reads.
 
 ENCODING (`Program.code`, int32 [steps, LANES, 2]): word 0 is kind |
 out << 8 | a << 16 | b << 24, word 1 LIN's form (k | (s + 1) << 8 |
@@ -103,8 +109,11 @@ KIND_NAMES = ("nop", "f2_mul", "f2_sqr", "mul", "lin", "sel")
 #: 32-limb copy): the scheduler's cost model
 COST = {MUL2: 11_720, SQR2: 9_172, MUL: 3_756, LIN: 809, SEL: 70}
 
-# LIN forms: (k, s, iters, spread)
+# LIN forms: (k, s, iters, spread); iters = 0 is a plain copy of a (no
+# reduction: the same limbs), which ψ's conjugation needs beside the
+# negated half
 _ADD, _SUB, _NEG = (1, 1, 1, 0), (1, -1, 1, 1), (0, -1, 1, 1)
+_COPY = (1, 0, 0, 0)
 
 #: threads per pair row, and the shared-memory slots of a row
 LANES = 8
@@ -244,6 +253,11 @@ class Dag:
         form = (0, -1, 1, 1)
         return self._lin([(((a, 0), (a, 0)), form), (((a, 1), (a, 1)),
                                                      form)])
+
+    def f2_conj(self, a):
+        """(a0, −a1): half 0 a copy of a0 (LIN's copy form), half 1 fp381
+        neg's columns — an Fp2 pair, so a MUL2 can read it."""
+        return self._lin([(((a, 0),), _COPY), (((a, 1), (a, 1)), _NEG)])
 
     def f2_mul_b3(self, a):
         """×3b = ×12·(1 + u): (a0 − a1, a0 + a1), then ×12."""
@@ -486,6 +500,13 @@ class Dag:
         z3 = self.f2_add(self.f2_mul(t4, s), self.f2_mul(t3, m))
         return x3, y3, z3
 
+    def g2_psi(self, p, cx, cy):
+        """ψ as csrc/h2c.cu's K9 PSI computes it: (c_x·x̄, c_y·ȳ, z̄), the
+        constants first."""
+        x, y, z = p
+        return (self.f2_mul(cx, self.f2_conj(x)),
+                self.f2_mul(cy, self.f2_conj(y)), self.f2_conj(z))
+
 
 def miller_dag() -> tuple[Dag, list[int]]:
     """The unrolled loop of `cuda_pairing.miller_loop_plain` → (graph,
@@ -507,10 +528,13 @@ def miller_dag() -> tuple[Dag, list[int]]:
     return g, [*f[0], *f[1]]
 
 
-def g1_dag(nwin: int) -> tuple[Dag, list[int]]:
+def g1_dag(nwin: int, neg_y: bool = False) -> tuple[Dag, list[int]]:
     """`nwin` windows of `cuda_pairing.g1_dblsel_plain` from ∞ → (graph,
     the three Fp values of acc).  Each window computes 4·acc + T[w] with
-    T[0] standing in as P, and SEL keeps 4·acc where w = 0."""
+    T[0] standing in as P, and SEL keeps 4·acc where w = 0.  With `neg_y`
+    the graph ends in one LIN more, y's negation with fp381 neg's columns:
+    the outputs are the Miller p-side (x, −y, z) of
+    `cuda_pairing.g1_proj_rows`."""
     g = Dag()
     t1 = tuple(g.input(G1_T1 + c) for c in range(3))
     one, zero = g.input(G1_ONE), g.input(G1_ZERO)
@@ -520,6 +544,8 @@ def g1_dag(nwin: int) -> tuple[Dag, list[int]]:
         t = tuple(g.sel(i, c, c, G1_STRIDE) for c in t1)
         s = g.g1_add(acc4, t)
         acc = tuple(g.sel(i, a, b, 0) for a, b in zip(acc4, s))
+    if neg_y:
+        acc = (acc[0], g.fp_neg(acc[1]), acc[2])
     return g, list(acc)
 
 
@@ -729,12 +755,21 @@ def g2_tables_dag() -> tuple[Dag, list[int]]:
     return g, [*p2, *g.g2_add(p2, p), *g.g2_double(p2)]
 
 
+#: the "pre" program's ψ constants c_x, c_y: Fp2 planes 12–15 of its
+#: input block, after the two halves' points (`Program.consts`)
+PRE_PSI_CX, PRE_PSI_CY = 12, 14
+
+
 def h2c_pre_dag() -> tuple[Dag, list[int]]:
-    """Hash-to-G2 before the clearing: R = M₀ + M₁, the two mapped
-    halves' sum, and D = 2R, ψ²(2R)'s doubling → 12 planes."""
+    """Hash-to-G2 before the clearing's multiplies: R = M₀ + M₁, the two
+    mapped halves' sum, D = 2R, ψ(R) and ψ²(2R) = ψ(ψ(D)) (ψ(D) only a
+    step on the way) → 24 planes."""
     g = Dag()
     r = g.g2_add(_g2_in(g, 0), _g2_in(g, 6))
-    return g, [*r, *g.g2_double(r)]
+    d = g.g2_double(r)
+    cx, cy = g.input(PRE_PSI_CX), g.input(PRE_PSI_CY)
+    psi2d = g.g2_psi(g.g2_psi(d, cx, cy), cx, cy)
+    return g, [*r, *d, *g.g2_psi(r, cx, cy), *psi2d]
 
 
 def h2c_post_dag() -> tuple[Dag, list[int]]:
@@ -748,9 +783,50 @@ def h2c_post_dag() -> tuple[Dag, list[int]]:
     return g, list(g.g2_add(g.g2_add(part1, part2), psi2d))
 
 
-#: kind → (the graph, input planes, output planes)
-LAWS = {"tables": (g2_tables_dag, 6, 18), "pre": (h2c_pre_dag, 12, 12),
+#: kind → (the graph, the caller's input planes, output planes); "pre"'s
+#: block also carries the ψ constants (`law_program` sets them as the
+#: program's `consts`)
+LAWS = {"tables": (g2_tables_dag, 6, 18), "pre": (h2c_pre_dag, 12, 24),
         "post": (h2c_post_dag, 36, 6)}
+
+
+# K23's program (csrc/h2c_map.cu): the 3-isogeny E' → E of an affine
+# point (x, y) that the kernel's prologue writes into the pinned pairs at
+# slots MT_X and MT_Y.  Its constants are the isogeny's 13 Fp2
+# coefficients, one block in device memory that every row reads (the
+# program's GLOBAL planes): the x-numerator k1_0..k1_3 at planes 0–7, the
+# monic x-denominator k2_0, k2_1 at 8–11, the y-numerator k3_0..k3_3 at
+# 12–19, the monic y-denominator k4_0..k4_2 at 20–25.
+MT_X, MT_Y = 0, 2
+MT_XN, MT_XD, MT_YN, MT_YD, MT_CONST_PLANES = 0, 8, 12, 20, 26
+#: K23's (lanes, slots, look-ahead): chip_smoke.py's sweep over 4, 8 and
+#: 16 lanes at 128 and 4,096 rows (PERF.md) — 8 lanes with 20 slots (9
+#: steps) as fast as 16 at 128 rows and 1.9× faster at 4,096, 16 slots
+#: (12 steps) 10–17% slower
+MT_CONFIG = (8, 20, 40)
+
+
+def iso3_dag() -> tuple[Dag, list[int]]:
+    """The 3-isogeny as csrc/h2c.cu's K9 ISO3 computes it: the four
+    Horner evaluations of `horner<DEG, MONIC>` (each op on the same
+    operands, so every value keeps its bits), then xn·yd, y·(yn·xd) and
+    xd·yd → the projective (X, Y, Z), 6 planes."""
+    g = Dag()
+    x, y = g.slot_input(MT_X), g.slot_input(MT_Y)
+
+    def horner(base: int, deg: int, monic: bool):
+        def k(i):
+            return g.input(base + 2 * i)
+
+        acc = g.f2_add(x, k(deg - 1)) if monic else k(deg)
+        for i in range(deg - 1 - monic, -1, -1):
+            acc = g.f2_add(g.f2_mul(acc, x), k(i))
+        return acc
+
+    xn, xd = horner(MT_XN, 3, False), horner(MT_XD, 2, True)
+    yn, yd = horner(MT_YN, 3, False), horner(MT_YD, 3, True)
+    return g, [g.f2_mul(xn, yd), g.f2_mul(y, g.f2_mul(yn, xd)),
+               g.f2_mul(xd, yd)]
 
 
 # ---------------------------------------------------------------------------
@@ -765,6 +841,7 @@ class Program:
     lanes: int
     slots: int
     preset: tuple = ()        # slots that hold the kernel's values on entry
+    consts: np.ndarray | None = None  # [planes, 32] after the caller's block
 
     @property
     def steps(self) -> int:
@@ -927,12 +1004,12 @@ def miller_program(lanes: int = LANES, slots: int = SLOTS,
 
 
 def g1_program(nwin: int, lanes: int = G1_LANES, slots: int = G1_SLOTS,
-               window: int = G1_WINDOW) -> Program:
-    """The scheduled `nwin`-window G1 scalar multiplication (built once
-    per shape)."""
-    key = ("g1", nwin, lanes, slots, window)
+               window: int = G1_WINDOW, neg_y: bool = False) -> Program:
+    """The scheduled `nwin`-window G1 scalar multiplication, its y
+    negated with `neg_y` (built once per shape)."""
+    key = ("g1", nwin, lanes, slots, window) + (("neg_y",) if neg_y else ())
     if key not in _PROGRAM:
-        dag, outs = g1_dag(nwin)
+        dag, outs = g1_dag(nwin, neg_y)
         _PROGRAM[key] = schedule(dag, outs, lanes, slots, window)
     return _PROGRAM[key]
 
@@ -1000,8 +1077,9 @@ def chain_program(kind: str, cfg: tuple | None = None) -> Program:
 #: were fastest at every shape of chip_smoke.py's sweep (the combine's
 #: 71,680 table rows, a hash batch's 64 and 2,048; PERF.md), where 16
 #: lanes tie or lose; the slots are those with the fewest issued
-#: instructions a lane (`Program.cost`) at 8 lanes
-LW_CONFIG = {"tables": (8, 34, 40), "pre": (8, 26, 40), "post": (8, 36, 40)}
+#: instructions a lane (`Program.cost`) at 8 lanes ("pre" with ψ: 26
+#: slots schedule 31 steps, 30 slots 23)
+LW_CONFIG = {"tables": (8, 34, 40), "pre": (8, 30, 40), "post": (8, 36, 40)}
 
 
 def law_program(kind: str, cfg: tuple | None = None) -> Program:
@@ -1010,7 +1088,27 @@ def law_program(kind: str, cfg: tuple | None = None) -> Program:
     lanes, slots, window = cfg or LW_CONFIG[kind]
     key = ("law", kind, lanes, slots, window)
     if key not in _PROGRAM:
-        _PROGRAM[key] = schedule(*LAWS[kind][0](), lanes, slots, window)
+        prog = schedule(*LAWS[kind][0](), lanes, slots, window)
+        if kind == "pre":
+            from .cuda_h2c import psi_const_planes
+
+            prog.consts = psi_const_planes()
+        _PROGRAM[key] = prog
+    return _PROGRAM[key]
+
+
+def map_tail_program(cfg: tuple | None = None) -> Program:
+    """K23's scheduled isogeny under cfg = (lanes, slots, look-ahead)
+    (None: `MT_CONFIG`; built once per configuration); its `consts` the
+    isogeny's coefficient block."""
+    lanes, slots, window = cfg or MT_CONFIG
+    key = ("map_tail", lanes, slots, window)
+    if key not in _PROGRAM:
+        from .cuda_h2c import iso3_const_planes
+
+        prog = schedule(*iso3_dag(), lanes, slots, window)
+        prog.consts = iso3_const_planes()
+        _PROGRAM[key] = prog
     return _PROGRAM[key]
 
 
@@ -1097,9 +1195,12 @@ def check(prog: Program) -> None:
 def lin_plain(a: torch.Tensor, b: torch.Tensor, k: int, s: int, iters: int,
               spread: int) -> torch.Tensor:
     """The kernel's LIN on [32, R] tensors: spread·48p + k·a + s·b, one
-    zero (or 48p's top) column above, reduced (cuda_g2's plain reduce)."""
+    zero (or 48p's top) column above, reduced (cuda_g2's plain reduce);
+    iters = 0 copies a."""
     from .cuda_g2 import _SPREAD, _col, _reduce
 
+    if iters == 0:
+        return a
     d = torch.cat([k * a + s * b, a.new_zeros((1,) + tuple(a.shape[1:]))])
     if spread:
         d = d + _col(_SPREAD, d)
@@ -1205,10 +1306,29 @@ def chain_run_plain(prog: Program, planes) -> torch.Tensor:
     return execute(prog, list(planes))
 
 
+def const_rows(prog: Program, n: int, device) -> list[torch.Tensor]:
+    """The program's constant planes (`Program.consts`), each broadcast to
+    n rows as a [32, n] tensor (none: [])."""
+    if prog.consts is None:
+        return []
+    c = fp.const(prog.consts, device)
+    return list(c.unsqueeze(-1).expand(*c.shape, n))
+
+
 def law_run_plain(prog: Program, block: torch.Tensor) -> torch.Tensor:
     """K22's program on CPU (or any) tensors: `block` the input points'
     planes [in planes, 32, R] → the output planes."""
-    return execute(prog, list(block))
+    return execute(prog, list(block) + const_rows(prog, block.shape[-1],
+                                                  block.device))
+
+
+def map_tail_run_plain(prog: Program, x: torch.Tensor, y: torch.Tensor
+                       ) -> torch.Tensor:
+    """K23's program on CPU (or any) tensors: the affine (x, y) [2, 32, R]
+    each, pinned where the kernel's prologue puts them → the isogeny's
+    projective planes [6, 32, R]."""
+    return execute(prog, const_rows(prog, x.shape[-1], x.device), None,
+                   [x[0], x[1], y[0], y[1]])
 
 
 def g1_tables_run_plain(prog: Program, base: torch.Tensor) -> torch.Tensor:

@@ -26,17 +26,18 @@ Verify (`batch_verify_bytes`), one RLC batch check per call:
   the card, [r]P subgroup check included, in one K21 launch, once per
   distinct key) and the hashed-message LRU (a batch of 8 or more
   distinct misses hashes to G2 on the card — SHA-256 and hash_to_field
-  on the host, then the pipeline of ops/cuda_h2c.py (K8, K18, K9, K17,
+  on the host, then the pipeline of ops/cuda_h2c.py (K8, K18, K23, K17,
   K22) and normalisation (K19); fewer run the
   pure-Python `hash_to_g2`, the JAX backend's size rule); draw FRESH
   64-bit coefficients r_k from OS entropy on every call (a predictable
   coefficient would let a forger cancel rows).
 - `verify_device_exec` (card): G2 decompression of the signatures (ψ
   check; one K12 launch), the G1 tables {P, 2P, 3P} of the pair-major rows
-  (−g1, pk_k) (one K20 launch), the 32 windows scaling both rows of entry k by r_k (one
-  K15 launch), the Miller loop over the 2·V rows (one K13 launch), the
-  product fold to one row with dropped / ∞ / padding rows read as one
-  (one K14 launch), and ONE final exponentiation (one K11 launch).  If the batch equation fails, every
+  (−g1, pk_k) (one K20 launch), the 32 windows scaling both rows of entry k by r_k
+  and negating y for the Miller p-side (one K15 launch), the Miller loop
+  over the 2·V rows (one K13 launch), the product fold to one row with
+  dropped / ∞ / padding rows read as one (one K14 launch), and ONE final
+  exponentiation with its verdict "= 1" (one K11 launch).  If the batch equation fails, every
   entry is re-checked on its own — e(−g1, sig)·e(pk, H(m)) == 1 on the
   unscaled rows: one K13 launch, one K5 product of the two halves, K11
   over the entries — ANDed with the decode mask, so the verdicts are
@@ -73,7 +74,6 @@ from .ref.hash_to_curve import hash_to_g2
 from ..ops import (codec, cuda_codec, cuda_final_exp, cuda_fp, cuda_g2,
                    cuda_h2c, cuda_pairing, fp, launch_count)
 from ..ops import curve as tcurve
-from ..ops import pairing as tpair
 from ..ops.curve import F2_OPS
 
 _G2_INF_BYTES = np.zeros(96, np.uint8)
@@ -378,9 +378,9 @@ class CUDABackend:
         base = torch.stack([neg_g1, pks], dim=-1).reshape(3, NL, 2 * v)
         p2, p3 = cuda_pairing.g1_tables(base)
         clock.lap("rlc_tables_s")
-        acc = cuda_pairing.g1_scalar_mul_rows(base, p2, p3,
-                                              self._put(p["windows"]))
-        p_side = cuda_pairing.g1_proj_rows(acc)     # (xP, −yP, zP)
+        # the Miller p-side (xP, −yP, zP): K15 negates y in its program
+        p_side = cuda_pairing.g1_scalar_mul_rows(
+            base, p2, p3, self._put(p["windows"]), neg_y=True)
         clock.lap("rlc_scalar_mul_s")
         hms = self._put(p["hms"])
         q = torch.stack([sigs, hms], dim=-1).reshape(3, 2, NL, 2 * v)
@@ -388,8 +388,9 @@ class CUDABackend:
         clock.lap("miller_s")
         prod = cuda_pairing.fold_product(f, self._put(np.repeat(~live, 2)))
         clock.lap("fold_s")
-        all_ok = bool(tpair.is_one(cuda_final_exp.final_exp(
-            prod.reshape(2, 3, 2, NL, 1)))[0])
+        _, one = cuda_final_exp.final_exp_is_one(prod.reshape(2, 3, 2, NL,
+                                                              1))
+        all_ok = bool(one[0])
         clock.lap("final_exp_s")
         if all_ok:
             ok = live
@@ -412,17 +413,16 @@ class CUDABackend:
     def _recheck(self, neg_g1, pks, sigs, hms, live) -> np.ndarray:
         """e(−g1, sig_k)·e(pk_k, H(m_k)) == 1 for every entry k, on the
         unscaled rows [(−g1, sig_k) for k < v | (pk_k, H(m_k)) for k < v]:
-        one Miller launch (K13), rows that are not live masked to one, one
-        K5 product of the two halves, one K11 over the v rows; ANDed with
-        `live`."""
+        the p-side's one K1 negation, one Miller launch (K13), rows that
+        are not live masked to one, one K5 product of the two halves, one
+        K11 over the v rows with its verdicts; ANDed with `live`."""
         v = live.shape[0]
         f = cuda_pairing.miller_rows(
             cuda_pairing.g1_proj_rows(torch.cat([neg_g1, pks], dim=-1)),
             cuda_pairing.g2_affine_rows(torch.cat([sigs, hms], dim=-1)))
         f = cuda_pairing.mask_rows(f, self._put(np.tile(~live, 2)))
         prod = cuda_pairing.pp_f12mul(f[..., :v], f[..., v:])
-        one = tpair.is_one(cuda_final_exp.final_exp(
-            prod.reshape(2, 3, 2, NL, v)))
+        _, one = cuda_final_exp.final_exp_is_one(prod.reshape(2, 3, 2, NL, v))
         return one.cpu().numpy() & live
 
     # -- aggregation --------------------------------------------------------

@@ -53,8 +53,19 @@ Phases, in order; any failure raises and exits non-zero:
              the clearing's five additions) against its plain programs
              and the K2 sequences, bit for bit, at the combine's 71,680
              rows and the batches' 64 and 2,048, with ∞ and all-LMAX
-             rows; the sweep over lanes; K2's own times at 64 and 2,048
-             rows.
+             rows (the hash batch's first program with ψ(R) and ψ²(2R),
+             against K2 and two K9 ψ launches); the sweep over lanes;
+             K2's own times at 64 and 2,048 rows.  K23 (the map's tail:
+             x's select, the sign fix, the isogeny and its ∞ guard in one
+             launch) against its plain version and the K9 iso3 launch
+             with the K1 negation and exact boundary it replaced, bit for
+             bit, at the batches' 128 and 4,096 u rows with an isogeny-∞
+             row; the sweep over 4, 8 and 16 lanes.  K18's root with the
+             exact tests and select of its epilogue (rows v = 0, −1 of
+             the α = −1 branch, the non-square 9 + 16u and a square), K15
+             with y negated in its program, K11 with its verdict "= 1"
+             (rows that are one and rows that are not): each against its
+             plain version, bit for bit.
 3. combine — a pool of 1,024 distinct signatures s·H(m) built on the card;
              a real-Shamir check (V = 128: the combined bytes must equal
              sk·H(m)); then 10,000 SigAgg.aggregate() calls in one event-loop
@@ -95,15 +106,16 @@ Phases, in order; any failure raises and exits non-zero:
              verdicts True, stages summed over the tiles, K13, K14, K15
              and K20 launched and no K4/K5 step or K6 window, one K12
              launch per tile in sig_decompress_s, one K20 and nothing else
-             in rlc_tables_s, one K15 (plus the p-side's K1 neg)
+             in rlc_tables_s, one K15 (its −Y inside)
              in rlc_scalar_mul_s, one K13 in miller_s, one K14 in fold_s
-             and one K11 (plus is_one's K1 sub) in final_exp_s, K5 F12MUL
-             only in a re-check, under 1,000 K1 launches per flush; then
+             and one K11 (its verdict inside) in final_exp_s, K5 F12MUL
+             only in a re-check, no K1 launch in the warm or the cold
+             flush; then
              a 2,048-entry batch with 6 bad entries whose verdicts must
              equal the pure-Python oracle on the bad rows and on 4 random
-             good ones (its re-check one K13 launch over the unscaled
-             rows, one K5 product of the halves and one K11 over the
-             entries).  Then the slot's first flush: the same 10,000
+             good ones (its re-check one K1 negation of the unscaled
+             p-side, one K13 launch over the unscaled rows, one K5 product
+             of the halves and one K11 over the entries).  Then the slot's first flush: the same 10,000
              keys over 64 messages that are new each rep (the next slot's
              attestation data), signed on the card, so the first tile
              misses every message and hashes them on the card as one batch
@@ -133,9 +145,10 @@ Phases, in order; any failure raises and exits non-zero:
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
 2,048-message batch's shapes) against their plain versions.  Every device
-hash batch (phases 4–6) must launch 2 K18, no K7, one iso3 and 2 ψ, 2
-K17, no K10 dblsel, 2 K22 and no K2, one K19 and K1 only for its glue (2
-sub, 2 neg).
+hash batch (phases 4–6) must launch 1 K8, 2 K18, no K7, one K23 and no
+K9, 2 K17, no K10 dblsel, 2 K22 and no K2, one K19 and no K1: 9 launches.
+No flush (warm, cold, slot-start, distinct) and no combine launches K1
+or K9; K1 and K9 run in phase 2 as references.
 
 A kernel's `launches` in the JSON line is its count over the main-path
 runs: `launches_combine` (one combine rep), `launches_verify` (one
@@ -163,7 +176,10 @@ rows (`steps_ms` the K1 chain; `at_64`, `at_2048`), K20's at 4,096
 (`steps_ms` the K1 chain; `at_10000`), K22's the tables at the combine's
 71,680 rows (`steps_ms` the K2 sequence, `sweep`; `programs` the hash
 batch's two at 64 and 2,048 messages; `k2_at_batches` K2's own times
-there), and K3's `combine_digits` the mean over the combine's own
+there), K23's at a 2,048-message batch's 4,096 u rows (`steps_ms` the K9
+iso3 launch and the glue it replaced, `iso3_ms` K9 iso3 alone, `sweep`;
+`at_128`), K15's and K11's with −Y and the verdict (K15's `plain_y_ms`
+without), and K3's `combine_digits` the mean over the combine's own
 launches. `regs`, `stack` and `spill` are the compiler's
 (-Xptxas -v) for each kernel's function. Every bound_ms is at the card's
 full rate; K11 also gives `bound_one_warp_ms`, the bound at the rate of
@@ -313,6 +329,9 @@ PT_BYTES = 6 * EL_BYTES
 _CANON = _alu(3 * NL + 47 * 12 + 5 * NL)
 _ISZERO = _CANON + _alu(NL)
 _F2EQ = _F2SUB + 2 * _ISZERO
+# K23 (csrc/h2c_map.cu): the isogeny, sgn0(y)'s two canonicalisations and
+# Z's two zero tests on every row; a flipped row adds y's negation
+OPS["h2c_map_tail"] = OPS["h2c_iso3"] + 2 * _CANON + 2 * _ISZERO
 
 
 def _pow_ops(e: int, sqr, mul):
@@ -690,10 +709,12 @@ def rlc_tables(dev, rows: int, inf_rows: slice) -> tuple:
 
 
 def rlc_phase(dev, gen, rows: int, sm_clocks_per_s: float) -> dict:
-    """K15 against the iterated `g1_dblsel_plain` at `rows` (a tile's
-    pair rows) over 32 windows with every digit 0–3 present, bit for bit:
-    on random-limb tables with ∞ rows, on all-LMAX tables and on real
-    tables of G1 points with ∞ rows.  Timed beside the 32 K6 launches it
+    """K15 with y negated in its program (the verify path's Miller
+    p-side) against the iterated `g1_dblsel_plain` and `g1_proj_rows` at
+    `rows` (a tile's pair rows) over 32 windows with every digit 0–3
+    present, bit for bit: on random-limb tables with ∞ rows, on all-LMAX
+    tables and on real tables of G1 points with ∞ rows.  Timed beside the
+    program without the negation (`plain_y_ms`), the 32 K6 launches it
     replaced (`g1_scalar_mul_steps`), its bound (the additions of these
     digits) and the plain version; the sweep over 2, 4 and 8 lanes a
     row; the time at twice the rows."""
@@ -714,18 +735,26 @@ def rlc_phase(dev, gen, rows: int, sm_clocks_per_s: float) -> dict:
 
     real = rlc_tables(dev, rows, slice(200, 216))
     nz = int((w != 0).sum())
-    ops = OPS["g1_dbl"] * 2 * nwin * rows + OPS["g1_add"] * nz
+    ops = (OPS["g1_dbl"] * 2 * nwin * rows + OPS["g1_add"] * nz
+           + OPS["fp_neg"] * rows)
     nbytes = rows * (9 * EL_BYTES + nwin * 4 + 3 * EL_BYTES)
     out = {}
-    record(out, "g1_scalar_mul", cp.g1_scalar_mul_rows,
-           cp.g1_scalar_mul_plain, ops, nbytes,
-           [lambda: pat("random"), lambda: pat("lmax"),
-            lambda: (*real, w)], sm_clocks_per_s, plain_reps=1)
+    # the path's form: y negated in the program (the Miller p-side),
+    # against the plain windows and `g1_proj_rows`
+    record(out, "g1_scalar_mul",
+           lambda *a: cp.g1_scalar_mul_rows(*a, neg_y=True),
+           lambda *a: cp.g1_proj_rows(cp.g1_scalar_mul_plain(*a)), ops,
+           nbytes, [lambda: pat("random"), lambda: pat("lmax"),
+                    lambda: (*real, w)], sm_clocks_per_s, plain_reps=1)
     res = out["g1_scalar_mul"]
     args = (*real, w)
     want = cp.g1_scalar_mul_rows(*args)
     if not torch.equal(cp.g1_scalar_mul_steps(*args), want):
         raise AssertionError("K15 differs from the K6 launch sequence")
+    if not torch.equal(cp.g1_proj_rows(want),
+                       cp.g1_scalar_mul_rows(*args, neg_y=True)):
+        raise AssertionError("K15's −Y differs from g1_proj_rows")
+    res["plain_y_ms"] = time_ms(lambda: cp.g1_scalar_mul_rows(*args))
     res["steps_ms"] = time_ms(lambda: cp.g1_scalar_mul_steps(*args))
     res["rows"] = rows
     res["lanes_ms"] = {}
@@ -747,7 +776,8 @@ def rlc_phase(dev, gen, rows: int, sm_clocks_per_s: float) -> dict:
                program_cost=prog.cost())
     log(f"K15 g1_scalar_mul at {rows:,} rows ({mp.G1_LANES} lanes a row, "
         f"{mp.G1_SLOTS} slots, {prog.steps} steps, {prog.cost():,} "
-        f"instructions a lane): {res['ms']:.4f} ms against "
+        f"instructions a lane): {res['ms']:.4f} ms with −Y "
+        f"({res['plain_y_ms']:.4f} without) against "
         f"{res['steps_ms']:.4f} ms for the {nwin} K6 launches it replaced; "
         f"{res[f'at_{2 * rows}_ms']:.4f} ms at {2 * rows:,} rows; sweep "
         f"{json.dumps(res['lanes_ms'])}")
@@ -908,8 +938,8 @@ def zmul_phase(dev, sm_clocks_per_s: float) -> dict:
 def program_ops(prog) -> np.ndarray:
     """[IMAD, ALU] one row of a scheduled program needs: each live op its
     csrc/fp381.cuh function's count (a LIN by its form: the small multiple
-    with two rounds, the spread difference or negation, the sum; a SEL a
-    32-limb copy)."""
+    with two rounds, the spread difference or negation, the sum, the copy;
+    a SEL a 32-limb copy)."""
     from charon_tpu_torch.ops import miller_program as mp
 
     kind, *_, iters, spread, _ = mp._fields(prog.code)
@@ -917,7 +947,9 @@ def program_ops(prog) -> np.ndarray:
             mp.SEL: _alu(NL)}
     total = np.zeros(2, np.int64)
     for k, it, sp in zip(kind.ravel(), iters.ravel(), spread.ravel()):
-        if k == mp.LIN:
+        if k == mp.LIN and it == 0:
+            total += _alu(NL)                       # the copy form
+        elif k == mp.LIN:
             total += OPS["fp_mul_small" if it == 2 else
                          "fp_sub" if sp else "fp_add"]
         elif k != mp.NOP:
@@ -940,7 +972,8 @@ def chain_ops(kind: str, rows: int, alpha_m1: int = 0) -> np.ndarray:
     program it launches: whole MUL2 / SQR2 ops (`_F2MUL`, `_F2SQR`) and
     4-bit windows.  The root (`alpha_m1` of its rows take the α = −1
     branch): a1's pow, α = a1²·v, x0 = a1·v, then u·x0 and its square,
-    or (α + 1)'s pow, its product with x0 and its square.  The inverse:
+    or (α + 1)'s pow, its product with x0 and its square; the exact tests
+    α = −1 and root² = v of the kernel's epilogue.  The inverse:
     the norm a0² + a1², its Fp pow p − 2, ā·norm⁻¹.  The affine step: the
     inverse, xn·xd⁻¹, Z·u²·xn·xd⁻¹ and root·xd⁻²."""
     from charon_tpu_torch.ops import miller_program as mp
@@ -955,7 +988,7 @@ def chain_ops(kind: str, rows: int, alpha_m1: int = 0) -> np.ndarray:
     every = _pow_w4_ops(mp.EXP_SQRT_A1, _F2SQR, _F2MUL) + _F2SQR + 2 * _F2MUL
     branch_b = (OPS["fp_add"] + _pow_w4_ops(mp.EXP_SQRT_B, _F2SQR, _F2MUL)
                 + _F2MUL + _F2SQR)
-    return (rows * every + alpha_m1 * (OPS["fp_neg"] + _F2SQR)
+    return (rows * (every + 2 * _F2EQ) + alpha_m1 * (OPS["fp_neg"] + _F2SQR)
             + (rows - alpha_m1) * branch_b)
 
 
@@ -986,7 +1019,8 @@ def chains_phase(dev, sm_clocks_per_s: float, batches=(64, 2048)) -> dict:
     """K18's three programs at a hash batch's shapes (`batches` messages:
     the slot-start batch's 64 and a verify tile's 2,048 — the root on 4·m
     rows, the inverse and the affine step on 2·m): each against its plain
-    program on the card, bit for bit, under the configuration
+    version on the card (the program, and for the root the exact tests
+    and select of its epilogue: root and ok), bit for bit, under the configuration
     `chain_config` picks at that shape, and against the K7 launch
     sequence it replaced (`f2_sqrt_steps`, `f2_inv_steps`,
     `f2_affine_steps`) by value, on random and all-LMAX limbs with zero
@@ -1005,11 +1039,14 @@ def chains_phase(dev, sm_clocks_per_s: float, batches=(64, 2048)) -> dict:
         x = limbs(dev, gen, (planes, NL, n), pattern)
         x[..., 0] = 0                               # v = 0, a = 0, xd = 0
         if kind == "sqrt":
-            # an Fp non-residue (α = −1) and a square of Fp2
+            # −1, an Fp non-residue (α = −1: its root is u); 9 + 16u, a
+            # non-square (its norm 337 is not a square mod p); (3 + 4u)²
             x[:, :, 1] = torch.from_numpy(np.stack(
                 [fp.to_limbs(P - 1), fp.ZERO])).to(dev)
             x[:, :, 2] = torch.from_numpy(np.stack(
                 [fp.to_limbs(9), fp.to_limbs(16)])).to(dev)
+            x[:, :, 3] = torch.from_numpy(np.stack(
+                [fp.to_limbs(P - 7), fp.to_limbs(24)])).to(dev)
         return x
 
     def block(kind, x):
@@ -1060,21 +1097,34 @@ def chains_phase(dev, sm_clocks_per_s: float, batches=(64, 2048)) -> dict:
             blk = block(kind, x)
             cfg = ch.chain_config(kind, n, dev)
             cprog = mp.chain_program(kind, cfg)
-            # the kernel against its plain program on the card
+            # the kernel against its plain version on the card: the
+            # program, and for the root the exact boundary of its epilogue
             got = ch._run_chain(kind, blk, cfg)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            want = mp.chain_run_plain(cprog, list(blk))
+            raw = mp.chain_run_plain(cprog, list(blk))
+            want = (ch.sqrt_select_plain(raw, blk[ch.CH_V:ch.CH_V + 2])
+                    if kind == "sqrt" else raw)
             end.record()
             torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in
+                      zip(*((t if kind == "sqrt" else (t,))
+                            for t in (got, want))))
             if err:
                 raise AssertionError(f"K18 {kind} at {n} rows: kernel "
-                                     f"differs from its plain program "
+                                     f"differs from its plain version "
                                      f"(max abs err {err})")
+            if kind == "sqrt":
+                # v = 0, −1 (the α = −1 branch) and (3 + 4u)² have roots,
+                # 9 + 16u has none
+                ok = got[1][:4].tolist()
+                if ok != [True, True, False, True]:
+                    raise AssertionError(f"K18 sqrt at {n} rows: ok flags "
+                                         f"{ok} of v = 0, −1, 9 + 16u, "
+                                         f"(3 + 4u)²")
             # the rows of the α = −1 branch, which need no second pow
-            alpha_m1 = (int(ch.f2_eq_const_rows(got[:2], ch._F2_MINUS_ONE)
+            alpha_m1 = (int(ch.f2_eq_const_rows(raw[:2], ch._F2_MINUS_ONE)
                             .sum()) if kind == "sqrt" else 0)
             nbytes = n * ((rd + wr) * EL_BYTES + (kind == "sqrt"))
             bms, by = bound(chain_ops(kind, n, alpha_m1), nbytes,
@@ -1315,14 +1365,15 @@ def g1_decompress_phase(dev, pks: list[bytes], sm_clocks_per_s: float,
 
 
 #: K22's programs' [IMAD, ALU] a row, from the law's OPS counts: the
-#: tables 2 doublings and an addition; the halves' sum and its double; the
-#: clearing's 5 additions and 3 point negations (an Fp2 negation each)
+#: tables 2 doublings and an addition; the halves' sum, its double and
+#: three ψ maps; the clearing's 5 additions and 3 point negations (an Fp2
+#: negation each)
 LAW_OPS = {"tables": 2 * OPS["g2_dbl"] + OPS["g2_add"],
-           "pre": OPS["g2_dbl"] + OPS["g2_add"],
+           "pre": OPS["g2_dbl"] + OPS["g2_add"] + 3 * OPS["h2c_psi"],
            "post": 5 * OPS["g2_add"] + 6 * OPS["fp_neg"]}
 #: K22's sweep: (lanes, slots, look-ahead) per program
 LAW_SWEEP = {"tables": ((4, 30, 40), (8, 34, 40), (16, 34, 40)),
-             "pre": ((4, 24, 40), (8, 22, 40), (8, 26, 40), (16, 24, 40)),
+             "pre": ((4, 28, 40), (8, 30, 40), (8, 34, 40), (16, 30, 40)),
              "post": ((4, 30, 40), (8, 34, 40), (8, 36, 40), (16, 40, 40))}
 
 
@@ -1398,6 +1449,92 @@ def g2_law_phase(dev, sm_clocks_per_s: float, combine_rows: int,
             "k2_at_batches": k2}
 
 
+#: K23's sweep: (lanes, slots, look-ahead)
+MT_SWEEP = ((4, 20, 40), (8, 16, 40), (8, 20, 40), (16, 20, 40))
+
+
+def map_tail_inputs(dev, gen, n: int, pattern: str) -> tuple:
+    """(aff [6, 32, n], ok1 [n] bool, sgn [n] int32) for K23: seeded
+    random or all-LMAX limbs, every mix of ok₁ and sgn0(u); row 3's x a
+    root of the isogeny's x-denominator x² + k₂₁x + k₂₀ (Z ≡ 0: the exact
+    ∞ comes out), row 5's y zero, row 7 the zero element in x."""
+    from charon_tpu_torch.ops import fp
+    from charon_tpu_torch.tbls.ref import sswu
+    from charon_tpu_torch.tbls.ref.fields import FQ2, P
+
+    aff = limbs(dev, gen, (6, NL, n), pattern)
+    k20, k21 = sswu._XD[0], sswu._XD[1]
+    root = (-k21 + (k21 * k21 - k20 * 4).sqrt()) * FQ2([(P + 1) // 2, 0])
+    for c in range(2):
+        for x in (0, 2):
+            aff[x + c, :, 3] = torch.from_numpy(
+                fp.to_limbs(int(root.coeffs[c]) % P)).to(dev)
+    aff[4:6, :, 5] = 0
+    aff[0:4, :, 7] = 0
+    ok1 = torch.from_numpy(gen.integers(0, 2, n).astype(bool)).to(dev)
+    sgn = torch.from_numpy(gen.integers(0, 2, n, dtype=np.int32)).to(dev)
+    return aff, ok1, sgn
+
+
+def map_tail_phase(dev, sm_clocks_per_s: float,
+                   batches=(MESSAGES, 2048)) -> dict:
+    """K23 (the map's tail: x's select, the sign fix, the 3-isogeny and
+    the ∞ guard in one launch) against its plain version on the card, bit
+    for bit, at a hash batch's u rows (2 a message: the slot-start
+    batch's 128, a verify tile's 4,096) on random and all-LMAX limbs with
+    an isogeny-∞ row; timed beside the K9 iso3 launch with the K1
+    negation and exact boundary it replaced (`map_tail_steps`, held equal
+    too), the plain version and the bound; the sweep over 4, 8 and 16
+    lanes a row."""
+    from charon_tpu_torch.ops import cuda_g2, cuda_h2c as ch, fp
+    from charon_tpu_torch.ops import miller_program as mp
+
+    gen = np.random.default_rng(20261102)
+    inf = fp.const(cuda_g2._INF_PLANES, dev)
+    res = {}
+    for m in batches:
+        n = 2 * m
+        part = {}
+        args = map_tail_inputs(dev, gen, n, "random")
+        flips = int((ch.f2_sgn0_rows(args[0][4:6]) != (args[2] != 0)).sum())
+        ops = OPS["h2c_map_tail"] * n + 2 * OPS["fp_neg"] * flips
+        record(part, "h2c_map_tail", ch.h2c_map_tail, ch.map_tail_plain,
+               ops, n * (12 * EL_BYTES + 5),
+               [lambda: args,
+                lambda: map_tail_inputs(dev, gen, n, "lmax")],
+               sm_clocks_per_s, plain_reps=1)
+        r = part["h2c_map_tail"]
+        got = ch.h2c_map_tail(*args)
+        if not torch.equal(got[..., 3], inf):
+            raise AssertionError("K23: the isogeny-∞ row is not (0 : 1 : 0)")
+        if not torch.equal(got, ch.map_tail_steps(*args)):
+            raise AssertionError(f"K23 at {n} rows differs from the K9 "
+                                 f"sequence it replaced")
+        r["steps_ms"] = time_ms(lambda: ch.map_tail_steps(*args))
+        r["iso3_ms"] = time_ms(lambda: ch.h2c_iso3(
+            torch.cat([args[0][0:2], args[0][4:6]])))
+        r["config"] = mp.MT_CONFIG
+        r["flipped_rows"] = flips
+        r["sweep"] = {}
+        for cfg in MT_SWEEP:
+            if not torch.equal(ch.h2c_map_tail(*args, cfg), got):
+                raise AssertionError(f"K23 with {cfg} differs from the "
+                                     f"default")
+            prog = mp.map_tail_program(cfg)
+            r["sweep"][str(cfg)] = {
+                "ms": time_ms(lambda cfg=cfg: ch.h2c_map_tail(*args, cfg)),
+                "steps": prog.steps, "cost": prog.cost()}
+        res[n] = r
+        log(f"K23 h2c_map_tail at {n:,} rows ({r['config']}): "
+            f"{r['ms']:.4f} ms against {r['steps_ms']:.4f} ms for the "
+            f"sequence it replaced (K9 iso3 alone {r['iso3_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f} ms; plain {r['plain_ms']:.1f} ms); sweep "
+            f"{json.dumps(r['sweep'])}")
+    big, small = res[2 * batches[-1]], res[2 * batches[0]]
+    return {**big, "rows": 2 * batches[-1], f"at_{2 * batches[0]}": small,
+            "max_abs_err": max(r["max_abs_err"] for r in res.values())}
+
+
 def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
     """K7–K9 and K10 (dblsel, addsel) against their plain versions at the
     shapes of one `msgs`-message hash batch: the sqrt chain's 4·msgs rows
@@ -1450,10 +1587,11 @@ def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
 
 
 def k1_main_shapes(dev, sm_clocks_per_s: float) -> dict:
-    """K1's mul, add and sub at the shapes the main path now launches them
-    (the RLC tables' [6, 32, 4,096] products and [32, 4,096] sums, the
-    combine normalisation's [32, 10,240] inverse chain, is_one's
-    [2, 3, 2, 32, 1] difference): the kernel's CUDA-event median, and the
+    """K1's mul, add and sub at the shapes the main path launched them
+    before K20, K19 and K11's verdict took them (the RLC tables' [6, 32,
+    4,096] products and [32, 4,096] sums, the combine normalisation's
+    [32, 10,240] inverse chain, is_one's [2, 3, 2, 32, 1] difference): the
+    kernel's CUDA-event median, and the
     wall per launch through the `fp` entry point with its tensor glue (200
     calls back to back, one synchronise)."""
     from charon_tpu_torch.ops import cuda_fp, fp
@@ -1490,14 +1628,17 @@ def k1_main_shapes(dev, sm_clocks_per_s: float) -> dict:
 def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
                            combine_real: int, combine_rows: int,
                            sm_clocks_per_s: float, sms: int) -> dict:
-    """K11 against `final_exp_plain` at 1 row (the batch check) and `tile`
-    rows (a re-check), on seeded random and all-LMAX limbs; K12 against
+    """K11 with its verdict "= 1" against `final_exp_plain` and
+    `pairing.is_one` at 1 row (the batch check) and `tile` rows (a
+    re-check), on seeded random limbs — half the rows Fp elements, which
+    come out one — and all-LMAX limbs; K12 against
     `g2_decompress_plain` at `tile` rows (a verify tile) and `combine_rows`
     (the combine: `combine_real` signatures, the rest ∞ padding), on the
     pool's signatures (both signs) with ∞ rows, x off the curve and
     on-curve points outside G2 mixed in.  Bit for bit, every row's ok flag
     as its kind wants, and both timed beside their bounds."""
     from charon_tpu_torch.ops import codec, cuda_codec, cuda_final_exp
+    from charon_tpu_torch.ops import pairing as tpair
     from charon_tpu_torch.tbls.ref import curve as rc
     from charon_tpu_torch.tbls.ref.fields import FQ2
 
@@ -1506,15 +1647,34 @@ def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
     # K11: bound_ms at the card's full rate; `bound_one_warp_ms` at the
     # rate of the SMs that one warp per row can occupy (one SM a row), an
     # assumption of this design that the function does not force
+    def fe_rows(rows, pattern):
+        """Fp12 rows; with random limbs the first ⌈rows / 2⌉ of them Fp
+        elements (c0's c0 only), which the exponentiation takes to one."""
+        f = limbs(dev, gen, (2, 3, 2, NL, rows), pattern)
+        if pattern == "random":
+            f.view(12, NL, rows)[1:, :, :-(-rows // 2)] = 0
+        return (f,)
+
+    def fe_plain(f):
+        out = cuda_final_exp.final_exp_plain(f)
+        return out, tpair.is_one(out)
+
     for rows in (1, tile):
         part = {}
-        ops, nbytes = final_exp_ops() * rows, 2 * 12 * EL_BYTES * rows
-        record(part, "final_exp", cuda_final_exp.final_exp,
-               cuda_final_exp.final_exp_plain, ops, nbytes,
-               [lambda p=p, rows=rows: (limbs(dev, gen, (2, 3, 2, NL, rows),
-                                               p),)
+        ops = (final_exp_ops() + 12 * (OPS["fp_sub"] + _ISZERO)) * rows
+        nbytes = (2 * 12 * EL_BYTES + 1) * rows
+        # the path's form: the result and its verdict "= 1" in one launch
+        record(part, "final_exp", cuda_final_exp.final_exp_is_one, fe_plain,
+               ops, nbytes,
+               [lambda rows=rows, p=p: fe_rows(rows, p)
                 for p in ("random", "lmax")],
                sm_clocks_per_s, plain_reps=1)
+        f, = fe_rows(rows, "random")
+        _, one = cuda_final_exp.final_exp_is_one(f)
+        want = [k < -(-rows // 2) for k in range(rows)]
+        if one.tolist() != want:
+            raise AssertionError(f"K11 at {rows} rows: verdicts "
+                                 f"{one.tolist()[:8]}…, want {want[:8]}…")
         one_warp, _ = bound(ops, nbytes,
                             sm_clocks_per_s * min(rows, sms) / sms)
         results[f"final_exp@{rows}"] = {**part["final_exp"], "rows": rows,
@@ -1892,9 +2052,7 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
     if zero:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{zero}")
-    k1 = {k: launch_counts[k] for k in cuda_fp.LAUNCHES if launch_counts[k]}
-    if k1:
-        raise AssertionError(f"combine: K1 launched on the path: {k1}")
+    check_no_k1("combine", launch_counts)
     by_stage = {k: sum(st[k] for st in stage_launches.values())
                 for k in launch_counts}
     if by_stage != launch_counts:
@@ -2031,23 +2189,23 @@ def check_stage_launches(label: str, stage_launches: dict, stage: str,
 def check_redesigned_stages(label: str, stage_launches: dict,
                             tiles: int) -> None:
     """One K12 launch per tile in sig_decompress_s; one K20 launch per
-    tile, and nothing else, in rlc_tables_s; one K15 launch and the
-    p-side's K1 neg per tile in rlc_scalar_mul_s; one K13 launch per tile,
-    and nothing else, in miller_s; one K14 launch per tile, and nothing
-    else, in fold_s; one K11 launch and is_one's K1 sub per tile in
-    final_exp_s; K5 F12MUL nowhere but in a re-check."""
+    tile, and nothing else, in rlc_tables_s; one K15 launch per tile (the
+    p-side's negation inside it) in rlc_scalar_mul_s; one K13 launch per
+    tile, and nothing else, in miller_s; one K14 launch per tile, and
+    nothing else, in fold_s; one K11 launch per tile (its verdict
+    included) in final_exp_s; K5 F12MUL nowhere but in a re-check."""
     check_stage_launches(label, stage_launches, "sig_decompress_s",
                          {"g2_decompress": tiles})
     check_stage_launches(label, stage_launches, "rlc_tables_s",
                          {"g1_tables": tiles})
     check_stage_launches(label, stage_launches, "rlc_scalar_mul_s",
-                         {"g1_scalar_mul": tiles, "fp_neg": tiles})
+                         {"g1_scalar_mul": tiles})
     check_stage_launches(label, stage_launches, "miller_s",
                          {"miller_loop": tiles})
     check_stage_launches(label, stage_launches, "fold_s",
                          {"f12_fold": tiles})
     check_stage_launches(label, stage_launches, "final_exp_s",
-                         {"final_exp": tiles, "fp_sub": tiles})
+                         {"final_exp": tiles})
     f12mul = {st: c["pp_f12mul"] for st, c in stage_launches.items()
               if st != "recheck_s" and c.get("pp_f12mul")}
     if f12mul:
@@ -2066,47 +2224,55 @@ PHASE_ONLY_KERNELS = ("pp_dbl", "pp_add", "pp_sqr", "pp_mul014",
 
 #: K7's four chain kernels, which K18 replaced on the path
 K7_KERNELS = ("h2c_sqr", "h2c_mul", "h2c_sqr4", "h2c_sqr4mul")
-#: K1 launches a device hash batch keeps for its exactness glue: the
-#: root's tests α = −1 and root² = v (two differences) and the sign fix's
-#: negation of y (two coefficients); K22 took the clearing's three point
-#: negations (6 fp_neg) into its program
-H2C_K1_GLUE = {"fp_sub": 2, "fp_neg": 2}
 
 
 def check_h2c_launches(label: str, h2c: dict, batches: int) -> None:
     """`batches` device hash batches in one h2c_s stage: per batch one K8
-    launch, 2 K18 (the root, then the inversion and affine step), no K7,
-    one K9 iso3 and 2 ψ (ψ(R) with ψ(2R), then ψ²(2R)), 2 K17 launches
-    ([|x|]R with [|x|]ψ(R), then [x²]R), no K10 window, 2 K22 (the
-    halves' sum with its double, then the clearing's five additions) and
-    no K2, one K19 (the normalisation) and K1 only for `H2C_K1_GLUE`."""
+    launch, 2 K18 (the root with its exact tests, then the inversion and
+    affine step), no K7, one K23 (the map's tail) and no K9, 2 K17
+    launches ([|x|]R with [|x|]ψ(R), then [x²]R), no K10 window, 2 K22
+    (the halves' sum with its double, ψ(R) and ψ²(2R), then the
+    clearing's five additions) and no K2, one K19 (the normalisation) and
+    no K1 (K18's epilogue and K23 took the exactness glue): 9 launches a
+    batch."""
+    k1 = ("fp_mul", "fp_add", "fp_sub", "fp_neg", "fp_mul_small")
     got = {k: h2c.get(k, 0) for k in ("h2c_sswu", "f2_chain", "h2c_iso3",
-                                      "h2c_psi", "g2_zmul", "g2_dblsel",
-                                      "g2_law", "g2_normalize",
-                                      *H2C_K1_GLUE)}
+                                      "h2c_psi", "h2c_map_tail", "g2_zmul",
+                                      "g2_dblsel", "g2_law", "g2_normalize",
+                                      *k1)}
     got["K7"] = sum(h2c.get(k, 0) for k in K7_KERNELS)
     got["g2_dbl+g2_add"] = h2c.get("g2_dbl", 0) + h2c.get("g2_add", 0)
-    got["fp_mul+fp_add+fp_mul_small"] = sum(
-        h2c.get(k, 0) for k in ("fp_mul", "fp_add", "fp_mul_small"))
-    want = {"h2c_sswu": batches, "f2_chain": 2 * batches,
-            "h2c_iso3": batches, "h2c_psi": 2 * batches,
-            "g2_zmul": 2 * batches, "g2_dblsel": 0, "g2_law": 2 * batches,
-            "g2_normalize": batches, "K7": 0,
-            "g2_dbl+g2_add": 0, "fp_mul+fp_add+fp_mul_small": 0,
-            **{k: n * batches for k, n in H2C_K1_GLUE.items()}}
+    want = {"h2c_sswu": batches, "f2_chain": 2 * batches, "h2c_iso3": 0,
+            "h2c_psi": 0, "h2c_map_tail": batches, "g2_zmul": 2 * batches,
+            "g2_dblsel": 0, "g2_law": 2 * batches, "g2_normalize": batches,
+            "K7": 0, "g2_dbl+g2_add": 0, **{k: 0 for k in k1}}
     if got != want:
         raise AssertionError(f"{label}: h2c_s launched {got}, want {want}")
+    if sum(h2c.values()) != 9 * batches:
+        raise AssertionError(f"{label}: h2c_s launched "
+                             f"{sum(h2c.values())} kernels for {batches} "
+                             f"batch(es), want 9 a batch: {h2c}")
+
+
+def check_no_k1(label: str, counts: dict) -> None:
+    """No K1 launch in a main-path run (a flush or the combine): K15, K11,
+    K18, K22 and K23 took the last glue into their launches."""
+    from charon_tpu_torch.ops import cuda_fp
+
+    k1 = {k: counts.get(k, 0) for k in cuda_fp.LAUNCHES if counts.get(k)}
+    if k1:
+        raise AssertionError(f"{label}: K1 launched on the path: {k1}")
 
 
 def check_recheck(label: str, stage_launches: dict) -> None:
-    """The per-row re-check: one K13 launch over the unscaled rows, one
-    K5 product of the halves and one K11, plus K1 only for the p-side
-    negation and is_one."""
+    """The per-row re-check: one K1 negation of the unscaled p-side (a
+    rejected tile only), one K13 launch over the unscaled rows, one K5
+    product of the halves and one K11 with its verdicts."""
     got = {k: n for k, n in stage_launches["recheck_s"].items() if n}
-    want = {"miller_loop": 1, "pp_f12mul": 1, "final_exp": 1}
-    if {k: got.get(k) for k in want} != want or \
-            set(got) - set(want) - {"fp_neg", "fp_sub"}:
-        raise AssertionError(f"{label}: recheck_s launched {got}")
+    want = {"fp_neg": 1, "miller_loop": 1, "pp_f12mul": 1, "final_exp": 1}
+    if got != want:
+        raise AssertionError(f"{label}: recheck_s launched {got}, want "
+                             f"{want}")
 
 
 def check_stage_sums(label: str, counts: dict, stage_launches: dict) -> None:
@@ -2141,7 +2307,6 @@ def bad_entries(entries, pool_rows):
 def verify_phase(dev):
     """→ (launch counts of one warm rep, of the cold run, the pool's
     pubkeys, sks and key bits on the card)."""
-    from charon_tpu_torch.ops import cuda_fp
     from charon_tpu_torch.tbls import api, dispatch
 
     backend = api._backend()
@@ -2224,12 +2389,11 @@ def verify_phase(dev):
                              f"path: {steps}")
     check_stage_sums("verify", launch_counts, stage_launches)
     check_redesigned_stages("verify", stage_launches, tiles_want)
-    k1 = sum(launch_counts[k] for k in cuda_fp.LAUNCHES)
-    if k1 >= 1000:
-        raise AssertionError(f"verify: {k1} K1 launches per warm flush")
+    check_no_k1("verify", launch_counts)
+    check_no_k1("verify cold", cold_launches)
     redesigned = statistics.median(r["final_exp_s"] + r["sig_decompress_s"]
                                    for r in runs)
-    log(f"verify: {k1} K1 launches per warm flush; final_exp_s + "
+    log(f"verify: no K1 launch in the warm or cold flush; final_exp_s + "
         f"sig_decompress_s p50 over the tiles {redesigned:.6f} s")
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     log("verify p50 over %d reps (stages summed over tiles): %s" % (
@@ -2325,6 +2489,7 @@ def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
                 f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
     check_stage_sums("slot-start", launch_counts, stage_launches)
     check_redesigned_stages("slot-start", stage_launches, tiles_want)
+    check_no_k1("slot-start", launch_counts)
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     log("slot-start p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
@@ -2341,23 +2506,23 @@ def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel wrapper the h2c pipeline and its normalisation reach
-    (K1, K2, K7–K9, K17–K19, K22) replaced by its plain version, on any
-    device."""
+    (K1, K2, K7–K9, K17–K19, K22, K23) replaced by its plain version, on
+    any device."""
     from charon_tpu_torch.ops import cuda_codec, cuda_fp, cuda_g2, fp
     from charon_tpu_torch.ops import cuda_h2c as ch
     from charon_tpu_torch.ops import miller_program as mp
 
-    def chain_plain(kind, inp, cfg):
-        cfg = cfg or ch.chain_config(kind, inp.shape[-1], inp.device)
-        return mp.chain_run_plain(mp.chain_program(kind, cfg), list(inp))
-
     def law_plain(kind, block, cfg=None):
         return mp.law_run_plain(mp.law_program(kind), block)
+
+    def map_tail_plain(aff, ok1, sgn, cfg=None):
+        return ch.map_tail_plain(aff, ok1, sgn, mp.map_tail_program(cfg))
 
     swaps = [(ch, {"h2c_sqr": ch.sqr_plain, "h2c_mul": ch.mul_plain,
                    "h2c_sqr4": ch.sqr4_plain, "h2c_sqr4mul": ch.sqr4mul_plain,
                    "h2c_sswu": ch.sswu_plain, "h2c_iso3": ch.iso3_plain,
-                   "h2c_psi": ch.psi_plain, "_run_chain": chain_plain}),
+                   "h2c_psi": ch.psi_plain, "_run_chain": ch.chain_plain,
+                   "h2c_map_tail": map_tail_plain}),
              (ch, {"zmul": ch.zmul_plain}),
              (cuda_codec, {"g2_normalize": cuda_codec.g2_normalize_plain}),
              (cuda_g2, {"dbl": cuda_g2.dbl_plain, "add": cuda_g2.add_plain,
@@ -2485,8 +2650,8 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
 # Phase 6: a flush of 10,000 distinct messages
 # ---------------------------------------------------------------------------
 
-H2C_PATH_KERNELS = ("h2c_sswu", "f2_chain", "h2c_iso3", "h2c_psi",
-                    "g2_zmul", "g2_law", "g2_normalize")
+H2C_PATH_KERNELS = ("h2c_sswu", "f2_chain", "h2c_map_tail", "g2_zmul",
+                    "g2_law", "g2_normalize")
 
 
 def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
@@ -2567,6 +2732,7 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
     check_stage_sums("distinct", launch_counts, stage_launches)
     check_redesigned_stages("distinct", stage_launches, tiles_want)
     check_h2c_launches("distinct", stage_launches["h2c_s"], tiles_want)
+    check_no_k1("distinct", launch_counts)
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     log("distinct p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
@@ -2695,6 +2861,10 @@ SOURCES = {
                       "charon_tpu/ops/codec.py:266"),
     "g2_law": ("charon_tpu_torch/csrc/g2_law.cu",
                "charon_tpu/ops/pallas_g2.py:811"),
+    # K23 replaces K9 ISO3 (pallas_h2c _h2c_iso3_kernel :306) and the map
+    # tail's exact boundary around it (map_to_g2_rows :601-612)
+    "h2c_map_tail": ("charon_tpu_torch/csrc/h2c_map.cu",
+                     "charon_tpu/ops/pallas_h2c.py:306"),
 }
 
 #: each kernel's compiled function in the ptxas report (its registers,
@@ -2731,11 +2901,12 @@ PTXAS_NAMES = {
     "g1_scalar_mul": "g1_scalar_mul.cu g1_scalar_mul_kernel",
     "straus_msm": "straus.cu straus_msm_kernel",
     "g2_zmul": "g2_zmul.cu g2_zmul_kernel",
-    "f2_chain": "f2_chain.cu f2_chain_program_kernel",
+    "f2_chain": "f2_chain.cu f2_chain_program_kernel<1>",
     "g2_normalize": "normalize.cu g2_normalize_kernel",
     "g1_tables": "g1_tables.cu g1_tables_kernel",
     "g1_decompress": "g1_decompress.cu g1_decompress_kernel",
     "g2_law": "g2_law.cu g2_law_kernel<6>",
+    "h2c_map_tail": "h2c_map.cu h2c_map_tail_kernel",
 }
 
 
@@ -2808,6 +2979,10 @@ def main() -> int:
     mark("g2_law")
     kern["g2_law"] = g2_law_phase(dev, sm_clocks_per_s, vrows * SHARES,
                                   (MESSAGES, dispatch.VERIFY_TILE))
+    # K23 at the hash batches' u rows
+    mark("map_tail")
+    kern["h2c_map_tail"] = map_tail_phase(dev, sm_clocks_per_s,
+                                          (MESSAGES, dispatch.VERIFY_TILE))
     mark("combine")
     combine_launches, _, pool = combine_phase(dev)
     mark("redesign")

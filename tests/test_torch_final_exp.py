@@ -5,7 +5,11 @@ coefficients: the K5 tower reduces in another order, so the residues
 differ bit for bit), on random Fp12 rows and on Miller rows of real pairs,
 where e(P, Q)·e(−P, Q) must be one.  The lane split's stages against the
 sequential K5 bodies bit for bit; the wrapper's CPU route; the re-check's
-final exponentiation through the wrapper.
+final exponentiation through the wrapper.  K11's verdict "= 1" (on the
+card the kernel's lanes 0–11 test f − 1's coefficients; on the CPU
+`pairing.is_one` of the plain result) against the JAX package's
+`f12_eq(final_exponentiate(f), 1)` on products that are one and rows
+that are not.
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ torch.set_num_threads(1)
 
 from charon_tpu.ops import fp as jfp
 from charon_tpu.ops import pairing as jpair
+from charon_tpu.ops import tower as jtower
 from charon_tpu.tbls.ref import curve as refcurve
 from charon_tpu_torch import convert
 from charon_tpu_torch.ops import cuda_final_exp as cfe
@@ -138,3 +143,28 @@ def test_recheck_final_exponentiation_goes_through_the_wrapper(monkeypatch):
     assert tpair.pairing_product_is_one(ps, torch.stack([q, q])).tolist() \
         == [True]
     assert calls == [(2, 3, 2, 32, 1)]
+
+
+def test_verdict_equals_jax_is_one(rows, plain):
+    """The verdict row of `final_exp_is_one` against JAX's is-one of its
+    final exponentiation: one for e(P, Q)·e(−P, Q) and for an Fp element
+    (fixed by the easy part), not one for the random rows and the lone
+    Miller rows."""
+    one_prod = ttower.f12_mul(rows[..., 2:3], rows[..., 3:4])
+    fp_row = torch.zeros_like(one_prod)
+    fp_row[0, 0, 0, :, 0] = torch.from_numpy(tfp.to_limbs(123456789))
+    # four rows, the shape of `rows`: JAX's jit compiled it already
+    f = torch.cat([one_prod, rows[..., 0:1], rows[..., 2:3], fp_row],
+                  dim=-1).contiguous()
+    cfe.reset_launches()
+    got, verdict = cfe.final_exp_is_one(f)
+    assert cfe.LAUNCHES == {"final_exp": 0}
+    np.testing.assert_array_equal(got.numpy(),
+                                  cfe.final_exp_plain(f).numpy())
+    jf = jnp.asarray(convert.elems_to_jax(f.numpy()))
+    je = jax.jit(jpair.final_exponentiate)(jf)
+    jone = jtower.f12_eq(je, jnp.broadcast_to(
+        jnp.asarray(jtower.F12_ONE_M), je.shape))
+    assert verdict.tolist() == np.asarray(jone).tolist() == [
+        True, False, False, True]
+    assert verdict.tolist() == tpair.is_one(got).tolist()

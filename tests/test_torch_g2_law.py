@@ -2,17 +2,20 @@
 csrc/g2_law.cu): its CPU side.
 
 - Each of the three programs (ops/miller_program.py `law_program`:
-  "tables" P → 2P, 3P, 4P; "pre" the halves' sum R and 2R; "post" the
-  clearing's five additions with three negations), executed plain
-  (`law_run_plain`), bit for bit against the K2 plain sequence it
-  replaced (`cuda_h2c.law_steps`) with 4, 8 and 16 lanes, and against the
-  JAX package's `pallas_g2.dbl` / `add` in DIRECT mode (with
+  "tables" P → 2P, 3P, 4P; "pre" the halves' sum R, 2R, ψ(R) and
+  ψ²(2R); "post" the clearing's five additions with three negations),
+  executed plain (`law_run_plain`), bit for bit against the K2 / K9 plain
+  sequence it replaced (`cuda_h2c.law_steps`) with 4, 8 and 16 lanes, and
+  against the JAX package's `pallas_g2.dbl` / `add` and the `h2c_psi`
+  kernel body (applied once and twice) in DIRECT mode (with
   `pallas_h2c._pt_neg_t` for the negations) at 1,024 rows: real points,
-  ∞ rows and all-LMAX limbs.
+  ∞ rows and all-LMAX limbs.  LIN's copy form, which ψ's conjugation
+  uses, copies.
 - `check` and the op kinds of every program; the graphs' op counts
   pinned.
 - One K22 call for a combine's tables through `CUDABackend(device="cpu")`
-  and two for a hash batch, with the K2 wrappers made to raise.  (The
+  and two for a hash batch, with the K2 wrappers made to raise and no ψ
+  call (K22's "pre" took both).  (The
   whole pipeline through K22 against JAX's at pad = 128 is in
   test_torch_h2c_pipeline.py, on its one JAX run.)
 """
@@ -22,6 +25,8 @@ from collections import Counter
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
 
 # one intra-op thread: the suite runs several workers on the same cores,
 # and spinning torch threads in each of them slow every worker down
@@ -98,8 +103,14 @@ def _jax_law(kind: str, pts):
         p2 = pallas_g2.dbl(fc, t[0])
         outs = [p2, pallas_g2.add(fc, p2, t[0]), pallas_g2.dbl(fc, p2)]
     elif kind == "pre":
+        hc = jnp.asarray(pallas_h2c.h2c_consts())
+
+        def psi(q):
+            return pallas_h2c._run("h2c_psi", fc, hc, q)
+
         r = pallas_g2.add(fc, t[0], t[1])
-        outs = [r, pallas_g2.dbl(fc, r)]
+        d = pallas_g2.dbl(fc, r)
+        outs = [r, d, psi(r), psi(psi(d))]
     else:
         t1, t0, p, xpsip, psip, psi2p2 = t
 
@@ -141,8 +152,9 @@ def test_program_invariants(kind, cfg):
 
 
 #: (f2_mul, f2_sqr, lin) ops of each graph: a doubling is 6 / 2 / 16, an
-#: addition 12 / 0 / 44, a point negation 0 / 0 / 2
-OP_COUNTS = {"tables": (24, 4, 76), "pre": (18, 2, 60),
+#: addition 12 / 0 / 44, a point negation 0 / 0 / 2, ψ 2 / 0 / 6 (three
+#: conjugations, each a copy and a negation)
+OP_COUNTS = {"tables": (24, 4, 76), "pre": (24, 2, 78),
              "post": (60, 0, 226)}
 
 
@@ -157,9 +169,11 @@ def test_graph_op_counts(kind):
     dbl.g2_double(tuple(dbl.input(2 * c) for c in range(3)))
     add.g2_add(tuple(add.input(2 * c) for c in range(3)),
                tuple(add.input(6 + 2 * c) for c in range(3)))
-    steps = {"tables": (2, 1, 0), "pre": (1, 1, 0), "post": (0, 5, 3)}
-    nd, na, nneg = steps[kind]
-    assert len(g.ops) == nd * len(dbl.ops) + na * len(add.ops) + 2 * nneg
+    steps = {"tables": (2, 1, 0, 0), "pre": (1, 1, 0, 3),
+             "post": (0, 5, 3, 0)}
+    nd, na, nneg, npsi = steps[kind]
+    assert len(g.ops) == (nd * len(dbl.ops) + na * len(add.ops) + 2 * nneg
+                          + 8 * npsi)
 
 
 def _counted(calls: dict, key: str, fn):
@@ -192,6 +206,18 @@ def test_combine_launches_k22_once_for_its_tables(monkeypatch):
     assert out == [rc.g2_to_bytes(want)]
 
 
+def test_lin_copy_form_copies():
+    """LIN with iters 0 (ψ's conjugation keeps c0's limbs) copies a
+    unreduced; K22's "pre" is the only program that uses it."""
+    a = torch.full((32, 4), tfp.LMAX, dtype=torch.int32)
+    assert torch.equal(mp.lin_plain(a, a, *mp._COPY), a)
+    for kind in KINDS:
+        *_, iters, _, _ = mp._fields(mp.law_program(kind).code)
+        kinds = mp._fields(mp.law_program(kind).code)[0]
+        copies = int(((kinds == mp.LIN) & (iters == 0)).sum())
+        assert copies == (9 if kind == "pre" else 0), kind
+
+
 def test_hash_batch_launches_k22_twice_and_no_k2(monkeypatch):
     calls = {"law": [], "psi": []}
     monkeypatch.setattr(cuda_g2, "g2_law",
@@ -203,7 +229,7 @@ def test_hash_batch_launches_k22_twice_and_no_k2(monkeypatch):
     msgs = [b"charon-tpu-torch K22: slot 21", b"charon-tpu-torch K22: slot 22"]
     u, exc, sgn = (torch.from_numpy(a) for a in cuda_h2c.pack_messages(msgs))
     got = cuda_h2c.hash_to_g2_rows(u, exc, sgn)
-    assert calls["law"] == ["pre", "post"] and len(calls["psi"]) == 2
+    assert calls["law"] == ["pre", "post"] and len(calls["psi"]) == 0
     planes = backend_cuda._affine_planes(cuda_g2.as_points(got)).numpy()
     for k, msg in enumerate(msgs):
         np.testing.assert_array_equal(

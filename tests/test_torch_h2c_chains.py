@@ -18,6 +18,10 @@ version.
 - K20's plain version against the JAX backend's `_rlc_g1_tables_kernel`
   by value (∞, −g1 and real keys) and against `cuda_pairing._g1_double`
   / `_g1_add` bit for bit.
+- The root's exact boundary — α = −1, root² = v and the select, K18's
+  epilogue on the card — in plain code (`sqrt_select_plain`) on the
+  program's raw outputs against JAX's `f2_sqrt_rows`: ok exactly, the
+  branch's root bit for bit.
 - `check` on every new program and on the sweep's, and no SEL in K18's
   (its kernel runs the interpreter without it); `hash_to_g2_rows` and
   `_affine_planes` end to end against the JAX pipeline and its
@@ -120,6 +124,29 @@ def test_sqrt_program_equals_jax(sqrt_rows, other):
     assert jok[:25].all() and jok[25:].sum() < ROWS - 25
     np.testing.assert_array_equal(_canon(root.numpy()[..., jok]),
                                   _canon(jroot[..., jok]))
+
+
+@pytest.mark.parametrize("other", [False, True], ids=["path", "other"])
+def test_sqrt_epilogue_equals_jax(sqrt_rows, other):
+    """The root's exact boundary (K18's epilogue; on the CPU
+    `sqrt_select_plain`) on the program's raw outputs: ok is JAX's on
+    zero, the α = −1 rows, squares, non-squares and all-LMAX limbs; the
+    root is root_u bit for bit where α = −1, root_b elsewhere, and JAX's
+    in value where ok."""
+    v, jroot, jok = sqrt_rows
+    tv = torch.from_numpy(v)
+    cfg = OTHER["sqrt"] if other else mp.CH_CONFIG["sqrt"]
+    one = fp.const(fp.ONE, "cpu").unsqueeze(-1).expand(32, ROWS)
+    raw = mp.chain_run_plain(mp.chain_program("sqrt", cfg), [*tv, one])
+    root, ok = cuda_h2c.sqrt_select_plain(raw, tv)
+    np.testing.assert_array_equal(ok.numpy(), jok)
+    is_m1 = cuda_h2c.f2_eq_const_rows(raw[0:2], cuda_h2c._F2_MINUS_ONE)
+    assert is_m1[1:9].all() and not is_m1[9:25].any()
+    assert torch.equal(root[..., is_m1], raw[2:4][..., is_m1])
+    assert torch.equal(root[..., ~is_m1], raw[4:6][..., ~is_m1])
+    np.testing.assert_array_equal(_canon(root.numpy()[..., jok]),
+                                  _canon(jroot[..., jok]))
+    assert jok[:25].all() and not jok[25:29].all()
 
 
 @pytest.mark.parametrize("other", [False, True], ids=["path", "other"])

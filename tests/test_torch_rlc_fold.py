@@ -7,7 +7,9 @@ RLC scaling in one launch, csrc/g1_scalar_mul.cu): their CPU side.
   tables {P, 2P, 3P}, ∞ rows, all-LMAX and random limbs, every digit.
 - K15's scheduled program (ops/miller_program.py `g1_program`, what each
   lane runs) executed on CPU tensors with the plain field functions
-  (`g1_run_plain`) equals the plain windows bit for bit; its invariants
+  (`g1_run_plain`) equals the plain windows bit for bit; with y negated
+  (`neg_y`, the verify path's Miller p-side) it equals JAX's
+  `g1_scalar_mul_rows` followed by JAX's `g1_proj_rows`; its invariants
   (`check`, SEL's operands included); SEL's plain semantics; the small
   multiples of the G1 law as LIN; K13's program unchanged by the
   scheduler's new Fp values and SEL.
@@ -15,7 +17,9 @@ RLC scaling in one launch, csrc/g1_scalar_mul.cu): their CPU side.
   then the plain fold, bit for bit, and against the JAX tower's fold by
   value.
 - `verify_device_exec` calls K14's and K15's wrappers once per tile, K6
-  never and K5 F12MUL only inside the re-check.
+  never and K5 F12MUL only inside the re-check; it takes the p-side from
+  K15 (−Y) and the batch verdict from K11, and `g1_proj_rows` only in
+  the re-check.
 """
 
 import hashlib
@@ -37,6 +41,7 @@ from charon_tpu.ops import pallas_g2
 from charon_tpu.ops import pallas_pairing as pp
 from charon_tpu.ops import tower as jtower
 from charon_tpu_torch import convert
+from charon_tpu_torch.ops import cuda_final_exp as cfe
 from charon_tpu_torch.ops import cuda_g2
 from charon_tpu_torch.ops import cuda_pairing as cp
 from charon_tpu_torch.ops import fp as tfp
@@ -111,6 +116,27 @@ def test_g1_program_runs_the_windows(scaled, lanes, slots, window):
                                   for t in tabs],
                           torch.from_numpy(w[:, SAMPLE]))
     np.testing.assert_array_equal(out.numpy(), got.numpy()[..., SAMPLE])
+
+
+@pytest.mark.parametrize("lanes,slots,window", [
+    (mp.G1_LANES, mp.G1_SLOTS, mp.G1_WINDOW), (2, 16, 40), (8, 20, 40)])
+def test_g1_program_neg_y_equals_jax_proj_rows(scaled, lanes, slots, window):
+    """K15's −Y (one LIN more, fp381 neg's columns) against JAX's scaling
+    followed by JAX's `g1_proj_rows`, bit for bit; the wrapper's CPU route
+    the same."""
+    tabs, w, _, jrows = scaled
+    jp = np.asarray(pp.g1_proj_rows(jnp.asarray(
+        convert.g1_to_jax(jrows, tiled=False))))
+    want = convert.g1_from_jax(jp)[..., SAMPLE]
+    prog = mp.g1_program(NWIN, lanes, slots, window, neg_y=True)
+    mp.check(prog)
+    out = mp.g1_run_plain(prog, *[torch.from_numpy(t[..., SAMPLE])
+                                  for t in tabs],
+                          torch.from_numpy(w[:, SAMPLE]))
+    np.testing.assert_array_equal(out.numpy(), want)
+    got = cp.g1_scalar_mul_rows(*[torch.from_numpy(t) for t in tabs],
+                                torch.from_numpy(w), neg_y=True)
+    np.testing.assert_array_equal(got.numpy()[..., SAMPLE], want)
 
 
 @pytest.mark.parametrize("lanes,slots,window", [
@@ -293,3 +319,57 @@ def test_verify_tile_launches_k14_and_k15_once(monkeypatch):
     # it to the re-check, whose one product of halves is F12MUL's
     assert calls == {"fold": 1, "scale": 1, "f12mul": 1}
     assert "recheck_s" in be.last_stages
+
+
+def test_verify_tile_takes_the_p_side_from_k15_and_the_verdict_from_k11(
+        monkeypatch):
+    """One tile with a bad entry: K15 runs with −Y (no separate negation
+    of the scaled rows), K11 once with its verdict for the batch and once
+    over the entries in the re-check; `g1_proj_rows` — the unscaled
+    p-side's one negation — only inside the re-check; the batch-check's
+    verdicts equal the oracle's."""
+    calls = {"scale": [], "verdict": [], "proj": 0}
+    in_recheck, in_scale = [], []
+    scale, verdict, proj = (cp.g1_scalar_mul_rows,
+                            cfe.final_exp_is_one, cp.g1_proj_rows)
+    recheck = backend_cuda.CUDABackend._recheck
+
+    def scale_spy(*args, **kw):
+        calls["scale"].append(kw.get("neg_y", False))
+        in_scale.append(True)      # the CPU route's plain −Y
+        try:
+            return scale(*args, **kw)
+        finally:
+            in_scale.pop()
+
+    def verdict_spy(f):
+        calls["verdict"].append(f.shape[-1])
+        return verdict(f)
+
+    def proj_spy(pts):
+        if not in_scale:
+            if not in_recheck:
+                raise AssertionError("g1_proj_rows called outside the "
+                                     "re-check")
+            calls["proj"] += 1
+        return proj(pts)
+
+    def recheck_flagged(self, *args):
+        in_recheck.append(True)
+        try:
+            return recheck(self, *args)
+        finally:
+            in_recheck.pop()
+
+    monkeypatch.setattr(cp, "g1_scalar_mul_rows", scale_spy)
+    monkeypatch.setattr(cfe, "final_exp_is_one", verdict_spy)
+    monkeypatch.setattr(cp, "g1_proj_rows", proj_spy)
+    monkeypatch.setattr(backend_cuda.CUDABackend, "_recheck",
+                        recheck_flagged)
+    be = backend_cuda.CUDABackend(device="cpu")
+    entries = [(PKS[0], MSG, rc.g2_to_bytes(bls.sign(SKS[0], MSG))),
+               (PKS[1], MSG, rc.g2_to_bytes(bls.sign(SKS[1], MSG))),
+               (PKS[2], MSG, rc.g2_to_bytes(bls.sign(SKS[0], MSG)))]
+    got = be.verify_device_exec(be.verify_host_prep(entries))
+    assert got == [True, True, False]
+    assert calls == {"scale": [True], "verdict": [1, 4], "proj": 1}

@@ -9,8 +9,11 @@ kernels built into ROOT/build/.  The run builds the 10,000-entry verify
 pool of `chip_smoke.verify_pool` (64 messages), times the G1 decompress
 of its 10,000 keys alone on the idle card (a fresh backend's pubkey LRU,
 REPS times: `pk_alone`), then REPS cold flushes (the pubkey LRU emptied
-before each: the first flush after a node starts) and REPS (default 5)
-warm flushes; then the 10,000-distinct-message flush of
+before each: the first flush after a node starts), REPS (default 5)
+warm flushes and REPS slot-start flushes (the warm flush's keys over 64
+messages new each rep, signed on the card, so its first tile hashes them
+on the card as one batch, as `chip_smoke.verify_slot_start_phase`
+does); then the 10,000-distinct-message flush of
 `chip_smoke.verify_distinct_phase` (the message LRU cleared before each
 of REPS reps).  Every verdict must be True.  Prints the card's name and
 power limit, then one JSON line: the commit's root, and per flush kind
@@ -48,7 +51,7 @@ def main() -> int:
     backend = api._backend()
     entries, _, bits = cs.verify_pool(dev, backend)
     out = {"root": str(root), "pk_alone": [], "cold": [], "warm": [],
-           "distinct": []}
+           "slot_start": [], "distinct": []}
 
     def flush(batch, kind):
         backend.reset_verify_totals()
@@ -69,6 +72,15 @@ def main() -> int:
         flush(entries, "cold")
     for _ in range(reps):
         flush(entries, "warm")
+    v, m = len(entries), cs.MESSAGES
+    for rep in range(reps):
+        news = [f"verify_ab: slot {200 + rep} committee {c}".encode()
+                for c in range(m)]
+        hms = backend._hash_points(news, {}, {})
+        sigs = cs.sign_on_card(dev, bits, hms[..., [k % m for k in range(v)]])
+        backend._hm_cache.clear()
+        flush([(entries[k][0], news[k % m], sigs[k]) for k in range(v)],
+              "slot_start")
     msgs = cs.distinct_messages(len(entries))
     hms = backend._hash_points(msgs, {}, {})
     sigs = cs.sign_on_card(dev, bits, hms)
