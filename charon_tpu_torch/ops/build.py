@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu", "final_exp.cu",
            "decompress.cu", "miller.cu", "fold.cu", "g1_scalar_mul.cu",
            "straus.cu", "g2_zmul.cu", "f2_chain.cu", "normalize.cu",
-           "g1_tables.cu", "g1_decompress.cu", "g2_law.cu", "h2c_map.cu")
+           "g1_tables.cu", "g1_decompress.cu", "g2_law.cu", "h2c_map.cu",
+           "h2c_sswu.cu")
 HEADERS = ("fp381.cuh", "fp381_consts.cuh", "program.cuh", "f12_warp.cuh",
            "fp_inv.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
@@ -192,6 +193,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_g1_decompress.argtypes = [p, p, p, p, p, i, p]
     lib.charon_g2_law.argtypes = [i, p, p, p, i, p, i, i, i, p]
     lib.charon_h2c_map_tail.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
+    lib.charon_h2c_sswu_head.argtypes = [p, p, p, p, p, i, p, i, i, i, p]
     for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
                lib.charon_pp_step, lib.charon_f12_step,
                lib.charon_g1_dblsel, lib.charon_g2_sel, lib.charon_f2_chain,
@@ -202,7 +204,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                lib.charon_straus_msm, lib.charon_g2_zmul,
                lib.charon_f2_chain_program, lib.charon_g2_normalize,
                lib.charon_g1_tables, lib.charon_g1_decompress,
-               lib.charon_g2_law, lib.charon_h2c_map_tail):
+               lib.charon_g2_law, lib.charon_h2c_map_tail,
+               lib.charon_h2c_sswu_head):
         fn.restype = i
 
 

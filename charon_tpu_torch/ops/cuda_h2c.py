@@ -1,5 +1,6 @@
-"""Kernels K7–K9, K17, K18, K23 and the batched device hash-to-G2
-(csrc/h2c.cu, csrc/g2_zmul.cu, csrc/f2_chain.cu, csrc/h2c_map.cu).
+"""Kernels K7–K9, K17, K18, K23, K24 and the batched device hash-to-G2
+(csrc/h2c.cu, csrc/g2_zmul.cu, csrc/f2_chain.cu, csrc/h2c_map.cu,
+csrc/h2c_sswu.cu).
 
 The counterpart of the JAX package's ops/pallas_h2c.py: the host keeps
 expand_message_xmd + hash_to_field (SHA-256, `pack_messages`), and the
@@ -13,7 +14,8 @@ Budroni–Pintore ψ cofactor clearing:
   pow per SQR4/SQR4MUL launch).
 - K8 `h2c_sswu` replaces `_h2c_sswu_kernel`: the SSWU fraction x = xn/xd
   and both square-root radicands v1 = g'(x1)·xd⁴ and v2 = (Z·u²)³·v1,
-  reading the host's exceptional flag (tv1 = 0: u = 0 or Z·u² = −1).
+  reading an exceptional flag (tv1 = 0).  It remains for the smoke run's
+  kernel phase and as the step K24 is held to.
 - K9 `h2c_point<ISO3|PSI>` replaces `_h2c_iso3_kernel` (Horner over the
   isogeny table to a projective point) and `_h2c_psi_kernel` (ψ as two
   conjugations and two constant products).  It remains for the smoke
@@ -24,6 +26,14 @@ Budroni–Pintore ψ cofactor clearing:
   x's select by ok₁, the RFC 9380 sgn0 sign fix, the 3-isogeny as one
   straight-line program on `MT_CONFIG`'s lanes a row (ops/miller_program.py
   `iso3_dag`) and the ∞ guard, in ONE launch.
+- K24 `h2c_sswu_head` (csrc/h2c_sswu.cu) replaces K8 on the path: SSWU as
+  one straight-line program on `SW_CONFIG`'s lanes a row (ops/miller_
+  program.py `sswu_dag`), whose prologue derives from u alone the two
+  flags that the JAX package's `pack_messages` computes on the host — the
+  exceptional flag and sgn0(u), which K23 reads — in ONE launch.
+  tv1 = Z²u⁴ + Zu² is 0 exactly where u is: Z·u² = −1 has no root, since
+  −1 is a square in Fp2 and Z is not (its norm, 5, is a non-residue mod
+  p).  So the flag is u ≡ 0, an exact test of u's coefficients.
 
 - K17 `g2_zmul` (csrc/g2_zmul.cu) replaces the launch sequence of
   `_zmul` (:537): one [|x|]-multiply — the table {Q, 2Q, 3Q} by K2 and
@@ -50,17 +60,19 @@ forms, in another.  The exactness boundaries, which the JAX package
 keeps at the jnp level, run inside the kernels that produce their
 operands, on csrc/fp381.cuh's exact `canon` / `is_zero`: the tests α =
 −1 and root² = v and the root's select in K18's epilogue, sgn0 with the
-sign fix and the isogeny's ∞ guard in K23.  A hash batch is 9 launches:
-K8, 2 K18, K23, 2 K17, 2 K22 and the normalisation's K19.  Their plain
-versions (`sqrt_select_plain`, `map_tail_plain`) are the same boundary
-in plain tensor code.
+sign fix and the isogeny's ∞ guard in K23, the exceptional flag and
+sgn0(u) in K24.  A hash batch is 9 launches: K24, 2 K18, K23, 2 K17, 2
+K22 and the normalisation's K19.  Their plain versions
+(`sqrt_select_plain`, `map_tail_plain`, `sswu_head_plain`) are the same
+boundary in plain tensor code.
 
 Each kernel is bit-identical to its plain version here: for K7–K9 the
 JAX `_DIRECT_FNS` body line for line on `cuda_g2`'s plain field library;
 for K18 its program executed on PyTorch tensors, which equals the K7
 chains (and JAX's) in value, every field element the same residue; for
 K23 its program executed on tensors inside the plain boundary, which
-equals K9 ISO3 and JAX's map tail bit for bit.
+equals K9 ISO3 and JAX's map tail bit for bit; for K24 likewise, equal
+to K8 and JAX's `_sswu_body` given the host's flags.
 
 LAYOUT.  A batch of n-plane rows is ``[n, 32, R]`` int32; an Fp2 batch
 ``[2, 32, R]`` is also the port tower's element layout.  The u rows are
@@ -131,6 +143,13 @@ def iso3_const_planes() -> np.ndarray:
     order of K23's constant block (`miller_program.MT_XN`..): the table's
     rows from k1_0 to k4_2."""
     return _HC_NP[2 * _HC_XN:2 * (_HC_YD + 3)].copy()
+
+
+def sswu_const_planes() -> np.ndarray:
+    """SSWU's six Fp2 constants (one, Z, A', −A', Z·A', B') as [12, 32]
+    limb planes, in the order of K24's constant block
+    (`miller_program.SW_ONE`..): the table's first rows."""
+    return _HC_NP[2 * _HC_ONE:2 * (_HC_B + 1)].copy()
 
 
 def psi_const_planes() -> np.ndarray:
@@ -259,7 +278,7 @@ def psi_plain(pt: torch.Tensor) -> torch.Tensor:
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"h2c_sswu": 0, "h2c_sqr": 0, "h2c_mul": 0, "h2c_sqr4": 0,
             "h2c_sqr4mul": 0, "h2c_iso3": 0, "h2c_psi": 0, "g2_zmul": 0,
-            "f2_chain": 0, "h2c_map_tail": 0}
+            "f2_chain": 0, "h2c_map_tail": 0, "h2c_sswu_head": 0}
 
 #: K7 op codes (csrc/h2c.cu) and K9 kinds
 _CHAIN = {"h2c_sqr": 0, "h2c_mul": 1, "h2c_sqr4": 2, "h2c_sqr4mul": 3}
@@ -760,17 +779,65 @@ def h2c_map_tail(aff: torch.Tensor, ok1: torch.Tensor, sgn: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K24: SSWU with its flags — the exceptional flag and sgn0(u) — from u alone
+# ---------------------------------------------------------------------------
+
+def sswu_flags_plain(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K24's prologue in plain tensor code: u [2, 32, R] → (exc, sgn) [R]
+    int32, exc the exceptional flag tv1 = 0, which holds exactly where
+    u ≡ 0 (module docstring), and sgn RFC 9380's sgn0(u)."""
+    return f2_is_zero_rows(u).int(), f2_sgn0_rows(u).int()
+
+
+def sswu_head_plain(u: torch.Tensor, prog=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K24's plain version: the prologue (`sswu_flags_plain`) and SSWU as
+    the kernel's program executed on tensors (`sswu_run_plain`, the flag
+    the SEL's digit).  u [2, 32, R] → ((xn, xd, Z·u², v1, v2) [10, 32, R],
+    sgn0(u) [R] int32), the planes bit for bit K8's given the flag."""
+    exc, sgn = sswu_flags_plain(u)
+    prog = prog or miller_program.sswu_program()
+    return miller_program.sswu_run_plain(prog, u, exc), sgn
+
+
+def h2c_sswu_head(u: torch.Tensor, cfg: tuple | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K24: SSWU in ONE launch — the prologue's exceptional flag (u ≡ 0)
+    and sgn0(u), then ops/miller_program.py's `sswu_dag` on `lanes`
+    threads a row (cfg = (lanes, slots, look-ahead), None: `SW_CONFIG`).
+    u [2, 32, R] canonical limbs → ((xn, xd, Z·u², v1, v2) [10, 32, R],
+    sgn0(u) [R] int32); `sswu_head_plain` on the CPU, bit for bit."""
+    prog = miller_program.sswu_program(cfg)
+    if u.device.type == "cpu":
+        return sswu_head_plain(u, prog)
+    n = u.shape[-1]
+    _check("h2c_sswu_head", u, 2, n)
+    _cuda_ready("h2c_sswu_head", u)
+    code, fout, steps = miller_program.on_device(prog, u.device)
+    consts = fp.const(prog.consts, u.device)       # one block, every row
+    out = u.new_empty((10, NL, n))
+    sgn = torch.empty(n, dtype=torch.int32, device=u.device)
+    err = build.library().charon_h2c_sswu_head(
+        out.data_ptr(), sgn.data_ptr(), u.data_ptr(), consts.data_ptr(),
+        code.data_ptr(), steps, fout.data_ptr(), prog.lanes, prog.slots, n,
+        _stream(u))
+    _raise_on("h2c_sswu_head", err)
+    launch_count.bump(LAUNCHES, "h2c_sswu_head")
+    return out, sgn
+
+
+# ---------------------------------------------------------------------------
 # The pipeline
 # ---------------------------------------------------------------------------
 
-def map_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
-                   ) -> torch.Tensor:
-    """SSWU + sqrt + sign fix + 3-isogeny: u [2, 32, R], exc / sgn [R]
-    int32 host flags (tv1 = 0, sgn0(u)) → [6, 32, R] projective points on
-    E, one per u row (NOT cofactor-cleared): K8, the root (K18, its exact
-    tests on the card), the affine step (K18) and the tail (K23)."""
+def map_to_g2_rows(u: torch.Tensor) -> torch.Tensor:
+    """SSWU + sqrt + sign fix + 3-isogeny: u [2, 32, R] canonical limbs →
+    [6, 32, R] projective points on E, one per u row (NOT
+    cofactor-cleared): K24 (with the flags), the root (K18, its exact
+    tests on the card), the affine step (K18) and the tail (K23, reading
+    K24's sgn0(u))."""
     s = u.shape[-1]
-    out = h2c_sswu(u, exc)
+    out, sgn = h2c_sswu_head(u)
     xn, xd, zu2 = out[0:2], out[2:4], out[4:6]
     v1, v2 = out[6:8], out[8:10]
     # ONE chain for both candidates, candidate 2 rows after candidate 1
@@ -786,15 +853,14 @@ def map_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
     return h2c_map_tail(aff, ok1, sgn)
 
 
-def hash_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
-                    ) -> torch.Tensor:
+def hash_to_g2_rows(u: torch.Tensor) -> torch.Tensor:
     """The device hash-to-G2 over a u-major batch of 2m rows (`pack_
     messages`) → [6, 32, m] cleared projective G2 points, one per
     message.  The two mapped halves' sum R, its double, ψ(R) and ψ²(2R)
     are ONE K22 launch (`g2_law("pre")`) on the halves' planes side by
     side."""
     half = u.shape[-1] // 2
-    mapped = map_to_g2_rows(u, exc, sgn)
+    mapped = map_to_g2_rows(u)
     r, _, psir, psi2r2 = cuda_g2.g2_law(
         "pre", torch.cat([mapped[..., :half], mapped[..., half:]])).split(6)
     return clear_cofactor_rows(r, psir, psi2r2)
@@ -804,27 +870,23 @@ def hash_to_g2_rows(u: torch.Tensor, exc: torch.Tensor, sgn: torch.Tensor
 # Host half: SHA-256 expand + hash_to_field
 # ---------------------------------------------------------------------------
 
-def _pack_u(us: list[FQ2]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Fp2 u values → (u planes [2, 32, n], exc [n], sgn [n]) int32: the
-    tv1 = 0 exceptional flag (u = 0 or Z·u² = −1) and sgn0(u)."""
+def _pack_u(us: list[FQ2]) -> np.ndarray:
+    """Fp2 u values → their canonical limb planes [2, 32, n] int32, split
+    in one numpy pass: each coefficient's 48 little-endian bytes, three
+    bytes to two 12-bit limbs (`fp.to_limbs`'s limbs, bit for bit)."""
     n = len(us)
-    u_rows = np.zeros((n, 2, NL), np.int32)
-    exc = np.zeros(n, np.int32)
-    sgn = np.zeros(n, np.int32)
-    for r, u in enumerate(us):
-        c0, c1 = (int(c) for c in u.coeffs)
-        u_rows[r, 0] = fp.to_limbs(c0)
-        u_rows[r, 1] = fp.to_limbs(c1)
-        zu2 = refsswu.Z_SSWU * (u * u)
-        tv1 = zu2 * zu2 + zu2
-        exc[r] = 1 if tv1.is_zero() else 0
-        sgn[r] = refsswu._sgn0(u)
-    return np.ascontiguousarray(u_rows.transpose(1, 2, 0)), exc, sgn
+    raw = b"".join(int(c).to_bytes(48, "little") for u in us
+                   for c in u.coeffs)
+    b = np.frombuffer(raw, np.uint8).reshape(n, 2, NL // 2, 3)
+    b = b.astype(np.int32)
+    limbs = np.stack([b[..., 0] | (b[..., 1] & 0xF) << 8,
+                      b[..., 1] >> 4 | b[..., 2] << 4], axis=-1)
+    return np.ascontiguousarray(limbs.reshape(n, 2, NL).transpose(1, 2, 0))
 
 
-def pack_messages(msgs, dst: bytes = DST_G2
-                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """expand_message_xmd + hash_to_field for m messages → (u [2, 32, 2m],
-    exc [2m], sgn [2m]) int32, u-major (row j·m + k = u_j of message k)."""
+def pack_messages(msgs, dst: bytes = DST_G2) -> np.ndarray:
+    """expand_message_xmd + hash_to_field for m messages → u [2, 32, 2m]
+    int32, u-major (row j·m + k = u_j of message k).  K24 derives the
+    flags on the card."""
     pairs = [hash_to_field_fp2(msg, 2, dst) for msg in msgs]
     return _pack_u([p[0] for p in pairs] + [p[1] for p in pairs])

@@ -77,6 +77,9 @@ clearing's five additions.  K23 (csrc/h2c_map.cu) runs the 3-isogeny
 (`iso3_dag`): the four Horner evaluations of K9 ISO3 side by side, on
 the affine (x, y) that the kernel's prologue pins in slots, the
 isogeny's coefficients one block of input planes that every row reads.
+K24 (csrc/h2c_sswu.cu) runs SSWU (`sswu_dag`) the same way on the u that
+its prologue pins, its exceptional denominator a SEL whose digit is the
+prologue's flag u ≡ 0.
 
 ENCODING (`Program.code`, int32 [steps, LANES, 2]): word 0 is kind |
 out << 8 | a << 16 | b << 24, word 1 LIN's form (k | (s + 1) << 8 |
@@ -829,6 +832,48 @@ def iso3_dag() -> tuple[Dag, list[int]]:
                g.f2_mul(xd, yd)]
 
 
+# K24's program (csrc/h2c_sswu.cu): SSWU's fraction and both radicands of
+# a row's u, which the kernel's prologue writes into the pinned pair at
+# slot SW_U.  Its constants are the first six Fp2 constants of the h2c
+# table (cuda_h2c._HC_ONE.._HC_B), one block in device memory that every
+# row reads: one at planes 0–1, Z 2–3, A' 4–5, −A' 6–7, Z·A' 8–9, B'
+# 10–11.  The exceptional denominator is a SEL on window 0, whose digit
+# is the prologue's flag u ≡ 0.
+SW_U = 0
+SW_ONE, SW_Z, SW_A, SW_NEG_A, SW_ZA, SW_B, SW_CONST_PLANES = (
+    0, 2, 4, 6, 8, 10, 12)
+#: K24's (lanes, slots, look-ahead): chip_smoke.py's sweep over 2, 4, 8
+#: and 16 lanes at 128 and 4,096 rows (PERF.md) — every width from 4
+#: lanes schedules 14 steps; 4 lanes were the fastest at 4,096 rows,
+#: where 16 took twice as long, and within 1% of the best at 128; 16
+#: slots are too few to schedule
+SW_CONFIG = (4, 20, 40)
+
+
+def sswu_dag() -> tuple[Dag, list[int]]:
+    """SSWU as csrc/h2c.cu's K8 computes it (pallas_h2c `_sswu_body`),
+    every op on the same operands, so every value keeps its bits: u², Z·u²,
+    (Z·u²)², tv1, then xd = −A'·tv1 or, where the row's flag is set, Z·A'
+    (a SEL), xn = B'·(tv1 + 1), the powers of xd and xn, gx_num and v1 =
+    gx_num·xd, v2 = (Z·u²)³·v1 → (xn, xd, Z·u², v1, v2), 10 planes."""
+    g = Dag()
+    u = g.slot_input(SW_U)
+    one, z, a, na, za, b = (g.input(c) for c in (SW_ONE, SW_Z, SW_A,
+                                                  SW_NEG_A, SW_ZA, SW_B))
+    zu2 = g.f2_mul(z, g.f2_sqr(u))
+    zu2sq = g.f2_sqr(zu2)
+    tv1 = g.f2_add(zu2sq, zu2)
+    xd = g.f2_sel(0, g.f2_mul(na, tv1), za, 0)
+    xn = g.f2_mul(b, g.f2_add(tv1, one))
+    xd2 = g.f2_sqr(xd)
+    xd3 = g.f2_mul(xd2, xd)
+    xn3 = g.f2_mul(g.f2_sqr(xn), xn)
+    gx = g.f2_add(g.f2_add(xn3, g.f2_mul(a, g.f2_mul(xn, xd2))),
+                  g.f2_mul(b, xd3))
+    v1 = g.f2_mul(gx, xd)
+    return g, [xn, xd, zu2, v1, g.f2_mul(g.f2_mul(zu2sq, zu2), v1)]
+
+
 # ---------------------------------------------------------------------------
 # The schedule
 # ---------------------------------------------------------------------------
@@ -1112,6 +1157,21 @@ def map_tail_program(cfg: tuple | None = None) -> Program:
     return _PROGRAM[key]
 
 
+def sswu_program(cfg: tuple | None = None) -> Program:
+    """K24's scheduled SSWU under cfg = (lanes, slots, look-ahead) (None:
+    `SW_CONFIG`; built once per configuration); its `consts` the six Fp2
+    constants' block."""
+    lanes, slots, window = cfg or SW_CONFIG
+    key = ("sswu", lanes, slots, window)
+    if key not in _PROGRAM:
+        from .cuda_h2c import sswu_const_planes
+
+        prog = schedule(*sswu_dag(), lanes, slots, window)
+        prog.consts = sswu_const_planes()
+        _PROGRAM[key] = prog
+    return _PROGRAM[key]
+
+
 def g1_tables_program() -> Program:
     """K20's scheduled doubling and addition, on K15's lanes, slots and
     look-ahead (built once)."""
@@ -1329,6 +1389,15 @@ def map_tail_run_plain(prog: Program, x: torch.Tensor, y: torch.Tensor
     projective planes [6, 32, R]."""
     return execute(prog, const_rows(prog, x.shape[-1], x.device), None,
                    [x[0], x[1], y[0], y[1]])
+
+
+def sswu_run_plain(prog: Program, u: torch.Tensor, exc: torch.Tensor
+                   ) -> torch.Tensor:
+    """K24's program on CPU (or any) tensors: u [2, 32, R], pinned where
+    the kernel's prologue puts it, and the flag exc [R] (u ≡ 0) as the
+    digit of the SEL's window → (xn, xd, Z·u², v1, v2) [10, 32, R]."""
+    return execute(prog, const_rows(prog, u.shape[-1], u.device),
+                   exc[None], [u[0], u[1]])
 
 
 def g1_tables_run_plain(prog: Program, base: torch.Tensor) -> torch.Tensor:

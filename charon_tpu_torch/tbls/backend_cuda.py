@@ -254,11 +254,10 @@ class CUDABackend:
         and hash_to_field on the host, then the device pipeline and its
         normalisation on the prep thread's own stream."""
         t0 = time.perf_counter()
-        u, exc, sgn = cuda_h2c.pack_messages(keys)
+        u = cuda_h2c.pack_messages(keys)
         stages["h2c_host_s"] = time.perf_counter() - t0
         with _own_stream_stage(self._prep_stream, "h2c_s", stages, launches):
-            pts = cuda_h2c.hash_to_g2_rows(self._put(u), self._put(exc),
-                                           self._put(sgn))
+            pts = cuda_h2c.hash_to_g2_rows(self._put(u))
             planes = _affine_planes(cuda_g2.as_points(pts)).cpu().numpy()
         return planes
 

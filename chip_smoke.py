@@ -60,7 +60,13 @@ Phases, in order; any failure raises and exits non-zero:
              launch) against its plain version and the K9 iso3 launch
              with the K1 negation and exact boundary it replaced, bit for
              bit, at the batches' 128 and 4,096 u rows with an isogeny-∞
-             row; the sweep over 4, 8 and 16 lanes.  K18's root with the
+             row; the sweep over 4, 8 and 16 lanes.  K24 (SSWU with its
+             exceptional flag and sgn0(u) from u alone, one launch)
+             against its plain version bit for bit, and against K8 given
+             the host's flags (the JAX packing's formula), at the batches'
+             128 and 4,096 u rows with u = 0, c0 = 0 and c1 = 0 rows and
+             all-LMAX limbs; the sweep over 2, 4, 8 and 16 lanes and the
+             slots.  K18's root with the
              exact tests and select of its epilogue (rows v = 0, −1 of
              the α = −1 branch, the non-square 9 + 16u and a square), K15
              with y negated in its program, K11 with its verdict "= 1"
@@ -145,8 +151,9 @@ Phases, in order; any failure raises and exits non-zero:
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
 2,048-message batch's shapes) against their plain versions.  Every device
-hash batch (phases 4–6) must launch 1 K8, 2 K18, no K7, one K23 and no
-K9, 2 K17, no K10 dblsel, 2 K22 and no K2, one K19 and no K1: 9 launches.
+hash batch (phases 4–6) must launch 1 K24 and no K8, 2 K18, no K7, one K23
+and no K9, 2 K17, no K10 dblsel, 2 K22 and no K2, one K19 and no K1: 9
+launches.  Phase 5 also times `pack_messages` alone at 10,000 messages.
 No flush (warm, cold, slot-start, distinct) and no combine launches K1
 or K9; K1 and K9 run in phase 2 as references.
 
@@ -178,8 +185,9 @@ rows (`steps_ms` the K1 chain; `at_64`, `at_2048`), K20's at 4,096
 batch's two at 64 and 2,048 messages; `k2_at_batches` K2's own times
 there), K23's at a 2,048-message batch's 4,096 u rows (`steps_ms` the K9
 iso3 launch and the glue it replaced, `iso3_ms` K9 iso3 alone, `sweep`;
-`at_128`), K15's and K11's with −Y and the verdict (K15's `plain_y_ms`
-without), and K3's `combine_digits` the mean over the combine's own
+`at_128`), K24's at 4,096 u rows (`k8_ms` K8 given the host's flags,
+`sweep`; `at_128`), K15's and K11's with −Y and the verdict (K15's
+`plain_y_ms` without), and K3's `combine_digits` the mean over the combine's own
 launches. `regs`, `stack` and `spill` are the compiler's
 (-Xptxas -v) for each kernel's function. Every bound_ms is at the card's
 full rate; K11 also gives `bound_one_warp_ms`, the bound at the rate of
@@ -332,6 +340,10 @@ _F2EQ = _F2SUB + 2 * _ISZERO
 # K23 (csrc/h2c_map.cu): the isogeny, sgn0(y)'s two canonicalisations and
 # Z's two zero tests on every row; a flipped row adds y's negation
 OPS["h2c_map_tail"] = OPS["h2c_iso3"] + 2 * _CANON + 2 * _ISZERO
+# K24 (csrc/h2c_sswu.cu): K8's function and the prologue's two
+# canonicalisations (the flag and sgn0(u)) on every row; a row whose flag
+# is clear adds the product −A'·tv1 (counted where the rows are known)
+OPS["h2c_sswu_head"] = OPS["h2c_sswu"] + 2 * _CANON
 
 
 def _pow_ops(e: int, sqr, mul):
@@ -1535,6 +1547,109 @@ def map_tail_phase(dev, sm_clocks_per_s: float,
             "max_abs_err": max(r["max_abs_err"] for r in res.values())}
 
 
+#: K24's sweep: (lanes, slots, look-ahead)
+SW_SWEEP = ((2, 20, 40), (4, 20, 40), (4, 24, 40), (8, 20, 40),
+            (16, 20, 40))
+
+
+def sswu_head_inputs(dev, gen, n: int, pattern: str) -> torch.Tensor:
+    """u [2, 32, n] for K24: seeded random canonical values (rows 0 and
+    5 mod 64 u = 0, rows 1 mod 8 c0 = 0, rows 2 mod 8 c1 = 0), or all-LMAX
+    limbs (a redundant form; row 1 zero)."""
+    from charon_tpu_torch.ops import cuda_h2c as ch, fp
+    from charon_tpu_torch.tbls.ref.fields import FQ2, P
+
+    if pattern == "lmax":
+        u = torch.full((2, NL, n), fp.LMAX, dtype=torch.int32)
+        u[:, :, 1] = 0
+        return u.to(dev)
+    vals = [[int.from_bytes(gen.bytes(48), "little") % P for _ in range(2)]
+            for _ in range(n)]
+    for r in range(n):
+        if r % 64 in (0, 5):
+            vals[r] = [0, 0]
+        elif r % 8 in (1, 2):
+            vals[r][r % 8 - 1] = 0
+    return torch.from_numpy(ch._pack_u([FQ2(v) for v in vals])).to(dev)
+
+
+def host_flags(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two flags as the JAX package's `pack_messages` computes them per
+    row on the host (tv1 = 0, sgn0(u)), from the rows' values: what K8
+    reads, and what K24's prologue must reproduce."""
+    from charon_tpu_torch.ops import fp
+    from charon_tpu_torch.tbls.ref import sswu
+    from charon_tpu_torch.tbls.ref.fields import FQ2
+
+    c0, c1 = (fp.unpack(u[j].cpu().numpy()) for j in range(2))
+    exc, sgn = [], []
+    for a, b in zip(c0, c1):
+        x = FQ2([a, b])
+        zu2 = sswu.Z_SSWU * (x * x)
+        exc.append(1 if (zu2 * zu2 + zu2).is_zero() else 0)
+        sgn.append(sswu._sgn0(x))
+    return (torch.tensor(exc, dtype=torch.int32, device=u.device),
+            torch.tensor(sgn, dtype=torch.int32, device=u.device))
+
+
+def sswu_head_phase(dev, sm_clocks_per_s: float,
+                    batches=(MESSAGES, 2048)) -> dict:
+    """K24 (SSWU with its exceptional flag and sgn0(u) in one launch)
+    against its plain version on the card, bit for bit, at a hash batch's
+    u rows (2 a message: the slot-start batch's 128, a verify tile's
+    4,096) on canonical u with u = 0, c0 = 0 and c1 = 0 rows and on
+    all-LMAX limbs; against K8 given the host's flags (`host_flags`), its
+    planes bit for bit and its sgn0 row equal to the host's; timed beside
+    K8, the plain version and the bound; the sweep over lanes and
+    slots."""
+    from charon_tpu_torch.ops import cuda_h2c as ch
+    from charon_tpu_torch.ops import miller_program as mp
+
+    gen = np.random.default_rng(20261121)
+    res = {}
+    for m in batches:
+        n = 2 * m
+        part = {}
+        u = sswu_head_inputs(dev, gen, n, "random")
+        exc, _ = host_flags(u)
+        ops = OPS["h2c_sswu_head"] * n + _F2MUL * int((exc == 0).sum())
+        record(part, "h2c_sswu_head", ch.h2c_sswu_head, ch.sswu_head_plain,
+               ops, n * (12 * EL_BYTES + 4),
+               [lambda: (u,),
+                lambda: (sswu_head_inputs(dev, gen, n, "lmax"),)],
+               sm_clocks_per_s, plain_reps=1)
+        r = part["h2c_sswu_head"]
+        got, got_sgn = ch.h2c_sswu_head(u)
+        for x in (u, sswu_head_inputs(dev, gen, n, "lmax")):
+            w, s_host = host_flags(x)
+            out, s_dev = ch.h2c_sswu_head(x)
+            if not torch.equal(out, ch.h2c_sswu(x, w)) or \
+                    not torch.equal(s_dev, s_host):
+                raise AssertionError(f"K24 at {n} rows differs from K8 "
+                                     f"given the host's flags")
+        r["k8_ms"] = time_ms(lambda: ch.h2c_sswu(u, exc))
+        r["config"] = mp.SW_CONFIG
+        r["exceptional_rows"] = int(exc.sum())
+        r["sweep"] = {}
+        for cfg in SW_SWEEP:
+            out, s = ch.h2c_sswu_head(u, cfg)
+            if not torch.equal(out, got) or not torch.equal(s, got_sgn):
+                raise AssertionError(f"K24 with {cfg} differs from the "
+                                     f"default")
+            prog = mp.sswu_program(cfg)
+            r["sweep"][str(cfg)] = {
+                "ms": time_ms(lambda cfg=cfg: ch.h2c_sswu_head(u, cfg)),
+                "steps": prog.steps, "cost": prog.cost()}
+        res[n] = r
+        log(f"K24 h2c_sswu_head at {n:,} rows ({r['config']}, "
+            f"{r['exceptional_rows']} rows u = 0): {r['ms']:.4f} ms against "
+            f"{r['k8_ms']:.4f} ms for K8 (bound {r['bound_ms']:.4f} ms; "
+            f"plain {r['plain_ms']:.1f} ms); sweep {json.dumps(r['sweep'])}")
+    big, small = res[2 * batches[-1]], res[2 * batches[0]]
+    return {**big, "rows": 2 * batches[-1], f"at_{2 * batches[0]}": small,
+            "max_abs_err": max(r["max_abs_err"] for r in res.values())}
+
+
 def h2c_kernels_phase(dev, msgs: int, sm_clocks_per_s: float) -> dict:
     """K7–K9 and K10 (dblsel, addsel) against their plain versions at the
     shapes of one `msgs`-message hash batch: the sqrt chain's 4·msgs rows
@@ -2227,22 +2342,24 @@ K7_KERNELS = ("h2c_sqr", "h2c_mul", "h2c_sqr4", "h2c_sqr4mul")
 
 
 def check_h2c_launches(label: str, h2c: dict, batches: int) -> None:
-    """`batches` device hash batches in one h2c_s stage: per batch one K8
-    launch, 2 K18 (the root with its exact tests, then the inversion and
-    affine step), no K7, one K23 (the map's tail) and no K9, 2 K17
+    """`batches` device hash batches in one h2c_s stage: per batch one K24
+    launch (SSWU with its flags) and no K8, 2 K18 (the root with its exact
+    tests, then the inversion and affine step), no K7, one K23 (the map's tail) and no K9, 2 K17
     launches ([|x|]R with [|x|]ψ(R), then [x²]R), no K10 window, 2 K22
     (the halves' sum with its double, ψ(R) and ψ²(2R), then the
     clearing's five additions) and no K2, one K19 (the normalisation) and
     no K1 (K18's epilogue and K23 took the exactness glue): 9 launches a
     batch."""
     k1 = ("fp_mul", "fp_add", "fp_sub", "fp_neg", "fp_mul_small")
-    got = {k: h2c.get(k, 0) for k in ("h2c_sswu", "f2_chain", "h2c_iso3",
-                                      "h2c_psi", "h2c_map_tail", "g2_zmul",
+    got = {k: h2c.get(k, 0) for k in ("h2c_sswu_head", "h2c_sswu",
+                                      "f2_chain", "h2c_iso3", "h2c_psi",
+                                      "h2c_map_tail", "g2_zmul",
                                       "g2_dblsel", "g2_law", "g2_normalize",
                                       *k1)}
     got["K7"] = sum(h2c.get(k, 0) for k in K7_KERNELS)
     got["g2_dbl+g2_add"] = h2c.get("g2_dbl", 0) + h2c.get("g2_add", 0)
-    want = {"h2c_sswu": batches, "f2_chain": 2 * batches, "h2c_iso3": 0,
+    want = {"h2c_sswu_head": batches, "h2c_sswu": 0,
+            "f2_chain": 2 * batches, "h2c_iso3": 0,
             "h2c_psi": 0, "h2c_map_tail": batches, "g2_zmul": 2 * batches,
             "g2_dblsel": 0, "g2_law": 2 * batches, "g2_normalize": batches,
             "K7": 0, "g2_dbl+g2_add": 0, **{k: 0 for k in k1}}
@@ -2506,7 +2623,7 @@ def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel wrapper the h2c pipeline and its normalisation reach
-    (K1, K2, K7–K9, K17–K19, K22, K23) replaced by its plain version, on
+    (K1, K2, K7–K9, K17–K19, K22–K24) replaced by its plain version, on
     any device."""
     from charon_tpu_torch.ops import cuda_codec, cuda_fp, cuda_g2, fp
     from charon_tpu_torch.ops import cuda_h2c as ch
@@ -2518,11 +2635,15 @@ def plain_kernels():
     def map_tail_plain(aff, ok1, sgn, cfg=None):
         return ch.map_tail_plain(aff, ok1, sgn, mp.map_tail_program(cfg))
 
+    def sswu_head_plain(u, cfg=None):
+        return ch.sswu_head_plain(u, mp.sswu_program(cfg))
+
     swaps = [(ch, {"h2c_sqr": ch.sqr_plain, "h2c_mul": ch.mul_plain,
                    "h2c_sqr4": ch.sqr4_plain, "h2c_sqr4mul": ch.sqr4mul_plain,
                    "h2c_sswu": ch.sswu_plain, "h2c_iso3": ch.iso3_plain,
                    "h2c_psi": ch.psi_plain, "_run_chain": ch.chain_plain,
-                   "h2c_map_tail": map_tail_plain}),
+                   "h2c_map_tail": map_tail_plain,
+                   "h2c_sswu_head": sswu_head_plain}),
              (ch, {"zmul": ch.zmul_plain}),
              (cuda_codec, {"g2_normalize": cuda_codec.g2_normalize_plain}),
              (cuda_g2, {"dbl": cuda_g2.dbl_plain, "add": cuda_g2.add_plain,
@@ -2549,6 +2670,31 @@ def distinct_messages(n: int) -> list[bytes]:
             f"validator {k}".encode() for k in range(n)]
 
 
+def pack_messages_timing(n: int) -> None:
+    """Time the host half of hashing alone: `pack_messages` of the distinct
+    flush's first n messages, then its two parts apart (hash_to_field,
+    the limb split)."""
+    from charon_tpu_torch.ops import cuda_h2c
+    from charon_tpu_torch.tbls.ref.hash_to_curve import (DST_G2,
+                                                         hash_to_field_fp2)
+
+    msgs = distinct_messages(n)
+    t0 = time.perf_counter()
+    u = cuda_h2c.pack_messages(msgs)
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pairs = [hash_to_field_fp2(msg, 2, DST_G2) for msg in msgs]
+    t_field = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = cuda_h2c._pack_u([p[0] for p in pairs] + [p[1] for p in pairs])
+    t_split = time.perf_counter() - t0
+    if not np.array_equal(u, again):
+        raise AssertionError("pack_messages: the parts differ from the whole")
+    log(f"pack_messages alone: {n:,} messages in {t_pack:.4f} s "
+        f"({t_pack / n * 1e6:.1f} µs a message): hash_to_field "
+        f"{t_field:.4f} s, limb split {t_split:.4f} s")
+
+
 def h2c_phase(dev, batch: int) -> np.ndarray:
     """One batch of the first `batch` messages of the distinct flush:
     kernels vs the plain pipeline on the card, normalised points vs the
@@ -2560,14 +2706,15 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
     from charon_tpu_torch.tbls.ref.hash_to_curve import hash_to_g2
 
     msgs = distinct_messages(batch)
+    pack_messages_timing(VALIDATORS)
     t0 = time.perf_counter()
-    u, exc, sgn = cuda_h2c.pack_messages(msgs)
+    u_np = cuda_h2c.pack_messages(msgs)
     t_pack = time.perf_counter() - t0
-    args = [torch.from_numpy(a).to(dev) for a in (u, exc, sgn)]
-    got = cuda_h2c.hash_to_g2_rows(*args)
+    u = torch.from_numpy(u_np).to(dev)
+    got = cuda_h2c.hash_to_g2_rows(u)
     t0 = time.perf_counter()
     with plain_kernels():
-        want = cuda_h2c.hash_to_g2_rows(*args)
+        want = cuda_h2c.hash_to_g2_rows(u)
         plain_planes = backend_cuda._affine_planes(
             cuda_g2.as_points(want)).cpu().numpy()
     torch.cuda.synchronize()
@@ -2601,9 +2748,8 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
                               tcurve.g2_pack([hash_to_g2(msgs[k])])[..., 0]):
             raise AssertionError(f"h2c message {k}: != the oracle's H(m)")
     # the same pipeline under the J.10.1 suite's DST
-    u, exc, sgn = cuda_h2c.pack_messages(J101_MSGS, J101_DST)
-    pts = cuda_h2c.hash_to_g2_rows(
-        *[torch.from_numpy(a).to(dev) for a in (u, exc, sgn)])
+    pts = cuda_h2c.hash_to_g2_rows(torch.from_numpy(
+        cuda_h2c.pack_messages(J101_MSGS, J101_DST)).to(dev))
     jp = backend_cuda._affine_planes(cuda_g2.as_points(pts)).cpu().numpy()
     for k, msg in enumerate(J101_MSGS):
         if not np.array_equal(jp[..., k], tcurve.g2_pack(
@@ -2650,7 +2796,7 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
 # Phase 6: a flush of 10,000 distinct messages
 # ---------------------------------------------------------------------------
 
-H2C_PATH_KERNELS = ("h2c_sswu", "f2_chain", "h2c_map_tail", "g2_zmul",
+H2C_PATH_KERNELS = ("h2c_sswu_head", "f2_chain", "h2c_map_tail", "g2_zmul",
                     "g2_law", "g2_normalize")
 
 
@@ -2713,10 +2859,10 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
                 f"{launches} pipeline launches, {tiles} tiles")
         h2c = backend.verify_launch_totals.get("h2c_s", {})
         if backend.hm_cache_misses - misses0 != v or \
-                h2c.get("h2c_sswu", 0) != tiles:
+                h2c.get("h2c_sswu_head", 0) != tiles:
             raise AssertionError(
                 f"distinct rep {rep}: {backend.hm_cache_misses - misses0} "
-                f"message misses, {h2c.get('h2c_sswu', 0)} device h2c "
+                f"message misses, {h2c.get('h2c_sswu_head', 0)} device h2c "
                 f"batches for {tiles} tiles")
         if "recheck_s" in backend.verify_totals:
             raise AssertionError(f"distinct rep {rep}: an all-valid flush "
@@ -2865,6 +3011,10 @@ SOURCES = {
     # tail's exact boundary around it (map_to_g2_rows :601-612)
     "h2c_map_tail": ("charon_tpu_torch/csrc/h2c_map.cu",
                      "charon_tpu/ops/pallas_h2c.py:306"),
+    # K24 replaces K8 (pallas_h2c _h2c_sswu_kernel :285) and the host
+    # flags of pack_messages (:659-662)
+    "h2c_sswu_head": ("charon_tpu_torch/csrc/h2c_sswu.cu",
+                      "charon_tpu/ops/pallas_h2c.py:285"),
 }
 
 #: each kernel's compiled function in the ptxas report (its registers,
@@ -2907,6 +3057,7 @@ PTXAS_NAMES = {
     "g1_decompress": "g1_decompress.cu g1_decompress_kernel",
     "g2_law": "g2_law.cu g2_law_kernel<6>",
     "h2c_map_tail": "h2c_map.cu h2c_map_tail_kernel",
+    "h2c_sswu_head": "h2c_sswu.cu h2c_sswu_head_kernel",
 }
 
 
@@ -2983,6 +3134,10 @@ def main() -> int:
     mark("map_tail")
     kern["h2c_map_tail"] = map_tail_phase(dev, sm_clocks_per_s,
                                           (MESSAGES, dispatch.VERIFY_TILE))
+    # K24 at the hash batches' u rows
+    mark("sswu_head")
+    kern["h2c_sswu_head"] = sswu_head_phase(dev, sm_clocks_per_s,
+                                            (MESSAGES, dispatch.VERIFY_TILE))
     mark("combine")
     combine_launches, _, pool = combine_phase(dev)
     mark("redesign")

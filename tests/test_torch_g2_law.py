@@ -227,8 +227,8 @@ def test_hash_batch_launches_k22_twice_and_no_k2(monkeypatch):
     monkeypatch.setattr(cuda_g2, "dbl", _refuse("K2 dbl"))
     monkeypatch.setattr(cuda_g2, "add", _refuse("K2 add"))
     msgs = [b"charon-tpu-torch K22: slot 21", b"charon-tpu-torch K22: slot 22"]
-    u, exc, sgn = (torch.from_numpy(a) for a in cuda_h2c.pack_messages(msgs))
-    got = cuda_h2c.hash_to_g2_rows(u, exc, sgn)
+    u = torch.from_numpy(cuda_h2c.pack_messages(msgs))
+    got = cuda_h2c.hash_to_g2_rows(u)
     assert calls["law"] == ["pre", "post"] and len(calls["psi"]) == 0
     planes = backend_cuda._affine_planes(cuda_g2.as_points(got)).numpy()
     for k, msg in enumerate(msgs):

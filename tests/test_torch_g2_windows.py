@@ -251,8 +251,8 @@ def test_hash_batch_launches_k17_twice(monkeypatch):
                         _counted(calls, "zmul", cuda_h2c.zmul))
     monkeypatch.setattr(cuda_g2, "dblsel", _refuse("K10 dblsel"))
     msgs = [b"charon-tpu-torch K17: slot 12", b"charon-tpu-torch K17: slot 13"]
-    u, exc, sgn = (torch.from_numpy(a) for a in cuda_h2c.pack_messages(msgs))
-    got = cuda_h2c.hash_to_g2_rows(u, exc, sgn)
+    u = torch.from_numpy(cuda_h2c.pack_messages(msgs))
+    got = cuda_h2c.hash_to_g2_rows(u)
     assert calls == {"zmul": 2}
     planes = backend_cuda._affine_planes(cuda_g2.as_points(got)).numpy()
     for k, msg in enumerate(msgs):

@@ -3,7 +3,8 @@ cuda_h2c: K7 sqr/mul/sqr4/sqr4mul, K8 sswu, K9 iso3/psi; cuda_g2: K10
 dblsel and addsel) against the JAX package's pallas_h2c / pallas_g2
 DIRECT forms, bit for bit, at S = 1 (128 rows), on random and all-LMAX
 limbs; and the pieces around them: the constant table, the pow and |x|
-window schedules, the host packing (a u = 0 row included), the exactness
+window schedules, the host packing with K24's flags from the plain
+prologue (`sswu_flags_plain`; a u = 0 row included), the exactness
 helpers, the inversion chain and the layout conversions.
 
 JAX runs the kernel bodies as its own tests do on the CPU: DIRECT mode,
@@ -130,14 +131,18 @@ def test_pack_messages_equals_jax_with_a_u0_row():
     m = len(msgs)
     # JAX pads to m + 1: its last message row is u = 0 (both u values)
     j_u, j_exc, j_sgn = pallas_h2c.pack_messages(msgs, DST_G2, m + 1)
-    u, exc, sgn = cuda_h2c.pack_messages(msgs)
+    u = cuda_h2c.pack_messages(msgs)
+    exc, sgn = (t.numpy() for t in cuda_h2c.sswu_flags_plain(
+        torch.from_numpy(u)))
     ju, jexc, jsgn = convert.h2c_inputs_from_jax(j_u, j_exc, j_sgn)
     real = np.r_[0:m, m + 1:2 * m + 1]            # the u-major real rows
     np.testing.assert_array_equal(u, ju[..., real])
     np.testing.assert_array_equal(exc, jexc[real])
     np.testing.assert_array_equal(sgn, jsgn[real])
     # a u = 0 row gets the exceptional flag and sgn0 = 0, as JAX's pad rows
-    u0, exc0, sgn0 = cuda_h2c._pack_u([FQ2.zero(), FQ2([3, 7])])
+    u0 = cuda_h2c._pack_u([FQ2.zero(), FQ2([3, 7])])
+    exc0, sgn0 = (t.numpy() for t in cuda_h2c.sswu_flags_plain(
+        torch.from_numpy(u0)))
     np.testing.assert_array_equal(u0[..., 0], ju[..., m])
     assert (exc0[0], sgn0[0]) == (jexc[m], jsgn[m]) == (1, 0)
     assert exc0[1] == 0
@@ -207,8 +212,9 @@ def test_inversion_chain_bit_identical():
 
 
 def test_h2c_layout_conversions():
-    u, exc, sgn = cuda_h2c._pack_u(
-        [FQ2([k, 3 * k + 1]) for k in range(ROWS)])
+    u = cuda_h2c._pack_u([FQ2([k, 3 * k + 1]) for k in range(ROWS)])
+    exc, sgn = (t.numpy() for t in cuda_h2c.sswu_flags_plain(
+        torch.from_numpy(u)))
     tiled = convert.h2c_inputs_to_jax(u, exc, sgn)
     assert tiled[0].shape == (2, 32, 1, 128) and tiled[1].shape == (1, 128)
     back = convert.h2c_inputs_from_jax(*tiled)

@@ -287,10 +287,8 @@ def hashed():
         want = jax.jit(jcodec.g2_normalize)(pallas_g2.untile_points(out))
     finally:
         pallas_g2.DIRECT = False
-    pu, pexc, psgn = convert.h2c_inputs_from_jax(u, exc, sgn)
-    pts = cuda_h2c.hash_to_g2_rows(torch.from_numpy(pu),
-                                   torch.from_numpy(pexc),
-                                   torch.from_numpy(psgn))
+    pu, _, _ = convert.h2c_inputs_from_jax(u, exc, sgn)
+    pts = cuda_h2c.hash_to_g2_rows(torch.from_numpy(pu))
     planes = backend_cuda._affine_planes(cuda_g2.as_points(pts)).numpy()
     return msgs, planes, [np.asarray(w) for w in want]
 
@@ -332,8 +330,8 @@ def test_hash_batch_calls_k18_twice_k19_once_and_no_k7(monkeypatch):
         monkeypatch.setattr(cuda_h2c, name, _refuse(f"K7 {name}"))
     monkeypatch.setattr(codec, "g2_normalize", _refuse("K1 normalisation"))
     msgs = [b"charon-tpu-torch K18: slot 12", b"charon-tpu-torch K18: 13"]
-    u, exc, sgn = (torch.from_numpy(a) for a in cuda_h2c.pack_messages(msgs))
-    pts = cuda_h2c.hash_to_g2_rows(u, exc, sgn)
+    u = torch.from_numpy(cuda_h2c.pack_messages(msgs))
+    pts = cuda_h2c.hash_to_g2_rows(u)
     planes = backend_cuda._affine_planes(cuda_g2.as_points(pts)).numpy()
     assert calls == {"chain": 2, "normalize": 1}
     for k, msg in enumerate(msgs):

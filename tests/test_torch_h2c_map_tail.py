@@ -220,8 +220,8 @@ def test_hash_batch_calls_k23_once_and_no_k9_or_k1(monkeypatch):
     for name in cuda_fp.OPS:
         monkeypatch.setattr(cuda_fp, name[3:], _refuse(f"K1 {name}"))
     msgs = [b"charon-tpu-torch K23: slot 31", b"charon-tpu-torch K23: 32"]
-    u, exc, sgn = (torch.from_numpy(a) for a in cuda_h2c.pack_messages(msgs))
-    pts = cuda_h2c.hash_to_g2_rows(u, exc, sgn)
+    u = torch.from_numpy(cuda_h2c.pack_messages(msgs))
+    pts = cuda_h2c.hash_to_g2_rows(u)
     assert calls == [2 * len(msgs)]
     monkeypatch.undo()
     planes = backend_cuda._affine_planes(cuda_g2.as_points(pts)).numpy()

@@ -8,8 +8,9 @@ JAX package's pure-Python `hash_to_g2`.
 
 One batch holds the five RFC 9380 J.10.1 messages under the QUUX DST,
 eleven random messages under the eth2 DST, and 112 padding messages whose
-u values are 0 (the exceptional SSWU row, flagged on the host).  The
-pipeline runs once per package, in a module-scoped fixture.
+u values are 0 (the exceptional SSWU row: JAX's packing flags it on the
+host, the port's K24 derives the flag from u).  The pipeline runs once per
+package, in a module-scoped fixture.
 """
 
 import numpy as np
@@ -70,6 +71,10 @@ def outputs():
     finally:
         pallas_g2.DIRECT = False
     pu, pexc, psgn = convert.h2c_inputs_from_jax(u_rows, exc, sgn)
+    flags = [t.numpy() for t in cuda_h2c.sswu_flags_plain(
+        torch.from_numpy(pu))]
+    np.testing.assert_array_equal(flags[0], pexc)
+    np.testing.assert_array_equal(flags[1], psgn)
     calls, saved = [], {k: getattr(cuda_g2, k) for k in ("g2_law", "dbl",
                                                          "add")}
 
@@ -82,9 +87,7 @@ def outputs():
     try:
         for k in saved:
             setattr(cuda_g2, k, spy(k))
-        got = cuda_h2c.hash_to_g2_rows(torch.from_numpy(pu),
-                                       torch.from_numpy(pexc),
-                                       torch.from_numpy(psgn))
+        got = cuda_h2c.hash_to_g2_rows(torch.from_numpy(pu))
     finally:
         for k, fn in saved.items():
             setattr(cuda_g2, k, fn)

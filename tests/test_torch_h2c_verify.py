@@ -60,22 +60,23 @@ def port_backend():
 @pytest.fixture(scope="module")
 def flush(port_backend):
     """One verify_many of the nine entries; the h2c pipeline and its SSWU
-    wrapper are watched (the wrapper counts a launch, as on the card)."""
+    wrapper (K24) are watched (the wrapper counts a launch, as on the
+    card)."""
     entries = _entries()
     threads = []
-    real_rows, real_sswu = cuda_h2c.hash_to_g2_rows, cuda_h2c.h2c_sswu
+    real_rows, real_sswu = cuda_h2c.hash_to_g2_rows, cuda_h2c.h2c_sswu_head
 
     def rows_spy(*args):
         threads.append(threading.current_thread().name)
         return real_rows(*args)
 
-    def sswu_spy(u, w):
-        launch_count.bump(cuda_h2c.LAUNCHES, "h2c_sswu")
-        return real_sswu(u, w)
+    def sswu_spy(u, cfg=None):
+        launch_count.bump(cuda_h2c.LAUNCHES, "h2c_sswu_head")
+        return real_sswu(u, cfg)
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(cuda_h2c, "hash_to_g2_rows", rows_spy)
-        mp.setattr(cuda_h2c, "h2c_sswu", sswu_spy)
+        mp.setattr(cuda_h2c, "h2c_sswu_head", sswu_spy)
         port_backend.reset_verify_totals()
         verifier = BatchVerifier()
         got = asyncio.run(verifier.verify_many(entries))
@@ -98,9 +99,10 @@ def test_misses_hash_on_the_card_route(port_backend, flush):
     assert threads == ["charon-cuda-host-prep_0"]
     assert "h2c_s" in totals and "h2c_host_s" in totals
     assert "h2c_py_s" not in totals
-    assert launches["h2c_s"]["h2c_sswu"] == 1
-    assert all(c.get("h2c_sswu", 0) == 0 for k, c in launches.items()
+    assert launches["h2c_s"]["h2c_sswu_head"] == 1
+    assert all(c.get("h2c_sswu_head", 0) == 0 for k, c in launches.items()
                if k != "h2c_s")
+    assert all(c.get("h2c_sswu", 0) == 0 for c in launches.values())
     assert verifier.paths == {"cuda-rlc+h2c-dev": 1}
     assert tapi.verify_path(9) == "cuda-rlc+h2c-dev"
     assert port_backend.hm_cache_misses == 9

@@ -48,7 +48,8 @@ KERNELS = {
     "straus_msm_kernel": "K16", "g2_zmul_kernel": "K17",
     "f2_chain_program_kernel": "K18", "g2_normalize_kernel": "K19",
     "g1_tables_kernel": "K20", "g1_decompress_kernel": "K21",
-    "g2_law_kernel": "K22",
+    "g2_law_kernel": "K22", "h2c_map_tail_kernel": "K23",
+    "h2c_sswu_head_kernel": "K24",
 }
 #: the verify stages' kernels, run by the launch thread
 VERIFY = ("K11", "K12", "K13", "K14", "K15", "K20")
