@@ -43,6 +43,29 @@ Verify (`batch_verify_bytes`), one RLC batch check per call:
   over the entries — ANDed with the decode mask, so the verdicts are
   exactly the pure-Python oracle's.
 
+Two routes serve verifies; `CUDABackend(resident=None)` takes the
+resident route on the card and the bytes route on the CPU (the JAX
+backend's ``auto`` rule), and an explicit True or False wins:
+
+- **bytes**: the host LRUs below hold packed numpy planes; every tile
+  uploads its pubkey and H(m) planes and runs the stages above eagerly,
+  a stage boundary (a synchronise) between kernels, `live` on the host.
+- **resident** (the JAX package's tbls/devcache path): two
+  `devcache.DeviceRowCache` stores keep the decompressed pubkeys and the
+  hashed messages (keyed by the message's SHA-256) on the card; prep
+  gathers a batch's rows there, computes only the misses (K21, or the hash
+  pipeline, on the prep thread's stream; fewer than `H2C_MIN_BATCH` on the
+  host) and splices them into the batch's rows directly, so a concurrent
+  commit cannot evict a row the batch reads.  The launch thread copies the
+  prepared tensors into the static inputs of its padded bucket's
+  `_VerifyGraph` and replays the CUDA graph that one call of
+  `_verify_tile` was captured into (on the CPU it calls the function):
+  K12 → live = host_live ∧ sg_ok ∧ ¬∞ and the drop mask on the card →
+  K20 → K15 → K13 → K14 → K11, the verdict and `live` read back once; a
+  rejected tile re-checks from the graph's own buffers before that
+  bucket's next replay.  A failed capture, replay or cache operation
+  raises: nothing falls back to the bytes route.
+
 A failed launch raises; there is no fallback path.  The device stages
 synchronise their thread's stream at their boundaries and record their
 seconds in `last_stages` and the launches their thread made in
@@ -55,12 +78,17 @@ does the device hash of message misses (`h2c_s`, its host half
 `h2c_host_s`).  A batch of fewer than `H2C_MIN_BATCH` distinct misses
 hashes on the host instead, under `h2c_py_s`, so a call's stages show
 which route its misses took.  A stage a call does not run is absent, not
-zero.
+zero.  The resident route has no per-kernel laps: its tile reports
+`graph_s` (CUDA events around the replay; its launches are the captured
+ones, counted once a replay), `devcache_gather_s` (the two stores'
+gathers, CUDA events on the prep stream), the miss stages as above, and
+`graph_capture_s` the first time a bucket is used.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import threading
 import time
 from collections import OrderedDict
@@ -68,11 +96,11 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from . import dispatch, shamir
+from . import devcache, dispatch, shamir
 from .ref import curve as refcurve
 from .ref.hash_to_curve import hash_to_g2
-from ..ops import (codec, cuda_codec, cuda_final_exp, cuda_fp, cuda_g2,
-                   cuda_h2c, cuda_pairing, fp, launch_count)
+from ..ops import (build, codec, cuda_codec, cuda_final_exp, cuda_fp,
+                   cuda_g2, cuda_h2c, cuda_pairing, fp, launch_count)
 from ..ops import curve as tcurve
 from ..ops.curve import F2_OPS
 
@@ -126,10 +154,14 @@ class CUDABackend:
 
     name = "cuda"
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, resident: bool | None = None,
+                 devcache_mb: float = devcache.DEVCACHE_DEFAULT_MB):
         """`device` defaults to the current CUDA device and raises when
         there is none: the CPU runs only when asked for (``"cpu"``), and
-        then every kernel wrapper takes its plain version."""
+        then every kernel wrapper takes its plain version.  `resident`
+        chooses the verify route (module docstring): None is the resident
+        route on the card and the bytes route on the CPU.  `devcache_mb`
+        is the two device stores' budget (pk 1/3, hm 2/3)."""
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -137,6 +169,12 @@ class CUDABackend:
                     "device='cpu' to run the plain versions on the CPU)")
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = torch.device(device)
+        self.resident = (self.device.type == "cuda" if resident is None
+                         else bool(resident))
+        self._devcache_budget = devcache.devcache_budget_bytes(devcache_mb)
+        #: the resident route's device stores (created at first use)
+        self._pk_dev: devcache.DeviceRowCache | None = None
+        self._hm_dev: devcache.DeviceRowCache | None = None
         #: seconds per device stage of the last combine
         self.last_stages: dict[str, float] = {}
         #: kernel launches per device stage of the last combine
@@ -158,7 +196,8 @@ class CUDABackend:
         # the caches and counters are touched by the host-prep thread and
         # by direct callers; device work for misses runs outside the lock
         self._cache_lock = threading.Lock()
-        #: the host-prep thread's stream for pubkey-miss decompression
+        #: the host-prep thread's stream: the misses' device work, and
+        #: every device operation of a resident prep
         self._prep_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
@@ -181,8 +220,23 @@ class CUDABackend:
         backend's ``h2c-dev``, the label names the route a batch of
         `H2C_MIN_BATCH` or more distinct misses takes; which route a call's
         misses took depends on the cache and shows in its stages
-        (``h2c_s`` on the card, ``h2c_py_s`` on the host)."""
-        return "cuda-rlc+h2c-dev"
+        (``h2c_s`` on the card, ``h2c_py_s`` on the host).  ``+res``: the
+        resident route serves the verifies."""
+        return "cuda-rlc+h2c-dev" + ("+res" if self.resident else "")
+
+    def devcache_path(self) -> str:
+        """The cache residency serving verifies: ``resident`` or
+        ``bytes``."""
+        return "resident" if self.resident else "bytes"
+
+    def devcache_stats(self) -> dict:
+        """Occupancy and counters of the resident route's stores (absent
+        until first used)."""
+        out: dict = {"enabled": self.resident, "path": self.devcache_path()}
+        if self._pk_dev is not None:
+            out["pk"] = self._pk_dev.stats()
+            out["hm"] = self._hm_dev.stats()
+        return out
 
     def verify_padded_rows(self, n: int) -> int:
         """Entries an n-entry verify launches: the next power of two (the
@@ -250,15 +304,24 @@ class CUDABackend:
 
     def _hash_on_card(self, keys, stages: dict, launches: dict
                       ) -> np.ndarray:
-        """Distinct messages → packed affine H(m) [3, 2, 32, m]: SHA-256
-        and hash_to_field on the host, then the device pipeline and its
-        normalisation on the prep thread's own stream."""
+        """Distinct messages → packed affine H(m) [3, 2, 32, m] on the
+        host (`_hash_rows`, then one copy back on the prep stream: on the
+        default stream the copy would queue behind the launch thread's
+        tile)."""
+        with self._prep_context():
+            return self._hash_rows(keys, stages, launches).cpu().numpy()
+
+    def _hash_rows(self, keys, stages: dict, launches: dict
+                   ) -> torch.Tensor:
+        """Distinct messages → packed affine H(m) [3, 2, 32, m] on the
+        device: SHA-256 and hash_to_field on the host, then the device
+        pipeline and its normalisation on the prep thread's own stream."""
         t0 = time.perf_counter()
         u = cuda_h2c.pack_messages(keys)
         stages["h2c_host_s"] = time.perf_counter() - t0
         with _own_stream_stage(self._prep_stream, "h2c_s", stages, launches):
             pts = cuda_h2c.hash_to_g2_rows(self._put(u))
-            planes = _affine_planes(cuda_g2.as_points(pts)).cpu().numpy()
+            planes = _affine_planes(cuda_g2.as_points(pts))
         return planes
 
     def _pk_planes_cached(self, pk_bytes_list, stages: dict,
@@ -303,13 +366,180 @@ class CUDABackend:
         return planes, ok
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- the resident route's stores ------------------------------------------
+
+    def _dev_caches(self) -> tuple[devcache.DeviceRowCache,
+                                   devcache.DeviceRowCache]:
+        with self._cache_lock:
+            if self._pk_dev is None:
+                cap = devcache.devcache_capacity_rows
+                b = self._devcache_budget
+                self._pk_dev = devcache.DeviceRowCache(
+                    "pk", 3, cap(3, devcache.PK_SHARE, b), self.device)
+                self._hm_dev = devcache.DeviceRowCache(
+                    "hm", 6, cap(6, devcache.HM_SHARE, b), self.device)
+        return self._pk_dev, self._hm_dev
+
+    def _prep_context(self):
+        """The prep thread's stream as the current one (no-op on the CPU):
+        every device operation of a resident prep runs on it."""
+        if self._prep_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._prep_stream)
+
+    def _pk_rows_resident(self, pk_bytes_list, stages: dict,
+                          launches: dict) -> tuple[torch.Tensor, np.ndarray]:
+        """[m × 48-byte pk] → (device rows [3, 32, m], ok bool [m]) through
+        the pubkey store: hits gathered by slot, misses deduplicated and
+        decompressed in one K21 launch, committed for future batches and
+        spliced into this batch's rows directly."""
+        pk_dev, _ = self._dev_caches()
+        with _own_stream_stage(self._prep_stream, "devcache_gather_s",
+                               stages, launches):
+            idx, ok, missing, rows = pk_dev.lookup_rows(pk_bytes_list)
+        if not missing:
+            return rows, ok
+        raw = np.frombuffer(b"".join(missing), np.uint8).reshape(-1, 48)
+        x, sign, inf, bad = codec.g1_bytes_split(raw)
+        with _own_stream_stage(self._prep_stream, "pk_decompress_s", stages,
+                               launches):
+            pts, dec = cuda_codec.g1_decompress(
+                self._put(x.T), self._put(sign), self._put(inf))
+            dec_ok = dec.cpu().numpy() & ~bad
+        pk_dev.commit(missing, pts, dec_ok)
+        pos_of = {key: j for j, key in enumerate(missing)}
+        at = np.flatnonzero(idx < 0)
+        src = np.array([pos_of[pk_bytes_list[k]] for k in at], np.int64)
+        ok[at] = dec_ok[src]
+        rows.index_copy_(2, self._put(at), pts.index_select(2,
+                                                             self._put(src)))
+        return rows, ok
+
+    def _hm_rows_resident(self, msgs, stages: dict, launches: dict
+                          ) -> torch.Tensor:
+        """[m messages] → device rows [3, 2, 32, m] through the message
+        store, keyed by the message's SHA-256: misses hashed in one batch
+        (on the card from `H2C_MIN_BATCH` distinct ones, else on the host),
+        committed and spliced in as for pubkeys."""
+        _, hm_dev = self._dev_caches()
+        keys = [hashlib.sha256(msg).digest() for msg in msgs]
+        with _own_stream_stage(self._prep_stream, "devcache_gather_s",
+                               stages, launches):
+            idx, _, missing, rows = hm_dev.lookup_rows(keys)
+        rows = rows.view(3, 2, NL, len(msgs))
+        if not missing:
+            return rows
+        first_msg: dict[bytes, bytes] = {}
+        for key, msg in zip(keys, msgs):
+            first_msg.setdefault(key, msg)
+        miss_msgs = [first_msg[key] for key in missing]
+        if len(missing) >= H2C_MIN_BATCH:
+            planes = self._hash_rows(miss_msgs, stages, launches)
+        else:
+            t0 = time.perf_counter()
+            planes = self._put(tcurve.g2_pack([hash_to_g2(msg)
+                                               for msg in miss_msgs]))
+            stages["h2c_py_s"] = time.perf_counter() - t0
+        hm_dev.commit(missing, planes.reshape(6, NL, len(missing)),
+                      np.ones(len(missing), bool))
+        pos_of = {key: j for j, key in enumerate(missing)}
+        at = np.flatnonzero(idx < 0)
+        src = np.array([pos_of[keys[k]] for k in at], np.int64)
+        rows.index_copy_(3, self._put(at), planes.index_select(
+            3, self._put(src)))
+        return rows
+
+    def _rows_resident(self, v: int, rows: list[int], msgs, pk_bytes,
+                       host_ok: np.ndarray, stages: dict,
+                       launches: dict) -> dict:
+        """The resident route's part of a prep: the batch's pubkey and
+        H(m) rows [3, 32, v] and [3, 2, 32, v] gathered on the card through
+        the stores (misses computed there), ∞ and zero rows elsewhere; they
+        stay on the card, and `ready` is an event after their last write
+        on the prep stream.  Clears `host_ok` at keys that do not
+        decode."""
+        ready = None
+        with self._prep_context():
+            pks = fp.const(_G1_INF, self.device).unsqueeze(-1).expand(
+                3, NL, v).clone()
+            hms = torch.zeros((3, 2, NL, v), dtype=torch.int32,
+                              device=self.device)
+            if rows:
+                at = self._put(np.asarray(rows, np.int64))
+                pk_rows, pk_ok = self._pk_rows_resident(pk_bytes, stages,
+                                                        launches)
+                hm_rows = self._hm_rows_resident(msgs, stages, launches)
+                host_ok[rows] = pk_ok
+                pks.index_copy_(2, at, pk_rows)
+                hms.index_copy_(3, at, hm_rows)
+            if self._prep_stream is not None:
+                ready = torch.cuda.Event()
+                ready.record(self._prep_stream)
+        return {"kind": "resident", "pks": pks, "hms": hms, "ready": ready}
+
+    def _rows_bytes(self, v: int, rows: list[int], msgs, pk_bytes,
+                    host_ok: np.ndarray, stages: dict,
+                    launches: dict) -> dict:
+        """The bytes route's part of a prep: the pubkey and H(m) planes
+        through the host LRUs as numpy arrays, uploaded by the exec
+        stage.  Clears `host_ok` at keys that do not decode."""
+        pks = np.broadcast_to(_G1_INF[..., None], (3, NL, v)).copy()
+        hms = np.zeros((3, 2, NL, v), np.int32)
+        if rows:
+            hms[..., rows] = self._hash_points(msgs, stages, launches)
+            planes, pk_ok = self._pk_planes_cached(pk_bytes, stages,
+                                                   launches)
+            pks[..., rows] = planes
+            host_ok[rows] = pk_ok
+        return {"kind": "rlc", "pks": pks, "hms": hms}
+
+    def _verify_exec_resident(self, p: dict) -> list[bool]:
+        """Device stage of the resident route (launch thread): the prepared
+        rows and planes into the bucket's static inputs, one replay (on
+        the CPU one call of `_verify_tile`), one readback; a rejected tile
+        re-checks from the graph's buffers before the bucket's next
+        replay."""
+        n, v = p["n"], p["v"]
+        if not p["host_ok"].any():
+            return [False] * n          # nothing decodes: no device work
+        stages = dict(p["stages"])
+        launches = dict(p["launches"])
+        g = _verify_graph(self.device, v)
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        with g.lock:
+            if stream is not None:
+                stream.wait_event(p["ready"])
+                for t in (p["pks"], p["hms"]):
+                    t.record_stream(stream)
+            g.load(p)
+            if stream is not None and g.graph is None:
+                with _own_stream_stage(None, "graph_capture_s", stages,
+                                       launches):
+                    g.capture()
+            with _own_stream_stage(stream, "graph_s", stages, launches):
+                flags, sigs, live = g.run()
+            flags = flags.cpu().numpy()
+            if flags[0]:
+                ok = flags[1:]
+            else:
+                # some live row fails the batch equation: re-check every
+                # entry on its own so callers get exact per-entry verdicts
+                with _own_stream_stage(stream, "recheck_s", stages,
+                                       launches):
+                    ok = self._recheck(g.inputs["pks"], sigs,
+                                       g.inputs["hms"], live)
+        self._note_verify(stages, launches)
+        return [bool(b) for b in ok[:n]]
 
     def verify_host_prep(self, entries, rng=None) -> dict:
         """Host stage of `batch_verify_bytes`: wire bytes → limb planes,
-        the two cache lookups, malformed-entry flags, fresh RLC
-        coefficient windows.  `rng` is for tests that need repeatable
-        coefficients; the main path never passes it."""
+        the two cache lookups (the route's: `_rows_resident` or
+        `_rows_bytes`), malformed-entry flags, fresh RLC coefficient
+        windows.  `rng` is for tests that need repeatable coefficients;
+        the main path never passes it."""
         n = len(entries)
         if n == 0:
             return {"kind": "empty"}
@@ -318,8 +548,6 @@ class CUDABackend:
         launches: dict[str, dict[str, int]] = {}
         v = self.verify_padded_rows(n)
         sg_raw = np.broadcast_to(_G2_INF_BYTES, (v, 96)).copy()
-        pks = np.broadcast_to(_G1_INF[..., None], (3, NL, v)).copy()
-        hms = np.zeros((3, 2, NL, v), np.int32)
         host_ok = np.zeros(v, bool)
         rows, msgs, pk_bytes = [], [], []
         for k, (pk, msg, sig) in enumerate(entries):
@@ -329,11 +557,9 @@ class CUDABackend:
             rows.append(k)
             msgs.append(msg)
             pk_bytes.append(pk)
-        if rows:
-            hms[..., rows] = self._hash_points(msgs, stages, launches)
-            planes, pk_ok = self._pk_planes_cached(pk_bytes, stages, launches)
-            pks[..., rows] = planes
-            host_ok[rows] = pk_ok
+        host_ok[rows] = True
+        part = (self._rows_resident if self.resident else self._rows_bytes)(
+            v, rows, msgs, pk_bytes, host_ok, stages, launches)
         xc0, xc1, sign, inf, sg_bad = codec.g2_bytes_split(sg_raw)
         # fresh per-entry coefficients every call: a plain product admits
         # adversarial cross-row cancellation; the RLC rejects any invalid
@@ -344,8 +570,9 @@ class CUDABackend:
         windows = cuda_pairing.windows_from_bits(np.repeat(r_bits, 2, axis=0))
         stages["host_prep_s"] = time.perf_counter() - t0 - sum(
             stages.get(k, 0.0)
-            for k in ("pk_decompress_s", "h2c_host_s", "h2c_s", "h2c_py_s"))
-        return {"kind": "rlc", "n": n, "v": v, "pks": pks, "hms": hms,
+            for k in ("devcache_gather_s", "pk_decompress_s", "h2c_host_s",
+                      "h2c_s", "h2c_py_s"))
+        return {**part, "n": n, "v": v,
                 "xc0": np.ascontiguousarray(xc0.T),
                 "xc1": np.ascontiguousarray(xc1.T), "sign": sign,
                 "inf": inf, "host_ok": host_ok & ~sg_bad,
@@ -356,6 +583,8 @@ class CUDABackend:
         if prepared["kind"] == "empty":
             return []
         dispatch.assert_off_loop("tbls.backend_cuda.verify_device_exec")
+        if prepared["kind"] == "resident":
+            return self._verify_exec_resident(prepared)
         p, dev = prepared, self.device
         n, v = p["n"], p["v"]
         if not p["host_ok"].any():
@@ -396,8 +625,13 @@ class CUDABackend:
         else:
             # some live row fails the batch equation: re-check every entry
             # on its own so callers get exact per-entry verdicts
-            ok = self._recheck(neg_g1, pks, sigs, hms, live)
+            ok = self._recheck(pks, sigs, hms, self._put(live))
             clock.lap("recheck_s")
+        self._note_verify(stages, launches)
+        return [bool(b) for b in ok[:n]]
+
+    def _note_verify(self, stages: dict, launches: dict) -> None:
+        """A tile's stages as the last call's, and into the totals."""
         self.last_stages = stages
         self.last_launches = launches
         with self._totals_lock:
@@ -407,22 +641,23 @@ class CUDABackend:
                 tot = self.verify_launch_totals.setdefault(k, {})
                 for name, c in counts.items():
                     tot[name] = tot.get(name, 0) + c
-        return [bool(b) for b in ok[:n]]
 
-    def _recheck(self, neg_g1, pks, sigs, hms, live) -> np.ndarray:
+    def _recheck(self, pks, sigs, hms, live) -> np.ndarray:
         """e(−g1, sig_k)·e(pk_k, H(m_k)) == 1 for every entry k, on the
         unscaled rows [(−g1, sig_k) for k < v | (pk_k, H(m_k)) for k < v]:
         the p-side's one K1 negation, one Miller launch (K13), rows that
         are not live masked to one, one K5 product of the two halves, one
-        K11 over the v rows with its verdicts; ANDed with `live`."""
+        K11 over the v rows with its verdicts; ANDed with `live` [v]
+        (a device bool row)."""
         v = live.shape[0]
+        neg_g1 = fp.const(_NEG_G1, pks.device).unsqueeze(-1).expand(3, NL, v)
         f = cuda_pairing.miller_rows(
             cuda_pairing.g1_proj_rows(torch.cat([neg_g1, pks], dim=-1)),
             cuda_pairing.g2_affine_rows(torch.cat([sigs, hms], dim=-1)))
-        f = cuda_pairing.mask_rows(f, self._put(np.tile(~live, 2)))
+        f = cuda_pairing.mask_rows(f, (~live).repeat(2))
         prod = cuda_pairing.pp_f12mul(f[..., :v], f[..., v:])
         _, one = cuda_final_exp.final_exp_is_one(prod.reshape(2, 3, 2, NL, v))
-        return one.cpu().numpy() & live
+        return (one & live).cpu().numpy()
 
     # -- aggregation --------------------------------------------------------
 
@@ -498,6 +733,177 @@ class CUDABackend:
         signatures, Σᵢ λᵢ·Sᵢ per validator."""
         return self.combine_device_exec(self.combine_host_prep(batch))
 
+    # -- startup prewarm ----------------------------------------------------
+
+    def prewarm(self, pubshares, num_validators: int,
+                threshold: int) -> dict:
+        """What the first duty after boot would otherwise pay, done at
+        boot: build the kernel library, seed the pubkey cache with every
+        cluster pubshare (the resident route's device store, else the
+        host LRU), run one verify of a tile's bucket — min(V,
+        `VERIFY_TILE`) distinct messages, ∞ signatures, verdicts dropped —
+        which captures that bucket's graph, and one combine at (V, T).
+        Blocking: `dispatch.DispatchPipeline.prewarm` runs it on a thread
+        of its own.  → the timing report, with the captured graphs'
+        keys."""
+        t_start = time.perf_counter()
+        v = max(1, int(num_validators))
+        t = max(1, int(threshold))
+        report: dict = {"v": v, "t": t, "pubshares": len(pubshares),
+                        "devcache": self.devcache_path()}
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            build.library()
+        report["build_s"] = round(time.perf_counter() - t0, 4)
+        if pubshares:
+            t0 = time.perf_counter()
+            uniq = list(dict.fromkeys(pubshares))
+            if self.resident:
+                with self._prep_context():
+                    self._pk_rows_resident(uniq, {}, {})
+            else:
+                self._pk_planes_cached(uniq, {}, {})
+            report["pubshare_decompress_s"] = round(
+                time.perf_counter() - t0, 4)
+        nv = min(v, dispatch.VERIFY_TILE)
+        pk = (pubshares[0] if pubshares
+              else refcurve.g1_to_bytes(refcurve.G1_GEN))
+        inf_sig = _G2_INF_BYTES.tobytes()
+        t0 = time.perf_counter()
+        self.batch_verify_bytes([(pk, b"charon-tpu-prewarm-%d" % k, inf_sig)
+                                 for k in range(nv)])
+        report["verify_rows"] = nv
+        report["verify_path"] = self.verify_path(nv)
+        report["verify_s"] = round(time.perf_counter() - t0, 4)
+        idxs = tuple(range(1, t + 1))
+        t0 = time.perf_counter()
+        self.threshold_combine_bytes([{i: inf_sig for i in idxs}
+                                      for _ in range(v)])
+        report["combine_path"] = self.combine_path()
+        report["combine_s"] = round(time.perf_counter() - t0, 4)
+        report["graph_keys"] = resident_graph_keys()
+        report["total_s"] = round(time.perf_counter() - t_start, 4)
+        return report
+
+
+def _verify_tile(pks, hms, xc0, xc1, sign, inf, host_live, windows):
+    """The device side of one resident verify tile of v entries: pks
+    [3, 32, v] and hms [3, 2, 32, v] rows, the signatures' x planes
+    [32, v] and sign / ∞ flags [v], the host validity flags [v] and the RLC
+    windows [32, 2v] → (flags [v + 1] bool: the batch verdict, then `live`;
+    the decompressed signatures; `live` [v]).  K12, then live = host_live
+    ∧ sg_ok ∧ ¬∞ and the drop mask on the device (no host sync between
+    K12 and K11), K20, K15 with −Y, K13, K14, K11 with its verdict row:
+    the function the resident route captures into a CUDA graph.  The
+    bytes route runs the same kernels eagerly, a stage at a time
+    (`verify_device_exec`)."""
+    v = pks.shape[-1]
+    sigs, sg_ok = cuda_codec.g2_decompress(xc0, xc1, sign, inf)
+    live = host_live & sg_ok & ~tcurve.is_inf(F2_OPS, sigs)
+    # pair-major G1 rows: (2k, 2k+1) = (−g1, pk_k)
+    neg_g1 = fp.const(_NEG_G1, pks.device).unsqueeze(-1).expand(3, NL, v)
+    base = torch.stack([neg_g1, pks], dim=-1).reshape(3, NL, 2 * v)
+    p2, p3 = cuda_pairing.g1_tables(base)
+    # the Miller p-side (xP, −yP, zP): K15 negates y in its program
+    p_side = cuda_pairing.g1_scalar_mul_rows(base, p2, p3, windows,
+                                             neg_y=True)
+    q = torch.stack([sigs, hms], dim=-1).reshape(3, 2, NL, 2 * v)
+    f = cuda_pairing.miller_rows(p_side, cuda_pairing.g2_affine_rows(q))
+    drop = (~live).unsqueeze(-1).expand(v, 2).reshape(2 * v)
+    prod = cuda_pairing.fold_product(f, drop)
+    _, one = cuda_final_exp.final_exp_is_one(prod.reshape(2, 3, 2, NL, 1))
+    return torch.cat([one, live]), sigs, live
+
+
+class _VerifyGraph:
+    """One padded bucket v of the resident route: the static inputs of
+    `_verify_tile` and, on the card, the CUDA graph one call of it was
+    captured into.  `lock` is held from `load` until the tile has read
+    what it needs of the graph's outputs (its re-check included): the
+    launch and prewarm threads share the buckets."""
+
+    def __init__(self, device: torch.device, v: int):
+        self.device = device
+        self.lock = threading.Lock()
+        i32 = {"dtype": torch.int32, "device": device}
+        b = {"dtype": torch.bool, "device": device}
+        self.inputs = {
+            "pks": torch.zeros((3, NL, v), **i32),
+            "hms": torch.zeros((3, 2, NL, v), **i32),
+            "xc0": torch.zeros((NL, v), **i32),
+            "xc1": torch.zeros((NL, v), **i32),
+            "sign": torch.zeros(v, **b), "inf": torch.zeros(v, **b),
+            "host_live": torch.zeros(v, **b),
+            "windows": torch.zeros((_RLC_BITS // 2, 2 * v), **i32)}
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs: tuple | None = None
+        #: the launches captured into the graph, counted again each replay
+        self.launches: list = []
+
+    def load(self, p: dict) -> None:
+        """A prepared tile into the static inputs (the caller's stream):
+        its rows device to device, its host planes and fresh windows
+        uploaded — never baked into the capture."""
+        st = self.inputs
+        st["pks"].copy_(p["pks"])
+        st["hms"].copy_(p["hms"])
+        for key, host in (("xc0", p["xc0"]), ("xc1", p["xc1"]),
+                          ("sign", p["sign"]), ("inf", p["inf"]),
+                          ("host_live", p["host_ok"]),
+                          ("windows", p["windows"])):
+            st[key].copy_(torch.from_numpy(np.ascontiguousarray(host)))
+
+    def capture(self) -> None:
+        """One eager call (it uploads every constant the body reads: a
+        pageable copy inside a capture is an error), then the capture on a
+        stream of its own, in thread-local mode so the prep thread's
+        allocations and copies go on meanwhile."""
+        cur = torch.cuda.current_stream(self.device)
+        _verify_tile(**self.inputs)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), launch_count.capture() as rec:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outputs = _verify_tile(**self.inputs)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        cur.wait_stream(side)
+        self.graph, self.outputs, self.launches = graph, outputs, rec
+
+    def run(self) -> tuple:
+        """→ `_verify_tile`'s outputs for the loaded inputs: a replay on
+        the caller's stream on the card, a call on the CPU."""
+        if self.graph is None:
+            return _verify_tile(**self.inputs)
+        self.graph.replay()
+        launch_count.replay(self.launches)
+        return self.outputs
+
+
+#: the resident route's buckets per (device, padded v)
+_GRAPHS: dict[tuple[str, int], _VerifyGraph] = {}
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _verify_graph(device: torch.device, v: int) -> _VerifyGraph:
+    with _GRAPHS_LOCK:
+        g = _GRAPHS.get((str(device), v))
+        if g is None:
+            g = _GRAPHS[(str(device), v)] = _VerifyGraph(device, v)
+        return g
+
+
+def resident_graph_keys() -> list[str]:
+    """The resident route's captured verify graphs (``resident:rlc:v=N``;
+    on the CPU, the buckets used)."""
+    with _GRAPHS_LOCK:
+        return [f"resident:rlc:v={v}" for _, v in sorted(_GRAPHS)]
+
 
 def _affine_planes(pts: torch.Tensor) -> torch.Tensor:
     """Projective G2 [3, 2, 32, m] → the message LRU's packed affine
@@ -525,15 +931,15 @@ def _launch_counts() -> dict[str, int]:
 
 @contextlib.contextmanager
 def _own_stream_stage(stream, name: str, seconds: dict, launches: dict):
-    """Run the body as stage `name` on `stream` (None on the CPU).  Its
+    """Run the body as stage `name` on `stream` (None: host time).  Its
     seconds are CUDA-event time on that stream, so work another thread
     has queued on the card is not waited for; its launches are the
-    calling thread's."""
+    calling thread's.  A stage run twice in one call adds up."""
     n0 = _launch_counts()
     if stream is None:
         t0 = time.perf_counter()
         yield
-        seconds[name] = time.perf_counter() - t0
+        sec = time.perf_counter() - t0
     else:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -542,9 +948,12 @@ def _own_stream_stage(stream, name: str, seconds: dict, launches: dict):
             yield
             end.record(stream)
         end.synchronize()
-        seconds[name] = start.elapsed_time(end) / 1e3
+        sec = start.elapsed_time(end) / 1e3
     n1 = _launch_counts()
-    launches[name] = {k: n1[k] - n0[k] for k in n1}
+    seconds[name] = seconds.get(name, 0.0) + sec
+    mine = launches.setdefault(name, {})
+    for k in n1:
+        mine[k] = mine.get(k, 0) + n1[k] - n0[k]
 
 
 class _StageClock:

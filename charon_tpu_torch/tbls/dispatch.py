@@ -2,8 +2,9 @@
 and the tbls backends.
 
 A copy of the JAX package's stdlib-only pipeline (tbls/dispatch.py),
-trimmed to the combine and verify paths (no metrics registries, stage
-histograms or environment knobs) and wired to this package's `api`.  A device
+trimmed to the combine and verify paths and the boot prewarm (no metrics
+registries, stage histograms or environment knobs) and wired to this
+package's `api`.  A device
 launch must never run on the asyncio event loop: a multi-hundred-ms
 combine would freeze every timer and duty hand-off for its duration.  The
 process owns ONE `DispatchPipeline`, a two-stage executor pair:
@@ -67,6 +68,8 @@ class DispatchPipeline:
         self.launches = 0
         self.tiles = 0
         self._lock = threading.Lock()
+        #: the report of the last `prewarm`
+        self.prewarmed: dict | None = None
 
     async def _pipelined(self, stages, payloads) -> list:
         """Run each payload through (prep, exec); prep of payload i+1
@@ -126,6 +129,25 @@ class DispatchPipeline:
             return []
         [out] = await self._pipelined(api.combine_stages(), [batch])
         return out
+
+    async def prewarm(self, pubshares, num_validators: int,
+                      threshold: int) -> dict:
+        """`tbls.prewarm` at boot, on a short-lived thread of its own — not
+        the launch pool, where seconds of prewarm queued on the single
+        launch thread would hold the first duties' launches behind it.
+        The backend's locks order what it shares with the launches."""
+        from . import api
+
+        loop = asyncio.get_running_loop()
+        pool = ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix="charon-cuda-prewarm")
+        try:
+            report = await loop.run_in_executor(
+                pool, api.prewarm, pubshares, num_validators, threshold)
+        finally:
+            pool.shutdown(wait=False)
+        self.prewarmed = report
+        return report
 
     def shutdown(self) -> None:
         self._prep_pool.shutdown(wait=True)

@@ -52,3 +52,10 @@ def lagrange_coeffs_at_zero(indices: list[int]) -> dict[int, int]:
         out[i] = num * pow(den, -1, R) % R
     return out
 
+
+
+def combine_shares(shares: dict[int, int]) -> int:
+    """Recover the secret from ≥ t shares (the caller supplies exactly the
+    shares to use)."""
+    lam = lagrange_coeffs_at_zero(list(shares))
+    return sum(lam[i] * s for i, s in shares.items()) % R

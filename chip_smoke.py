@@ -148,6 +148,29 @@ Phases, in order; any failure raises and exits non-zero:
              message, rejected exactly, agreeing with the pure-Python
              oracle, its re-check as in phase 4.
 
+7. resident — the verify path's resident route (device stores of
+             decompressed pubkeys and hashed messages, a verify tile as one
+             CUDA graph replay) on a fresh CUDABackend(resident=True), the
+             phases before it having run on the bytes route: prewarm through
+             the dispatch pipeline's prewarm thread with the pool's 10,000
+             pubshares at V = 10,000, T = 7 (its report, the stores' bytes;
+             the 2,048 bucket's graph captured, every key in the store);
+             a cold-after-prewarm flush (the 64 messages in the store
+             beforehand, as the bytes route's cold flush finds them in its
+             LRU) with no key miss and no K21 launch; REPS warm and
+             slot-start (one device hash batch) flushes, one cold flush (the
+             pubkey store emptied; one K21 a tile), REPS distinct flushes
+             (the message store emptied each rep; a hash batch a tile), each
+             with every verdict True, K12, K20, K15, K13, K14 and K11
+             counted once a graph replay in graph_s, nothing else launching
+             outside the miss stages, and one device-to-host copy a tile on
+             the launch thread (the verdict and `live`); sampled
+             message-store rows equal to the oracle's H(m); a reject tile
+             whose 6 bad rows are rejected exactly (re-check from the
+             graph's buffers); a backend with 2,048-row stores over two
+             10,000-entry flushes (evictions, every verdict True); then
+             every flush kind's p50 wall on both routes side by side.
+
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
 2,048-message batch's shapes) against their plain versions.  Every device
@@ -162,7 +185,10 @@ runs: `launches_combine` (one combine rep), `launches_verify` (one
 10,000-entry verify rep, warm caches), `launches_verify_cold` (the
 flush that fills the pubkey LRU), `launches_verify_slot_start` (one
 rep of the slot's first flush) and `launches_verify_distinct` (one rep of
-the distinct-message flush), each counted from zero. K10 addsel has no
+the distinct-message flush) and `launches_resident` (the first run of
+each resident flush kind: cold after prewarm, warm, slot-start, distinct,
+cold; a replay counts its graph's captured launches), each counted from
+zero. K10 addsel has no
 caller on any path (nor in the JAX package): only phase 2 launches it, as
 it does K3, K4, the K5 sqr/mul014 steps, K6 and K10 dblsel now. K11's ms,
 plain_ms and bound_ms are at the batch check's 1 row (its `recheck` key at
@@ -208,6 +234,7 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -237,6 +264,10 @@ H2C_ORACLE_SAMPLES = 32
 J101_DST = b"QUUX-V01-CS02-with-BLS12381G2_XMD:SHA-256_SSWU_RO_"
 J101_MSGS = [b"", b"abc", b"abcdef0123456789", b"q128_" + b"q" * 128,
              b"a512_" + b"a" * 512]
+
+
+#: p50 flush walls by route and flush kind, printed side by side at the end
+WALLS: dict[str, dict[str, float]] = {"bytes": {}, "resident": {}}
 
 
 def log(msg: str) -> None:
@@ -2423,7 +2454,7 @@ def bad_entries(entries, pool_rows):
 
 def verify_phase(dev):
     """→ (launch counts of one warm rep, of the cold run, the pool's
-    pubkeys, sks and key bits on the card)."""
+    pubkeys, sks and key bits on the card, its entries)."""
     from charon_tpu_torch.tbls import api, dispatch
 
     backend = api._backend()
@@ -2461,6 +2492,7 @@ def verify_phase(dev):
     # every tile brings new keys: one K21 launch each, no K1 chain
     check_stage_launches("cold run", backend.verify_launch_totals,
                          "pk_decompress_s", {"g1_decompress": tiles})
+    WALLS["bytes"]["cold"] = wall
     log(f"verify cold: {VALIDATORS:,} entries, {tiles} tiles, {wall:.3f} s "
         f"wall; pk_decompress_s "
         f"{backend.verify_totals['pk_decompress_s']:.4f} summed over tiles, "
@@ -2513,6 +2545,7 @@ def verify_phase(dev):
     log(f"verify: no K1 launch in the warm or cold flush; final_exp_s + "
         f"sig_decompress_s p50 over the tiles {redesigned:.6f} s")
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    WALLS["bytes"]["warm"] = p50["wall_s"]
     log("verify p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
     log("verify launches per flush: " + json.dumps(
@@ -2552,7 +2585,7 @@ def verify_phase(dev):
         + json.dumps({st: {k: n for k, n in c.items() if n}
                       for st, c in backend.verify_launch_totals.items()}))
     return (launch_counts, cold_launches, [pk for pk, _, _ in entries], sks,
-            bits)
+            bits, entries)
 
 
 def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
@@ -2608,6 +2641,7 @@ def verify_slot_start_phase(dev, pks: list[bytes], sks: list[int],
     check_redesigned_stages("slot-start", stage_launches, tiles_want)
     check_no_k1("slot-start", launch_counts)
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    WALLS["bytes"]["slot_start"] = p50["wall_s"]
     log("slot-start p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
     log("slot-start launches per stage: " + json.dumps(
@@ -2880,6 +2914,7 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
     check_h2c_launches("distinct", stage_launches["h2c_s"], tiles_want)
     check_no_k1("distinct", launch_counts)
     p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    WALLS["bytes"]["distinct"] = p50["wall_s"]
     log("distinct p50 over %d reps (stages summed over tiles): %s" % (
         REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
     log("distinct launches per flush: " + json.dumps(
@@ -2916,6 +2951,252 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
         f"equal the pure-Python oracle; {wall:.3f} s wall; " + ", ".join(
             f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
     return launch_counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the resident route — device stores, a verify tile as one CUDA
+# graph, prewarm
+# ---------------------------------------------------------------------------
+
+#: the verify tile's kernels: each launched once a replay of its graph
+GRAPH_KERNELS = ("g2_decompress", "g1_tables", "g1_scalar_mul",
+                 "miller_loop", "f12_fold", "final_exp")
+#: the resident route's stages that may launch kernels
+RESIDENT_STAGES = ("graph_s", "pk_decompress_s", "h2c_s", "recheck_s")
+
+
+def check_graph_stage(label: str, stage_launches: dict, tiles: int) -> None:
+    """graph_s holds the tile's six kernels once a replay (counted from
+    the captured launches) and nothing else; the stores' gathers launch
+    nothing; no stage outside the tile, the misses and a re-check
+    launches."""
+    check_stage_launches(label, stage_launches, "graph_s",
+                         {k: tiles for k in GRAPH_KERNELS})
+    stray = {st: {k: n for k, n in c.items() if n}
+             for st, c in stage_launches.items()
+             if st not in RESIDENT_STAGES and any(c.values())}
+    if stray:
+        raise AssertionError(f"{label}: launches outside the resident "
+                             f"stages: {stray}")
+
+
+def resident_flush(backend, entries, label: str) -> tuple[dict, dict, dict]:
+    """One verify_many of `entries` on the resident route, all verdicts
+    True → (wall and stages, the run's launch counts, its stage
+    launches)."""
+    from charon_tpu_torch.tbls import dispatch
+
+    tiles_want = len(dispatch.tile_sizes(len(entries), dispatch.VERIFY_TILE))
+    backend.reset_verify_totals()
+    reset_all_launches()
+    # the device-to-host copies the launch thread makes: one a tile
+    readbacks = []
+    real_cpu = torch.Tensor.cpu
+
+    def counted_cpu(t, *args, **kwargs):
+        if threading.current_thread().name.startswith("charon-cuda-launch"):
+            readbacks.append(tuple(t.shape))
+        return real_cpu(t, *args, **kwargs)
+
+    torch.Tensor.cpu = counted_cpu
+    try:
+        t0 = time.perf_counter()
+        oks, launches, tiles = asyncio.run(verify_round(entries))
+        wall = time.perf_counter() - t0
+    finally:
+        torch.Tensor.cpu = real_cpu
+    counts = all_launches()
+    stage_launches = {k: dict(c) for k, c in
+                      backend.verify_launch_totals.items()}
+    if not all(oks) or launches != 1 or tiles != tiles_want:
+        raise AssertionError(f"{label}: {oks.count(False)} rejected, "
+                             f"{launches} pipeline launches, {tiles} tiles")
+    check_stage_sums(label, counts, stage_launches)
+    check_graph_stage(label, stage_launches, tiles)
+    check_no_k1(label, counts)
+    if len(readbacks) != tiles:
+        raise AssertionError(f"{label}: {len(readbacks)} readbacks on the "
+                             f"launch thread for {tiles} tiles: {readbacks}")
+    run = {"wall_s": wall, **backend.verify_totals}
+    log(f"{label}: {len(entries):,} entries, {tiles} tiles ({tiles} graph "
+        f"replays, {len(readbacks)} readbacks of {readbacks[0]}): "
+        f"{wall:.3f} s wall; " + ", ".join(
+            f"{k} {val:.4f}" for k, val in backend.verify_totals.items()))
+    return run, counts, stage_launches
+
+
+def hm_rows_equal_oracle(backend, msgs: list[bytes], label: str) -> None:
+    """Rows of the message store against the pure-Python H(m)."""
+    import hashlib
+
+    from charon_tpu_torch.ops import curve as tcurve
+    from charon_tpu_torch.tbls.ref.hash_to_curve import hash_to_g2
+
+    _, hm = backend._dev_caches()
+    _, _, missing, rows = hm.lookup_rows([hashlib.sha256(m).digest()
+                                          for m in msgs])
+    want = tcurve.g2_pack([hash_to_g2(m) for m in msgs])
+    if missing or not np.array_equal(
+            rows.view(3, 2, NL, len(msgs)).cpu().numpy(), want):
+        raise AssertionError(f"{label}: message store rows != the oracle's "
+                             f"H(m) ({len(missing)} missing)")
+
+
+def resident_phase(dev, entries, bits: torch.Tensor) -> dict:
+    """The resident route on a fresh backend: prewarm with the pool's
+    10,000 pubshares at V = 10,000, T = 7 (its report and the stores'
+    bytes), a cold-after-prewarm flush (no key miss, no K21), REPS warm
+    and slot-start flushes, a cold flush, one reject tile, REPS distinct
+    flushes (last: they empty the message store), and a backend with
+    2,048-row stores over two flushes (evictions, every verdict right).
+    → the launch counts of each flush kind's first run."""
+    from charon_tpu_torch.tbls import api, backend_cuda, dispatch
+
+    bytes_be = api._backend()
+    res = backend_cuda.CUDABackend(resident=True)
+    api.register_backend("cuda", res)
+    v = VALIDATORS
+    tiles = len(dispatch.tile_sizes(v, dispatch.VERIFY_TILE))
+    pks = [pk for pk, _, _ in entries]
+    counts: dict[str, dict] = {}
+
+    # prewarm, on the pipeline's prewarm thread
+    async def prewarm():
+        return await dispatch.default_pipeline().prewarm(pks, v, SHARES)
+
+    t0 = time.perf_counter()
+    report = asyncio.run(prewarm())
+    t_prewarm = time.perf_counter() - t0
+    stats = res.devcache_stats()
+    bucket = api.verify_padded_rows(dispatch.VERIFY_TILE)
+    if stats["pk"]["rows"] != v or \
+            f"resident:rlc:v={bucket}" not in report["graph_keys"] or \
+            not report["verify_path"].endswith("+res"):
+        raise AssertionError(f"prewarm: {report}, {stats}")
+    log(f"prewarm: {t_prewarm:.3f} s; report " + json.dumps(report))
+    log("resident stores after prewarm: " + json.dumps(
+        {k: stats[k] for k in ("pk", "hm")}) + f"; torch allocated "
+        f"{torch.cuda.memory_allocated(dev):,} B")
+
+    # cold after prewarm: the flush's 64 messages are in the message store
+    # (the bytes route's cold flush finds them in its LRU); no key misses
+    msgs = [entries[k][1] for k in range(MESSAGES)]
+    with res._prep_context():
+        res._hm_rows_resident(msgs, {}, {})
+    pk_misses = res._pk_dev.misses
+    run, counts["cold_after_prewarm"], _ = resident_flush(
+        res, entries, "resident cold after prewarm")
+    if res._pk_dev.misses != pk_misses or \
+            counts["cold_after_prewarm"]["g1_decompress"]:
+        raise AssertionError(
+            f"cold after prewarm: {res._pk_dev.misses - pk_misses} key "
+            f"misses, {counts['cold_after_prewarm']['g1_decompress']} K21")
+    WALLS["resident"]["cold_after_prewarm"] = run["wall_s"]
+
+    # warm
+    runs = []
+    for rep in range(REPS):
+        run, c, _ = resident_flush(res, entries, f"resident warm rep {rep}")
+        runs.append(run)
+        counts.setdefault("warm", c)
+    p50 = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    WALLS["resident"]["warm"] = p50["wall_s"]
+    log("resident warm p50 over %d reps: %s" % (
+        REPS, json.dumps({k: round(val, 6) for k, val in p50.items()})))
+
+    # slot-start: 64 new messages each rep, one device hash batch
+    runs = []
+    for rep in range(REPS):
+        news = [f"charon-tpu-torch chip smoke: resident slot {300 + rep} "
+                f"committee {c}".encode() for c in range(MESSAGES)]
+        hms = bytes_be._hash_points(news, {}, {})
+        sigs = sign_on_card(dev, bits, hms[..., np.arange(v) % MESSAGES])
+        run, c, st = resident_flush(
+            res, [(pks[k], news[k % MESSAGES], sigs[k]) for k in range(v)],
+            f"resident slot-start rep {rep}")
+        check_h2c_launches(f"resident slot-start rep {rep}",
+                           st.get("h2c_s", {}), 1)
+        runs.append(run)
+        if rep == 0:
+            counts["slot_start"] = c
+            hm_rows_equal_oracle(res, news[:2], "resident slot-start")
+    WALLS["resident"]["slot_start"] = statistics.median(
+        r["wall_s"] for r in runs)
+
+    # cold: the pubkey store emptied; one K21 launch a tile
+    res._pk_dev.clear()
+    run, counts["cold"], st = resident_flush(res, entries, "resident cold")
+    check_stage_launches("resident cold", st, "pk_decompress_s",
+                         {"g1_decompress": tiles})
+    WALLS["resident"]["cold"] = run["wall_s"]
+
+    # reject: one tile with 6 bad rows; verdicts equal the oracle's
+    gen = np.random.default_rng(23)
+    batch = list(entries[:dispatch.VERIFY_TILE])
+    bad_rows = sorted(gen.choice(len(batch), 6, replace=False).tolist())
+    good_rows = [r for r in range(len(batch)) if r not in bad_rows]
+    for (_, entry), r in zip(bad_entries(batch, good_rows[:2]), bad_rows):
+        batch[r] = entry
+    res.reset_verify_totals()
+    t0 = time.perf_counter()
+    oks, _, _ = asyncio.run(verify_round(batch))
+    wall = time.perf_counter() - t0
+    rejected = [r for r, ok in enumerate(oks) if not ok]
+    if rejected != bad_rows:
+        raise AssertionError(f"resident reject: rows {rejected} rejected, "
+                             f"want {bad_rows}")
+    check_recheck("resident reject", res.verify_launch_totals)
+    check_graph_stage("resident reject", res.verify_launch_totals, 1)
+    sample = bad_rows + sorted(gen.choice(good_rows, 2,
+                                          replace=False).tolist())
+    for r in sample:
+        if oracle_verify(*batch[r]) != oks[r]:
+            raise AssertionError(f"resident reject row {r}: verdict "
+                                 f"{oks[r]} != the oracle's")
+    log(f"resident reject: 6 bad rows {bad_rows} rejected exactly, "
+        f"{len(sample)} rows equal the oracle; {wall:.3f} s wall; "
+        + ", ".join(f"{k} {val:.4f}"
+                    for k, val in res.verify_totals.items()))
+
+    # distinct: the message store emptied before each rep
+    dmsgs = distinct_messages(v)
+    sigs = sign_on_card(dev, bits, bytes_be._hash_points(dmsgs, {}, {}))
+    distinct = [(pks[k], dmsgs[k], sigs[k]) for k in range(v)]
+    runs = []
+    for rep in range(REPS):
+        res._hm_dev.clear()
+        run, c, st = resident_flush(res, distinct,
+                                    f"resident distinct rep {rep}")
+        check_h2c_launches(f"resident distinct rep {rep}",
+                           st.get("h2c_s", {}), tiles)
+        runs.append(run)
+        counts.setdefault("distinct", c)
+    hm_rows_equal_oracle(res, [dmsgs[0], dmsgs[-1]], "resident distinct")
+    WALLS["resident"]["distinct"] = statistics.median(
+        r["wall_s"] for r in runs)
+
+    # small stores: 2,048 rows each, two flushes of 10,000 keys
+    small = backend_cuda.CUDABackend(resident=True, devcache_mb=2.25)
+    api.register_backend("cuda", small)
+    for rep in range(2):
+        resident_flush(small, entries, f"resident 2,048-row stores rep {rep}")
+    st = small.devcache_stats()
+    if st["pk"]["capacity_rows"] != 2048 or st["pk"]["evictions"] == 0:
+        raise AssertionError(f"small stores: {st}")
+    log("resident 2,048-row stores after two flushes: " + json.dumps(
+        {k: st[k] for k in ("pk", "hm")}))
+    api.register_backend("cuda", bytes_be)
+
+    log("flush walls p50, bytes | resident route: " + json.dumps(
+        {kind: [WALLS["bytes"].get(kind), WALLS["resident"].get(kind)]
+         for kind in ("warm", "slot_start", "distinct", "cold",
+                      "cold_after_prewarm")}))
+    zero = ([k for k in GRAPH_KERNELS if not counts["warm"][k]]
+            + [k for k in H2C_PATH_KERNELS if not counts["distinct"][k]]
+            + [k for k in ("g1_decompress",) if not counts["cold"][k]])
+    if zero:
+        raise AssertionError(f"resident route: never launched {zero}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3092,9 +3373,12 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
 
+    # the phases before the resident one drive the bytes route (their
+    # per-stage breakdown); the resident phase registers its own backends
+    from charon_tpu_torch.tbls import api, backend_cuda, dispatch
+    api.register_backend("cuda", backend_cuda.CUDABackend(resident=False))
     # the kernels at the shapes the combine gives them: its padded
     # validator rows (one Straus step) times the shares (decompress, tables)
-    from charon_tpu_torch.tbls import api, dispatch
     vrows = api.combine_padded_rows(VALIDATORS, SHARES)
     def mark(phase: str) -> None:
         log(f"phase {phase}: starts at {time.perf_counter() - t_start:.1f} s")
@@ -3157,7 +3441,8 @@ def main() -> int:
     mark("miller")
     kern["miller_loop"] = miller_phase(dev, pool, 2 * tile, sm_clocks_per_s)
     mark("verify")
-    verify_launches, cold_launches, pks, sks, bits = verify_phase(dev)
+    verify_launches, cold_launches, pks, sks, bits, entries = verify_phase(
+        dev)
     # K21 at a verify tile's keys and the flush's, on the pool's keys
     mark("g1_decompress")
     kern["g1_decompress"] = g1_decompress_phase(
@@ -3169,6 +3454,8 @@ def main() -> int:
     mark("distinct")
     distinct_launches = verify_distinct_phase(dev, pks, sks, bits,
                                               plain_planes)
+    mark("resident")
+    resident_launches = resident_phase(dev, entries, bits)
 
     from charon_tpu_torch.tbls import dispatch
     pipe = dispatch.current_pipeline()
@@ -3183,12 +3470,15 @@ def main() -> int:
          "replaces": SOURCES[name][1],
          "launches": (combine_launches.get(name, 0) + verify_launches[name]
                       + cold_launches[name] + slot_launches[name]
-                      + distinct_launches[name]),
+                      + distinct_launches[name]
+                      + sum(c[name] for c in resident_launches.values())),
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
          "launches_verify_cold": cold_launches[name],
          "launches_verify_slot_start": slot_launches[name],
          "launches_verify_distinct": distinct_launches[name],
+         "launches_resident": {kind: c[name] for kind, c in
+                               resident_launches.items()},
          **kern[name],
          **{k: ptxas[PTXAS_NAMES[name]][k] for k in ("regs", "stack",
                                                      "spill")},

@@ -189,9 +189,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'charon_tpu.')) or m == 'charon_tpu')\n"
         "assert not bad, bad\n"
+        "new = ('charon_tpu_torch.tbls.devcache', 'charon_tpu_torch.tbls.api',"
+        " 'charon_tpu_torch.tbls.ref.bls', 'charon_tpu_torch.tbls.shamir')\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('charon_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          cwd=str(Path(__file__).resolve().parent.parent))
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 29
+    assert int(res.stdout.split()[-1]) >= 30

@@ -3,7 +3,8 @@ on the card with torch.profiler, to see how the prep thread's kernels
 (hash-to-G2, the pubkey decompression) and the launch thread's verify
 kernels share the card.
 
-    python3 tools/flush_trace.py ROOT [OUT_JSON] [--cold]
+    python3 tools/flush_trace.py ROOT [OUT_JSON] [--cold | --warm]
+                                 [--route bytes|resident]
 
 ROOT is a checkout (this one, or an unpacked `git archive` of another
 commit), imported and built as `tools/verify_ab.py` does.  The run builds
@@ -12,7 +13,10 @@ runs that flush once untraced, then once under torch.profiler (CUDA
 activity only), with the message LRU cleared before each.  With --cold
 it traces the pool's own flush (64 messages, hashed once) with the pubkey
 LRU emptied before each run instead: the first flush after a node starts,
-each tile's key misses decompressed on the prep thread.  From the
+each tile's key misses decompressed on the prep thread; with --warm the
+pool's own flush with nothing emptied.  `--route` (default bytes) picks
+the backend's verify route, as `tools/verify_ab.py` does (on
+``resident`` the stores are emptied in the LRUs' place).  From the
 profiler's chrome trace it reports, per kernel function: its launches,
 its summed and median device time and the streams it ran on; the device's
 busy and idle share over the traced flush (the union of kernel intervals
@@ -135,8 +139,15 @@ def analyse(trace: dict) -> dict:
 
 
 def main() -> int:
-    args = [a for a in sys.argv[1:] if a != "--cold"]
-    cold = "--cold" in sys.argv[1:]
+    args = sys.argv[1:]
+    route = "bytes"
+    if "--route" in args:
+        at = args.index("--route")
+        route = args[at + 1]
+        del args[at:at + 2]
+    kind = ("cold" if "--cold" in args else
+            "warm" if "--warm" in args else "distinct")
+    args = [a for a in args if a not in ("--cold", "--warm")]
     root = Path(args[0]).resolve()
     dest = Path(args[1]) if len(args) > 1 else None
     sys.path.insert(0, str(root))
@@ -145,16 +156,20 @@ def main() -> int:
 
     import chip_smoke as cs
     from charon_tpu_torch.ops import build
-    from charon_tpu_torch.tbls import api, dispatch
+    from charon_tpu_torch.tbls import dispatch
 
     if not torch.cuda.is_available():
         print("flush_trace: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     build.library()
-    backend = api._backend()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from verify_ab import make_backend
+
+    backend = make_backend(route)
+    resident = route == "resident"
     entries, _, bits = cs.verify_pool(dev, backend)
-    if cold:
+    if kind != "distinct":
         batch = entries
     else:
         msgs = cs.distinct_messages(len(entries))
@@ -164,7 +179,13 @@ def main() -> int:
                  for k in range(len(entries))]
 
     def flush():
-        (backend._pk_cache if cold else backend._hm_cache).clear()
+        if kind != "warm":
+            store = "pk" if kind == "cold" else "hm"
+            if resident:
+                backend._dev_caches()[store == "hm"].clear()
+            else:
+                (backend._pk_cache if store == "pk" else
+                 backend._hm_cache).clear()
         backend.reset_verify_totals()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -185,7 +206,7 @@ def main() -> int:
     pipe = dispatch.current_pipeline()
     if pipe is not None:
         pipe.shutdown()
-    res = {"root": str(root), "flush": "cold" if cold else "distinct",
+    res = {"root": str(root), "route": route, "flush": kind,
            "untraced": untraced, "traced": traced, **analyse(trace)}
     print(cs.smi("name,power.limit"), flush=True)
     print(json.dumps(res), flush=True)

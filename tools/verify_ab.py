@@ -1,7 +1,7 @@
 """Time the verify flushes of one checkout of the repository on the card,
 for comparing two commits in one call on one card.
 
-    python3 tools/verify_ab.py ROOT [REPS]
+    python3 tools/verify_ab.py ROOT [REPS] [--route bytes|resident]
 
 ROOT is a checkout (this one, or an unpacked `git archive` of another
 commit); its `chip_smoke.py` and `charon_tpu_torch` are imported and its
@@ -15,10 +15,15 @@ messages new each rep, signed on the card, so its first tile hashes them
 on the card as one batch, as `chip_smoke.verify_slot_start_phase`
 does); then the 10,000-distinct-message flush of
 `chip_smoke.verify_distinct_phase` (the message LRU cleared before each
-of REPS reps).  Every verdict must be True.  Prints the card's name and
-power limit, then one JSON line: the commit's root, and per flush kind
-every rep's wall seconds and summed stage seconds.  Run parent, change,
-change, parent in one call:
+of REPS reps).  Every verdict must be True.  `--route` (default bytes)
+picks the backend's verify route: on ``resident`` the stores stand in for
+the LRUs ("emptied" empties a store) and REPS more cold flushes each follow
+a `prewarm` of the 10,000 keys with the pool's 64 messages in the store
+(`cold_after_prewarm`); a checkout from before the resident route has the
+bytes route only.  Prints the card's name and power limit, then one JSON
+line: the commit's root and route, and per flush kind every rep's wall
+seconds and summed stage seconds.  Run parent, change, change, parent in
+one call:
 
     for r in build/parent . . build/parent; do
         python3 tools/verify_ab.py $r; done
@@ -33,25 +38,58 @@ import time
 from pathlib import Path
 
 
+def make_backend(route: str):
+    """The route's backend, registered as the API's "cuda" one."""
+    from charon_tpu_torch.tbls import api
+    from charon_tpu_torch.tbls.backend_cuda import CUDABackend
+
+    if route == "resident":
+        backend = CUDABackend(resident=True)
+    else:
+        try:
+            backend = CUDABackend(resident=False)
+        except TypeError:           # a checkout from before the route
+            backend = CUDABackend()
+    api.register_backend("cuda", backend)
+    return backend
+
+
 def main() -> int:
-    root = Path(sys.argv[1]).resolve()
-    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
+    args = sys.argv[1:]
+    route = "bytes"
+    if "--route" in args:
+        at = args.index("--route")
+        route = args[at + 1]
+        del args[at:at + 2]
+    if route not in ("bytes", "resident"):
+        print(f"verify_ab: unknown route {route!r}", file=sys.stderr)
+        return 2
+    root = Path(args[0]).resolve()
+    reps = int(args[1]) if len(args) > 1 else 5
     sys.path.insert(0, str(root))
     import torch
 
     import chip_smoke as cs
     from charon_tpu_torch.ops import build
-    from charon_tpu_torch.tbls import api, dispatch
+    from charon_tpu_torch.tbls import dispatch
 
     if not torch.cuda.is_available():
         print("verify_ab: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     build.library()
-    backend = api._backend()
+    backend = make_backend(route)
+    resident = route == "resident"
     entries, _, bits = cs.verify_pool(dev, backend)
-    out = {"root": str(root), "pk_alone": [], "cold": [], "warm": [],
-           "slot_start": [], "distinct": []}
+    out = {"root": str(root), "route": route, "pk_alone": [], "cold": [],
+           "warm": [], "slot_start": [], "distinct": []}
+
+    def clear(store: str) -> None:
+        if resident:
+            backend._dev_caches()[store == "hm"].clear()
+        else:
+            (backend._hm_cache if store == "hm" else
+             backend._pk_cache).clear()
 
     def flush(batch, kind):
         backend.reset_verify_totals()
@@ -67,9 +105,21 @@ def main() -> int:
         stages = {}
         type(backend)()._pk_planes_cached(keys, stages, {})
         out["pk_alone"].append(stages["pk_decompress_s"])
+    if resident:
+        # the flush's 64 messages into the store, as the bytes route's
+        # cold flush finds them in its LRU
+        with backend._prep_context():
+            backend._hm_rows_resident([m for _, m, _ in entries[:cs.MESSAGES]],
+                                      {}, {})
     for _ in range(reps):
-        backend._pk_cache.clear()
+        clear("pk")
         flush(entries, "cold")
+    if resident:
+        out["cold_after_prewarm"], out["prewarm"] = [], []
+        for _ in range(reps):
+            clear("pk")
+            out["prewarm"].append(backend.prewarm(keys, len(keys), 7))
+            flush(entries, "cold_after_prewarm")
     for _ in range(reps):
         flush(entries, "warm")
     v, m = len(entries), cs.MESSAGES
@@ -78,7 +128,7 @@ def main() -> int:
                 for c in range(m)]
         hms = backend._hash_points(news, {}, {})
         sigs = cs.sign_on_card(dev, bits, hms[..., [k % m for k in range(v)]])
-        backend._hm_cache.clear()
+        backend._hm_cache.clear()           # the signing's hashes
         flush([(entries[k][0], news[k % m], sigs[k]) for k in range(v)],
               "slot_start")
     msgs = cs.distinct_messages(len(entries))
@@ -87,7 +137,7 @@ def main() -> int:
     distinct = [(entries[k][0], msgs[k], sigs[k])
                 for k in range(len(entries))]
     for _ in range(reps):
-        backend._hm_cache.clear()
+        clear("hm")
         flush(distinct, "distinct")
     pipe = dispatch.current_pipeline()
     if pipe is not None:
