@@ -639,17 +639,20 @@ def fold_product(f: torch.Tensor, drop: torch.Tensor | None = None
     all rows, rows flagged in `drop` [R] bool read as Fp12 one — ONE
     launch on the card; `fold_product_plain(mask_rows(f, drop))` on the
     CPU, bit for bit."""
+    n = f.shape[-1]
+    # the drop row is checked on both devices, so a CPU run refuses what
+    # the kernel would
+    if drop is not None and (drop.dtype != torch.bool
+                             or tuple(drop.shape) != (n,)
+                             or not drop.is_contiguous()):
+        raise ValueError(f"f12_fold: drop must be a contiguous bool [{n}] "
+                         "row")
     if f.device.type == "cpu":
         return fold_product_plain(f if drop is None else mask_rows(f, drop))
-    n = f.shape[-1]
     if n & (n - 1):
         raise ValueError(f"f12_fold: R={n} must be a power of two")
     _check("f12_fold", f, F12_PLANES, n)
     if drop is not None:
-        if drop.dtype != torch.bool or tuple(drop.shape) != (n,) \
-                or not drop.is_contiguous():
-            raise ValueError(f"f12_fold: drop must be a contiguous bool "
-                             f"[{n}] row")
         _same_device("f12_fold", f, drop)
     _cuda_ready("f12_fold", f)
     out = f.new_empty((F12_PLANES, NL, 1))

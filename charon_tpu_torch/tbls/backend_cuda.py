@@ -809,7 +809,7 @@ def _verify_tile(pks, hms, xc0, xc1, sign, inf, host_live, windows):
                                              neg_y=True)
     q = torch.stack([sigs, hms], dim=-1).reshape(3, 2, NL, 2 * v)
     f = cuda_pairing.miller_rows(p_side, cuda_pairing.g2_affine_rows(q))
-    drop = (~live).unsqueeze(-1).expand(v, 2).reshape(2 * v)
+    drop = (~live).unsqueeze(-1).expand(v, 2).contiguous().view(2 * v)
     prod = cuda_pairing.fold_product(f, drop)
     _, one = cuda_final_exp.final_exp_is_one(prod.reshape(2, 3, 2, NL, 1))
     return torch.cat([one, live]), sigs, live

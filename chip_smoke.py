@@ -170,6 +170,26 @@ Phases, in order; any failure raises and exits non-zero:
              graph's buffers); a backend with 2,048-row stores over two
              10,000-entry flushes (evictions, every verdict True); then
              every flush kind's p50 wall on both routes side by side.
+8. simnet  — the duty workflow: in-process clusters of app/node.Node
+             (scheduler → fetcher → leadercast → dutydb → validatorapi →
+             parsigdb → parsigex → sigagg → aggsigdb → bcast) with mock
+             VCs signing real BLS partials, on a fresh resident backend,
+             12 s slots of 4-slot epochs: BASELINE.json config 1 (1
+             validator, 4-of-4, attestation) for its attester slot, then
+             config 2's cluster (3-of-4, attestation + sync committee
+             message) with V the largest count whose mock-VC signing
+             (the measured pure-Python sign time) fits ⅔ of a slot, for 2
+             slots; each after `prewarm` at its (V, T) and every verify
+             bucket its flushes can reach.  Every attestation and sync
+             message in the BeaconMock must carry exactly the oracle's
+             bytes (ref.bls.sign with the group secret), every node the
+             same bytes, no duty of a waited slot missing, the resident
+             route, no K1, and K12, K20, K15, K13, K14, K11 (verify) and
+             K12, K22, K16, K19 (combine) launched in every waited slot.
+             Per slot: flushes and entries, combines and validators,
+             graph captures, verify stages, the combines' K12 and K16
+             stage seconds, launches; per node: each duty's seconds
+             from slot start to the broadcast.
 
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
@@ -187,8 +207,9 @@ flush that fills the pubkey LRU), `launches_verify_slot_start` (one
 rep of the slot's first flush) and `launches_verify_distinct` (one rep of
 the distinct-message flush) and `launches_resident` (the first run of
 each resident flush kind: cold after prewarm, warm, slot-start, distinct,
-cold; a replay counts its graph's captured launches), each counted from
-zero. K10 addsel has no
+cold; a replay counts its graph's captured launches) and
+`launches_simnet` (both clusters' runs, from their first slot's tick to
+the end), each counted from zero. K10 addsel has no
 caller on any path (nor in the JAX package): only phase 2 launches it, as
 it does K3, K4, the K5 sqr/mul014 steps, K6 and K10 dblsel now. K11's ms,
 plain_ms and bound_ms are at the batch check's 1 row (its `recheck` key at
@@ -3200,6 +3221,418 @@ def resident_phase(dev, entries, bits: torch.Tensor) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the duty workflow — in-process DV clusters, real BLS, on the card
+# ---------------------------------------------------------------------------
+
+#: mainnet's slot; 4-slot epochs, so each validator attests every 4 slots
+SIM_SLOT_S, SIM_SPE = 12.0, 4
+#: the most slots a cluster's run may take (the phase fails past them)
+SIM_MAX_SLOTS = 8
+SIM_FORK = bytes(4)
+#: the combine's kernels (the verify tile's are GRAPH_KERNELS): each must
+#: launch in every slot a cluster's run waits for
+SIM_COMBINE_KERNELS = ("g2_decompress", "g2_law", "straus_msm",
+                       "g2_normalize")
+
+
+def simnet_sign_seconds(reps: int = 5) -> float:
+    """Median seconds of one pure-Python `tbls.sign` on this host: what a
+    mock VC pays for a signature, on the event loop."""
+    from charon_tpu_torch.tbls import api
+
+    sk = api.int_to_privkey(0x5EED5EED)
+    times = []
+    for k in range(reps):
+        t0 = time.perf_counter()
+        api.sign(sk, b"charon-tpu-torch simnet sign %d" % k)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+#: the share of a slot the mock VCs' signing may take: up to the
+#: aggregation offset (⅔), the last third left for verifying, combining
+#: and broadcasting (at the whole slot, PR 13's chip run saw the loop hold
+#: the slot's first flush past the slot's end)
+SIM_SIGN_SHARE = 2 / 3
+
+
+def simnet_validators(sign_s: float, nodes: int,
+                      share: float = SIM_SIGN_SHARE) -> int:
+    """Config 2's V: the largest count whose mock-VC signing fits `share`
+    of a slot.  Each of the `nodes` VCs signs, a slot, a sync committee
+    message for every validator and an attestation for the V / SPE (on
+    average) that attest in it, in pure Python on the one event loop."""
+    return max(1, int(share * SIM_SLOT_S
+                      / (nodes * (1 + 1 / SIM_SPE) * sign_s)))
+
+
+def sync_message_vc():
+    """Config 2's validator client: the mock VC's attestation flow, and a
+    sync committee flow that signs and submits the slot's messages alone
+    (config 2 has no selection proofs or contributions): every message
+    signed, then all submitted at once, so one node's messages meet in
+    its BatchVerifier's next flush."""
+    from charon_tpu_torch.core.types import Duty, DutyType
+    from charon_tpu_torch.eth2util import spec
+    from charon_tpu_torch.eth2util.signing import DomainName
+    from charon_tpu_torch.testutil.validatormock import ValidatorMock
+
+    class SyncMessageVC(ValidatorMock):
+        async def sync_committee(self, slot) -> None:
+            defset = await self._vapi._get_duty_definition(
+                Duty(slot.slot, DutyType.SYNC_MESSAGE))
+            if not defset:
+                return
+            root = await self._eth2cl.beacon_block_root(slot.slot)
+            msgs = [spec.SyncCommitteeMessage(
+                slot=slot.slot, beacon_block_root=root,
+                validator_index=d.validator_index,
+                signature=self._sign(pk, DomainName.SYNC_COMMITTEE, root,
+                                     slot.epoch))
+                for pk, d in defset.items() if pk in self._keys]
+            await asyncio.gather(*(
+                self._vapi.submit_sync_committee_messages([m])
+                for m in msgs))
+
+    return SyncMessageVC
+
+
+def simnet_attesters(bmock, slot: int, v: int) -> dict:
+    """(committee, position) → validator index, for the validators that
+    attest at `slot`."""
+    duties = asyncio.run(bmock.attester_duties(slot // SIM_SPE,
+                                               list(range(v))))
+    out: dict = {}
+    for d in duties:
+        if d.slot == slot:
+            key = (d.committee_index, d.validator_committee_index)
+            out[key] = None if key in out else d.validator_index
+    return out
+
+
+def simnet_start_slot(bmock, v: int, slots: int) -> int:
+    """The first slot from which each of `slots` slots has an attester and
+    no two attesters on one committee position (the dutydb's reverse index
+    refuses that, in the JAX package too)."""
+    for s0 in range(64):
+        atts = [simnet_attesters(bmock, s, v) for s in range(s0, s0 + slots)]
+        if all(a and None not in a.values() for a in atts):
+            return s0
+    raise AssertionError(f"no {slots} slots with clean attesters for V={v}")
+
+
+def simnet_oracle(cluster, records: list, label: str) -> int:
+    """Every broadcast record (kind, validator index, signing root, bytes)
+    carries exactly `ref.bls.sign` with the group secret (`combine_shares`
+    of the share keys) over its signing root → the signatures computed."""
+    from charon_tpu_torch.tbls import api
+    from charon_tpu_torch.tbls.ref import bls
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    want: dict = {}
+    for kind, vi, root, sig in records:
+        key = (vi, root)
+        if key not in want:
+            sk = api.privkey_to_int(api.combine_shares(
+                cluster.validators[vi].share_privkeys))
+            want[key] = rc.g2_to_bytes(bls.sign(sk, root))
+        if sig != want[key]:
+            raise AssertionError(f"{label}: {kind} of validator {vi} carries "
+                                 f"{sig.hex()[:16]}…, not the oracle's "
+                                 f"{want[key].hex()[:16]}…")
+    return len(want)
+
+
+def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
+                   sync: bool) -> dict:
+    """One in-process cluster on the card: n `Node`s (leadercast, the
+    in-memory parsigex), one `BeaconMock`, a mock VC a node; `prewarm`
+    with the cluster's pubshares at its (V, T) and at each verify bucket
+    its flushes can reach, then the run from the first of `slots` slots
+    that have attesters (the VCs sign in those slots) until every duty of
+    those slots reached the BeaconMock from every node (at most
+    SIM_MAX_SLOTS).  Checks: every
+    record the oracle's bytes, every node the same bytes, no duty missing,
+    the resident route, no K1, and the verify tile's and the combine's
+    kernels launched in every slot waited for.  → the run's launches."""
+    from charon_tpu_torch.app.node import Node, NodeConfig
+    from charon_tpu_torch.core.leadercast import (LeaderCast,
+                                                  MemTransportNetwork)
+    from charon_tpu_torch.core.parsigex import MemParSigExNetwork
+    from charon_tpu_torch.core.types import DutyType
+    from charon_tpu_torch.eth2util.signing import DomainName, signing_root
+    from charon_tpu_torch.eth2util.ssz import Bitlist
+    from charon_tpu_torch.tbls import api, backend_cuda, dispatch
+    from charon_tpu_torch.testutil.beaconmock import BeaconMock
+    from charon_tpu_torch.testutil.cluster import new_cluster_for_test
+    from charon_tpu_torch.testutil.validatormock import ValidatorMock
+
+    be = api._backend()
+    pipe = dispatch.default_pipeline()
+    t0 = time.perf_counter()
+    cluster = new_cluster_for_test(t, n, v, seed=b"chip-smoke " +
+                                   label.encode())
+    keygen_s = time.perf_counter() - t0
+    probe = BeaconMock(slot_duration=SIM_SLOT_S, slots_per_epoch=SIM_SPE,
+                       genesis_time=0.0)
+    for val in cluster.validators:
+        probe.add_validator(val.group_pubkey)
+    s0 = simnet_start_slot(probe, v, slots)
+    waited = list(range(s0, s0 + slots))
+    attesters = {s: simnet_attesters(probe, s, v)
+                 for s in range(s0, s0 + SIM_MAX_SLOTS + 1)}
+
+    # prewarm before the first slot: the cluster's (V, T), then every
+    # verify bucket up to the largest flush a node can make (its own VC's
+    # and its peers' partials of a slot)
+    pubshares = [ps for val in cluster.validators
+                 for ps in val.pubshares.values()]
+    largest = backend_cuda._pad_pow2(n * v * (2 if sync else 1))
+    sizes = [v] + [b for b in (1 << k for k in range(largest.bit_length()))
+                   if b != api.verify_padded_rows(v)]
+
+    async def prewarm():
+        return [await pipe.prewarm(pubshares, size, t) for size in sizes]
+
+    t0 = time.perf_counter()
+    reports = asyncio.run(prewarm())
+    prewarm_s = time.perf_counter() - t0
+    log(f"simnet {label}: {n} nodes, {t}-of-{n}, V = {v}, "
+        f"{'attestation + sync committee message' if sync else 'attestation'}"
+        f"; keys {keygen_s:.3f} s; prewarm at V = {sizes} {prewarm_s:.3f} s "
+        f"(the cluster's: {json.dumps(reports[0])}); graphs "
+        f"{backend_cuda.resident_graph_keys()}; slots {waited}")
+
+    # genesis: slot s0 starts as the nodes start
+    genesis = time.time() - s0 * SIM_SLOT_S - 0.05
+    bmock = BeaconMock(slot_duration=SIM_SLOT_S, slots_per_epoch=SIM_SPE,
+                       genesis_time=genesis)
+    for val in cluster.validators:
+        bmock.add_validator(val.group_pubkey)
+
+    async def no_proposals(*_):
+        return []
+
+    # configs 1 and 2 carry no block duty
+    bmock.overrides["proposer_duties"] = no_proposals
+    pubshares_by_peer = {i: cluster.pubshare_map(i) for i in range(1, n + 1)}
+    psx_net, lc_net = MemParSigExNetwork(), MemTransportNetwork()
+    vc_cls = sync_message_vc() if sync else ValidatorMock
+    #: slot → the probes' snapshot at the first node's tick of it, taken
+    #: before any VC of that slot starts
+    ticks: dict[int, dict] = {}
+
+    async def on_tick(tick) -> None:
+        if tick.slot not in ticks:
+            ticks[tick.slot] = snap()
+
+    def waited_only(on_slot):
+        """The VCs sign in the waited slots only: at V near the loop's
+        limit a backlog of later slots' signing would starve the waited
+        duties, and the run ends once they are in."""
+        async def fn(tick) -> None:
+            if tick.slot in waited:
+                await on_slot(tick)
+        return fn
+
+    nodes = []
+    for i in range(1, n + 1):
+        node = Node(NodeConfig(share_idx=i, threshold=t,
+                               pubshares_by_peer=pubshares_by_peer,
+                               fork_version=SIM_FORK),
+                    bmock, consensus=LeaderCast(lc_net, i - 1, n),
+                    parsigex=psx_net.join(), slots_per_epoch=SIM_SPE,
+                    genesis_time=genesis, slot_duration=SIM_SLOT_S,
+                    fetched_types=(DutyType.ATTESTER,))
+        vmock = vc_cls(node.vapi, cluster.share_privkey_map(i), SIM_FORK,
+                       slots_per_epoch=SIM_SPE,
+                       eth2cl=bmock if sync else None)
+        node.scheduler.subscribe_slots(on_tick)
+        node.scheduler.subscribe_slots(waited_only(vmock.on_slot))
+        nodes.append(node)
+
+    def records() -> dict:
+        """(kind, slot, validator index) → [(signing root, bytes)], one
+        entry a node's broadcast."""
+        out: dict = {}
+        for att in bmock.attestations:
+            pos = Bitlist.to_bools(att.aggregation_bits).index(True)
+            vi = attesters.get(att.data.slot, {}).get((att.data.index, pos))
+            if vi is None and att.data.slot not in waited:
+                continue    # two attesters on one position, past the wait
+            root = signing_root(DomainName.BEACON_ATTESTER,
+                                att.data.hash_tree_root(), SIM_FORK)
+            out.setdefault(("attestation", att.data.slot, vi),
+                           []).append((root, att.signature))
+        for msg in bmock.sync_messages:
+            root = signing_root(DomainName.SYNC_COMMITTEE,
+                                msg.beacon_block_root, SIM_FORK)
+            out.setdefault(("sync_message", msg.slot, msg.validator_index),
+                           []).append((root, msg.signature))
+        for kind, got in (("block", bmock.blocks),
+                          ("contribution", bmock.sync_contributions)):
+            if got:
+                raise AssertionError(f"simnet {label}: {len(got)} {kind}s; "
+                                     "the config has no such duty")
+        return out
+
+    expected = {("attestation", s, vi) for s in waited
+                for vi in attesters[s].values()}
+    if sync:
+        expected |= {("sync_message", s, vi) for s in waited
+                     for vi in range(v)}
+
+    def done() -> bool:
+        got = records()
+        return all(len(got.get(k, ())) == n for k in expected)
+
+    # the run's probes: the pipeline's combines (wall start, validators),
+    # the combine stages on the launch thread, snapshots at slot ticks
+    combines, combine_stages = [], []
+    real_combine, real_exec = pipe.threshold_combine, be.combine_device_exec
+
+    async def counted_combine(batch):
+        combines.append((time.time(), len(batch)))
+        return await real_combine(batch)
+
+    def exec_and_note(prepared):
+        out = real_exec(prepared)
+        combine_stages.append(dict(be.last_stages))
+        return out
+
+    def snap() -> dict:
+        return {"t": time.time(),
+                "flushes": sum(nd.verifier.launches for nd in nodes),
+                "entries": sum(nd.verifier.entries_total for nd in nodes),
+                "combines": len(combines),
+                "combine_rows": sum(r for _, r in combines),
+                "launches": all_launches(),
+                "stages": dict(be.verify_totals),
+                "graphs": len(backend_cuda.resident_graph_keys())}
+
+    async def run() -> list[dict]:
+        for node in nodes:
+            node.start()
+        try:
+            while not done() and len(ticks) <= SIM_MAX_SLOTS:
+                await asyncio.sleep(0.05)
+            snaps = [ticks[k] for k in sorted(ticks)] + [snap()]
+        finally:
+            for node in nodes:
+                node.stop()
+            # the pipeline's stages are FIFO: a no-op through each, awaited,
+            # means no launch of this run is still running
+            loop = asyncio.get_running_loop()
+            await loop.run_in_executor(pipe._prep_pool, lambda: None)
+            await loop.run_in_executor(pipe._launch_pool, lambda: None)
+        return snaps
+
+    be.reset_verify_totals()
+    reset_all_launches()
+    pipe.threshold_combine, be.combine_device_exec = (counted_combine,
+                                                      exec_and_note)
+    try:
+        snaps = asyncio.run(run())
+    finally:
+        del pipe.threshold_combine, be.combine_device_exec
+    got = records()
+    run_s = snaps[-1]["t"] - snaps[0]["t"]
+
+    # every duty of the waited slots from every node, every node the same
+    # bytes, every record the oracle's bytes
+    missing = sorted(k for k in expected if len(got.get(k, ())) != n)
+    if missing:
+        raise AssertionError(f"simnet {label}: duties missing or short of "
+                             f"{n} broadcasts after {run_s:.1f} s: "
+                             f"{missing[:8]} ({len(missing)})")
+    split = [k for k, recs in got.items() if len({s for _, s in recs}) != 1]
+    if split or any(k[2] is None for k in got):
+        raise AssertionError(f"simnet {label}: nodes broadcast different "
+                             f"bytes for {split}, or an unknown attester")
+    signed = simnet_oracle(cluster, [(k[0], k[2], *recs[0])
+                                     for k, recs in got.items()],
+                           f"simnet {label}")
+
+    # the resident route, no K1, the kernels of both call sites each slot
+    paths = {p for nd in nodes for p in nd.verifier.paths}
+    if paths != {api.verify_path(1)} or not api.verify_path(1).endswith(
+            "+res"):
+        raise AssertionError(f"simnet {label}: verify paths {paths}")
+    counts = all_launches()
+    check_no_k1(f"simnet {label}", counts)
+    idle: dict[int, list] = {}
+    for slot, (a, b) in zip(sorted(ticks), zip(snaps, snaps[1:])):
+        d = {name: b["launches"][name] - a["launches"][name]
+             for name in counts}
+        st = {name: b["stages"].get(name, 0.0) - a["stages"].get(name, 0.0)
+              for name in b["stages"]}
+        cs = combine_stages[a["combines"]:b["combines"]]
+        log(f"simnet {label} slot {slot}: {b['flushes'] - a['flushes']} "
+            f"verify flushes ({b['entries'] - a['entries']} entries), "
+            f"{b['combines'] - a['combines']} combines "
+            f"({b['combine_rows'] - a['combine_rows']} validators, padded "
+            f"to {api.combine_padded_rows(1, t)} a combine), graph captures "
+            f"{b['graphs'] - a['graphs']} "
+            f"({st.get('graph_capture_s', 0.0):.4f} s); verify stages "
+            + json.dumps({name: round(s, 4) for name, s in st.items() if s})
+            + "; combine decompress_s (K12) "
+            + json.dumps([round(c.get("decompress_s", 0.0), 5) for c in cs])
+            + ", straus_s (K16) "
+            + json.dumps([round(c.get("straus_s", 0.0), 5) for c in cs])
+            + "; launches " + json.dumps({name: c for name, c in d.items()
+                                          if c}))
+        never = [name for name in (*GRAPH_KERNELS, *SIM_COMBINE_KERNELS)
+                 if not d[name]]
+        if slot in waited and never:
+            idle[slot] = never
+    for i, node in enumerate(nodes):
+        by_duty: dict = {}
+        for duty, delay in node.bcast.broadcast_delays:
+            by_duty.setdefault(str(duty), []).append(delay)
+        log(f"simnet {label} node {i + 1}: seconds from slot start to the "
+            "broadcast, per duty: " + json.dumps(
+                {duty: [len(ds), round(min(ds), 3),
+                        round(statistics.median(ds), 3), round(max(ds), 3)]
+                 for duty, ds in sorted(by_duty.items())}))
+    if idle:
+        raise AssertionError(f"simnet {label}: slots without these "
+                             f"launches: {idle}")
+    cs = combine_stages
+    log(f"simnet {label}: every duty of slots {waited} from all {n} nodes "
+        f"({len(got)} duties, {len(expected)} waited for), byte-equal to "
+        f"the oracle ({signed} signatures); run {run_s:.3f} s; route "
+        f"{api.verify_path(1)}; combines {len(cs)}, median decompress_s "
+        f"(K12) {statistics.median(c['decompress_s'] for c in cs):.5f}, "
+        f"straus_s (K16) {statistics.median(c['straus_s'] for c in cs):.5f}")
+    return counts
+
+
+def simnet_phase() -> dict:
+    """BASELINE.json config 1 (1 validator, 4-of-4, attestation) and config
+    2's cluster (3-of-4, attestation + sync committee message, V the
+    largest count whose mock-VC signing fits ⅔ of a slot) on a fresh resident
+    backend (the card's default route) → the launches of both runs."""
+    from charon_tpu_torch.tbls import api, backend_cuda
+
+    bytes_be = api._backend()
+    api.register_backend("cuda", backend_cuda.CUDABackend())
+    try:
+        sign_s = simnet_sign_seconds()
+        v = simnet_validators(sign_s, 4)
+        per_slot = 4 * (1 + 1 / SIM_SPE) * v
+        log(f"simnet: one pure-Python tbls.sign {sign_s:.4f} s (median of "
+            f"5) → config 2's V = {v} ({per_slot:.1f} signatures a slot "
+            f"expected, {per_slot * sign_s:.2f} s of a {SIM_SLOT_S:.0f} s "
+            f"slot; V = {simnet_validators(sign_s, 4, 1.0)} at the whole "
+            "slot)")
+        a = simnet_cluster("config1", 4, 4, 1, 1, sync=False)
+        b = simnet_cluster("config2", 4, 3, v, 2, sync=True)
+    finally:
+        api.register_backend("cuda", bytes_be)
+    return {name: a[name] + b[name] for name in a}
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "fp_mul": ("charon_tpu_torch/csrc/fp_ops.cu", "charon_tpu/ops/pallas_fp.py:78"),
@@ -3456,6 +3889,8 @@ def main() -> int:
                                               plain_planes)
     mark("resident")
     resident_launches = resident_phase(dev, entries, bits)
+    mark("simnet")
+    simnet_launches = simnet_phase()
 
     from charon_tpu_torch.tbls import dispatch
     pipe = dispatch.current_pipeline()
@@ -3471,7 +3906,8 @@ def main() -> int:
          "launches": (combine_launches.get(name, 0) + verify_launches[name]
                       + cold_launches[name] + slot_launches[name]
                       + distinct_launches[name]
-                      + sum(c[name] for c in resident_launches.values())),
+                      + sum(c[name] for c in resident_launches.values())
+                      + simnet_launches[name]),
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
          "launches_verify_cold": cold_launches[name],
@@ -3479,6 +3915,7 @@ def main() -> int:
          "launches_verify_distinct": distinct_launches[name],
          "launches_resident": {kind: c[name] for kind, c in
                                resident_launches.items()},
+         "launches_simnet": simnet_launches[name],
          **kern[name],
          **{k: ptxas[PTXAS_NAMES[name]][k] for k in ("regs", "stack",
                                                      "spill")},

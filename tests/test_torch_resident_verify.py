@@ -181,3 +181,15 @@ def test_rlc_windows_are_fresh_per_replay(mixed, resident, monkeypatch):
     for w, p in zip(seen, preps):
         np.testing.assert_array_equal(w.numpy(), p["windows"])
     assert not torch.equal(seen[0], seen[1])
+
+
+def test_one_entry_tile_folds_a_contiguous_drop_row(resident):
+    """A 1-entry flush (the in-process cluster's smallest bucket) on the
+    resident route: its drop row is contiguous, as K14 demands (a [1, 2]
+    broadcast reshaped to [2] is a stride-0 view), and a valid and a wrong
+    entry each get their verdict."""
+    async def run(entries):
+        return await BatchVerifier().verify_many(entries)
+
+    assert asyncio.run(run([(PKS[2], M1, _sig(SKS[2], M1))])) == [True]
+    assert asyncio.run(run([(PKS[2], M2, _sig(SKS[2], M1))])) == [False]
