@@ -8,10 +8,16 @@ the silent-background-failure class known as a fire-and-forget
 nothing of that package.)
 
 `spawn` is the sanctioned idiom: the task handle is retained in a
-module-level registry until the task finishes, and a done-callback logs
-the exception, so a dying flusher shows up in the log instead of
-vanishing.  `CancelledError` is not an error: shutdown cancels
-background tasks by design.
+module-level registry until the task finishes, and a done-callback
+
+* logs the exception (a background failure is visible in the journal,
+  not swallowed), and
+* increments ``app_background_task_errors_total{task=<name>}`` on every
+  node registry (the `tbls.dispatch` fan-out),
+
+so a dying flusher shows up at /metrics instead of vanishing.
+`CancelledError` is not an error: shutdown cancels background tasks by
+design.
 """
 
 from __future__ import annotations
@@ -33,7 +39,12 @@ def _on_done(task: "asyncio.Task") -> None:
     exc = task.exception()
     if exc is None:
         return
-    log.error("background task %s failed: %r", task.get_name(), exc)
+    name = task.get_name()
+    log.error("background task %s failed: %r", name, exc)
+    from ..tbls import dispatch
+
+    for reg in dispatch.metrics_registries():
+        reg.inc("app_background_task_errors_total", labels={"task": name})
 
 
 def spawn(coro, *, name: str) -> "asyncio.Task":
@@ -45,3 +56,8 @@ def spawn(coro, *, name: str) -> "asyncio.Task":
     task.add_done_callback(_on_done)
     return task
 
+
+
+def pending_count() -> int:
+    """Number of retained in-flight background tasks (test hook)."""
+    return len(_TASKS)

@@ -4,9 +4,10 @@ Mirrors reference core/bcast/bcast.go:55-194 (type switch over duty types)
 plus the broadcast delays (bcast.go:196+) and the epoch Recaster for
 builder registrations (recast.go:33-114).
 
-A copy of the JAX package's core/bcast.py, trimmed of the metrics
-registry (the delay histogram and broadcast counter come with the
-telemetry slice); `broadcast_delays` keeps every delay.
+A copy of the JAX package's core/bcast.py, whole: with a registry, every
+broadcast observes ``core_bcast_delay_seconds{duty}`` and counts
+``core_bcast_broadcast_total{duty}``; `broadcast_delays` keeps every
+delay.
 """
 
 from __future__ import annotations
@@ -18,11 +19,12 @@ from .types import Duty, DutyType, PubKey, SignedData, SlotTick
 
 class Broadcaster:
     def __init__(self, eth2cl, genesis_time: float, slot_duration: float,
-                 clock=time.time):
+                 registry=None, clock=time.time):
         self._eth2cl = eth2cl
         self._genesis = genesis_time
         self._slot_duration = slot_duration
         self._clock = clock
+        self._registry = registry  # app.monitoring.Registry (optional)
         self.broadcast_delays: list[tuple[Duty, float]] = []  # metric feed
         self._subs: list = []
 
@@ -62,6 +64,11 @@ class Broadcaster:
         delay = self._clock() - (self._genesis
                                  + duty.slot * self._slot_duration)
         self.broadcast_delays.append((duty, delay))
+        if self._registry is not None:
+            self._registry.observe("core_bcast_delay_seconds", delay,
+                                   labels={"duty": duty.type.name.lower()})
+            self._registry.inc("core_bcast_broadcast_total",
+                               labels={"duty": duty.type.name.lower()})
         for fn in self._subs:
             await fn(duty, pubkey, data)
 

@@ -1,7 +1,13 @@
 """SigAgg — threshold aggregation, the device kernels' call site.
 
 A copy of the JAX package's core/sigagg.py, wired to this package's
-`tbls.dispatch` (trimmed: no tracer, no inline mode, no flush window).
+`tbls.dispatch`, with its span: each coalesced combine is a
+``cuda/threshold_combine`` span (the JAX ``tpu/threshold_combine``)
+carrying the batch, T, `tbls.combine_path()`, `tbls.combine_padded_rows`,
+the pipeline's queue depth and its per-stage seconds.  Left out: the
+inline mode and the flush window (environment knobs the port does not
+take: it always dispatches off the loop, one loop tick after the first
+call).
 
 Reference behaviour (core/sigagg/sigagg.go:53-103): receive ≥t partial
 signatures for one validator, Lagrange-combine them (tbls.Aggregate),
@@ -25,8 +31,10 @@ even for multi-hundred-ms batches.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 from dataclasses import dataclass
 
+from ..tbls import api as tbls
 from ..tbls import dispatch
 from . import background
 from .types import Duty, ParSignedData, PubKey
@@ -41,10 +49,16 @@ class _Pending:
 
 
 class SigAgg:
-    def __init__(self, threshold: int):
+    def __init__(self, threshold: int, tracer=None, dispatcher=None):
         self._threshold = threshold
         self._subs: list = []
         self._queue: list[_Pending] = []
+        # tbls.dispatch.DispatchPipeline running the combines; None = the
+        # process default, resolved per flush
+        self._dispatcher = dispatcher
+        # app.tracing.Tracer: each coalesced combine becomes a
+        # "cuda/threshold_combine" span (batch, T, path, padded rows)
+        self._tracer = tracer
 
     def subscribe(self, fn) -> None:
         self._subs.append(fn)
@@ -78,10 +92,26 @@ class SigAgg:
             {p.share_idx: p.signature for p in item.parsigs}
             for item in batch
         ]
+        t = max(len(s) for s in sig_sets)
+        pipe = self._dispatcher
+        if pipe is None:
+            pipe = dispatch.default_pipeline()
+        span = (self._tracer.start_span(
+            "cuda/threshold_combine", batch=len(batch), t=t,
+            path=tbls.combine_path(),
+            padded_rows=tbls.combine_padded_rows(len(batch), t),
+            queue_depth=pipe.queue_depth)
+            if self._tracer is not None else contextlib.nullcontext())
+        stage_stats: dict = {}
         try:
-            # ONE coalesced launch, awaited off-loop
-            combined = await dispatch.default_pipeline().threshold_combine(
-                sig_sets)
+            with span as sp:
+                # ONE coalesced launch, awaited off-loop
+                combined = await pipe.threshold_combine(
+                    sig_sets, stats=stage_stats)
+                # queue-wait / host-prep / device-exec / fetch span attrs
+                # (same decomposition as core_dispatch_stage_seconds)
+                if sp is not None and stage_stats:
+                    sp.attrs.update(dispatch.stage_span_attrs(stage_stats))
         except Exception as exc:
             for item in batch:
                 if not item.done.done():

@@ -1,8 +1,15 @@
 """BatchVerifier — micro-batched BLS signature verification.
 
 A copy of the JAX package's core/verify.py, wired to this package's
-`tbls.dispatch` (trimmed: no tracer spans, inline mode, flush window,
-per-path throughput gauges or packing counters).
+`tbls.dispatch`, with its span: each coalesced flush is a
+``cuda/batch_verify`` span (the JAX ``tpu/batch_verify``) carrying the
+batch size, the verify path, the padded rows, the coalesced calls, the
+tiles, the pipeline's queue depth and the pipeline's per-stage seconds
+(`dispatch.stage_span_attrs`).  Left out: the inline mode and the flush
+window (environment knobs the port does not take: it always dispatches
+off the loop, one loop tick after the first call), and the per-path
+throughput and cross-duty packing counters, which the JAX run entry
+exports (they come with the `app/run` slice).
 
 The reference verifies partial signatures one at a time at two call
 sites: the local-VC submission path (core/validatorapi/validatorapi.go:
@@ -26,6 +33,7 @@ called after every flush.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 from dataclasses import dataclass
 
@@ -43,9 +51,15 @@ class _Pending:
 
 
 class BatchVerifier:
-    def __init__(self, on_launch=None):
+    def __init__(self, on_launch=None, tracer=None, dispatcher=None):
         self._queue: list[_Pending] = []
         self._on_launch = on_launch     # fn(self), after every flush
+        # app.tracing.Tracer: each coalesced flush becomes a
+        # "cuda/batch_verify" span
+        self._tracer = tracer
+        # tbls.dispatch.DispatchPipeline running the flushes; None = the
+        # process default, resolved per flush
+        self._dispatcher = dispatcher
         self.launches = 0
         self.entries_total = 0
         self.max_batch = 0
@@ -91,13 +105,31 @@ class BatchVerifier:
             self._draining = False
 
     async def _launch(self, batch: list[_Pending]) -> None:
-        """One coalesced flush: run it, demux verdicts, fire the hook."""
+        """One coalesced flush: span it, run it, demux verdicts, fire the
+        hook."""
         flat = [e for item in batch for e in item.entries]
-        pipe = dispatch.default_pipeline()
-        path = tbls.verify_path(len(flat))
-        tiles = len(pipe.plan_verify(len(flat)))
+        pipe = self._dispatcher
+        if pipe is None:
+            pipe = dispatch.default_pipeline()
+        # per-TILE attribution: the pipeline splits a large flush into
+        # tiles, and each tile resolves its own path and padding
+        sizes = pipe.plan_verify(len(flat))
+        tile_paths = [tbls.verify_path(s) for s in sizes]
+        path_label = "+".join(sorted(set(tile_paths)))
+        span = (self._tracer.start_span(
+            "cuda/batch_verify", batch=len(flat), path=path_label,
+            padded_rows=sum(tbls.verify_padded_rows(s) for s in sizes),
+            coalesced_calls=len(batch), tiles=len(sizes),
+            queue_depth=pipe.queue_depth)
+            if self._tracer is not None else contextlib.nullcontext())
+        stage_stats: dict = {}
         try:
-            oks = await pipe.batch_verify(flat)
+            with span as sp:
+                oks = await pipe.batch_verify(flat, stats=stage_stats)
+                # queue-wait / host-prep / device-exec / fetch, summed
+                # over tiles, on the same span
+                if sp is not None and stage_stats:
+                    sp.attrs.update(dispatch.stage_span_attrs(stage_stats))
         except Exception as exc:
             for item in batch:
                 if not item.done.done():
@@ -106,7 +138,8 @@ class BatchVerifier:
         self.launches += 1
         self.entries_total += len(flat)
         self.max_batch = max(self.max_batch, len(flat))
-        self.paths[path] = self.paths.get(path, 0) + tiles
+        for path in tile_paths:     # one count per tile
+            self.paths[path] = self.paths.get(path, 0) + 1
         pos = 0
         for item in batch:
             n = len(item.entries)

@@ -171,25 +171,39 @@ Phases, in order; any failure raises and exits non-zero:
              10,000-entry flushes (evictions, every verdict True); then
              every flush kind's p50 wall on both routes side by side.
 8. simnet  — the duty workflow: in-process clusters of app/node.Node
-             (scheduler → fetcher → leadercast → dutydb → validatorapi →
+             (scheduler → fetcher → consensus → dutydb → validatorapi →
              parsigdb → parsigex → sigagg → aggsigdb → bcast) with mock
              VCs signing real BLS partials, on a fresh resident backend,
              12 s slots of 4-slot epochs: BASELINE.json config 1 (1
-             validator, 4-of-4, attestation) for its attester slot, then
-             config 2's cluster (3-of-4, attestation + sync committee
-             message) with V the largest count whose mock-VC signing
-             (the measured pure-Python sign time) fits ⅔ of a slot, for 2
-             slots; each after `prewarm` at its (V, T) and every verify
-             bucket its flushes can reach.  Every attestation and sync
-             message in the BeaconMock must carry exactly the oracle's
-             bytes (ref.bls.sign with the group secret), every node the
-             same bytes, no duty of a waited slot missing, the resident
-             route, no K1, and K12, K20, K15, K13, K14, K11 (verify) and
-             K12, K22, K16, K19 (combine) launched in every waited slot.
-             Per slot: flushes and entries, combines and validators,
-             graph captures, verify stages, the combines' K12 and K16
-             stage seconds, launches; per node: each duty's seconds
-             from slot start to the broadcast.
+             validator, 4-of-4, attestation) for its attester slot, on
+             leadercast and again on QBFT (`core/consensus.QBFTConsensus`
+             over one `ConsensusMemNetwork`), then config 2's cluster
+             (3-of-4, attestation + sync committee message) on QBFT with
+             V the largest count whose mock-VC signing (the measured
+             pure-Python sign time) fits ⅔ of a slot, for 2 slots; each
+             after `prewarm` at its (V, T) and every verify bucket its
+             flushes can reach.  Each QBFT node has its own metrics
+             registry, and with it the tracer, tracker, slot budget and
+             probes of the JAX node.  Every attestation and sync message
+             in the BeaconMock must carry exactly the oracle's bytes
+             (ref.bls.sign with the group secret), every node the same
+             bytes, no duty of a waited slot missing, every waited
+             consensus duty decided on every node with one value, every
+             waited duty tracked as a success with full participation on
+             every node (the tracker's `analyse`, called once the duties
+             are in: the call the deadline would make), every registry
+             rendering the workflow's families, the resident route, no
+             K1, and K12, K20, K15, K13, K14, K11 (verify) and K12, K22,
+             K16, K19 (combine) launched in every waited slot.  Per slot:
+             flushes and entries, combines and validators, graph
+             captures, verify stages, the combines' K12 and K16 stage
+             seconds, launches; per node: each duty's seconds from slot
+             start to the broadcast; with a registry also, per duty and
+             node, the slot budget's hand-offs in seconds from slot start,
+             QBFT's decided round, timeouts and round changes, the
+             tracker's verdict, the sums of
+             `core_dispatch_stage_seconds{stage,op}` and the
+             device-memory gauge beside `torch.cuda.memory_allocated`.
 
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
@@ -208,8 +222,8 @@ rep of the slot's first flush) and `launches_verify_distinct` (one rep of
 the distinct-message flush) and `launches_resident` (the first run of
 each resident flush kind: cold after prewarm, warm, slot-start, distinct,
 cold; a replay counts its graph's captured launches) and
-`launches_simnet` (both clusters' runs, from their first slot's tick to
-the end), each counted from zero. K10 addsel has no
+`launches_simnet` (the three clusters' runs, each from its first slot's
+tick to the end), each counted from zero. K10 addsel has no
 caller on any path (nor in the JAX package): only phase 2 launches it, as
 it does K3, K4, the K5 sqr/mul014 steps, K6 and K10 dblsel now. K11's ms,
 plain_ms and bound_ms are at the batch check's 1 row (its `recheck` key at
@@ -252,6 +266,7 @@ import asyncio
 import contextlib
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -3343,23 +3358,220 @@ def simnet_oracle(cluster, records: list, label: str) -> int:
     return len(want)
 
 
+def rendered(registry) -> dict:
+    """The registry's Prometheus text (`render`) → {(series, ((label,
+    value), ...)): value}; a histogram by its _bucket, _sum and _count
+    series."""
+    out: dict = {}
+    for line in registry.render().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, value = line.rsplit(" ", 1)
+        name, _, labels = series.partition("{")
+        out[(name, tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                           labels))))] = float(value)
+    return out
+
+
+def lag_histogram(registry) -> dict:
+    """`app_event_loop_lag_seconds` of a registry → {"samples", "mean_s",
+    "le": {bound: cumulative count}} (one probe's series)."""
+    r = rendered(registry)
+    le = {dict(k[1])["le"]: int(v) for k, v in r.items()
+          if k[0] == "app_event_loop_lag_seconds_bucket"}
+    count = sum(v for k, v in r.items()
+                if k[0] == "app_event_loop_lag_seconds_count")
+    total = sum(v for k, v in r.items()
+                if k[0] == "app_event_loop_lag_seconds_sum")
+    return {"samples": int(count), "mean_s": total / max(1.0, count),
+            "le": le}
+
+
+#: the families every registry of a cluster must render after a run (the
+#: core_qbft_ ones on QBFT only)
+SIM_FAMILIES = (
+    "core_qbft_decided_total", "core_qbft_round_duration_seconds",
+    "core_qbft_current_round", "core_qbft_leader",
+    "core_slot_phase_seconds", "core_slot_budget_remaining_seconds",
+    "charon_tpu_tracker_participation",
+    "charon_tpu_tracker_duties_analysed_total",
+    "charon_tpu_tracker_inclusion_delay", "core_dispatch_stage_seconds",
+    "core_bcast_delay_seconds", "core_bcast_broadcast_total",
+    "core_parsigex_inbound_total", "core_parsigex_outbound_total",
+    "app_event_loop_lag_seconds", "app_dispatch_queue_depth",
+    "core_dispatch_overlap_efficiency", "charon_tpu_hbm_live_bytes",
+    "app_span_duration_seconds", "charon_tpu_devcache_resident",
+    "charon_tpu_devcache_rows", "app_cuda_graphs_total",
+    "app_cuda_build_seconds", "core_dispatch_launches_total")
+
+
+def simnet_qbft(label: str, nodes, sniffers, waited_duties) -> None:
+    """A QBFT cluster's instances after its run: prints, per consensus duty
+    and node, the decided round, timeouts and round changes (the
+    `consensus/qbft/{slot}` span and the sniffer's `render_json`).  Raises
+    unless every node has both for every waited consensus duty."""
+    from charon_tpu_torch.core.types import DutyType
+
+    qbft: dict = {}
+    for i, node in enumerate(nodes, 1):
+        spans = {s.attrs.get("duty"): s for s in node.tracer.spans
+                 if s.name.startswith("consensus/qbft/")}
+        inst = {x["duty"]: x for x in json.loads(
+            sniffers[i - 1].render_json())["instances"]}
+        for duty in waited_duties:
+            if duty.type != DutyType.ATTESTER:
+                continue
+            sp, sn = spans.get(str(duty)), inst.get(str(duty))
+            if sp is None or sn is None:
+                raise AssertionError(f"simnet {label}: node {i} has no QBFT "
+                                     f"span or sniffer entry for {duty}")
+            qbft.setdefault(str(duty), {})[f"node{i}"] = {
+                "decided": sp.attrs.get("decided"),
+                "round": sp.attrs.get("rounds"),
+                "timeouts": sum(m["rule"] == "ROUND_TIMEOUT"
+                                for m in sn["msgs"]),
+                "round_changes": sp.attrs.get("rounds", 1) - 1,
+                "s": round(sp.attrs.get("duration", 0.0), 4),
+                "rules": sn["n_msgs"]}
+    log(f"simnet {label}: QBFT per duty and node (instance span, sniffer): "
+        + json.dumps(qbft))
+
+
+def simnet_telemetry(label: str, nodes, reports: dict, budgets: dict,
+                     waited_duties, qbft: bool) -> None:
+    """A cluster's telemetry after its run: prints, per duty and node, the
+    tracker's verdict and the slot budget's hand-offs in seconds from slot
+    start; from node 1's rendered registry its QBFT counters per duty type,
+    the sums of `core_dispatch_stage_seconds{stage,op}`, the cuda/* spans
+    and the event-loop lag; the device-memory gauge beside
+    `torch.cuda.memory_allocated`.  Raises unless every waited duty is a
+    success with full participation on every node and every registry
+    renders `SIM_FAMILIES`."""
+    from charon_tpu_torch.app import monitoring
+    from charon_tpu_torch.core.slotbudget import PHASES
+
+    n = len(nodes)
+    bad = []
+    for (i, duty), r in sorted(reports.items(), key=lambda kv: (
+            kv[0][1], kv[0][0])):
+        full = r.participation == {k: True for k in range(1, n + 1)}
+        if not (r.success and full):
+            bad.append((i, str(duty), r.failed_step, r.reason,
+                        r.participation))
+    verdicts = {str(d): "".join("S" if reports[(i, d)].success else "F"
+                                for i in range(1, n + 1))
+                for d in waited_duties}
+    log(f"simnet {label}: tracker verdicts per duty, nodes 1–{n} "
+        f"(S success, F failure): " + json.dumps(verdicts))
+    if bad:
+        raise AssertionError(f"simnet {label}: tracked as failed or short "
+                             f"of full participation: {bad}")
+    by_type: dict = {}
+    for i in range(1, n + 1):
+        for duty in waited_duties:
+            ph = budgets[i].get(duty)
+            if ph is None:
+                raise AssertionError(f"simnet {label}: node {i} has no slot "
+                                     f"budget for {duty}")
+            cum, at = {}, 0.0
+            for phase in PHASES:
+                if phase in ph:
+                    at += ph[phase]
+                    cum[phase] = round(at, 3)
+            by_type.setdefault(duty.type.name.lower(), {}).setdefault(
+                f"node{i}", {})[duty.slot] = cum
+    for dtype, per_node in sorted(by_type.items()):
+        log(f"simnet {label}: slot budget, {dtype}: seconds from slot start "
+            "at each hand-off (first validator), per node and slot: "
+            + json.dumps(per_node))
+    log(f"simnet {label}: late duties (past the {SIM_SLOT_S:.0f} s budget) "
+        "per node: " + json.dumps([nd.slotbudget.late_duties
+                                   for nd in nodes]))
+    reg0 = rendered(nodes[0].registry)
+    if qbft:
+        counters = {f"{k[0][len('core_qbft_'):]}[{dict(k[1]).get('duty')}]":
+                    v for k, v in sorted(reg0.items())
+                    if k[0].startswith("core_qbft_")
+                    and k[0].endswith("_total")}
+        log(f"simnet {label}: node 1's QBFT counters per duty type: "
+            + json.dumps(counters))
+    stages = {f"{dict(k[1])['op']}/{dict(k[1])['stage']}":
+              [round(v, 4), int(reg0[("core_dispatch_stage_seconds_count",
+                                      k[1])])]
+              for k, v in sorted(reg0.items())
+              if k[0] == "core_dispatch_stage_seconds_sum"}
+    spans = {dict(k[1])["span"]: [round(v, 4), int(reg0[(
+        "app_span_duration_seconds_count", k[1])])]
+             for k, v in sorted(reg0.items())
+             if k[0] == "app_span_duration_seconds_sum"
+             and dict(k[1])["span"].startswith("cuda/")}
+    log(f"simnet {label}: core_dispatch_stage_seconds sums [s, jobs] "
+        "(one process pipeline, the same series on every registry): "
+        + json.dumps(stages) + "; cuda spans [s, count]: "
+        + json.dumps(spans))
+    if not {"verify/device_exec", "combine/device_exec"} <= set(stages):
+        raise AssertionError(f"simnet {label}: stage histograms {stages}")
+    log(f"simnet {label}: node 1's app_event_loop_lag_seconds "
+        + json.dumps(lag_histogram(nodes[0].registry)))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    families = [f for f in SIM_FAMILIES
+                if qbft or not f.startswith("core_qbft_")]
+    gauges = []
+    for i, node in enumerate(nodes, 1):
+        reg = node.registry
+        monitoring.export_devcache_metrics(reg)
+        monitoring.export_dispatch_metrics(reg)
+        text = reg.render()
+        missing = [f for f in families if f not in text]
+        if missing:
+            raise AssertionError(f"simnet {label}: node {i}'s registry "
+                                 f"lacks {missing}")
+        gauges.append(rendered(reg).get(("charon_tpu_hbm_live_bytes",
+                                         (("node", f"node{i - 1}"),))))
+    now = torch.cuda.memory_allocated(dev)
+    log(f"simnet {label}: charon_tpu_hbm_live_bytes per node (last 5 s "
+        f"sample) {gauges}; torch.cuda.memory_allocated now {now}; every "
+        f"registry renders {len(families)} families "
+        f"({len(nodes[0].registry.render())} bytes on node 1)")
+    if not all(g and g > 0 for g in gauges):
+        raise AssertionError(f"simnet {label}: device-memory gauge {gauges}")
+
+
 def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
-                   sync: bool) -> dict:
-    """One in-process cluster on the card: n `Node`s (leadercast, the
-    in-memory parsigex), one `BeaconMock`, a mock VC a node; `prewarm`
+                   sync: bool, consensus: str = "leadercast",
+                   telemetry: bool = False,
+                   seed: str | None = None) -> tuple[dict, dict]:
+    """One in-process cluster on the card, on a fresh resident backend (its
+    host LRUs and device stores empty, so no run finds another's hashed
+    roots): n `Node`s (`consensus`: leadercast or QBFT; with `telemetry` a
+    metrics registry, tracker and slot budget on every node; the
+    in-memory parsigex), one `BeaconMock`, a mock VC a node, the keys of
+    `new_cluster_for_test` from `seed` (default: the label); `prewarm`
     with the cluster's pubshares at its (V, T) and at each verify bucket
     its flushes can reach, then the run from the first of `slots` slots
     that have attesters (the VCs sign in those slots) until every duty of
     those slots reached the BeaconMock from every node (at most
-    SIM_MAX_SLOTS).  Checks: every
-    record the oracle's bytes, every node the same bytes, no duty missing,
-    the resident route, no K1, and the verify tile's and the combine's
-    kernels launched in every slot waited for.  → the run's launches."""
+    SIM_MAX_SLOTS).  An event-loop lag probe of the script's own runs in
+    every cluster alike.  Checks: every record the oracle's bytes, every
+    node the same bytes, no duty missing, every waited consensus duty
+    decided alike on every node, the resident route, no K1, and the verify
+    tile's and the combine's kernels launched in every slot waited for;
+    on QBFT each instance's span and sniffer entry (`simnet_qbft`); with
+    telemetry also the trackers' verdicts and the registries' families
+    (`simnet_telemetry`).  → (the run's launches, {"bcast_s": seconds from
+    slot start to each node's broadcast, "consensus_s": each node's slot
+    budget consensus phase (telemetry only), "lag": the script's
+    loop-lag histogram})."""
+    from charon_tpu_torch.app.monitoring import Registry, loop_lag_probe
     from charon_tpu_torch.app.node import Node, NodeConfig
+    from charon_tpu_torch.app.qbftdebug import QBFTSniffer
+    from charon_tpu_torch.app.tracing import Tracer, duty_trace_id
+    from charon_tpu_torch.core.consensus import (ConsensusMemNetwork,
+                                                 QBFTConsensus)
     from charon_tpu_torch.core.leadercast import (LeaderCast,
                                                   MemTransportNetwork)
     from charon_tpu_torch.core.parsigex import MemParSigExNetwork
-    from charon_tpu_torch.core.types import DutyType
+    from charon_tpu_torch.core.types import Duty, DutyType
     from charon_tpu_torch.eth2util.signing import DomainName, signing_root
     from charon_tpu_torch.eth2util.ssz import Bitlist
     from charon_tpu_torch.tbls import api, backend_cuda, dispatch
@@ -3367,11 +3579,12 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
     from charon_tpu_torch.testutil.cluster import new_cluster_for_test
     from charon_tpu_torch.testutil.validatormock import ValidatorMock
 
+    api.register_backend("cuda", backend_cuda.CUDABackend())
     be = api._backend()
     pipe = dispatch.default_pipeline()
     t0 = time.perf_counter()
     cluster = new_cluster_for_test(t, n, v, seed=b"chip-smoke " +
-                                   label.encode())
+                                   (seed or label).encode())
     keygen_s = time.perf_counter() - t0
     probe = BeaconMock(slot_duration=SIM_SLOT_S, slots_per_epoch=SIM_SPE,
                        genesis_time=0.0)
@@ -3399,7 +3612,7 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
     prewarm_s = time.perf_counter() - t0
     log(f"simnet {label}: {n} nodes, {t}-of-{n}, V = {v}, "
         f"{'attestation + sync committee message' if sync else 'attestation'}"
-        f"; keys {keygen_s:.3f} s; prewarm at V = {sizes} {prewarm_s:.3f} s "
+        f", {consensus}{' + telemetry' if telemetry else ''}; keys {keygen_s:.3f} s; prewarm at V = {sizes} {prewarm_s:.3f} s "
         f"(the cluster's: {json.dumps(reports[0])}); graphs "
         f"{backend_cuda.resident_graph_keys()}; slots {waited}")
 
@@ -3417,7 +3630,11 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
     bmock.overrides["proposer_duties"] = no_proposals
     pubshares_by_peer = {i: cluster.pubshare_map(i) for i in range(1, n + 1)}
     psx_net, lc_net = MemParSigExNetwork(), MemTransportNetwork()
+    qnet = ConsensusMemNetwork()
     vc_cls = sync_message_vc() if sync else ValidatorMock
+    #: node index → {duty: {pubkey: hash tree root}} of its decisions
+    decided: dict[int, dict] = {}
+    sniffers: list = []
     #: slot → the probes' snapshot at the first node's tick of it, taken
     #: before any VC of that slot starts
     ticks: dict[int, dict] = {}
@@ -3435,21 +3652,70 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
                 await on_slot(tick)
         return fn
 
+    def decision_sink(i: int):
+        async def fn(duty, unsigned) -> None:
+            decided.setdefault(i, {})[duty] = {
+                pk: ud.hash_tree_root() for pk, ud in unsigned.items()}
+        return fn
+
+    #: node index → {duty: {pubkey: share indices}} of the partials it
+    #: holds, its own and its peers'
+    shares: dict[int, dict] = {i: {} for i in range(1, n + 1)}
+
+    def share_sink(i: int):
+        async def fn(duty, pset) -> None:
+            for pk, psig in pset.items():
+                shares[i].setdefault(duty, {}).setdefault(pk, set()).add(
+                    psig.share_idx)
+        return fn
+
+    #: (node index, duty) → the tracker's report
+    reports: dict = {}
+
+    def report_sink(i: int):
+        async def fn(report) -> None:
+            reports[(i, report.duty)] = report
+        return fn
+
     nodes = []
     for i in range(1, n + 1):
+        reg = (Registry(const_labels={"node": f"node{i - 1}"})
+               if telemetry else None)
+        tracer = Tracer(reg)
+        if consensus == "qbft":
+            sniffers.append(QBFTSniffer())
+            cons = QBFTConsensus(qnet, i - 1, n, sniffer=sniffers[-1],
+                                 registry=reg, tracer=tracer,
+                                 trace_id_fn=duty_trace_id)
+        else:
+            cons = LeaderCast(lc_net, i - 1, n)
+        cons.subscribe(decision_sink(i))
+        psx = psx_net.join(registry=reg)
         node = Node(NodeConfig(share_idx=i, threshold=t,
                                pubshares_by_peer=pubshares_by_peer,
                                fork_version=SIM_FORK),
-                    bmock, consensus=LeaderCast(lc_net, i - 1, n),
-                    parsigex=psx_net.join(), slots_per_epoch=SIM_SPE,
-                    genesis_time=genesis, slot_duration=SIM_SLOT_S,
+                    bmock, consensus=cons, parsigex=psx,
+                    slots_per_epoch=SIM_SPE, genesis_time=genesis,
+                    slot_duration=SIM_SLOT_S, registry=reg, tracer=tracer,
                     fetched_types=(DutyType.ATTESTER,))
+        if telemetry:
+            node.parsigdb.subscribe_internal(share_sink(i))
+            psx.subscribe(share_sink(i))
+            node.tracker.subscribe(report_sink(i))
         vmock = vc_cls(node.vapi, cluster.share_privkey_map(i), SIM_FORK,
                        slots_per_epoch=SIM_SPE,
                        eth2cl=bmock if sync else None)
         node.scheduler.subscribe_slots(on_tick)
         node.scheduler.subscribe_slots(waited_only(vmock.on_slot))
         nodes.append(node)
+    #: node index → {duty: the slot budget's phases}
+    budgets: dict[int, dict] = {i: {} for i in range(1, n + 1)}
+
+    def tracked_all(i: int, duty) -> bool:
+        """Node i holds a partial of every share for every validator of
+        `duty`."""
+        got = shares[i].get(duty, {})
+        return bool(got) and all(len(s) == n for s in got.values())
 
     def records() -> dict:
         """(kind, slot, validator index) → [(signing root, bytes)], one
@@ -3486,14 +3752,20 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
         got = records()
         return all(len(got.get(k, ())) == n for k in expected)
 
+    #: the duties the run waits for, as the trackers see them
+    waited_duties = [Duty(s, DutyType.ATTESTER) for s in waited
+                     if attesters[s]]
+    if sync:
+        waited_duties += [Duty(s, DutyType.SYNC_MESSAGE) for s in waited]
+
     # the run's probes: the pipeline's combines (wall start, validators),
     # the combine stages on the launch thread, snapshots at slot ticks
     combines, combine_stages = [], []
     real_combine, real_exec = pipe.threshold_combine, be.combine_device_exec
 
-    async def counted_combine(batch):
+    async def counted_combine(batch, stats=None):
         combines.append((time.time(), len(batch)))
-        return await real_combine(batch)
+        return await real_combine(batch, stats=stats)
 
     def exec_and_note(prepared):
         out = real_exec(prepared)
@@ -3511,13 +3783,24 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
                 "graphs": len(backend_cuda.resident_graph_keys())}
 
     async def run() -> list[dict]:
+        lag_task = asyncio.get_running_loop().create_task(
+            loop_lag_probe(lag_reg))
         for node in nodes:
             node.start()
         try:
             while not done() and len(ticks) <= SIM_MAX_SLOTS:
                 await asyncio.sleep(0.05)
             snaps = [ticks[k] for k in sorted(ticks)] + [snap()]
+            if telemetry and done():
+                # the partials that arrive after each node's threshold
+                # (the 4th of a 3-of-4) still count for participation
+                t_end = time.time() + SIM_SLOT_S
+                while time.time() < t_end and not all(
+                        tracked_all(i, d) for i in range(1, n + 1)
+                        for d in waited_duties):
+                    await asyncio.sleep(0.05)
         finally:
+            lag_task.cancel()
             for node in nodes:
                 node.stop()
             # the pipeline's stages are FIFO: a no-op through each, awaited,
@@ -3525,8 +3808,21 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
             loop = asyncio.get_running_loop()
             await loop.run_in_executor(pipe._prep_pool, lambda: None)
             await loop.run_in_executor(pipe._launch_pool, lambda: None)
+        # what `_gc_loop` does at each duty's deadline (5 slots on), now;
+        # the phases first, as the report's subscriber would finalise them
+        for i, node in enumerate(nodes, 1):
+            if node.tracker is None:
+                continue
+            for duty in waited_duties:
+                if (i, duty) in reports:
+                    continue    # analysed at its deadline, phases gone
+                phases = node.slotbudget.finalize(duty)
+                if phases is not None:
+                    budgets[i][duty] = phases
+                await node.tracker.analyse(duty)
         return snaps
 
+    lag_reg = Registry()
     be.reset_verify_totals()
     reset_all_launches()
     pipe.threshold_combine, be.combine_device_exec = (counted_combine,
@@ -3537,6 +3833,20 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
         del pipe.threshold_combine, be.combine_device_exec
     got = records()
     run_s = snaps[-1]["t"] - snaps[0]["t"]
+
+    # every waited consensus duty decided on every node, with one value
+    undecided = [(i, str(d)) for d in waited_duties
+                 if d.type == DutyType.ATTESTER for i in range(1, n + 1)
+                 if d not in decided.get(i, {})]
+    if undecided:
+        raise AssertionError(f"simnet {label}: {consensus} never decided "
+                             f"{undecided}")
+    for d in waited_duties:
+        if d.type == DutyType.ATTESTER and len(
+                {tuple(sorted(decided[i][d].items()))
+                 for i in range(1, n + 1)}) != 1:
+            raise AssertionError(f"simnet {label}: nodes decided different "
+                                 f"values for {d}")
 
     # every duty of the waited slots from every node, every node the same
     # bytes, every record the oracle's bytes
@@ -3585,10 +3895,12 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
                  if not d[name]]
         if slot in waited and never:
             idle[slot] = never
+    bcast_s = []
     for i, node in enumerate(nodes):
         by_duty: dict = {}
         for duty, delay in node.bcast.broadcast_delays:
             by_duty.setdefault(str(duty), []).append(delay)
+            bcast_s.append(delay)
         log(f"simnet {label} node {i + 1}: seconds from slot start to the "
             "broadcast, per duty: " + json.dumps(
                 {duty: [len(ds), round(min(ds), 3),
@@ -3597,25 +3909,70 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
     if idle:
         raise AssertionError(f"simnet {label}: slots without these "
                              f"launches: {idle}")
+    if consensus == "qbft":
+        simnet_qbft(label, nodes, sniffers, waited_duties)
+    if telemetry:
+        simnet_telemetry(label, nodes, reports, budgets, waited_duties,
+                         qbft=consensus == "qbft")
+    lag = lag_histogram(lag_reg)
+    log(f"simnet {label}: the script's app_event_loop_lag_seconds "
+        + json.dumps(lag))
     cs = combine_stages
     log(f"simnet {label}: every duty of slots {waited} from all {n} nodes "
         f"({len(got)} duties, {len(expected)} waited for), byte-equal to "
-        f"the oracle ({signed} signatures); run {run_s:.3f} s; route "
+        f"the oracle ({signed} signatures), decided alike on every node by "
+        f"{consensus}; run {run_s:.3f} s; route "
         f"{api.verify_path(1)}; combines {len(cs)}, median decompress_s "
         f"(K12) {statistics.median(c['decompress_s'] for c in cs):.5f}, "
         f"straus_s (K16) {statistics.median(c['straus_s'] for c in cs):.5f}")
-    return counts
+    consensus_s = [ph["consensus"] for i in budgets
+                   for ph in budgets[i].values() if "consensus" in ph]
+    return counts, {"bcast_s": bcast_s, "consensus_s": consensus_s,
+                    "lag": lag}
+
+
+#: config 1's runs: (label, consensus, telemetry), leadercast and QBFT
+#: each with and without the registry path, in an order that puts neither
+#: consensus nor telemetry always first; every run on the same keys
+SIM_CONFIG1_RUNS = (("config1", "leadercast", False),
+                    ("config1-qbft-telemetry", "qbft", True),
+                    ("config1-telemetry", "leadercast", True),
+                    ("config1-qbft", "qbft", False))
+
+
+def simnet_compare(results: dict) -> None:
+    """Config 1's four runs side by side: the median seconds from slot
+    start to a node's broadcast, the slot budget's consensus phase, the
+    script's loop-lag mean; then QBFT − leadercast with and without
+    telemetry, and telemetry − none on each consensus."""
+    med = {label: statistics.median(r["bcast_s"])
+           for label, r in results.items()}
+    log("simnet config 1: " + json.dumps({
+        label: {"bcast_s": [round(x, 3) for x in sorted(r["bcast_s"])],
+                "bcast_median_s": round(med[label], 3),
+                "consensus_phase_s": [round(x, 4) for x in r["consensus_s"]],
+                "loop_lag_mean_s": round(r["lag"]["mean_s"], 4),
+                "loop_lag_samples": r["lag"]["samples"]}
+        for label, r in results.items()}))
+    log("simnet config 1: median broadcast, QBFT − leadercast: "
+        f"{med['config1-qbft'] - med['config1']:+.3f} s without telemetry, "
+        f"{med['config1-qbft-telemetry'] - med['config1-telemetry']:+.3f} s "
+        "with it; telemetry − none: "
+        f"{med['config1-telemetry'] - med['config1']:+.3f} s on leadercast, "
+        f"{med['config1-qbft-telemetry'] - med['config1-qbft']:+.3f} s on "
+        "QBFT")
 
 
 def simnet_phase() -> dict:
-    """BASELINE.json config 1 (1 validator, 4-of-4, attestation) and config
-    2's cluster (3-of-4, attestation + sync committee message, V the
-    largest count whose mock-VC signing fits ⅔ of a slot) on a fresh resident
-    backend (the card's default route) → the launches of both runs."""
-    from charon_tpu_torch.tbls import api, backend_cuda
+    """BASELINE.json config 1 (1 validator, 4-of-4, attestation) on
+    leadercast and on QBFT, each with and without the telemetry
+    (`SIM_CONFIG1_RUNS`), and config 2's cluster (3-of-4, attestation +
+    sync committee message, V the largest count whose mock-VC signing fits
+    ⅔ of a slot) on QBFT with telemetry, each cluster on a fresh resident
+    backend (the card's default route) → the launches of the five runs."""
+    from charon_tpu_torch.tbls import api
 
     bytes_be = api._backend()
-    api.register_backend("cuda", backend_cuda.CUDABackend())
     try:
         sign_s = simnet_sign_seconds()
         v = simnet_validators(sign_s, 4)
@@ -3625,11 +3982,18 @@ def simnet_phase() -> dict:
             f"expected, {per_slot * sign_s:.2f} s of a {SIM_SLOT_S:.0f} s "
             f"slot; V = {simnet_validators(sign_s, 4, 1.0)} at the whole "
             "slot)")
-        a = simnet_cluster("config1", 4, 4, 1, 1, sync=False)
-        b = simnet_cluster("config2", 4, 3, v, 2, sync=True)
+        runs, config1 = [], {}
+        for label, consensus, telemetry in SIM_CONFIG1_RUNS:
+            counts, config1[label] = simnet_cluster(
+                label, 4, 4, 1, 1, sync=False, consensus=consensus,
+                telemetry=telemetry, seed="config1")
+            runs.append(counts)
+        simnet_compare(config1)
+        runs.append(simnet_cluster("config2-qbft", 4, 3, v, 2, sync=True,
+                                   consensus="qbft", telemetry=True)[0])
     finally:
         api.register_backend("cuda", bytes_be)
-    return {name: a[name] + b[name] for name in a}
+    return {name: sum(r[name] for r in runs) for name in runs[0]}
 
 
 # ---------------------------------------------------------------------------

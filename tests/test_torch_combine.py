@@ -200,11 +200,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'charon_tpu_torch.core.aggsigdb', 'charon_tpu_torch.core.bcast',"
         " 'charon_tpu_torch.app.node', 'charon_tpu_torch.testutil.cluster',"
         " 'charon_tpu_torch.testutil.beaconmock',"
-        " 'charon_tpu_torch.testutil.validatormock')\n"
+        " 'charon_tpu_torch.testutil.validatormock',"
+        " 'charon_tpu_torch.core.qbft', 'charon_tpu_torch.core.consensus',"
+        " 'charon_tpu_torch.core.deadline', 'charon_tpu_torch.core.tracker',"
+        " 'charon_tpu_torch.core.slotbudget', 'charon_tpu_torch.app.qbftdebug',"
+        " 'charon_tpu_torch.app.tracing', 'charon_tpu_torch.app.monitoring')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('charon_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          cwd=str(Path(__file__).resolve().parent.parent))
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 50
+    assert int(res.stdout.split()[-1]) >= 58

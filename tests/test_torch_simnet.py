@@ -4,13 +4,12 @@ parsigdb → parsigex → sigagg → aggsigdb → bcast), an in-memory parsigex
 and leadercast, one `BeaconMock` and a `ValidatorMock` per node.
 
 (i)   the four cases of the JAX package's tests/test_core_simnet.py on the
-      port (insecure-test scheme, 3 nodes, 2-of-3, 0.25 s slots).  QBFT
-      comes to the port with a later slice, so its case injects the JAX
-      package's `QBFTConsensus` through the node's consensus injection
-      point: the port's workflow around the reference consensus.
-(ii)  one cluster seed through the JAX `Node` and the port's `Node`: the
-      broadcast (duty, group pubkey) → signature maps are equal wherever
-      both runs produced the duty.
+      port (insecure-test scheme, 3 nodes, 2-of-3, 0.25 s slots), the QBFT
+      case on the port's own `QBFTConsensus`.
+(ii)  one cluster seed through the JAX `Node` and the port's `Node`, on
+      leadercast and on QBFT (each package's own): the broadcast (duty,
+      group pubkey) → signature maps are equal wherever both runs produced
+      the duty.
 (iii) real BLS, `BASELINE.json` config 1 (1 validator, 4-of-4) on
       `CUDABackend(device="cpu")`: one attestation duty whose group
       signature equals the JAX package's `ref.bls.sign` with the group
@@ -19,6 +18,10 @@ and leadercast, one `BeaconMock` and a `ValidatorMock` per node.
       (≈ 13 s a flush, most of it the plain Miller program), so this case
       alone takes minutes; the run stops as soon as `BeaconMock` holds the
       attestation.
+(iv)  a registry-enabled cluster (4 nodes, 3-of-4, QBFT, a registry,
+      tracer, tracker and slot budget a node): every duty the trackers
+      analyse is a success with full participation, and the registries
+      hold the workflow's families.
 """
 
 import asyncio
@@ -31,6 +34,7 @@ import torch
 torch.set_num_threads(1)
 
 from charon_tpu.app import node as jnode
+from charon_tpu.core import consensus as jconsensus
 from charon_tpu.core import leadercast as jleadercast
 from charon_tpu.core import parsigex as jparsigex
 from charon_tpu.tbls import api as japi
@@ -39,7 +43,10 @@ from charon_tpu.tbls.ref import curve as jcurve
 from charon_tpu.testutil import beaconmock as jbeaconmock
 from charon_tpu.testutil import cluster as jcluster
 from charon_tpu.testutil import validatormock as jvalidatormock
+from charon_tpu_torch.app.monitoring import Registry
 from charon_tpu_torch.app.node import Node, NodeConfig
+from charon_tpu_torch.app.tracing import Tracer, duty_trace_id
+from charon_tpu_torch.core.consensus import ConsensusMemNetwork, QBFTConsensus
 from charon_tpu_torch.core.leadercast import LeaderCast, MemTransportNetwork
 from charon_tpu_torch.core.parsigex import MemParSigExNetwork
 from charon_tpu_torch.core.types import DutyType
@@ -60,12 +67,16 @@ FORK = bytes.fromhex("00000000")
 #: the port's modules and the JAX package's, for one cluster builder
 PORT = dict(Node=Node, NodeConfig=NodeConfig, LeaderCast=LeaderCast,
             MemTransportNetwork=MemTransportNetwork,
+            QBFTConsensus=QBFTConsensus,
+            ConsensusMemNetwork=ConsensusMemNetwork,
             MemParSigExNetwork=MemParSigExNetwork, BeaconMock=BeaconMock,
             new_cluster_for_test=new_cluster_for_test,
             ValidatorMock=ValidatorMock)
 JAX = dict(Node=jnode.Node, NodeConfig=jnode.NodeConfig,
            LeaderCast=jleadercast.LeaderCast,
            MemTransportNetwork=jleadercast.MemTransportNetwork,
+           QBFTConsensus=jconsensus.QBFTConsensus,
+           ConsensusMemNetwork=jconsensus.ConsensusMemNetwork,
            MemParSigExNetwork=jparsigex.MemParSigExNetwork,
            BeaconMock=jbeaconmock.BeaconMock,
            new_cluster_for_test=jcluster.new_cluster_for_test,
@@ -175,10 +186,7 @@ def test_simnet_sync_committee_family(insecure_scheme):
 
 
 def test_simnet_with_qbft_consensus(insecure_scheme):
-    """The attestation flow over QBFT instead of leadercast: the JAX
-    package's `QBFTConsensus` injected into the port's nodes."""
-    from charon_tpu.core.consensus import ConsensusMemNetwork, QBFTConsensus
-
+    """The attestation flow over the port's QBFT instead of leadercast."""
     qnet = ConsensusMemNetwork()
     cluster, bmock, nodes = build_cluster(
         consensus_factory=lambda idx: QBFTConsensus(
@@ -207,11 +215,20 @@ def test_simnet_tolerates_one_node_down(insecure_scheme):
 
 # -- (ii) the same seed through the JAX node and the port's node -------------
 
-def broadcast_map(mods, seed: bytes) -> dict:
+def qbft_factory(mods):
+    """Each node a `QBFTConsensus` of `mods`' package on one network."""
+    qnet = mods["ConsensusMemNetwork"]()
+    return lambda idx: mods["QBFTConsensus"](qnet, idx - 1, N_NODES,
+                                             round_timeout_base=0.3)
+
+
+def broadcast_map(mods, seed: bytes, qbft: bool = False) -> dict:
     """(slot, duty type, group pubkey) → the set of signatures the nodes
     broadcast, from genesis until every broadcast family (attestation,
     block, sync message, contribution) has reached the BN."""
-    _, bmock, nodes = build_cluster(mods, seed=seed)
+    _, bmock, nodes = build_cluster(
+        mods, consensus_factory=qbft_factory(mods) if qbft else None,
+        seed=seed)
     out: dict = {}
 
     async def record(duty, pubkey, data):
@@ -227,10 +244,10 @@ def broadcast_map(mods, seed: bytes) -> dict:
     return out
 
 
-def test_port_node_broadcasts_what_the_jax_node_broadcasts(insecure_scheme):
+def check_broadcasts_equal(qbft: bool) -> None:
     seed = b"charon-tpu-torch simnet"
-    want = broadcast_map(JAX, seed)
-    got = broadcast_map(PORT, seed)
+    want = broadcast_map(JAX, seed, qbft)
+    got = broadcast_map(PORT, seed, qbft)
     both = sorted(set(want) & set(got))
     kinds = {DutyType(k[1]) for k in both}
     assert {DutyType.ATTESTER, DutyType.PROPOSER, DutyType.SYNC_MESSAGE,
@@ -238,6 +255,93 @@ def test_port_node_broadcasts_what_the_jax_node_broadcasts(insecure_scheme):
     for key in both:
         assert len(got[key]) == 1, key        # every node the same bytes
         assert got[key] == want[key], key
+
+
+def test_port_node_broadcasts_what_the_jax_node_broadcasts(insecure_scheme):
+    check_broadcasts_equal(qbft=False)
+
+
+def test_port_node_broadcasts_what_the_jax_node_broadcasts_on_qbft(
+        insecure_scheme):
+    """The same on each package's own `QBFTConsensus`."""
+    check_broadcasts_equal(qbft=True)
+
+
+# -- (iv) a registry on every node: tracker, slot budget, spans -------------
+
+def test_registry_cluster_tracks_every_duty_as_a_success(insecure_scheme):
+    """4 nodes, 3-of-4, QBFT, attestations only, a registry (and with it a
+    tracer, tracker, deadliner and slot budget) on every node.  The run
+    goes until each tracker has analysed 3 attester duties at their
+    deadline (5 slots after the slot's start); every report is then a
+    success with all 4 peers taking part."""
+    n, t = 4, 3
+    cluster = new_cluster_for_test(t, n, N_VALS, seed=b"telemetry simnet")
+    bmock = BeaconMock(slot_duration=SLOT_DUR, slots_per_epoch=SPE)
+    for v in cluster.validators:
+        bmock.add_validator(v.group_pubkey)
+
+    async def no_proposals(*_):
+        return []
+
+    bmock.overrides["proposer_duties"] = no_proposals
+    pubshares_by_peer = {i: cluster.pubshare_map(i) for i in range(1, n + 1)}
+    psx_net, qnet = MemParSigExNetwork(), ConsensusMemNetwork()
+    nodes = []
+    for idx in range(1, n + 1):
+        reg = Registry(const_labels={"node": f"node{idx - 1}"})
+        tracer = Tracer(reg)
+        cons = QBFTConsensus(qnet, idx - 1, n, round_timeout_base=0.3,
+                             registry=reg, tracer=tracer,
+                             trace_id_fn=duty_trace_id)
+        cfg = NodeConfig(share_idx=idx, threshold=t,
+                         pubshares_by_peer=pubshares_by_peer,
+                         fork_version=FORK)
+        node = Node(cfg, bmock, consensus=cons,
+                    parsigex=psx_net.join(registry=reg),
+                    slots_per_epoch=SPE, genesis_time=bmock.genesis,
+                    slot_duration=SLOT_DUR, registry=reg, tracer=tracer,
+                    fetched_types=(DutyType.ATTESTER,))
+        vmock = ValidatorMock(node.vapi, cluster.share_privkey_map(idx),
+                              FORK, slots_per_epoch=SPE)
+        node.scheduler.subscribe_slots(vmock.on_slot)
+        nodes.append(node)
+    reported: list = []
+    nodes[0].tracker.subscribe(
+        lambda r: asyncio.sleep(0, reported.append(r.duty)))
+
+    def done():
+        return all(len(nd.tracker.reports) >= 3 for nd in nodes)
+
+    asyncio.run(run_slots(nodes, bmock, num_slots=6 * SPE, done=done))
+
+    assert done(), [len(nd.tracker.reports) for nd in nodes]
+    for nd in nodes:
+        for r in nd.tracker.reports:
+            assert r.duty.type == DutyType.ATTESTER, r
+            assert r.success, (r.duty, r.failed_step, r.reason)
+            assert r.participation == {i: True for i in range(1, n + 1)}
+        text = nd.registry.render()
+        for family in ("core_qbft_decided_total", "core_slot_phase_seconds",
+                       "core_bcast_delay_seconds",
+                       "core_parsigex_inbound_total",
+                       "charon_tpu_tracker_participation",
+                       "charon_tpu_tracker_inclusion_delay",
+                       "core_dispatch_stage_seconds",
+                       "app_event_loop_lag_seconds",
+                       'span="cuda/batch_verify"',
+                       'span="cuda/threshold_combine"',
+                       'span="consensus/qbft/'):
+            assert family in text, family
+        assert not any(k[0] == "core_slot_late_duties_total"
+                       for k in nd.registry._counters)
+        spans = {s.name for s in nd.tracer.spans}
+        assert {"core/consensus_propose", "cuda/batch_verify",
+                "cuda/threshold_combine"} <= spans
+    # every node left the process-global fan-out at stop
+    assert not any(nd.registry in dispatch.metrics_registries()
+                   for nd in nodes)
+    assert reported == [r.duty for r in nodes[0].tracker.reports]
 
 
 # -- (iii) real BLS, BASELINE config 1, on the port's backend ----------------
