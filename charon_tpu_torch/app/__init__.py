@@ -1,9 +1,11 @@
 """charon_tpu_torch.app — node assembly.
 
-`node.Node` wires one distributed-validator node's core workflow; a test
-or `chip_smoke.py` boots n of them in one process (reference:
-app/simnet_test.go:57-197 runs a 3-node cluster in one process).  A copy
-of the part of the JAX package's app package that the in-process cluster
-needs; lifecycle, monitoring, tracing and the run command come with later
-slices.
+`run.App` is the node as a process (`python -m charon_tpu_torch run`):
+booted from a cluster lock, on the authenticated TCP mesh, talking HTTP
+to beacon nodes, with its lifecycle, monitoring API and telemetry.
+`node.Node` wires the same core workflow for in-process clusters (a test
+or `chip_smoke.py` boots n of them in one process; reference:
+app/simnet_test.go:57-197).  The serving layer (the caching beacon
+client, the validator API's router, OTLP and Loki sinks, the
+auto-profiler) comes with a later slice.
 """

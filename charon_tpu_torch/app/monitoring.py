@@ -21,19 +21,29 @@ A copy of the registry half of the JAX package's app/monitoring.py:
 - the XLA compile gauges become the port's own: ``app_cuda_build_seconds``
   (the nvcc build, `ops/build.py`) and ``app_cuda_graphs_total`` (the
   resident route's captured verify graphs; each capture's seconds are the
-  ``app_cuda_graph_capture_seconds`` histogram, `tbls/dispatch`).
+  ``app_cuda_graph_capture_seconds`` histogram, `tbls/dispatch`); beside
+  them, each kernel's launches in this process
+  (``app_cuda_kernel_launches_total{kernel}``, the wrappers' counts).
 
-`MonitoringAPI` (the HTTP endpoints), the profile capture and the OTLP
-exporters (`app/otlp.py`) wait for the serving slice.
+`MonitoringAPI` serves ``/metrics``, ``/livez``, ``/readyz``, ``/enr``,
+``/debug/qbft`` and ``/debug/memory`` over the port's HTTP/1.1 server
+(`app/http1.py`); ``/debug/memory`` reads ``torch.cuda``'s memory stats
+and the backend's cache stats where the JAX package reads
+``jax.live_arrays``.  ``/debug/spans``, ``/debug/profile`` (the profile
+capture) and the OTLP exporters (`app/otlp.py`) wait for the serving
+slice.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import sys
 import threading
 from collections import defaultdict, deque
 from typing import Callable
+
+from .http1 import HTTPServer, Response
 
 #: Default histogram bounds (seconds-scale latency): per-metric overrides
 #: via Registry.set_buckets.
@@ -286,6 +296,18 @@ def export_dispatch_metrics(registry: "Registry") -> None:
         registry.set_gauge("core_dispatch_launches_total", pipe.tiles)
         registry.set_gauge("core_dispatch_verify_rows_total",
                            pipe.verify_rows)
+    # each kernel's launches in this process, from its wrapper module's
+    # counts (a node process's own: another process's never land here)
+    for mod in _WRAPPER_MODULES:
+        wrappers = sys.modules.get("charon_tpu_torch.ops." + mod)
+        for name, n in getattr(wrappers, "LAUNCHES", {}).items():
+            registry.set_gauge("app_cuda_kernel_launches_total", n,
+                               labels={"kernel": name})
+
+
+#: the kernel wrapper modules whose `LAUNCHES` /metrics serves
+_WRAPPER_MODULES = ("cuda_fp", "cuda_g2", "cuda_pairing", "cuda_h2c",
+                    "cuda_final_exp", "cuda_codec")
 
 
 #: Device-memory sampling cadence (seconds).  The gauge answers the
@@ -398,3 +420,120 @@ async def loop_lag_probe(registry: "Registry", interval: float = 0.05,
                     on_breach("loop_lag")
                 except Exception:  # noqa: BLE001 — probe must not die
                     pass
+
+
+# ---------------------------------------------------------------------------
+# The monitoring HTTP API
+# ---------------------------------------------------------------------------
+
+class MonitoringAPI:
+    """Serves /metrics, /livez, /readyz, /enr, /debug/qbft and
+    /debug/memory (reference: app/monitoringapi.go:48-176)."""
+
+    def __init__(self, registry: Registry,
+                 readyz: Callable[[], tuple[bool, str]],
+                 identity: str = "", qbft_debug: Callable[[], bytes] = None,
+                 tracer=None, memory_extra: Callable[[], dict] = None):
+        self.registry = registry
+        self._readyz = readyz
+        self._identity = identity
+        self._qbft_debug = qbft_debug  # app.qbftdebug ring renderer
+        self._tracer = tracer          # app.tracing.Tracer (span counts)
+        self._memory_extra = memory_extra  # app-specific /debug/memory dict
+        self._http = HTTPServer()
+        for path, fn in (("/metrics", self._metrics),
+                         ("/livez", self._livez), ("/readyz", self._ready),
+                         ("/enr", self._enr), ("/debug/qbft", self._qbft),
+                         ("/debug/memory", self._memory)):
+            self._http.add_get(path, fn)
+        self.port: int | None = None
+
+    async def start(self, host: str = "127.0.0.1", port: int = 0) -> None:
+        await self._http.start(host, port)
+        self.port = self._http.port
+
+    async def stop(self) -> None:
+        await self._http.stop()
+
+    async def _metrics(self, request):
+        # refresh readiness on every scrape, not only on /readyz probes:
+        # the app's readyz hook exports the app_readiness enum gauge as a
+        # side effect, and a node scraped without an external prober must
+        # still show CURRENT readiness at /metrics
+        for refresh in (self._readyz,
+                        lambda: export_devcache_metrics(self.registry),
+                        lambda: export_dispatch_metrics(self.registry)):
+            try:
+                refresh()
+            except Exception:  # noqa: BLE001 — scrape must not 500
+                pass
+        return Response(200, self.registry.render().encode(),
+                        METRICS_CONTENT_TYPE)
+
+    async def _livez(self, request):
+        return Response(200, b"ok")
+
+    async def _ready(self, request):
+        # the body always carries the reason string ("ok" when ready) so a
+        # probe log line is self-explanatory without /metrics
+        ok, reason = self._readyz()
+        return Response(200 if ok else 503, reason.encode())
+
+    async def _enr(self, request):
+        return Response(200, self._identity.encode())
+
+    async def _qbft(self, request):
+        if self._qbft_debug is None:
+            return Response(404, b"404: Not Found")
+        # reference: app/qbftdebug.go:35-122 sniffed-instance dump
+        return Response(200, self._qbft_debug(), "application/json")
+
+    async def _memory(self, request):
+        return Response(200, self.render_memory(), "application/json")
+
+    def render_memory(self) -> bytes:
+        """Device and cache stats: the backend device's
+        ``torch.cuda.memory_stats`` (allocated, reserved and peak bytes),
+        the verify caches' `devcache_stats` (device stores, or the host
+        LRUs on the bytes route), the captured verify graphs, the dispatch
+        pipeline's per-stage seconds, and the app's own rows."""
+        info: dict = {}
+        dev = _backend_device()
+        if dev is not None:
+            try:
+                import torch
+
+                d = torch.device(dev)
+                info["device"] = str(d)
+                if d.type == "cuda":
+                    st = torch.cuda.memory_stats(d)
+                    info["memory_stats"] = {
+                        k: st.get(k, 0) for k in (
+                            "allocated_bytes.all.current",
+                            "allocated_bytes.all.peak",
+                            "reserved_bytes.all.current",
+                            "num_alloc_retries", "num_ooms")}
+            except Exception as exc:  # noqa: BLE001 — debug must not 500
+                info["error"] = f"{type(exc).__name__}: {exc}"
+        be = _active_backend()
+        if be is not None and hasattr(be, "devcache_stats"):
+            info["devcache"] = be.devcache_stats()
+            info["host_caches"] = _host_cache_stats(be)
+        cuda_be = sys.modules.get("charon_tpu_torch.tbls.backend_cuda")
+        if cuda_be is not None:
+            info["resident_graph_keys"] = [
+                str(k) for k in cuda_be.resident_graph_keys()]
+        dsp = sys.modules.get("charon_tpu_torch.tbls.dispatch")
+        pipe = dsp.current_pipeline() if dsp is not None else None
+        if pipe is not None:
+            info["dispatch"] = pipe.stage_stats()
+            info["dispatch"]["prewarmed"] = pipe.prewarmed
+        if self._tracer is not None:
+            info["tracer"] = {"spans_buffered": len(self._tracer.spans),
+                              "dropped_spans": self._tracer.dropped}
+        if self._memory_extra is not None:
+            try:
+                info.update(self._memory_extra())
+            except Exception as exc:  # noqa: BLE001 — debug must not 500
+                info["extra_error"] = f"{type(exc).__name__}: {exc}"
+        return json.dumps(info, indent=1, default=str).encode()

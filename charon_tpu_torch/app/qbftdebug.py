@@ -6,9 +6,9 @@ QBFT upon-rule firing (message received, rule classified, round) is
 recorded per duty instance into a bounded ring; `/debug/qbft` renders the
 ring as JSON for post-mortem analysis of stuck/slow consensus rounds.
 
-A copy of the JAX package's app/qbftdebug.py: the sniffer only.  The
-`/debug/qbft` endpoint that serves `render_json` waits for the serving
-slice (`MonitoringAPI`).
+A copy of the JAX package's app/qbftdebug.py: the sniffer; the
+`MonitoringAPI` (app/monitoring.py) serves `render_json` at
+`/debug/qbft`.
 """
 
 from __future__ import annotations

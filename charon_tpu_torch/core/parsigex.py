@@ -4,21 +4,21 @@ Mirrors reference core/parsigex/parsigex.go: broadcast one node's partial
 signatures to the n−1 peers; inbound sets are signature-verified against
 the SENDER's pubshare before storage (parsigex.go:152-176 NewEth2Verifier).
 
-`MemParSigExNetwork` is the in-memory transport of the in-process cluster
-(reference: core/parsigex/memory.go).
+`MemParSigExNetwork` is the in-memory transport used by simnet tests
+(reference: core/parsigex/memory.go); the p2p-backed implementation lives
+in charon_tpu_torch.p2p and plugs in via the same interface.
 
-With a registry wired (``join(registry=...)``) the exchange exports
-inbound/outbound message counters per duty type
-(``core_parsigex_inbound_total`` / ``core_parsigex_outbound_total``) and
-an equivocation counter per sender share
-(``core_parsigex_equivocations_total``: two DIFFERENT signatures from
-the same share for the same (duty, validator) — byzantine or split-brain
-evidence, reference: core/parsigex metrics + tracker equivocation).
+With a registry wired (``join(registry=...)`` / the p2p constructor) the
+exchange exports inbound/outbound message counters per duty type, an
+equivocation counter per sender share (two DIFFERENT signatures from the
+same share for the same (duty, validator) — byzantine or split-brain
+evidence, reference: core/parsigex metrics + tracker equivocation), and —
+for the in-memory transport — the same per-peer wire-byte families the
+TCP mesh exports (frame size measured through the real wire codec), so
+the crypto-free simnet serves ``app_p2p_peer_sent_bytes_total`` exactly
+like production.
 
-A copy of the JAX package's core/parsigex.py.  Left out: the per-peer
-wire-byte families (``app_p2p_peer_{sent,recv}_{bytes,frames}_total``),
-which size each frame through the wire codec (`core/serialize`); they
-wait for the p2p slice, which brings that codec.
+A copy of the JAX package's core/parsigex.py.
 """
 
 from __future__ import annotations
@@ -88,10 +88,11 @@ class MemParSigExNetwork:
         return node
 
     async def _fanout(self, from_idx: int, duty: Duty,
-                      pset: ParSignedDataSet) -> None:
+                      pset: ParSignedDataSet, nbytes: int = 0) -> None:
         for node in self._nodes:
             if node._idx != from_idx:
-                await node._receive(duty, pset)
+                await node._receive(duty, pset, from_idx=from_idx,
+                                    nbytes=nbytes)
 
 
 class MemParSigEx:
@@ -107,16 +108,42 @@ class MemParSigEx:
     def subscribe(self, fn) -> None:
         self._subs.append(fn)
 
+    def _frame_bytes(self, duty: Duty, pset: ParSignedDataSet) -> int:
+        """Wire size of this exchange through the real codec — what the
+        TCP transport would put on the socket (sans AEAD framing)."""
+        from . import serialize
+
+        try:
+            return len(serialize.encode_parsig_set(duty, pset))
+        except Exception:  # non-wire test doubles: count messages only
+            return 0
+
     async def broadcast(self, duty: Duty, pset: ParSignedDataSet) -> None:
+        nbytes = 0
         if self._registry is not None:
+            nbytes = self._frame_bytes(duty, pset)
             self._registry.inc("core_parsigex_outbound_total",
                                labels={"duty": duty.type.name.lower()})
-        await self._net._fanout(self._idx, duty, pset)
+            for node in self._net._nodes:
+                if node._idx != self._idx:
+                    peer = {"peer": str(node._idx)}
+                    self._registry.inc("app_p2p_peer_sent_bytes_total",
+                                       float(nbytes), labels=peer)
+                    self._registry.inc("app_p2p_peer_sent_frames_total",
+                                       labels=peer)
+        await self._net._fanout(self._idx, duty, pset, nbytes=nbytes)
 
-    async def _receive(self, duty: Duty, pset: ParSignedDataSet) -> None:
+    async def _receive(self, duty: Duty, pset: ParSignedDataSet,
+                       from_idx: int | None = None, nbytes: int = 0) -> None:
         if self._registry is not None:
             self._registry.inc("core_parsigex_inbound_total",
                                labels={"duty": duty.type.name.lower()})
+            if from_idx is not None:
+                peer = {"peer": str(from_idx)}
+                self._registry.inc("app_p2p_peer_recv_bytes_total",
+                                   float(nbytes), labels=peer)
+                self._registry.inc("app_p2p_peer_recv_frames_total",
+                                   labels=peer)
         if self._verify_fn is not None:
             await self._verify_fn(duty, pset)  # raises on bad sigs
         # equivocation pinning runs AFTER verification: an unverified set

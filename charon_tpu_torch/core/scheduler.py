@@ -11,7 +11,9 @@ Mirrors reference core/scheduler/scheduler.go:
 - get_duty_definition serves resolved definitions (blocking until the epoch
   is resolved, like the reference's await).
 
-A copy of the JAX package's core/scheduler.py.
+A copy of the JAX package's core/scheduler.py, but for one fix: before
+genesis the ticker waits for it, where the JAX ticker fires slot 0 at once
+(its VCs then sign slot 0 before the cluster is up).
 """
 
 from __future__ import annotations
@@ -100,7 +102,12 @@ class Scheduler:
 
         while not self._stop:
             now = self._clock()
-            slot_num = max(0, int((now - genesis) // slot_dur))
+            if now < genesis:
+                # slot 0 starts at genesis, not at boot (the reference's
+                # ticker sleeps until each slot's start)
+                await self._sleep(genesis - now)
+                continue
+            slot_num = int((now - genesis) // slot_dur)
             slot_start = genesis + slot_num * slot_dur
             if slot_start + slot_dur <= self._clock():
                 await self._sleep(0)  # missed; recompute (skip, :525-532)

@@ -5,7 +5,16 @@ scheduler slot ticks, it performs the attestation flow (query duties →
 fetch attestation data → sign with the SHARE key → submit) and block
 proposals (randao reveal → request block → sign → submit) against the
 node's ValidatorAPI.  A copy of the JAX package's
-testutil/validatormock.py.
+testutil/validatormock.py, with one addition: `flows` narrows what it
+signs to a deployment's duty mix (``attester``, ``proposer``,
+``sync_message``, ``sync_contribution``; default all).  With
+``sync_message`` and no ``sync_contribution`` the sync flow signs every
+validator's message and submits them together, with no selection proofs
+(`BASELINE.json` config 2's validator client).  With a `signer` (an
+executor: `app/run` gives it a process of its own) it signs there, as a
+validator client in a process of its own would: the node's event loop and
+its interpreter lock stay free for consensus, the mesh and the flushes
+while the VC signs.
 """
 
 from __future__ import annotations
@@ -20,14 +29,24 @@ from ..eth2util.ssz import Bitlist
 from ..tbls import api as tbls
 
 
+#: the duty flows a validator mock can run
+FLOWS = ("attester", "proposer", "sync_message", "sync_contribution")
+
+
 class ValidatorMock:
     def __init__(self, vapi: ValidatorAPI,
                  share_privkeys: dict[PubKey, bytes],
                  fork_version: bytes,
                  genesis_validators_root: bytes = bytes(32),
                  slots_per_epoch: int = 16,
-                 eth2cl=None):
+                 eth2cl=None, flows: tuple[str, ...] | None = None,
+                 signer=None):
         self._vapi = vapi
+        self._signer = signer   # concurrent.futures.Executor, or None
+        self._flows = set(flows) if flows else set(FLOWS)
+        unknown = self._flows - set(FLOWS)
+        if unknown:
+            raise ValueError(f"unknown validator mock flows {unknown}")
         self._keys = dict(share_privkeys)  # group pubkey -> share privkey
         self._fork = fork_version
         self._gvr = genesis_validators_root
@@ -38,6 +57,15 @@ class ValidatorMock:
               epoch: int) -> bytes:
         sk = self._keys[group_pk]
         return tbls.sign(sk, signing_root(domain, root, self._fork, self._gvr))
+
+    async def _signed(self, group_pk: PubKey, domain: DomainName,
+                      root: bytes, epoch: int) -> bytes:
+        """`_sign`, on the `signer` when there is one."""
+        if self._signer is None:
+            return self._sign(group_pk, domain, root, epoch)
+        return await asyncio.get_running_loop().run_in_executor(
+            self._signer, tbls.sign, self._keys[group_pk],
+            signing_root(domain, root, self._fork, self._gvr))
 
     # -- slot driver --------------------------------------------------------
 
@@ -52,9 +80,16 @@ class ValidatorMock:
 
     async def _run_slot(self, slot: SlotTick) -> None:
         try:
-            flows = [self.attest(slot), self.propose(slot)]
+            flows = []
+            if "attester" in self._flows:
+                flows.append(self.attest(slot))
+            if "proposer" in self._flows:
+                flows.append(self.propose(slot))
             if self._eth2cl is not None:
-                flows.append(self.sync_committee(slot))
+                if "sync_contribution" in self._flows:
+                    flows.append(self.sync_committee(slot))
+                elif "sync_message" in self._flows:
+                    flows.append(self.sync_messages(slot))
             await asyncio.gather(*flows)
         except Exception:
             import logging
@@ -73,8 +108,9 @@ class ValidatorMock:
                                                      d.committee_index)
             bools = [False] * d.committee_length
             bools[d.validator_committee_index] = True
-            sig = self._sign(group_pk, DomainName.BEACON_ATTESTER,
-                             data.hash_tree_root(), data.target.epoch)
+            sig = await self._signed(group_pk, DomainName.BEACON_ATTESTER,
+                                     data.hash_tree_root(),
+                                     data.target.epoch)
             att = spec.Attestation(
                 aggregation_bits=Bitlist.from_bools(bools), data=data,
                 signature=sig)
@@ -93,12 +129,12 @@ class ValidatorMock:
             if group_pk not in self._keys:
                 continue
             randao_root = SignedRandaoRoot(slot.epoch)
-            randao_sig = self._sign(group_pk, DomainName.RANDAO, randao_root,
-                                    slot.epoch)
+            randao_sig = await self._signed(group_pk, DomainName.RANDAO,
+                                            randao_root, slot.epoch)
             block = await self._vapi.beacon_block_proposal(slot.slot,
                                                            randao_sig)
-            sig = self._sign(group_pk, DomainName.BEACON_PROPOSER,
-                             block.hash_tree_root(), slot.epoch)
+            sig = await self._signed(group_pk, DomainName.BEACON_PROPOSER,
+                                     block.hash_tree_root(), slot.epoch)
             signed = spec.SignedBeaconBlock(message=block, signature=sig)
             await self._vapi.submit_beacon_block(signed)
 
@@ -126,6 +162,25 @@ class ValidatorMock:
             self._sync_one(slot, group_pk, d, block_root)
             for group_pk, d in defset.items() if group_pk in self._keys))
 
+    async def sync_messages(self, slot: SlotTick) -> None:
+        """The sync committee's messages alone: every validator's signed
+        first, then all submitted at once, so they meet in the node's next
+        verify flush."""
+        duty = Duty(slot.slot, DutyType.SYNC_MESSAGE)
+        defset = await self._vapi._get_duty_definition(duty)
+        if not defset:
+            return
+        root = await self._eth2cl.beacon_block_root(slot.slot)
+        mine = [(pk, d) for pk, d in defset.items() if pk in self._keys]
+        sigs = [await self._signed(pk, DomainName.SYNC_COMMITTEE, root,
+                                   slot.epoch) for pk, _ in mine]
+        msgs = [spec.SyncCommitteeMessage(
+            slot=slot.slot, beacon_block_root=root,
+            validator_index=d.validator_index, signature=sig)
+            for (_, d), sig in zip(mine, sigs)]
+        await asyncio.gather(*(
+            self._vapi.submit_sync_committee_messages([m]) for m in msgs))
+
     async def _sync_one(self, slot: SlotTick, group_pk: PubKey, d,
                         block_root: bytes) -> None:
         subcommittee = d.validator_sync_committee_indices[0] // 128
@@ -136,15 +191,15 @@ class ValidatorMock:
         sel_root = spec.SyncAggregatorSelectionData(
             slot=slot.slot,
             subcommittee_index=subcommittee).hash_tree_root()
-        sel_sig = self._sign(group_pk,
-                             DomainName.SYNC_COMMITTEE_SELECTION_PROOF,
-                             sel_root, slot.epoch)
+        sel_sig = await self._signed(
+            group_pk, DomainName.SYNC_COMMITTEE_SELECTION_PROOF, sel_root,
+            slot.epoch)
         selection_task = asyncio.get_running_loop().create_task(
             self._vapi.submit_sync_committee_selections(
                 [sel.replace(selection_proof=sel_sig)]))
         # 2. sync-committee message over the block root
-        msg_sig = self._sign(group_pk, DomainName.SYNC_COMMITTEE,
-                             block_root, slot.epoch)
+        msg_sig = await self._signed(group_pk, DomainName.SYNC_COMMITTEE,
+                                     block_root, slot.epoch)
         await self._vapi.submit_sync_committee_messages(
             [spec.SyncCommitteeMessage(
                 slot=slot.slot, beacon_block_root=block_root,
@@ -159,8 +214,9 @@ class ValidatorMock:
             aggregator_index=d.validator_index,
             contribution=contrib,
             selection_proof=agg_sel.selection_proof)
-        cap_sig = self._sign(group_pk, DomainName.CONTRIBUTION_AND_PROOF,
-                             cap.hash_tree_root(), slot.epoch)
+        cap_sig = await self._signed(
+            group_pk, DomainName.CONTRIBUTION_AND_PROOF,
+            cap.hash_tree_root(), slot.epoch)
         await self._vapi.submit_sync_contributions(
             [spec.SignedContributionAndProof(message=cap,
                                              signature=cap_sig)])

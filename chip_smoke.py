@@ -204,6 +204,32 @@ Phases, in order; any failure raises and exits non-zero:
              tracker's verdict, the sums of
              `core_dispatch_stage_seconds{stage,op}` and the
              device-memory gauge beside `torch.cuda.memory_allocated`.
+9. cluster — the node as a process: config 2's cluster (4 nodes,
+             3-of-4, attestation + sync committee message, QBFT, 12 s
+             slots) written by `python -m charon_tpu_torch create
+             cluster` with real BLS, V the largest count whose mock-VC
+             signing in ONE node's process fits ⅔ of a slot, at most 32
+             (what one card keeps up with for four nodes); a
+             BeaconMockServer a node in this process over one mock; four
+             `python -m charon_tpu_torch run --simnet-validator-mock`
+             processes (one CUDA context each on the one card, no MPS:
+             their kernels time-slice), each verifying the lock and
+             prewarming on the card; every /readyz polled, then 3 slots
+             with every node, node 4 sent SIGTERM, 2 slots (one led by
+             node 4 in QBFT's round 1) with the other three, SIGTERM to
+             those.  Every waited duty must reach the mock from every live
+             node with the oracle's bytes (ref.bls.sign with the group
+             secret recombined from 3 nodes' keystores), every node's
+             verifies on the resident route with the verify tile's, the
+             combine's and K21's kernels launched (its /metrics), every
+             down-window consensus duty decided on the live nodes (node
+             4's by a round change), every process exit 0 with no
+             traceback.  Printed: each duty's seconds from slot start to
+             the mock by node, each node's boot split (import,
+             verify_lock, prewarm), `core_slot_phase_seconds`,
+             `core_dispatch_stage_seconds` and kernel launches, the
+             decided rounds, and the mesh's pure-Python crypto's share of
+             a slot on one node's loop.
 
 Phase 2 also holds the h2c kernels (K7 sqr/mul/sqr4/sqr4mul at 8,192 rows,
 K8 sswu and K9 iso3 at 4,096, K9 psi and K10 dblsel/addsel at 2,048: one
@@ -223,7 +249,9 @@ the distinct-message flush) and `launches_resident` (the first run of
 each resident flush kind: cold after prewarm, warm, slot-start, distinct,
 cold; a replay counts its graph's captured launches) and
 `launches_simnet` (the three clusters' runs, each from its first slot's
-tick to the end), each counted from zero. K10 addsel has no
+tick to the end) and `launches_cluster` (the four node processes' own
+counts from their spawn, each read from its /metrics just before its
+SIGTERM), each counted from zero. K10 addsel has no
 caller on any path (nor in the JAX package): only phase 2 launches it, as
 it does K3, K4, the K5 sqr/mul014 steps, K6 and K10 dblsel now. K11's ms,
 plain_ms and bound_ms are at the batch check's 1 row (its `recheck` key at
@@ -265,6 +293,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import multiprocessing
 import random
 import re
 import statistics
@@ -272,6 +301,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -3281,37 +3311,6 @@ def simnet_validators(sign_s: float, nodes: int,
                       / (nodes * (1 + 1 / SIM_SPE) * sign_s)))
 
 
-def sync_message_vc():
-    """Config 2's validator client: the mock VC's attestation flow, and a
-    sync committee flow that signs and submits the slot's messages alone
-    (config 2 has no selection proofs or contributions): every message
-    signed, then all submitted at once, so one node's messages meet in
-    its BatchVerifier's next flush."""
-    from charon_tpu_torch.core.types import Duty, DutyType
-    from charon_tpu_torch.eth2util import spec
-    from charon_tpu_torch.eth2util.signing import DomainName
-    from charon_tpu_torch.testutil.validatormock import ValidatorMock
-
-    class SyncMessageVC(ValidatorMock):
-        async def sync_committee(self, slot) -> None:
-            defset = await self._vapi._get_duty_definition(
-                Duty(slot.slot, DutyType.SYNC_MESSAGE))
-            if not defset:
-                return
-            root = await self._eth2cl.beacon_block_root(slot.slot)
-            msgs = [spec.SyncCommitteeMessage(
-                slot=slot.slot, beacon_block_root=root,
-                validator_index=d.validator_index,
-                signature=self._sign(pk, DomainName.SYNC_COMMITTEE, root,
-                                     slot.epoch))
-                for pk, d in defset.items() if pk in self._keys]
-            await asyncio.gather(*(
-                self._vapi.submit_sync_committee_messages([m])
-                for m in msgs))
-
-    return SyncMessageVC
-
-
 def simnet_attesters(bmock, slot: int, v: int) -> dict:
     """(committee, position) → validator index, for the validators that
     attest at `slot`."""
@@ -3362,8 +3361,13 @@ def rendered(registry) -> dict:
     """The registry's Prometheus text (`render`) → {(series, ((label,
     value), ...)): value}; a histogram by its _bucket, _sum and _count
     series."""
+    return parse_metrics(registry.render())
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text → {(series, ((label, value), ...)): value}."""
     out: dict = {}
-    for line in registry.render().splitlines():
+    for line in text.splitlines():
         if not line or line.startswith("#"):
             continue
         series, value = line.rsplit(" ", 1)
@@ -3539,14 +3543,15 @@ def simnet_telemetry(label: str, nodes, reports: dict, budgets: dict,
 
 def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
                    sync: bool, consensus: str = "leadercast",
-                   telemetry: bool = False,
-                   seed: str | None = None) -> tuple[dict, dict]:
+                   telemetry: bool = False, seed: str | None = None,
+                   signer=None) -> tuple[dict, dict]:
     """One in-process cluster on the card, on a fresh resident backend (its
     host LRUs and device stores empty, so no run finds another's hashed
     roots): n `Node`s (`consensus`: leadercast or QBFT; with `telemetry` a
     metrics registry, tracker and slot budget on every node; the
     in-memory parsigex), one `BeaconMock`, a mock VC a node, the keys of
-    `new_cluster_for_test` from `seed` (default: the label); `prewarm`
+    `new_cluster_for_test` from `seed` (default: the label; the VCs sign
+    on the loop, or on `signer`, an executor, when given); `prewarm`
     with the cluster's pubshares at its (V, T) and at each verify bucket
     its flushes can reach, then the run from the first of `slots` slots
     that have attesters (the VCs sign in those slots) until every duty of
@@ -3631,7 +3636,9 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
     pubshares_by_peer = {i: cluster.pubshare_map(i) for i in range(1, n + 1)}
     psx_net, lc_net = MemParSigExNetwork(), MemTransportNetwork()
     qnet = ConsensusMemNetwork()
-    vc_cls = sync_message_vc() if sync else ValidatorMock
+    #: config 2's validator client: attestations and the sync committee's
+    #: messages alone (no selection proofs or contributions)
+    flows = ("attester", "sync_message") if sync else ("attester",)
     #: node index → {duty: {pubkey: hash tree root}} of its decisions
     decided: dict[int, dict] = {}
     sniffers: list = []
@@ -3702,9 +3709,10 @@ def simnet_cluster(label: str, n: int, t: int, v: int, slots: int,
             node.parsigdb.subscribe_internal(share_sink(i))
             psx.subscribe(share_sink(i))
             node.tracker.subscribe(report_sink(i))
-        vmock = vc_cls(node.vapi, cluster.share_privkey_map(i), SIM_FORK,
-                       slots_per_epoch=SIM_SPE,
-                       eth2cl=bmock if sync else None)
+        vmock = ValidatorMock(node.vapi, cluster.share_privkey_map(i),
+                              SIM_FORK, slots_per_epoch=SIM_SPE,
+                              eth2cl=bmock if sync else None, flows=flows,
+                              signer=signer)
         node.scheduler.subscribe_slots(on_tick)
         node.scheduler.subscribe_slots(waited_only(vmock.on_slot))
         nodes.append(node)
@@ -3968,7 +3976,8 @@ def simnet_phase() -> dict:
     leadercast and on QBFT, each with and without the telemetry
     (`SIM_CONFIG1_RUNS`), and config 2's cluster (3-of-4, attestation +
     sync committee message, V the largest count whose mock-VC signing fits
-    ⅔ of a slot) on QBFT with telemetry, each cluster on a fresh resident
+    ⅔ of a slot on one loop, the VCs signing in four worker processes) on
+    QBFT with telemetry, each cluster on a fresh resident
     backend (the card's default route) → the launches of the five runs."""
     from charon_tpu_torch.tbls import api
 
@@ -3989,11 +3998,709 @@ def simnet_phase() -> dict:
                 telemetry=telemetry, seed="config1")
             runs.append(counts)
         simnet_compare(config1)
-        runs.append(simnet_cluster("config2-qbft", 4, 3, v, 2, sync=True,
-                                   consensus="qbft", telemetry=True)[0])
+        # config 2's VCs sign in worker processes (spawned: never a fork
+        # after CUDA is up), as the App's VC does: on the one loop a slot's
+        # 50-odd signatures held the slot before's combines past the next
+        # slot's tick.  Each worker signs once before the run, so none
+        # starts in a slot
+        with ProcessPoolExecutor(
+                max_workers=4,
+                mp_context=multiprocessing.get_context("spawn")) as signer:
+            sk = api.int_to_privkey(0x5EED5EED)
+            list(signer.map(api.sign, [sk] * 4,
+                            [b"warm %d" % k for k in range(4)]))
+            runs.append(simnet_cluster("config2-qbft", 4, 3, v, 2, sync=True,
+                                       consensus="qbft", telemetry=True,
+                                       signer=signer)[0])
     finally:
         api.register_backend("cuda", bytes_be)
     return {name: sum(r[name] for r in runs) for name in runs[0]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the node as a process — four `python -m charon_tpu_torch run`
+# ---------------------------------------------------------------------------
+
+#: BASELINE.json config 2's cluster: 4 nodes, 3-of-4, 12 s slots (of
+#: SIM_SPE-slot epochs), attestation + sync committee message, QBFT
+CL_NODES, CL_T = 4, 3
+CL_FLOWS = "attester,sync_message"
+#: config 2's V; the phase cuts it to what one node's VC signs in ⅔ slot,
+#: and at most to what one card keeps up with for four node processes
+#: (four CUDA contexts time-slice it): on an H100 at V = 37 every waited
+#: duty arrived, each slot's sync messages ≈ 1.3 s later than the slot
+#: before and all past their slot's end; at V = 44 a node was still 24 of
+#: 44 sync messages short CL_LATE_SLOTS slots after the window
+CL_V_FULL, CL_V_CARD = 500, 37
+#: slots the phase waits, past its window's last slot, for every waited
+#: duty to arrive at all (it fails past them); a duty that arrives after
+#: its own slot's end is past its deadline, and is counted and reported
+CL_LATE_SLOTS = 3
+#: slots waited with every node up, then with node 4 down
+CL_UP_SLOTS, CL_DOWN_SLOTS = 3, 2
+#: the mock's genesis, in seconds after the spawn: every node must be
+#: ready (/readyz 200 with its prewarm done) before it, so that no slot
+#: is scheduled before the cluster is up; and the seconds a node may take
+#: to exit after SIGTERM
+CL_GENESIS_S, CL_EXIT_TIMEOUT = 90.0, 60.0
+#: the verify and combine kernels every node must launch, and K21 (the
+#: pubshares' decompression at prewarm)
+CL_NODE_KERNELS = ("g1_decompress",)
+
+
+def free_ports(n: int) -> list[int]:
+    """n ports the kernel hands out for port 0 now."""
+    import socket
+
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def free_base_port(n: int) -> int:
+    """A base port whose n consecutive ports are free now (`create
+    cluster` writes consecutive mesh ports into the ENRs)."""
+    import socket
+
+    for _ in range(100):
+        base = free_ports(1)[0]
+        socks = []
+        try:
+            for p in range(base, min(base + n, 65536)):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            if len(socks) == n:
+                return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError("cluster: no free run of mesh ports")
+
+
+def http_get(port: int, path: str, timeout: float = 5.0) -> tuple[int, bytes]:
+    """(status, body) of one GET on a node's monitoring API; (0, b"") when
+    nothing answers."""
+    import http.client
+
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        out = resp.status, resp.read()
+        conn.close()
+        return out
+    except OSError:
+        return 0, b""
+
+
+def cluster_attester_duties(mock):
+    """An `attester_duties` override with no two attesters on one
+    (committee, position), as on a real chain: validator i attests at the
+    epoch's slot i mod SPE, in committee k mod 4 at position k div 4
+    (k = i div SPE)."""
+    from charon_tpu_torch.testutil.beaconmock import AttesterDutyInfo
+
+    async def duties(epoch: int, indices: list[int]):
+        by_index = {v.index: v for v in mock.validators.values()}
+        out = []
+        for i in indices:
+            v = by_index.get(i)
+            if v is None:
+                continue
+            k = i // mock.slots_per_epoch
+            out.append(AttesterDutyInfo(
+                pubkey=v.pubkey, validator_index=i,
+                slot=epoch * mock.slots_per_epoch + i % mock.slots_per_epoch,
+                committee_index=k % 4, committee_length=64,
+                committees_at_slot=4, validator_committee_index=k // 4))
+        return out
+
+    return duties
+
+
+def crypto_costs(reps: int = 20) -> dict:
+    """Median seconds on this host of the mesh's pure-Python primitives:
+    an Ed25519 sign and verify, an X25519 exchange, and a frame's seal and
+    open at 1 kB and 64 kB."""
+    from charon_tpu_torch.p2p import aead, ed25519
+
+    def med(fn) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    seed, msg = bytes(range(32)), bytes(300)
+    pub = ed25519.public_key(seed)
+    sig = ed25519.sign(seed, msg)
+    aead_ = aead.ChaCha20Poly1305(bytes(32))
+    nonce = bytes(12)
+    out = {"ed25519_sign_s": med(lambda: ed25519.sign(seed, msg, pub)),
+           "ed25519_verify_s": med(lambda: ed25519.verify(pub, sig, msg)),
+           "x25519_s": med(lambda: aead.x25519(seed, pub))}
+    for size in (1024, 65536):
+        data = bytes(size)
+        ct = aead_.encrypt(nonce, data, None)
+        out[f"seal_{size}_s"] = med(lambda: aead_.encrypt(nonce, data, None))
+        out[f"open_{size}_s"] = med(lambda: aead_.decrypt(nonce, ct, None))
+    return out
+
+
+def frame_cost(costs: dict, op: str, nbytes: float) -> float:
+    """A frame's seal or open seconds at `nbytes`, linear between the 1 kB
+    and 64 kB timings."""
+    lo, hi = costs[f"{op}_1024_s"], costs[f"{op}_65536_s"]
+    return lo + (hi - lo) * (nbytes - 1024) / (65536 - 1024)
+
+
+def family(metrics: dict, name: str, by: tuple) -> dict:
+    """Sum a rendered family's series by the labels `by` → {labels: v}."""
+    out: dict = {}
+    for (series, labels), v in metrics.items():
+        if series == name:
+            d = dict(labels)
+            key = "/".join(d.get(k, "") for k in by)
+            out[key] = out.get(key, 0.0) + v
+    return out
+
+
+def cluster_check_node(i: int, metrics: dict) -> dict:
+    """One node's /metrics at its end: its verifies on the card's
+    resident route and the verify tile's, the combine's and K21's kernels
+    launched → its launches per kernel."""
+    paths = family(metrics, "core_verify_launches_by_path", ("path",))
+    if not paths or not all(p.endswith("+res") and n > 0
+                            for p, n in paths.items()):
+        raise AssertionError(f"cluster: node {i}'s verify routes {paths}")
+    launches = {k: int(v) for k, v in family(
+        metrics, "app_cuda_kernel_launches_total", ("kernel",)).items()}
+    never = [k for k in (*GRAPH_KERNELS, *SIM_COMBINE_KERNELS,
+                         *CL_NODE_KERNELS) if not launches.get(k)]
+    if never:
+        raise AssertionError(f"cluster: node {i} never launched {never}")
+    return launches
+
+
+def cluster_oracle(secrets: list, records: dict) -> int:
+    """Every broadcast (kind, slot, validator) → {node: (root, bytes)}
+    carries `ref.bls.sign` with the validator's group secret — its
+    computation, [sk]·hash_to_g2(root), with each root hashed once (a
+    slot's sync messages share one root) → the signatures computed."""
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.tbls.ref.hash_to_curve import DST_G2, hash_to_g2
+
+    want: dict = {}
+    hashed: dict = {}
+    for (kind, slot, vi), by_node in records.items():
+        for node, (root, sig) in by_node.items():
+            if (vi, root) not in want:
+                if root not in hashed:
+                    hashed[root] = hash_to_g2(root, DST_G2)
+                want[(vi, root)] = rc.g2_to_bytes(
+                    rc.multiply(hashed[root], secrets[vi]))
+            if sig != want[(vi, root)]:
+                raise AssertionError(
+                    f"cluster: node {node}'s {kind} of validator {vi} at "
+                    f"slot {slot} carries {sig.hex()[:16]}…, not the "
+                    f"oracle's {want[(vi, root)].hex()[:16]}…")
+    return len(want)
+
+
+def cluster_phase(scheme: str = "bls", slot_s: float = SIM_SLOT_S) -> dict:
+    """`BASELINE.json` config 2's cluster as four node processes on the
+    card: `create cluster` writes it (real BLS), one `BeaconMockServer`
+    a node in this process over one mock, four `python -m
+    charon_tpu_torch run --simnet-validator-mock` processes boot from the
+    lock (each verifies it and prewarms on the card), every /readyz polled
+    and 200 before the mock's genesis, CL_GENESIS_S after the spawn;
+    then CL_UP_SLOTS slots with every node, node 4 sent SIGTERM, the next
+    CL_DOWN_SLOTS slots (one of them led by node 4 in QBFT's round 1) with
+    the other three, and SIGTERM to those.  Checks: every waited duty at
+    the mock from every live node with the oracle's bytes, each node's
+    verifies on the resident route and its kernels launched, every
+    down-window consensus duty decided on every live node (node 4's by a
+    round change), every process exit 0 within CL_EXIT_TIMEOUT with no
+    traceback; the arrivals past their slot's end are counted.  → the four nodes' launches per kernel (each read from its
+    /metrics just before its SIGTERM)."""
+    import shutil
+
+    from charon_tpu_torch.cluster.definition import load_json, lock_from_json
+    from charon_tpu_torch.cmd import main as cli
+    from charon_tpu_torch.eth2util import keystore
+    from charon_tpu_torch.tbls import api
+
+    sign_s = simnet_sign_seconds()
+    v = min(CL_V_FULL, CL_V_CARD, simnet_validators(sign_s, 1))
+    costs = crypto_costs()
+    log(f"cluster: one pure-Python tbls.sign {sign_s:.4f} s → V = {v} (one "
+        f"node's VC signs {v * (1 + 1 / SIM_SPE):.1f} a slot, "
+        f"{v * (1 + 1 / SIM_SPE) * sign_s:.2f} s of a {slot_s:.0f} s slot; "
+        f"{simnet_validators(sign_s, 1)} by the signing rule, at most "
+        f"{CL_V_CARD} on one card; cut from {CL_V_FULL}); the mesh's "
+        "primitives on this host "
+        "(median s): " + json.dumps({k: round(x, 6)
+                                     for k, x in costs.items()}))
+    work = ROOT / "build" / "cluster_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    prev = api.scheme_name()
+    api.set_scheme(scheme)
+    try:
+        if cli(["create", "cluster", "--name", "chip-smoke", "--nodes",
+                str(CL_NODES), "--threshold", str(CL_T), "--num-validators",
+                str(v), "--cluster-dir", str(work), "--base-port",
+                str(free_base_port(CL_NODES)), "--tbls-scheme", scheme]):
+            raise AssertionError("cluster: create cluster failed")
+        create_s = time.perf_counter() - t0
+        lock = lock_from_json(load_json(str(work / "node0" /
+                                            "cluster-lock.json")),
+                              verify=False)
+        # the oracle's group secrets: t nodes' keystores recombined
+        shares = [keystore.load_keys(str(work / f"node{i}" /
+                                         "validator_keys"))
+                  for i in range(CL_T)]
+        secrets = [api.privkey_to_int(api.combine_shares(
+            {i + 1: shares[i][vi] for i in range(CL_T)})) for vi in range(v)]
+        if api.scheme_name() == "bls":
+            from charon_tpu_torch.tbls.ref import bls
+            from charon_tpu_torch.tbls.ref import curve as rc
+
+            if any(rc.g1_to_bytes(bls.sk_to_pk(secrets[vi]))
+                   != lock.validators[vi].public_key for vi in (0, v - 1)):
+                raise AssertionError("cluster: recombined secrets are not "
+                                     "the lock's group keys")
+    finally:
+        api.set_scheme(prev)
+    log(f"cluster: create cluster ({CL_NODES} nodes, {CL_T}-of-{CL_NODES}, "
+        f"V = {v}, {scheme}) {create_s:.1f} s")
+    torch.cuda.empty_cache()
+    try:
+        res = asyncio.run(cluster_run(work, lock, v, scheme, slot_s))
+    except BaseException:
+        for i in range(1, CL_NODES + 1):
+            err = work / f"node{i}.stderr"
+            if err.exists():
+                log(f"cluster: node {i}'s stderr, last lines:\n"
+                    + "\n".join(err.read_text(errors="replace")
+                                .splitlines()[-30:]))
+        raise
+    return cluster_report(res, secrets, costs, slot_s)
+
+
+async def cluster_run(work: Path, lock, v: int, scheme: str,
+                      slot_s: float) -> dict:
+    """The processes' run; → what `cluster_report` checks and prints."""
+    import os
+
+    from charon_tpu_torch.app.http1 import json_response
+    from charon_tpu_torch.core.consensus import duty_leader
+    from charon_tpu_torch.core.types import Duty, DutyType, pubkey_from_bytes
+    from charon_tpu_torch.eth2util import beaconapi
+    from charon_tpu_torch.testutil.beaconmock import BeaconMock
+    from charon_tpu_torch.testutil.beaconmock_http import BeaconMockServer
+
+    arrivals: list = []   # (node, wall time, kind, item)
+
+    class NodeServer(BeaconMockServer):
+        """A node's own beacon endpoint over the one mock: what reaches
+        the mock is stamped with the node and the time."""
+
+        def __init__(self, mock, node: int):
+            super().__init__(mock)
+            self.node = node
+
+        async def _submit_atts(self, request):
+            atts = [beaconapi.attestation_from(d) for d in request.json()]
+            t = time.time()
+            arrivals.extend((self.node, t, "attestation", a) for a in atts)
+            await self.mock.submit_attestations(atts)
+            return json_response({})
+
+        async def _submit_sync(self, request):
+            msgs = [beaconapi.sync_msg_from(d) for d in request.json()]
+            t = time.time()
+            arrivals.extend((self.node, t, "sync_message", m) for m in msgs)
+            await self.mock.submit_sync_committee_messages(msgs)
+            return json_response({})
+
+    # genesis after every node's boot: no slot before the cluster is up
+    genesis = time.time() + CL_GENESIS_S
+    mock = BeaconMock(slot_duration=slot_s, slots_per_epoch=SIM_SPE,
+                      genesis_time=genesis)
+    for val in lock.validators:
+        mock.add_validator(pubkey_from_bytes(val.public_key))
+    mock.overrides["attester_duties"] = cluster_attester_duties(mock)
+    servers = [NodeServer(mock, i + 1) for i in range(CL_NODES)]
+    for srv in servers:
+        await srv.start()
+    mon = free_ports(CL_NODES)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs, logs = [], []
+    t_spawn = time.time()
+    for i in range(CL_NODES):
+        d = work / f"node{i}"
+        out = open(work / f"node{i + 1}.stdout", "wb")
+        err = open(work / f"node{i + 1}.stderr", "wb")
+        logs.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "charon_tpu_torch", "run",
+             "--lock-file", str(d / "cluster-lock.json"),
+             "--identity-key-file", str(d / "charon-enr-private-key"),
+             "--beacon-node-endpoints", servers[i].addr,
+             "--monitoring-address", f"127.0.0.1:{mon[i]}",
+             "--simnet-validator-mock", "--simnet-duties", CL_FLOWS,
+             "--tbls-scheme", scheme],
+            cwd=str(ROOT), env=env, stdout=out, stderr=err))
+
+    def start(slot: int) -> float:
+        return genesis + slot * slot_s
+
+    def alive(nodes) -> None:
+        for i in nodes:
+            if procs[i - 1].poll() is not None:
+                raise AssertionError(
+                    f"cluster: node {i} exited {procs[i - 1].returncode}:\n"
+                    + (work / f"node{i}.stderr").read_text()[-3000:])
+
+    async def get(i: int, path: str) -> tuple[int, bytes]:
+        return await asyncio.to_thread(http_get, mon[i - 1], path)
+
+    async def scrape(i: int) -> dict:
+        status, body = await get(i, "/metrics")
+        if status != 200:
+            raise AssertionError(f"cluster: node {i}'s /metrics {status}")
+        return parse_metrics(body.decode())
+
+    def attesters(slot: int) -> dict:
+        """(committee, position) → validator index at `slot`."""
+        k0 = slot % SIM_SPE
+        return {((vi // SIM_SPE) % 4, (vi // SIM_SPE) // 4): vi
+                for vi in range(k0, v, SIM_SPE)}
+
+    def expected(slots) -> set:
+        out = set()
+        for s in slots:
+            out |= {("attestation", s, vi) for vi in attesters(s).values()}
+            out |= {("sync_message", s, vi) for vi in range(v)}
+        return out
+
+    from charon_tpu_torch.eth2util.signing import DomainName, signing_root
+    from charon_tpu_torch.eth2util.ssz import Bitlist
+
+    recs: dict = {}
+    read = [0]   # arrivals already in `recs`
+
+    def records() -> dict:
+        """(kind, slot, validator) → {node: (signing root, bytes, seconds
+        from slot start)}; a second arrival from one node is kept beside
+        the first.  Incremental: the mock servers share this loop, and
+        re-reading every arrival each poll would hold their replies."""
+        out = recs
+        new = arrivals[read[0]:]
+        read[0] += len(new)
+        for node, t, kind, item in new:
+            if kind == "attestation":
+                pos = Bitlist.to_bools(item.aggregation_bits).index(True)
+                slot = item.data.slot
+                vi = attesters(slot).get((item.data.index, pos))
+                root = signing_root(DomainName.BEACON_ATTESTER,
+                                    item.data.hash_tree_root(), SIM_FORK)
+            else:
+                slot, vi = item.slot, item.validator_index
+                root = signing_root(DomainName.SYNC_COMMITTEE,
+                                    item.beacon_block_root, SIM_FORK)
+            entry = out.setdefault((kind, slot, vi), {})
+            key = node if node not in entry else (node, t)
+            entry[key] = (root, item.signature, t - start(slot))
+        return out
+
+    def complete(slots, nodes) -> bool:
+        got = records()
+        return all(set(nodes) <= set(got.get(k, {})) for k in expected(slots))
+
+    async def dump(nodes) -> None:
+        """Each node's /metrics, /debug/qbft and /debug/memory, saved
+        beside its logs (what a failed run leaves to read)."""
+        for i in nodes:
+            for path, name in (("/metrics", "metrics.txt"),
+                               ("/debug/qbft", "qbft.json"),
+                               ("/debug/memory", "memory.json")):
+                (work / f"node{i}.{name}").write_bytes((await get(i, path))[1])
+
+    async def incomplete(slots, nodes, what: str) -> AssertionError:
+        """What arrived of `slots` per kind and node, with each live
+        node's /metrics and /debug/qbft saved beside its logs."""
+        got = records()
+        seen: dict = {}
+        for kind, slot, vi in expected(slots):
+            for n in got.get((kind, slot, vi), {}):
+                key = f"{kind}/{slot}"
+                seen.setdefault(key, {}).setdefault(str(n), 0)
+                seen[key][str(n)] += 1
+        await dump(nodes)
+        want = {f"{k}/{s}": n for k, s, n in (
+            ("attestation", s, len(attesters(s))) for s in slots)}
+        return AssertionError(
+            f"cluster: {what}: arrivals per duty and node {seen} (each "
+            f"slot's attesters {want}, sync messages {v})")
+
+    res: dict = {"genesis": genesis, "mon": mon, "work": work}
+    try:
+        # readiness: /readyz 200 (quorum of peers, BN synced) and the
+        # prewarm done (its boot gauge), on every node
+        ready: dict = {}
+        while len(ready) < CL_NODES:
+            alive(range(1, CL_NODES + 1))
+            for i in range(1, CL_NODES + 1):
+                if i in ready or (await get(i, "/readyz"))[0] != 200:
+                    continue
+                m = await scrape(i)
+                if family(m, "app_boot_seconds", ("phase",)).get("prewarm"):
+                    ready[i] = time.time() - t_spawn
+            if time.time() > genesis:
+                why = {i: (await get(i, "/readyz"))[1].decode()
+                       for i in range(1, CL_NODES + 1) if i not in ready}
+                await dump(range(1, CL_NODES + 1))
+                raise AssertionError(f"cluster: nodes ready {ready} at the "
+                                     f"genesis, {genesis - t_spawn:.0f} s "
+                                     f"after the spawn; the others' "
+                                     f"/readyz: {why}")
+            await asyncio.sleep(0.5)
+        res["ready_s"] = ready
+        res["genesis_s"] = genesis - t_spawn
+        # the waited slots start after every node is ready (from slot 0,
+        # the genesis being later), one of the two after them (node 4
+        # down) led by node 4 in round 1
+        s0 = max(0, int((time.time() + 1.0 - genesis) // slot_s) + 1)
+        while CL_NODES - 1 not in [
+                duty_leader(Duty(s, DutyType.ATTESTER), 1, CL_NODES)
+                for s in range(s0 + CL_UP_SLOTS,
+                               s0 + CL_UP_SLOTS + CL_DOWN_SLOTS)]:
+            s0 += 1
+        up = list(range(s0, s0 + CL_UP_SLOTS))
+        res["up"] = up
+        await asyncio.sleep(max(0.0, start(s0) - time.time()))
+        res["m_up0"] = {i: await scrape(i) for i in range(1, CL_NODES + 1)}
+        all_nodes = list(range(1, CL_NODES + 1))
+        while not complete(up, all_nodes):
+            alive(all_nodes)
+            if time.time() > start(up[-1] + CL_LATE_SLOTS):
+                raise await incomplete(up, all_nodes, f"slots {up} "
+                                       "incomplete at slot "
+                                       f"{up[-1] + CL_LATE_SLOTS}'s start")
+            await asyncio.sleep(0.2)
+        res["up_done_s"] = time.time() - start(up[-1])
+        res["m_up1"] = {i: await scrape(i) for i in all_nodes}
+        res["qbft"] = {}
+        # node 4: its launches and instances, then SIGTERM
+        res["final"] = {CL_NODES: res["m_up1"][CL_NODES]}
+        res["qbft"][CL_NODES] = json.loads((await get(CL_NODES,
+                                                      "/debug/qbft"))[1])
+        t_kill = time.time()
+        procs[-1].send_signal(15)
+        s_down = int((t_kill - genesis) // slot_s) + 1
+        down = list(range(s_down, s_down + CL_DOWN_SLOTS))
+        while not any(duty_leader(Duty(s, DutyType.ATTESTER), 1, CL_NODES)
+                      == CL_NODES - 1 for s in down):
+            down.append(down[-1] + 1)
+        res["down"] = down
+        live = all_nodes[:-1]
+        while not complete(down, live):
+            alive(live)
+            if time.time() > start(down[-1] + CL_LATE_SLOTS):
+                raise await incomplete(down, live, f"slots {down} "
+                                       f"incomplete with node {CL_NODES} "
+                                       "down")
+            await asyncio.sleep(0.2)
+        await asyncio.sleep(1.0)   # the instances' last messages
+        for i in live:
+            res["final"][i] = await scrape(i)
+            res["qbft"][i] = json.loads((await get(i, "/debug/qbft"))[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(15)
+        codes, exit_s = [], []
+        t_term = time.time()
+        for p in procs:
+            try:
+                codes.append(await asyncio.to_thread(p.wait,
+                                                     CL_EXIT_TIMEOUT))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes.append(await asyncio.to_thread(p.wait))
+            exit_s.append(time.time() - t_term)
+        for out, err in logs:
+            out.close()
+            err.close()
+        for srv in servers:
+            await srv.stop()
+    res["codes"], res["exit_s"] = codes, exit_s
+    res["records"] = records()
+    return res
+
+
+def cluster_report(res: dict, secrets: list, costs: dict,
+                   slot_s: float) -> dict:
+    """Check and print a `cluster_run`: exits, the waited duties from
+    every live node with the oracle's bytes, per-node routes and kernels,
+    QBFT with node 4 down; each duty's arrival by node, each node's slot
+    phases and dispatch stages, decided rounds, boot split and the mesh
+    crypto's share of a slot.  → the nodes' launches summed per kernel."""
+    from charon_tpu_torch.core.consensus import duty_leader
+    from charon_tpu_torch.core.types import Duty, DutyType
+
+    work = res["work"]
+    bad = []
+    for i, code in enumerate(res["codes"], 1):
+        err = (work / f"node{i}.stderr").read_text(errors="replace")
+        if code != 0 or "Traceback" in err:
+            bad.append((i, code, err[-2000:]))
+    log(f"cluster: exit codes {res['codes']}, seconds from SIGTERM to exit "
+        f"{[round(x, 2) for x in res['exit_s']]}")
+    if bad or max(res["exit_s"]) >= CL_EXIT_TIMEOUT:
+        raise AssertionError(f"cluster: processes failed to exit cleanly: "
+                             f"{bad}")
+    nodes = list(range(1, CL_NODES + 1))
+    recs = res["records"]
+    by_node = {}
+    for (kind, slot, vi), got in recs.items():
+        if slot in res["up"] or slot in res["down"]:
+            want = nodes if slot in res["up"] else nodes[:-1]
+            extra = [k for k in got if k not in want]
+            if sorted(k for k in got if k in want) != want or extra:
+                raise AssertionError(f"cluster: {kind} of validator {vi} at "
+                                     f"slot {slot} from {sorted(map(str, got))}"
+                                     f", want one from each of {want}")
+            if len({s for _, s, _ in got.values()}) != 1:
+                raise AssertionError(f"cluster: nodes broadcast different "
+                                     f"bytes for {kind} {slot} {vi}")
+            for node, (_, _, dt) in got.items():
+                by_node.setdefault((kind, slot), {}).setdefault(
+                    node, []).append(dt)
+    waited = [k for k in recs if k[1] in res["up"] or k[1] in res["down"]]
+    if None in {k[2] for k in waited}:
+        raise AssertionError("cluster: an attestation of no known attester")
+    signed = cluster_oracle(secrets, {k: {n: x[:2] for n, x in recs[k].items()}
+                                      for k in waited})
+    log(f"cluster: ready (spawn → /readyz 200 with prewarm done) per node "
+        + json.dumps({i: round(s, 2) for i, s in res["ready_s"].items()})
+        + f"; genesis {res['genesis_s']:.1f} s after the spawn"
+        + f"; slots {res['up']} with every node, {res['down']} with node "
+        f"{CL_NODES} down; {len(waited)} waited duties, every one from "
+        f"every live node, byte-equal to the oracle ({signed} signatures)")
+    for (kind, slot), per in sorted(by_node.items()):
+        log(f"cluster: {kind} slot {slot}: seconds from slot start to "
+            "arrival at the mock, per node [n, min, median, max] "
+            + json.dumps({n: [len(ds), round(min(ds), 3),
+                              round(statistics.median(ds), 3),
+                              round(max(ds), 3)]
+                          for n, ds in sorted(per.items())}))
+    # a duty is worth nothing after its own slot (a sync committee message
+    # goes into the next block): count what arrived past that deadline
+    late: dict = {}
+    for (kind, slot), per in by_node.items():
+        key = f"{kind}/{'up' if slot in res['up'] else 'down'}"
+        tot = late.setdefault(key, {"arrivals": 0, "late": 0, "max_s": 0.0})
+        for ds in per.values():
+            tot["arrivals"] += len(ds)
+            tot["late"] += sum(1 for dt in ds if dt > slot_s)
+            tot["max_s"] = round(max(tot["max_s"], *ds), 3)
+    log(f"cluster: arrivals past their deadline (their slot's end, {slot_s:.0f}"
+        f" s from its start), by kind and window (up: {CL_NODES} nodes, "
+        f"down: {CL_NODES - 1}) " + json.dumps(late, sort_keys=True))
+    launches: dict = {}
+    for i in nodes:
+        m = res["final"][i]
+        for k, n in cluster_check_node(i, m).items():
+            launches[k] = launches.get(k, 0) + n
+        boot = family(m, "app_boot_seconds", ("phase",))
+        log(f"cluster: node {i}: boot seconds "
+            + json.dumps({k: round(x, 3) for k, x in boot.items()})
+            + "; verify routes " + json.dumps(family(
+                m, "core_verify_launches_by_path", ("path",)))
+            + "; core_slot_phase_seconds [sum, count] " + json.dumps({
+                k: [round(x, 3), int(family(
+                    m, "core_slot_phase_seconds_count", ("duty", "phase"))
+                    .get(k, 0))]
+                for k, x in family(m, "core_slot_phase_seconds_sum",
+                                   ("duty", "phase")).items()})
+            + "; core_dispatch_stage_seconds [sum, count] " + json.dumps({
+                k: [round(x, 4), int(family(
+                    m, "core_dispatch_stage_seconds_count", ("op", "stage"))
+                    .get(k, 0))]
+                for k, x in family(m, "core_dispatch_stage_seconds_sum",
+                                   ("op", "stage")).items()})
+            + "; kernel launches " + json.dumps(
+                family(m, "app_cuda_kernel_launches_total", ("kernel",))))
+    # QBFT: decided rounds of the waited attester duties
+    rounds: dict = {}
+    for i, dump in res["qbft"].items():
+        for inst in dump["instances"]:
+            dec = [m["round"] for m in inst["msgs"]
+                   if m["rule"] in ("QUORUM_COMMITS", "JUSTIFIED_DECIDED")]
+            rounds.setdefault(inst["duty"], {})[i] = (
+                min(dec) if inst["decided"] and dec else None)
+    log("cluster: QBFT decided round per attester duty and node "
+        + json.dumps({str(Duty(s, DutyType.ATTESTER)): rounds.get(
+            str(Duty(s, DutyType.ATTESTER)), {})
+            for s in res["up"] + res["down"]}))
+    for s in res["down"]:
+        duty = Duty(s, DutyType.ATTESTER)
+        got = rounds.get(str(duty), {})
+        led = duty_leader(duty, 1, CL_NODES) == CL_NODES - 1
+        if any(got.get(i) is None for i in nodes[:-1]) or (
+                led and any(got[i] < 2 for i in nodes[:-1])):
+            raise AssertionError(f"cluster: {duty} with node {CL_NODES} down"
+                                 f" (its round-1 leader: {led}): {got}")
+    # the mesh's crypto on one node's loop, per slot of the up window
+    shares = {}
+    for i in nodes:
+        a, b = res["m_up0"][i], res["m_up1"][i]
+
+        def delta(name):
+            return sum(family(b, name, ("peer",)).values()) - sum(
+                family(a, name, ("peer",)).values())
+        sent_f, recv_f = delta("app_p2p_peer_sent_frames_total"), delta(
+            "app_p2p_peer_recv_frames_total")
+        sent_b, recv_b = delta("app_p2p_peer_sent_bytes_total"), delta(
+            "app_p2p_peer_recv_bytes_total")
+        msgs = [m for inst in res["qbft"].get(i, {}).get("instances", [])
+                if int(inst["duty"].split("/")[0]) in res["up"]
+                for m in inst["msgs"] if m["msg_type"]]
+        signs = sum(1 for m in msgs if m["source"] == i - 1) / len(res["up"])
+        verifies = sum(1 for m in msgs if m["source"] != i - 1) / len(
+            res["up"])
+        slots = len(res["up"]) + (res["up_done_s"] / slot_s)
+        per_slot = (signs * costs["ed25519_sign_s"]
+                    + verifies * costs["ed25519_verify_s"]
+                    + sent_f / slots * frame_cost(
+                        costs, "seal", sent_b / max(sent_f, 1))
+                    + recv_f / slots * frame_cost(
+                        costs, "open", recv_b / max(recv_f, 1)))
+        shares[i] = {"frames_out": round(sent_f / slots, 1),
+                     "frames_in": round(recv_f / slots, 1),
+                     "bytes_out": round(sent_b / slots),
+                     "qbft_signs": round(signs, 1),
+                     "qbft_verifies": round(verifies, 1),
+                     "crypto_s": round(per_slot, 4),
+                     "share": round(per_slot / slot_s, 5)}
+    log("cluster: the mesh's crypto on each node's loop a slot (frames and "
+        "QBFT messages of the up window × this host's primitive times; a "
+        "QBFT message's justifications not counted) " + json.dumps(shares))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4255,6 +4962,8 @@ def main() -> int:
     resident_launches = resident_phase(dev, entries, bits)
     mark("simnet")
     simnet_launches = simnet_phase()
+    mark("cluster")
+    cluster_launches = cluster_phase()
 
     from charon_tpu_torch.tbls import dispatch
     pipe = dispatch.current_pipeline()
@@ -4271,7 +4980,8 @@ def main() -> int:
                       + cold_launches[name] + slot_launches[name]
                       + distinct_launches[name]
                       + sum(c[name] for c in resident_launches.values())
-                      + simnet_launches[name]),
+                      + simnet_launches[name]
+                      + cluster_launches.get(name, 0)),
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
          "launches_verify_cold": cold_launches[name],
@@ -4280,6 +4990,7 @@ def main() -> int:
          "launches_resident": {kind: c[name] for kind, c in
                                resident_launches.items()},
          "launches_simnet": simnet_launches[name],
+         "launches_cluster": cluster_launches.get(name, 0),
          **kern[name],
          **{k: ptxas[PTXAS_NAMES[name]][k] for k in ("regs", "stack",
                                                      "spill")},

@@ -180,14 +180,16 @@ def test_default_backend_is_the_card():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Nor aiohttp or cryptography: the card's machine has neither, so the
+    port brings its own HTTP and primitives."""
     code = (
         "import pkgutil, sys, importlib, charon_tpu_torch\n"
         "for m in pkgutil.walk_packages(charon_tpu_torch.__path__,"
         " 'charon_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or"
-        " m.startswith(('jax.', 'jaxlib', 'charon_tpu.')) or m == 'charon_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax',"
+        " 'jaxlib', 'charon_tpu', 'aiohttp', 'cryptography'))\n"
         "assert not bad, bad\n"
         "new = ('charon_tpu_torch.tbls.devcache', 'charon_tpu_torch.tbls.api',"
         " 'charon_tpu_torch.tbls.ref.bls', 'charon_tpu_torch.tbls.shamir',"
@@ -204,11 +206,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'charon_tpu_torch.core.qbft', 'charon_tpu_torch.core.consensus',"
         " 'charon_tpu_torch.core.deadline', 'charon_tpu_torch.core.tracker',"
         " 'charon_tpu_torch.core.slotbudget', 'charon_tpu_torch.app.qbftdebug',"
-        " 'charon_tpu_torch.app.tracing', 'charon_tpu_torch.app.monitoring')\n"
+        " 'charon_tpu_torch.app.tracing', 'charon_tpu_torch.app.monitoring',"
+        " 'charon_tpu_torch.p2p.ed25519', 'charon_tpu_torch.p2p.aead',"
+        " 'charon_tpu_torch.eth2util.aes', 'charon_tpu_torch.p2p.identity',"
+        " 'charon_tpu_torch.p2p.transport', 'charon_tpu_torch.core.serialize',"
+        " 'charon_tpu_torch.core.priority', 'charon_tpu_torch.p2p.protocols',"
+        " 'charon_tpu_torch.app.retry', 'charon_tpu_torch.app.featureset',"
+        " 'charon_tpu_torch.app.lifecycle', 'charon_tpu_torch.app.peerinfo',"
+        " 'charon_tpu_torch.cluster.definition',"
+        " 'charon_tpu_torch.eth2util.keystore',"
+        " 'charon_tpu_torch.eth2util.deposit',"
+        " 'charon_tpu_torch.eth2util.beaconapi', 'charon_tpu_torch.app.http1',"
+        " 'charon_tpu_torch.eth2util.beacon_client',"
+        " 'charon_tpu_torch.testutil.beaconmock_http',"
+        " 'charon_tpu_torch.app.run', 'charon_tpu_torch.cmd',"
+        " 'charon_tpu_torch.__main__')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('charon_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          cwd=str(Path(__file__).resolve().parent.parent))
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 58
+    assert int(res.stdout.split()[-1]) >= 87

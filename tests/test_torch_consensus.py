@@ -254,9 +254,9 @@ def test_leader_rotation_equals_the_jax_duty_leader():
 
 def test_parsigex_counters_and_equivocations():
     """The port's in-memory parsigex counts outbound, inbound and
-    equivocating partials per duty type and sender share, with the JAX
-    package's names (its per-peer wire-byte families wait for the p2p
-    slice)."""
+    equivocating partials per duty type and sender share, and each
+    exchange's wire bytes and frames per peer (sized through the wire
+    codec, `core/serialize`), with the JAX package's names."""
     regs = [tmonitoring.Registry(), tmonitoring.Registry()]
     duty = ttypes.Duty(5, ttypes.DutyType.RANDAO)
 
@@ -285,7 +285,18 @@ def test_parsigex_counters_and_equivocations():
         ("core_parsigex_inbound_total", (("duty", "randao"),))] == 2.0
     assert regs[1]._counters[
         ("core_parsigex_equivocations_total", (("peer", "1"),))] == 1.0
-    assert not any(k[0].startswith("app_p2p") for k in regs[0]._counters)
+    from charon_tpu_torch.core import serialize
+
+    nbytes = sum(len(serialize.encode_parsig_set(duty, {"pk": psd(1, s)}))
+                 for s in (b"\x01" * 96, b"\x02" * 96))
+    assert regs[0]._counters[
+        ("app_p2p_peer_sent_bytes_total", (("peer", "1"),))] == nbytes
+    assert regs[0]._counters[
+        ("app_p2p_peer_sent_frames_total", (("peer", "1"),))] == 2.0
+    assert regs[1]._counters[
+        ("app_p2p_peer_recv_bytes_total", (("peer", "0"),))] == nbytes
+    assert regs[1]._counters[
+        ("app_p2p_peer_recv_frames_total", (("peer", "0"),))] == 2.0
 
 
 def test_round_change_justification_histogram():

@@ -121,6 +121,32 @@ def test_scheduler_resolves_and_fires_as_jax():
     assert len(got_fired) >= 2 * SPE      # a proposer a slot at least
 
 
+def test_scheduler_waits_for_genesis():
+    """With the genesis ahead, the port's ticker fires slot 0 at the
+    genesis, not at once (the JAX ticker fires it at boot, so a node's VC
+    signed slot 0 before its peers were up), and slot 1 a slot later."""
+    import time
+
+    genesis = time.time() + 0.5
+    bmock = pbeaconmock.BeaconMock(slot_duration=0.25, slots_per_epoch=SPE,
+                                   genesis_time=genesis)
+    for pk in PUBKEYS:
+        bmock.add_validator(pk)
+    sched = pscheduler.Scheduler(bmock, PUBKEYS)
+    ticks = []
+
+    async def on_slot(tick):
+        ticks.append((tick.slot, time.time()))
+        if len(ticks) == 2:
+            sched.stop()
+
+    sched.subscribe_slots(on_slot)
+    asyncio.run(asyncio.wait_for(sched.run(), 10.0))
+    assert [s for s, _ in ticks] == [0, 1]
+    assert ticks[0][1] >= genesis
+    assert ticks[1][1] >= genesis + 0.25
+
+
 @pytest.mark.parametrize("nodes", [1, 3, 4, 7, 10])
 def test_leader_equals_jax(nodes):
     for slot in range(64):
