@@ -26,20 +26,34 @@ A copy of the registry half of the JAX package's app/monitoring.py:
   (``app_cuda_kernel_launches_total{kernel}``, the wrappers' counts).
 
 `MonitoringAPI` serves ``/metrics``, ``/livez``, ``/readyz``, ``/enr``,
-``/debug/qbft`` and ``/debug/memory`` over the port's HTTP/1.1 server
+``/debug/qbft``, ``/debug/spans`` (the tracer's recent span ring as one
+OTLP/JSON export request, `app/otlp.py`), ``/debug/memory`` and
+``/debug/profile?seconds=N`` over the port's HTTP/1.1 server
 (`app/http1.py`); ``/debug/memory`` reads ``torch.cuda``'s memory stats
 and the backend's cache stats where the JAX package reads
-``jax.live_arrays``.  ``/debug/spans``, ``/debug/profile`` (the profile
-capture) and the OTLP exporters (`app/otlp.py`) wait for the serving
-slice.
+``jax.live_arrays``.  ``/debug/profile`` captures a `torch.profiler`
+trace (CPU activity, and CUDA activity where the process has a card: the
+kernels every thread of the process launches, the `ctypes` library's
+included) where the JAX package captures a ``jax.profiler`` trace, on
+a worker thread where the JAX package holds the loop, and sends its
+directory back as a gzipped tarball; a capture that fails or holds no
+event is a 500, never an empty 200.  The process-global
+profiler guard (`profile_guard_acquire` / `profile_guard_release`) is
+shared with the SLO-triggered auto-profiler (`app/autoprofile.py`).
 """
 
 from __future__ import annotations
 
 import asyncio
+import io
 import json
+import os
+import shutil
 import sys
+import tarfile
+import tempfile
 import threading
+import time
 from collections import defaultdict, deque
 from typing import Callable
 
@@ -422,13 +436,105 @@ async def loop_lag_probe(registry: "Registry", interval: float = 0.05,
                     pass
 
 
+PROFILE_MAX_SECONDS = 30.0
+
+#: profiler state is PROCESS-global, so the in-flight guard must be too:
+#: with several in-process nodes (simnet), concurrent /debug/profile
+#: requests to different nodes' APIs still race one profiler.  The
+#: SLO-triggered auto-profiler (app/autoprofile.py) shares THIS guard
+#: through acquire/release, so a watchdog capture and a manual
+#: /debug/profile can never double-start the profiler.
+_PROFILE_ACTIVE = False
+_PROFILE_GUARD_LOCK = threading.Lock()
+
+#: the trace file a capture writes into its directory
+PROFILE_TRACE_FILE = "trace.json"
+
+
+def profile_guard_acquire() -> bool:
+    """Claim the process-global profiler; False = a capture is already
+    running (callers must skip, not queue — profiler state is
+    process-wide)."""
+    global _PROFILE_ACTIVE
+    with _PROFILE_GUARD_LOCK:
+        if _PROFILE_ACTIVE:
+            return False
+        _PROFILE_ACTIVE = True
+        return True
+
+
+def profile_guard_release() -> None:
+    global _PROFILE_ACTIVE
+    with _PROFILE_GUARD_LOCK:
+        _PROFILE_ACTIVE = False
+
+
+def _export_trace(prof, path: str) -> int:
+    """Write the capture as a Chrome trace; its event count (0 = an
+    empty capture)."""
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        doc = json.load(fh)
+    events = doc.get("traceEvents", doc) if isinstance(doc, dict) else doc
+    return len(events)
+
+
+def profile_capture_sync(out_dir: str, seconds: float) -> dict:
+    """The capture itself, blocking: a `torch.profiler` trace of CPU
+    activity (this thread's operators), and of CUDA activity where the
+    process has a card (every kernel the process launches, from any
+    thread), over `seconds`, written to `out_dir`/trace.json.  Start,
+    stop and export run on the calling thread, as the profiler's
+    thread-local state requires → the seconds each took and the trace's
+    event count.  Raises when the capture fails or holds no event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    t0 = time.perf_counter()
+    prof.start()
+    t1 = time.perf_counter()
+    try:
+        time.sleep(seconds)
+        # a token device op so an idle node still yields a non-empty
+        # capture (and the device's rows appear)
+        token = torch.arange(128, dtype=torch.int32,
+                             device="cuda" if on_card else "cpu") + 1
+        if on_card:
+            torch.cuda.synchronize(token.device)
+    finally:
+        t2 = time.perf_counter()
+        prof.stop()
+    t3 = time.perf_counter()
+    n = _export_trace(prof, os.path.join(out_dir, PROFILE_TRACE_FILE))
+    if n == 0:
+        raise RuntimeError("the profiler captured no event")
+    return {"start_s": t1 - t0, "stop_s": t3 - t2,
+            "export_s": time.perf_counter() - t3, "events": n}
+
+
+async def run_profile_capture(out_dir: str, seconds: float) -> dict:
+    """ONE copy of the capture protocol — shared by the /debug/profile
+    handler and the SLO auto-profiler (app/autoprofile.py), so the
+    duration and the token device op cannot drift between the two
+    surfaces.  The whole capture (`profile_capture_sync`) runs on a
+    worker thread: its triggers fire when the loop is already late, and
+    nothing of the profiler may ride that loop.  → its phase timings.
+    Caller owns the profiler guard and the output directory."""
+    return await asyncio.to_thread(profile_capture_sync, out_dir, seconds)
+
+
 # ---------------------------------------------------------------------------
 # The monitoring HTTP API
 # ---------------------------------------------------------------------------
 
 class MonitoringAPI:
-    """Serves /metrics, /livez, /readyz, /enr, /debug/qbft and
-    /debug/memory (reference: app/monitoringapi.go:48-176)."""
+    """Serves /metrics, /livez, /readyz, /enr and the /debug endpoints
+    (reference: app/monitoringapi.go:48-176, :84-88 pprof)."""
 
     def __init__(self, registry: Registry,
                  readyz: Callable[[], tuple[bool, str]],
@@ -438,13 +544,15 @@ class MonitoringAPI:
         self._readyz = readyz
         self._identity = identity
         self._qbft_debug = qbft_debug  # app.qbftdebug ring renderer
-        self._tracer = tracer          # app.tracing.Tracer (span counts)
+        self._tracer = tracer          # app.tracing.Tracer (/debug/spans)
         self._memory_extra = memory_extra  # app-specific /debug/memory dict
         self._http = HTTPServer()
         for path, fn in (("/metrics", self._metrics),
                          ("/livez", self._livez), ("/readyz", self._ready),
                          ("/enr", self._enr), ("/debug/qbft", self._qbft),
-                         ("/debug/memory", self._memory)):
+                         ("/debug/spans", self._spans),
+                         ("/debug/memory", self._memory),
+                         ("/debug/profile", self._profile)):
             self._http.add_get(path, fn)
         self.port: int | None = None
 
@@ -487,6 +595,52 @@ class MonitoringAPI:
             return Response(404, b"404: Not Found")
         # reference: app/qbftdebug.go:35-122 sniffed-instance dump
         return Response(200, self._qbft_debug(), "application/json")
+
+    async def _spans(self, request):
+        if self._tracer is None:
+            return Response(404, b"404: Not Found")
+        return Response(200, self.render_spans(), "application/json")
+
+    def render_spans(self) -> bytes:
+        """The recent span ring as one OTLP/JSON export request."""
+        from . import otlp
+
+        spans = [s for s in self._tracer.spans if s.end is not None]
+        doc = otlp.export_request(spans, resource_attrs={
+            **self.registry.const_labels,
+            "dropped_spans": self._tracer.dropped})
+        return json.dumps(doc).encode()
+
+    async def _profile(self, request):
+        """Capture a `torch.profiler` trace for ?seconds=N (default 1,
+        capped) and send the capture directory back as a gzipped
+        tarball; 409 while another capture runs, 500 when the capture
+        fails or is empty."""
+        try:
+            seconds = float(request.query.get("seconds", "1"))
+        except ValueError:
+            return Response(400, b"seconds must be a number")
+        seconds = min(max(seconds, 0.0), PROFILE_MAX_SECONDS)
+        if not profile_guard_acquire():
+            return Response(409, b"a profile capture is already running")
+        tmp = None
+        try:
+            # INSIDE the guard's try: a failing mkdtemp (full /tmp,
+            # unwritable TMPDIR) must still release the process-global
+            # guard, or manual AND SLO-triggered profiling stay dead
+            # until restart
+            tmp = tempfile.mkdtemp(prefix="charon-tpu-profile-")
+            await run_profile_capture(tmp, seconds)
+            body = await asyncio.to_thread(_tarball, tmp)
+            return Response(200, body, "application/octet-stream")
+        except Exception as exc:  # noqa: BLE001 — debug must not crash node
+            return Response(500, f"profile capture failed: "
+                            f"{type(exc).__name__}: {exc}".encode())
+        finally:
+            profile_guard_release()
+            if tmp is not None:
+                await asyncio.to_thread(shutil.rmtree, tmp,
+                                        ignore_errors=True)
 
     async def _memory(self, request):
         return Response(200, self.render_memory(), "application/json")
@@ -537,3 +691,10 @@ class MonitoringAPI:
             except Exception as exc:  # noqa: BLE001 — debug must not 500
                 info["extra_error"] = f"{type(exc).__name__}: {exc}"
         return json.dumps(info, indent=1, default=str).encode()
+
+
+def _tarball(path: str) -> bytes:
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+        tar.add(path, arcname="profile")
+    return buf.getvalue()

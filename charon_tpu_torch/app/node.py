@@ -6,11 +6,10 @@ aggsigdb → bcast, stitched by core.wire().  Transports (consensus,
 parsigex) are injected so tests run in-memory clusters
 (reference: app/app.go:99-122 TestConfig injection points).
 
-A copy of the JAX package's app/node.py, whole but for the SLO-triggered
-auto-profiler (`app/autoprofile.py`: `jax.profiler` captures behind an
-environment knob), whose counterpart waits for the serving slice: the
-slot budget's late-duty hooks and the loop-lag probe's breach hook are
-there, with nothing hung on them.  Every node gets a `Tracer` and the
+A copy of the JAX package's app/node.py, the SLO-triggered auto-profiler
+(`app/autoprofile.py`, opt-in here: ``CHARON_TPU_AUTOPROFILE=1``)
+included: its capture is the port's `torch.profiler` trace.  Every node
+gets a `Tracer` and the
 `with_tracing` wire option; a metrics `registry` also wires the
 `SlotBudget`, the `Tracker` with its `Deadliner` GC loop, the loop-lag and
 device-memory probes, and the registry's place in the process-global
@@ -41,8 +40,9 @@ from ..core.validatorapi import ValidatorAPI
 from ..core.verify import BatchVerifier
 from ..eth2util.signing import signing_root
 from ..tbls import dispatch
+from . import autoprofile
 from .monitoring import hbm_sample_loop, loop_lag_probe
-from .tracing import Tracer, with_tracing
+from .tracing import Tracer, duty_trace_id, with_tracing
 
 
 @dataclass
@@ -136,6 +136,13 @@ class Node:
         if registry is not None:
             dispatch.add_metrics_registry(registry)
 
+        # SLO-triggered auto-profiler (opt-in for test simnets:
+        # CHARON_TPU_AUTOPROFILE=1 — real profiler captures inside the
+        # tests would race the /debug/profile tests' process guard).
+        self.autoprofiler = autoprofile.from_env(
+            registry=registry, node_name=f"node{cfg.share_idx - 1}",
+            default_on=False)
+
         # Slot-budget accountant: hand-off hooks subscribe BEFORE wire()
         # so each timestamp is taken before the downstream edge runs
         # (the threshold→sigagg edge awaits the whole combine otherwise).
@@ -153,6 +160,11 @@ class Node:
             self.parsigdb.subscribe_threshold(self.slotbudget.on_threshold)
             self.sigagg.subscribe(self.slotbudget.on_aggregated)
             self.bcast.subscribe(self.slotbudget.on_broadcast)
+            if self.autoprofiler is not None:
+                # late-duty watchdog → bounded auto-capture stamped with
+                # the duty's deterministic trace ID
+                self.slotbudget.subscribe_late(self.autoprofiler.make_hook(
+                    "late_duty", trace_id_fn=duty_trace_id))
 
         interfaces.wire(self.scheduler, self.fetcher, self.consensus,
                         self.dutydb, self.vapi, self.parsigdb, self.parsigex,
@@ -239,9 +251,14 @@ class Node:
             # event-loop health: the simnet node exports the same
             # app_event_loop_lag_seconds / dispatch queue-depth /
             # overlap-efficiency families as the full App, so
-            # loop-responsiveness tests run without the TCP/crypto stack
+            # loop-responsiveness tests run without the TCP/crypto stack;
+            # the loop-lag SLO breach feeds the auto-profiler when one is
+            # wired
+            breach = (self.autoprofiler.make_hook("loop_lag")
+                      if self.autoprofiler is not None else None)
             self._lag_task = loop.create_task(
-                loop_lag_probe(self.registry, dispatcher=self.dispatcher))
+                loop_lag_probe(self.registry, dispatcher=self.dispatcher,
+                               on_breach=breach))
             # device-memory sampling (charon_tpu_hbm_live_bytes: the
             # backend device's torch.cuda.memory_allocated) — short
             # interval so short-lived simnet nodes serve the gauge too

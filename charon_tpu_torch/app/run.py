@@ -4,31 +4,34 @@ Everything the reference's `app.Run` wires is assembled here from cluster
 material on disk:
 
     lock file → peers/identity → TCP mesh (authenticated-encrypted)
-    beacon URLs → MultiBeaconClient (first-success fan-out)
+    beacon URLs → MultiBeaconClient (first-success fan-out) behind the
+        serving layer's CachingBeaconClient (coalesced, slot/epoch-scoped
+        cached duty fetches, bounded retries)
     core workflow components + core.wire() with async-retry wrapped edges
     Deadliner → duty-expiry GC for dutydb/parsigdb/aggsigdb/consensus/
         scheduler + post-deadline tracker analysis
     tracker, peerinfo gossip loop, ping loop, monitoring API (/readyz =
         quorum-peers AND BN-synced, app/monitoringapi.go:100-176),
+    OTLP span sinks and the Loki log sink from the environment, the
+        SLO-triggered auto-profiler (late duties, loop-lag breaches),
+    validator-API HTTP router with reverse proxy,
     priority/infosync exchange triggered at the last slot of each epoch,
     ordered start/stop via lifecycle.Manager.
 
-A copy of the JAX package's app/run.py, trimmed.  Left out until the
-serving-layer slice, each a part the JAX `App` wires:
-
-- `CachingBeaconClient` (app/serving.py): the App calls its
-  `MultiBeaconClient` directly, uncached;
-- the OTLP span and Loki log sinks (app/otlp.py, app/log.py);
-- the SLO-triggered auto-profiler (app/autoprofile.py);
-- `VapiRouter` (app/router.py), the validator API's HTTP router: only the
-  in-process validator mock (`RunConfig.simnet_vmock`) signs.
+A copy of the JAX package's app/run.py.  VCs reach the node through
+`VapiRouter` at ``RunConfig.vapi_host:vapi_port``; the in-process
+validator mock (`RunConfig.simnet_vmock`) signs beside them when asked,
+for the duty flows it is given.  The auto-profiler's capture is the
+port's `torch.profiler` trace (`app/autoprofile.py`), taken on a worker
+thread, with the profiler's set-up paid once at boot after the prewarm.
 
 The node's verifies and combines run on the tbls backend the process
 chose — the card's ``cuda`` backend unless the caller set ``cpu`` or the
 ``insecure-test`` scheme — through the process's one
 `tbls.dispatch.DispatchPipeline`; nothing falls back to the CPU when the
-card fails.  `boot_seconds` times the lock's verification and the
-prewarm, and /metrics serves them as ``app_boot_seconds{phase}``.
+card fails.  `boot_seconds` times the lock's verification, the
+prewarm and the auto-profiler's set-up (``profiler``), and /metrics
+serves them as ``app_boot_seconds{phase}``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import multiprocessing
+import os
 import time
 from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass, field
@@ -66,13 +70,15 @@ from ..p2p.protocols import (P2PConsensusTransport, P2PParSigEx,
 from ..p2p.transport import TCPMesh, mesh_params_from_definition
 from ..tbls import api as tbls
 from ..tbls import dispatch
-from . import featureset, tracing
+from . import autoprofile, featureset, log as applog, otlp, tracing
 from .lifecycle import Manager, StartOrder, StopOrder
 from .monitoring import (MonitoringAPI, Registry, hbm_sample_loop,
                          loop_lag_probe, set_readiness)
 from .peerinfo import PeerInfo
 from .qbftdebug import QBFTSniffer
 from .retry import Retryer, with_async_retry
+from .router import VapiRouter
+from .serving import CachingBeaconClient
 from .tracing import Tracer, with_tracing
 
 log = logging.getLogger(__name__)
@@ -91,6 +97,24 @@ _FETCHED_BY_FLOW = {
 }
 
 
+def simnet_flows(duties: tuple[str, ...]
+                 ) -> tuple[tuple[str, ...], tuple[str, ...] | None]:
+    """`RunConfig.simnet_duties` → the flows the scheduler fetches and
+    the flows the simnet validator mock signs (None: every flow).  A flow
+    marked ``:vc`` (``attester:vc``) is fetched, but signed by the VCs on
+    the validator API, not by the mock."""
+    if not duties:
+        return (), None
+    names = []
+    for duty in duties:
+        name, _, signer = duty.partition(":")
+        if signer not in ("", "vc"):
+            raise ValueError(f"simnet duty {duty!r}: only ':vc' may mark "
+                             f"a flow")
+        names.append(name)
+    return tuple(names), tuple(d for d in duties if ":" not in d)
+
+
 @dataclass
 class RunConfig:
     """reference: app.Config (app/app.go:60-97)."""
@@ -100,6 +124,8 @@ class RunConfig:
     beacon_urls: list[str]
     monitoring_host: str = "127.0.0.1"
     monitoring_port: int = 0
+    vapi_host: str = "127.0.0.1"
+    vapi_port: int = 0
     builder_api: bool = False
     no_verify_lock: bool = False
     simnet_vmock: bool = False
@@ -108,9 +134,15 @@ class RunConfig:
     features_disabled: list[str] = field(default_factory=list)
     ping_interval: float = 5.0
     peerinfo_interval: float = 10.0
-    # the duty mix the simnet validator mock signs and the scheduler
-    # fetches (testutil/validatormock.FLOWS; empty = all)
+    # the duty mix the scheduler fetches and the simnet validator mock
+    # signs (testutil/validatormock.FLOWS; empty = all); a flow marked
+    # ":vc" is fetched but left to the VCs on the validator API
     simnet_duties: tuple[str, ...] = ()
+    # OTLP trace export (empty = fall back to CHARON_TPU_TRACE_FILE /
+    # CHARON_TPU_TRACE_ENDPOINT env vars; "{node}" in the file path
+    # expands to this node's name)
+    trace_file: str = ""
+    trace_endpoint: str = ""
 
 
 class App:
@@ -123,6 +155,7 @@ class App:
         self.lock: Lock | None = None
         self.mesh: TCPMesh | None = None
         self.monitoring: MonitoringAPI | None = None
+        self.router: VapiRouter | None = None
         self.tracker: Tracker | None = None
         self.registry = Registry()
         self.boot_seconds: dict[str, float] = {}
@@ -173,9 +206,14 @@ class App:
         self.mesh.enable_ping_responder()
 
         # 4. beacon client + chain parameters: the multi-client fan-out
-        #    exports per-node request metrics
-        self.eth2cl = MultiBeaconClient.from_urls(cfg.beacon_urls)
-        self.eth2cl.bind_registry(self.registry)
+        #    exports per-node request metrics, and the serving-layer
+        #    cache wraps it so scheduler/fetcher duty fetches are
+        #    coalesced and slot/epoch-scoped cached (with bounded
+        #    retries absorbing a flapping upstream)
+        multi = MultiBeaconClient.from_urls(cfg.beacon_urls)
+        multi.bind_registry(self.registry)
+        self.eth2cl = CachingBeaconClient(multi, registry=self.registry,
+                                          retries=2)
         spec = await self.eth2cl.spec()
         self.slot_duration = spec["SECONDS_PER_SLOT"]
         self.slots_per_epoch = spec["SLOTS_PER_EPOCH"]
@@ -206,11 +244,35 @@ class App:
         # core_dispatch_stage_seconds{stage,op} lands on OUR /metrics
         dispatch.add_metrics_registry(self.registry)
 
-        # 5b. duty tracer (reference: app/tracer/trace.go:40-151), created
-        #     before the core components so the card boundary
-        #     (BatchVerifier / SigAgg launches) can span into it
+        # 5b. duty tracer + OTLP export sinks (reference: app/tracer/
+        #     trace.go:40-151).  The tracer is created before the core
+        #     components so the card boundary (BatchVerifier / SigAgg
+        #     launches) can span into it.
         self.tracer_spans = Tracer(self.registry)
+        node_name = f"node{self_index}"
+        self._otlp_sinks = otlp.sinks_from_env(
+            resource_attrs={"service.name": "charon_tpu",
+                            "peer": node_name,
+                            "cluster_hash": cluster_hash.hex()[:10]},
+            registry=self.registry, node_name=node_name,
+            environ={**os.environ,
+                     **({"CHARON_TPU_TRACE_FILE": cfg.trace_file}
+                        if cfg.trace_file else {}),
+                     **({"CHARON_TPU_TRACE_ENDPOINT": cfg.trace_endpoint}
+                        if cfg.trace_endpoint else {})})
+        for sink in self._otlp_sinks:
+            self.tracer_spans.add_sink(sink)
         tracing.set_global_tracer(self.tracer_spans)
+
+        # 5c. Loki log push (reference: app/log/loki/client.go:49-190):
+        #     CHARON_TPU_LOKI_ENDPOINT ships every structured log record;
+        #     drops/failures are counted, never raised into log callers.
+        self._loki_sink = applog.loki_sink_from_env(
+            node_name=node_name, registry=self.registry,
+            labels={"cluster_hash": cluster_hash.hex()[:10],
+                    "cluster_name": definition.name})
+        if self._loki_sink is not None:
+            applog.add_sink(self._loki_sink)
 
         # 6. pubshare maps from the lock (app/app.go:327-376)
         pubshares_by_peer: dict[int, dict[PubKey, bytes]] = {
@@ -223,9 +285,10 @@ class App:
 
         # 7. core components
         sched_kwargs = {}
-        if cfg.simnet_duties:
+        fetched_flows, vmock_flows = simnet_flows(cfg.simnet_duties)
+        if fetched_flows:
             sched_kwargs["fetched_types"] = tuple(
-                t for flow in cfg.simnet_duties
+                t for flow in fetched_flows
                 for t in _FETCHED_BY_FLOW.get(flow, ()))
         sched = Scheduler(self.eth2cl, list(pubshares),
                           builder_api=cfg.builder_api, **sched_kwargs)
@@ -290,6 +353,17 @@ class App:
         sigagg.subscribe(self.slotbudget.on_aggregated)
         bcast.subscribe(self.slotbudget.on_broadcast)
 
+        # 7c. SLO-triggered auto-profiler: a late-duty watchdog trip or
+        #     a loop-lag p99 breach captures a bounded, rate-limited
+        #     torch.profiler trace stamped with the duty's trace ID — the
+        #     operator gets the device timeline OF the slow slot, not a
+        #     post-hoc guess (CHARON_TPU_AUTOPROFILE knobs).
+        self.autoprofiler = autoprofile.from_env(
+            registry=self.registry, node_name=node_name, default_on=True)
+        if self.autoprofiler is not None:
+            self.slotbudget.subscribe_late(self.autoprofiler.make_hook(
+                "late_duty", trace_id_fn=tracing.duty_trace_id))
+
         interfaces.wire(sched, fetcher, consensus, dutydb, vapi, parsigdb,
                         parsigex, sigagg, aggsigdb, bcast,
                         with_tracing(self.tracer_spans),
@@ -348,7 +422,15 @@ class App:
             tracer=self.tracer_spans,
             memory_extra=self._memory_extra)
 
-        # 12. optional in-process validator mock (simnet,
+        # 12. validator-API HTTP router (reverse proxy → first beacon URL)
+        self._index_to_pubkey: dict[int, PubKey] = {}
+        self.router = VapiRouter(vapi, cfg.beacon_urls[0],
+                                 pubkey_by_index=self._pubkey_by_index,
+                                 host=cfg.vapi_host, port=cfg.vapi_port,
+                                 registry=self.registry,
+                                 tracer=self.tracer_spans)
+
+        # 13. optional in-process validator mock (simnet,
         #     reference: app/vmock.go).  A BLS signature is ≈ 0.1–0.2 s of
         #     pure Python: the mock signs those in a process of its own
         #     (spawned: never a fork after CUDA is up), as a VC beside the
@@ -356,7 +438,7 @@ class App:
         #     for QBFT's timers, the mesh and the flushes' host prep; the
         #     insecure-test scheme's microsecond signatures stay inline
         self.vmock = self._signer = None
-        if cfg.simnet_vmock:
+        if cfg.simnet_vmock and vmock_flows != ():
             from ..testutil.validatormock import ValidatorMock
 
             keys = await asyncio.to_thread(
@@ -371,7 +453,7 @@ class App:
                                        genesis_validators_root=gvr,
                                        slots_per_epoch=self.slots_per_epoch,
                                        eth2cl=self.eth2cl,
-                                       flows=cfg.simnet_duties or None,
+                                       flows=vmock_flows,
                                        signer=self._signer)
             sched.subscribe_slots(self.vmock.on_slot)
 
@@ -407,6 +489,14 @@ class App:
             # ends in "+res"; "cpu" or "insecure-test" only when asked)
             self.registry.set_gauge("core_verify_launches_by_path", count,
                                     labels={"path": path})
+
+    async def _pubkey_by_index(self, index: int) -> PubKey:
+        if not self._index_to_pubkey:
+            pks = [pubkey_from_bytes(v.public_key)
+                   for v in self.lock.validators]
+            vals = await self.eth2cl.active_validators(pks)
+            self._index_to_pubkey = {v.index: pk for pk, v in vals.items()}
+        return self._index_to_pubkey[index]
 
     async def _on_duty_report(self, report) -> None:
         self.registry.inc("core_tracker_duty_total",
@@ -496,8 +586,13 @@ class App:
 
     async def _loop_lag_probe(self) -> None:
         """Event-loop health self-probe: `app_event_loop_lag_seconds`,
-        the dispatch queue-depth gauge and the overlap-efficiency gauge."""
-        await loop_lag_probe(self.registry, dispatcher=self.dispatcher)
+        the dispatch queue-depth gauge and the overlap-efficiency gauge —
+        plus the loop-lag SLO breach hook into the auto-profiler (its
+        rate limit bounds capture frequency)."""
+        breach = (self.autoprofiler.make_hook("loop_lag")
+                  if self.autoprofiler is not None else None)
+        await loop_lag_probe(self.registry, dispatcher=self.dispatcher,
+                             on_breach=breach)
 
     async def _hbm_probe(self) -> None:
         """Device-memory growth witness: `charon_tpu_hbm_live_bytes`
@@ -528,6 +623,17 @@ class App:
             self.registry.set_gauge("app_dispatch_prewarm_seconds",
                                     report["total_s"])
         log.info("dispatch prewarm: %s", report)
+
+    async def _boot_prewarm(self) -> None:
+        """The dispatch prewarm, then the auto-profiler's (its set-up
+        paid at boot, not on the first late slot; after the kernels' and
+        graphs' prewarm, so no capture is open while a graph is
+        captured)."""
+        await self._dispatch_prewarm()
+        if self.autoprofiler is not None:
+            seconds = await self.autoprofiler.prewarm()
+            if seconds is not None:
+                self._boot_phase("profiler", seconds)
 
     async def _bn_sync_loop(self) -> None:
         while True:
@@ -566,7 +672,9 @@ class App:
         # pool — see DispatchPipeline.prewarm): first duties' launches are
         # never queued behind it
         life.register_start(StartOrder.MONITOR_API, "dispatch-prewarm",
-                            self._dispatch_prewarm, background=True)
+                            self._boot_prewarm, background=True)
+        life.register_start(StartOrder.VALIDATOR_API, "vapi-router",
+                            self.router.start)
         life.register_start(StartOrder.SCHEDULER, "gc-loop", self._gc_loop,
                             background=True)
         life.register_start(StartOrder.SCHEDULER, "scheduler",
@@ -574,6 +682,8 @@ class App:
 
         life.register_stop(StopOrder.SCHEDULER, "scheduler",
                            self._stop_scheduler)
+        life.register_stop(StopOrder.VALIDATOR_API, "vapi-router",
+                           self.router.stop)
         life.register_stop(StopOrder.RETRYER, "retryer",
                            self.retryer.shutdown)
         life.register_stop(StopOrder.P2P, "p2p-mesh", self._stop_mesh)
@@ -602,6 +712,17 @@ class App:
         # detach from the dispatch metrics fan-out (other Apps in this
         # process keep theirs)
         dispatch.remove_metrics_registry(self.registry)
+        for sink in self._otlp_sinks:
+            # final drain: FileSink flushes sync, AsyncHTTPSink async
+            if hasattr(sink, "aclose"):
+                await sink.aclose()
+            elif hasattr(sink, "close"):
+                sink.close()
+        if self._loki_sink is not None:
+            # detach from the process-global sink list (other Apps in
+            # this process keep theirs), then final-drain the queue
+            applog.remove_sink(self._loki_sink)
+            await self._loki_sink.aclose()
 
     async def _stop_scheduler(self) -> None:
         self.scheduler.stop()
@@ -622,12 +743,13 @@ class App:
 
 async def run(cfg: RunConfig, started=None) -> None:
     """Run one node to completion.  `started` (optional asyncio.Event) is
-    set once the monitoring API listens — tests use it to gate."""
+    set once the monitoring API and the validator-API router listen —
+    tests use it to gate."""
     app = App(cfg)
     await app.setup()
     runner = asyncio.ensure_future(app.life.run())
     if started is not None:
-        while app.monitoring.port is None:
+        while app.monitoring.port is None or not app.router.addr:
             await asyncio.sleep(0.01)
         started.set()
     await app._stop.wait()

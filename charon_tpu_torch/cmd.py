@@ -5,9 +5,10 @@ Flag values default from CHARON_TPU_<FLAG> environment variables, matching
 the reference's env > flag precedence (cmd/cmd.go:78-136 viper binding).
 
 The JAX package's cmd.py for these commands, with its flag names.  `run`
-has no ``--validator-api-address`` until the validator API's HTTP router
-comes with the serving slice (only ``--simnet-validator-mock`` VCs sign),
-and takes ``--simnet-duties`` (the duty mix those VCs sign).  Its
+serves the validator API to VCs at ``--validator-api-address`` (default
+127.0.0.1:3600), and takes ``--simnet-duties`` (the duty mix the
+scheduler fetches and the ``--simnet-validator-mock`` VCs sign; a flow
+marked ``:vc`` is left to the VCs on the validator API).  Its
 verifies and combines run on the card; ``--tbls-scheme insecure-test``
 is the only way to the CPU, and with the ``bls`` scheme on a machine
 without a card ``run`` exits non-zero naming the missing device.  `dkg`, `sign`,
@@ -49,6 +50,8 @@ def main(argv: list[str] | None = None) -> int:
     runp.add_argument("--beacon-node-endpoints",
                       default=_env("beacon-node-endpoints", ""),
                       help="comma-separated beacon-API base URLs")
+    runp.add_argument("--validator-api-address",
+                      default=_env("validator-api-address", "127.0.0.1:3600"))
     runp.add_argument("--monitoring-address",
                       default=_env("monitoring-address", "127.0.0.1:3620"))
     runp.add_argument("--builder-api", action="store_true",
@@ -63,9 +66,11 @@ def main(argv: list[str] | None = None) -> int:
                            "(1s slots) instead of a real BN")
     runp.add_argument("--keystore-dir", default=_env("keystore-dir", ""))
     runp.add_argument("--simnet-duties", default=_env("simnet-duties", ""),
-                      help="comma-separated duty flows the validator mock "
-                           "signs (attester, proposer, sync_message, "
-                           "sync_contribution; default all)")
+                      help="comma-separated duty flows the scheduler "
+                           "fetches and the validator mock signs (attester, "
+                           "proposer, sync_message, sync_contribution; "
+                           "default all); a flow marked :vc (attester:vc) "
+                           "is left to the VCs on --validator-api-address")
     runp.add_argument("--feature-enable", action="append", default=[])
     runp.add_argument("--feature-disable", action="append", default=[])
     runp.add_argument("--tbls-scheme", default=_env("tbls-scheme", "bls"),
@@ -153,11 +158,13 @@ def _cmd_run(args) -> int:
             print("error: --beacon-node-endpoints required", file=sys.stderr)
             raise SystemExit(2)
 
+        vapi_host, vapi_port = _addr(args.validator_api_address)
         mon_host, mon_port = _addr(args.monitoring_address)
         cfg = RunConfig(
             lock_file=args.lock_file,
             identity_key_file=args.identity_key_file,
             beacon_urls=urls,
+            vapi_host=vapi_host, vapi_port=vapi_port,
             monitoring_host=mon_host, monitoring_port=mon_port,
             builder_api=args.builder_api,
             no_verify_lock=args.no_verify,

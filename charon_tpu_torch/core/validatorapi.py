@@ -9,10 +9,9 @@ ParSigDB.  Pubshare↔group-pubkey mapping happens on this boundary
 (validatorapi.go:980-1014): the VC only ever sees its share key.
 
 This class is the transport-independent component (the reference's
-`Component`).  A copy of the JAX package's core/validatorapi.py, trimmed
-of the serving layer's hook (`attach_serving_cache`, the single-flight
-attestation-data cache of the VC HTTP router): the router and its cache
-come with a later slice.
+`Component`); `charon_tpu_torch.app.router` wraps it in an HTTP router
+with the reverse proxy, mirroring router.go.  A copy of the JAX package's
+core/validatorapi.py.
 """
 
 from __future__ import annotations
@@ -64,6 +63,8 @@ class ValidatorAPI:
         self._get_duty_definition = None
         self._pubkey_by_attestation = None
         self._await_agg_sig_db = None
+        self._serving_cache = None
+        self._serving_ttl: float | None = None
 
     # -- registration (wire hooks) -----------------------------------------
 
@@ -77,6 +78,15 @@ class ValidatorAPI:
 
     def subscribe(self, fn) -> None:
         self._subs.append(fn)
+
+    def attach_serving_cache(self, cache, ttl: float | None = None) -> None:
+        """Route attestation-data reads through an app-layer
+        single-flight cache (app/serving.SingleFlightCache duck-type):
+        N VCs awaiting the same (slot, committee) share ONE dutydb wait,
+        and the consensus-agreed result is slot-keyed cached — safe
+        because the DutyDB value for a key is fixed once decided."""
+        self._serving_cache = cache
+        self._serving_ttl = ttl
 
     # -- helpers ------------------------------------------------------------
 
@@ -121,6 +131,11 @@ class ValidatorAPI:
 
     async def attestation_data(self, slot: int,
                                committee_index: int) -> spec.AttestationData:
+        if self._serving_cache is not None:
+            return await self._serving_cache.get(
+                "attestation_data", (slot, committee_index),
+                lambda: self._await_attestation(slot, committee_index),
+                ttl=self._serving_ttl)
         return await self._await_attestation(slot, committee_index)
 
     async def submit_attestations(self,

@@ -4024,7 +4024,30 @@ def simnet_phase() -> dict:
 #: BASELINE.json config 2's cluster: 4 nodes, 3-of-4, 12 s slots (of
 #: SIM_SPE-slot epochs), attestation + sync committee message, QBFT
 CL_NODES, CL_T = 4, 3
-CL_FLOWS = "attester,sync_message"
+#: each node's attester duty is signed by a VC process of its own (the
+#: port's `testutil.httpvc`) over HTTP through the node's validator-API
+#: router (`:vc`: not by the mock); its sync messages by the node's
+#: in-process validator mock (the HTTP VC, as the JAX one, has no
+#: sync-committee flow)
+CL_FLOWS, CL_VC_FLOWS = "attester:vc,sync_message", "attester"
+#: the base of the VCs over HTTP: this phase as it ran before they moved
+#: there (its VCs in the nodes' processes, no router, no auto-profiler)
+#: on an H100 80GB HBM3 at 700 W, V = 37 (a sign of 0.1036 s) — each
+#: node's median seconds from slot start to an attestation's arrival at
+#: the mock in each slot of the up window, and the arrivals past their
+#: slot's end by kind and window
+CL_BASE = {
+    "v": 37,
+    "attestation_up": {1: [14.236, 14.723, 15.037],
+                       2: [14.048, 14.79, 14.588],
+                       3: [14.829, 15.19, 15.049],
+                       4: [15.007, 15.313, 15.327]},
+    "late": {"attestation/down": [31, 57], "attestation/up": [80, 112],
+             "sync_message/down": [222, 222], "sync_message/up": [444, 444]},
+}
+#: the /debug/profile capture's seconds and the captures tried until one
+#: names a kernel of the port (each on the next node)
+CL_PROFILE_S, CL_PROFILE_TRIES = 2.0, 3
 #: config 2's V; the phase cuts it to what one node's VC signs in ⅔ slot,
 #: and at most to what one card keeps up with for four node processes
 #: (four CUDA contexts time-slice it): on an H100 at V = 37 every waited
@@ -4039,9 +4062,9 @@ CL_LATE_SLOTS = 3
 #: slots waited with every node up, then with node 4 down
 CL_UP_SLOTS, CL_DOWN_SLOTS = 3, 2
 #: the mock's genesis, in seconds after the spawn: every node must be
-#: ready (/readyz 200 with its prewarm done) before it, so that no slot
-#: is scheduled before the cluster is up; and the seconds a node may take
-#: to exit after SIGTERM
+#: ready (/readyz 200 with its prewarm and profiler set-up done) before
+#: it, so that no slot is scheduled before the cluster is up; and the
+#: seconds a node may take to exit after SIGTERM
 CL_GENESIS_S, CL_EXIT_TIMEOUT = 90.0, 60.0
 #: the verify and combine kernels every node must launch, and K21 (the
 #: pubshares' decompression at prewarm)
@@ -4221,18 +4244,26 @@ def cluster_phase(scheme: str = "bls", slot_s: float = SIM_SLOT_S) -> dict:
     """`BASELINE.json` config 2's cluster as four node processes on the
     card: `create cluster` writes it (real BLS), one `BeaconMockServer`
     a node in this process over one mock, four `python -m
-    charon_tpu_torch run --simnet-validator-mock` processes boot from the
-    lock (each verifies it and prewarms on the card), every /readyz polled
-    and 200 before the mock's genesis, CL_GENESIS_S after the spawn;
-    then CL_UP_SLOTS slots with every node, node 4 sent SIGTERM, the next
-    CL_DOWN_SLOTS slots (one of them led by node 4 in QBFT's round 1) with
-    the other three, and SIGTERM to those.  Checks: every waited duty at
-    the mock from every live node with the oracle's bytes, each node's
-    verifies on the resident route and its kernels launched, every
-    down-window consensus duty decided on every live node (node 4's by a
-    round change), every process exit 0 within CL_EXIT_TIMEOUT with no
-    traceback; the arrivals past their slot's end are counted.  → the four nodes' launches per kernel (each read from its
-    /metrics just before its SIGTERM)."""
+    charon_tpu_torch run --validator-api-address … --simnet-validator-mock`
+    processes boot from the lock (each verifies it and prewarms on the
+    card), every /readyz polled and 200 before the mock's genesis,
+    CL_GENESIS_S after the spawn, and then a VC process a node
+    (`testutil.httpvc`, the node's share keys) signs the node's attester
+    duties over HTTP through its router, while the node's in-process mock
+    signs its sync messages; then CL_UP_SLOTS slots with every node
+    (/debug/profile during the first, /debug/spans of all four after the
+    window), node 4 and its VC sent SIGTERM, the next CL_DOWN_SLOTS slots
+    (one of them led by node 4 in QBFT's round 1) with the other three,
+    and SIGTERM to those.  Checks: every waited duty at the mock from
+    every live node with the oracle's bytes, each node's verifies on the
+    resident route and its kernels launched, every down-window consensus
+    duty decided on every live node (node 4's by a round change), every
+    VC's attestations served by its router and no request shed, a profile
+    whose trace names a kernel of the port, one attester duty's trace on
+    all four nodes, every process exit 0 within CL_EXIT_TIMEOUT with no
+    traceback; the arrivals past their slot's end are counted.  → the
+    four nodes' launches per kernel (each read from its /metrics just
+    before its SIGTERM)."""
     import shutil
 
     from charon_tpu_torch.cluster.definition import load_json, lock_from_json
@@ -4289,12 +4320,24 @@ def cluster_phase(scheme: str = "bls", slot_s: float = SIM_SLOT_S) -> dict:
     try:
         res = asyncio.run(cluster_run(work, lock, v, scheme, slot_s))
     except BaseException:
-        for i in range(1, CL_NODES + 1):
-            err = work / f"node{i}.stderr"
-            if err.exists():
-                log(f"cluster: node {i}'s stderr, last lines:\n"
-                    + "\n".join(err.read_text(errors="replace")
-                                .splitlines()[-30:]))
+        # on both streams: a failed run's standard error shows what the
+        # processes logged — their warnings and errors, then the last lines
+        for name in ("node", "vc"):
+            for i in range(1, CL_NODES + 1):
+                err = work / f"{name}{i}.stderr"
+                if not err.exists():
+                    continue
+                lines = err.read_text(errors="replace").splitlines()
+                loud = [ln for ln in lines if any(
+                    w in ln for w in (" WARNING ", " ERROR ", "ERROR:",
+                                      "Traceback", "Error"))]
+                text = (f"cluster: {name} {i}'s stderr, {len(loud)} "
+                        "warning and error lines (at most 25):\n"
+                        + "\n".join(ln[:300] for ln in loud[:25])
+                        + "\n… its last lines:\n"
+                        + "\n".join(ln[:300] for ln in lines[-12:]))
+                log(text)
+                print(text, file=sys.stderr, flush=True)
         raise
     return cluster_report(res, secrets, costs, slot_s)
 
@@ -4345,9 +4388,12 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
     servers = [NodeServer(mock, i + 1) for i in range(CL_NODES)]
     for srv in servers:
         await srv.start()
-    mon = free_ports(CL_NODES)
-    env = dict(os.environ, OMP_NUM_THREADS="2")
-    procs, logs = [], []
+    ports = free_ports(2 * CL_NODES)
+    mon, vapi = ports[:CL_NODES], ports[CL_NODES:]
+    # the App's auto-profiler (on by default) keeps its captures here
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               CHARON_TPU_AUTOPROFILE_DIR=str(work / "autoprofile-{node}"))
+    procs, vcs, logs = [], [], []
     t_spawn = time.time()
     for i in range(CL_NODES):
         d = work / f"node{i}"
@@ -4360,8 +4406,25 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
              "--identity-key-file", str(d / "charon-enr-private-key"),
              "--beacon-node-endpoints", servers[i].addr,
              "--monitoring-address", f"127.0.0.1:{mon[i]}",
+             "--validator-api-address", f"127.0.0.1:{vapi[i]}",
              "--simnet-validator-mock", "--simnet-duties", CL_FLOWS,
              "--tbls-scheme", scheme],
+            cwd=str(ROOT), env=env, stdout=out, stderr=err))
+
+    def spawn_vc(i: int) -> None:
+        """Node i's VC: `testutil.httpvc` in a process of its own, with
+        the node's share keys, speaking HTTP to the node's router; its
+        requests may wait two slots (attestation data waits for
+        consensus)."""
+        out = open(work / f"vc{i}.stdout", "wb")
+        err = open(work / f"vc{i}.stderr", "wb")
+        logs.append((out, err))
+        vcs.append(subprocess.Popen(
+            [sys.executable, "-m", "charon_tpu_torch.testutil.httpvc",
+             "--vapi-url", f"http://127.0.0.1:{vapi[i - 1]}",
+             "--keystore-dir", str(work / f"node{i - 1}" / "validator_keys"),
+             "--flows", CL_VC_FLOWS, "--max-slots", "1000",
+             "--timeout", str(2 * slot_s), "--tbls-scheme", scheme],
             cwd=str(ROOT), env=env, stdout=out, stderr=err))
 
     def start(slot: int) -> float:
@@ -4369,13 +4432,72 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
 
     def alive(nodes) -> None:
         for i in nodes:
-            if procs[i - 1].poll() is not None:
-                raise AssertionError(
-                    f"cluster: node {i} exited {procs[i - 1].returncode}:\n"
-                    + (work / f"node{i}.stderr").read_text()[-3000:])
+            for name, ps in (("node", procs), ("vc", vcs)):
+                if i <= len(ps) and ps[i - 1].poll() is not None:
+                    raise AssertionError(
+                        f"cluster: {name} {i} exited "
+                        f"{ps[i - 1].returncode}:\n"
+                        + (work / f"{name}{i}.stderr").read_text()[-3000:])
 
-    async def get(i: int, path: str) -> tuple[int, bytes]:
-        return await asyncio.to_thread(http_get, mon[i - 1], path)
+    async def get(i: int, path: str,
+                  timeout: float = 5.0) -> tuple[int, bytes]:
+        return await asyncio.to_thread(http_get, mon[i - 1], path, timeout)
+
+    async def profile_check(at: float) -> list:
+        """From `at`: /debug/profile?seconds=CL_PROFILE_S on node 1, then
+        the next node, until a capture's trace names a kernel of the port
+        (at most CL_PROFILE_TRIES captures; a 409 — the node's
+        auto-profiler capturing — waits a second and asks again, for at
+        most a minute) → each capture's kernels by name."""
+        await asyncio.sleep(max(0.0, at - time.time()))
+        tries: list = []
+        node, busy = 1, 0
+        while len(tries) < CL_PROFILE_TRIES:
+            status, body = await get(node, f"/debug/profile?seconds="
+                                     f"{CL_PROFILE_S}", timeout=120.0)
+            if status == 409 and busy < 60:
+                busy += 1
+                await asyncio.sleep(1.0)
+                continue
+            if status != 200:
+                raise AssertionError(f"cluster: node {node}'s /debug/profile"
+                                     f" {status}: {body[:300]!r}")
+            names = profile_kernels(body)
+            ours = {n: c for n, c in names.items()
+                    if any(sym in n for sym in kernel_symbols())}
+            tries.append({"node": node, "slot_s": round(
+                              (time.time() - genesis) / slot_s, 2),
+                          "kernels": len(names), "port_kernels": ours,
+                          "bytes": len(body)})
+            if ours:
+                return tries
+            node = node % CL_NODES + 1
+        raise AssertionError(f"cluster: no /debug/profile capture named a "
+                             f"kernel of the port: {tries}")
+
+    async def spans_check(slot: int) -> dict:
+        """/debug/spans of every node, parsed by the port's
+        `otlp.parse_export`: the attester duty of `slot` has spans under
+        its one deterministic trace ID on all four nodes."""
+        from charon_tpu_torch.app import otlp
+        from charon_tpu_torch.app.tracing import duty_trace_id
+
+        tid = duty_trace_id(Duty(slot, DutyType.ATTESTER))
+        out = {}
+        for i in range(1, CL_NODES + 1):
+            status, body = await get(i, "/debug/spans", timeout=60.0)
+            if status != 200:
+                raise AssertionError(f"cluster: node {i}'s /debug/spans "
+                                     f"{status}")
+            spans = otlp.parse_export(json.loads(body))
+            mine = [sp for sp in spans if sp.trace_id == tid]
+            out[i] = {"spans": len(spans), "duty_spans": len(mine),
+                      "names": sorted({sp.name for sp in mine})}
+        if not all(o["duty_spans"] for o in out.values()):
+            raise AssertionError(f"cluster: trace {tid} of "
+                                 f"{Duty(slot, DutyType.ATTESTER)} not on "
+                                 f"every node: {out}")
+        return {"trace_id": tid, "nodes": out}
 
     async def scrape(i: int) -> dict:
         status, body = await get(i, "/metrics")
@@ -4430,14 +4552,38 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
         got = records()
         return all(set(nodes) <= set(got.get(k, {})) for k in expected(slots))
 
-    async def dump(nodes) -> None:
+    async def dump(nodes) -> dict:
         """Each node's /metrics, /debug/qbft and /debug/memory, saved
-        beside its logs (what a failed run leaves to read)."""
+        beside its logs (what a failed run leaves to read) → each node's
+        counts of what can lose a duty: background task errors, the
+        router's answers that were not 2xx, failed beacon requests and
+        the partial signature sets exchanged."""
+        out = {}
         for i in nodes:
             for path, name in (("/metrics", "metrics.txt"),
                                ("/debug/qbft", "qbft.json"),
                                ("/debug/memory", "memory.json")):
-                (work / f"node{i}.{name}").write_bytes((await get(i, path))[1])
+                body = (await get(i, path))[1]
+                (work / f"node{i}.{name}").write_bytes(body)
+                if path != "/metrics":
+                    continue
+                m = parse_metrics(body.decode())
+                out[i] = {
+                    "task_errors": family(
+                        m, "app_background_task_errors_total", ("task",)),
+                    "vapi_not_2xx": {k: n for k, n in family(
+                        m, "app_vapi_requests_total",
+                        ("endpoint", "code")).items()
+                        if not k.endswith("/2xx")},
+                    "beacon_errors": family(
+                        {k: n for k, n in m.items()
+                         if ("result", "error") in k[1]},
+                        "app_beacon_requests_total", ("node",)),
+                    "parsigex_in": family(
+                        m, "core_parsigex_inbound_total", ("duty",)),
+                    "parsigex_out": family(
+                        m, "core_parsigex_outbound_total", ("duty",))}
+        return out
 
     async def incomplete(slots, nodes, what: str) -> AssertionError:
         """What arrived of `slots` per kind and node, with each live
@@ -4449,17 +4595,20 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
                 key = f"{kind}/{slot}"
                 seen.setdefault(key, {}).setdefault(str(n), 0)
                 seen[key][str(n)] += 1
-        await dump(nodes)
+        counts = await dump(nodes)
         want = {f"{k}/{s}": n for k, s, n in (
             ("attestation", s, len(attesters(s))) for s in slots)}
         return AssertionError(
             f"cluster: {what}: arrivals per duty and node {seen} (each "
-            f"slot's attesters {want}, sync messages {v})")
+            f"slot's attesters {want}, sync messages {v}); by node "
+            f"{json.dumps(counts)}")
 
-    res: dict = {"genesis": genesis, "mon": mon, "work": work}
+    res: dict = {"genesis": genesis, "slot_s": slot_s, "mon": mon,
+                 "work": work}
     try:
-        # readiness: /readyz 200 (quorum of peers, BN synced) and the
-        # prewarm done (its boot gauge), on every node
+        # readiness: /readyz 200 (quorum of peers, BN synced), the
+        # prewarm and the profiler's set-up done (their boot gauges), on
+        # every node
         ready: dict = {}
         while len(ready) < CL_NODES:
             alive(range(1, CL_NODES + 1))
@@ -4467,7 +4616,8 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
                 if i in ready or (await get(i, "/readyz"))[0] != 200:
                     continue
                 m = await scrape(i)
-                if family(m, "app_boot_seconds", ("phase",)).get("prewarm"):
+                boot = family(m, "app_boot_seconds", ("phase",))
+                if "prewarm" in boot and "profiler" in boot:
                     ready[i] = time.time() - t_spawn
             if time.time() > genesis:
                 why = {i: (await get(i, "/readyz"))[1].decode()
@@ -4480,6 +4630,9 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
             await asyncio.sleep(0.5)
         res["ready_s"] = ready
         res["genesis_s"] = genesis - t_spawn
+        # each node's VC, once its router listens (before the genesis)
+        for i in range(1, CL_NODES + 1):
+            spawn_vc(i)
         # the waited slots start after every node is ready (from slot 0,
         # the genesis being later), one of the two after them (node 4
         # down) led by node 4 in round 1
@@ -4494,14 +4647,22 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
         await asyncio.sleep(max(0.0, start(s0) - time.time()))
         res["m_up0"] = {i: await scrape(i) for i in range(1, CL_NODES + 1)}
         all_nodes = list(range(1, CL_NODES + 1))
-        while not complete(up, all_nodes):
-            alive(all_nodes)
-            if time.time() > start(up[-1] + CL_LATE_SLOTS):
-                raise await incomplete(up, all_nodes, f"slots {up} "
-                                       "incomplete at slot "
-                                       f"{up[-1] + CL_LATE_SLOTS}'s start")
-            await asyncio.sleep(0.2)
+        # the profile while the up window's first attester duty runs
+        prof = asyncio.ensure_future(profile_check(start(s0) + slot_s / 3))
+        try:
+            while not complete(up, all_nodes):
+                alive(all_nodes)
+                if time.time() > start(up[-1] + CL_LATE_SLOTS):
+                    raise await incomplete(up, all_nodes, f"slots {up} "
+                                           "incomplete at slot "
+                                           f"{up[-1] + CL_LATE_SLOTS}'s "
+                                           "start")
+                await asyncio.sleep(0.2)
+            res["profile"] = await prof
+        finally:
+            prof.cancel()
         res["up_done_s"] = time.time() - start(up[-1])
+        res["spans"] = await spans_check(up[0])
         res["m_up1"] = {i: await scrape(i) for i in all_nodes}
         res["qbft"] = {}
         # node 4: its launches and instances, then SIGTERM
@@ -4510,6 +4671,7 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
                                                       "/debug/qbft"))[1])
         t_kill = time.time()
         procs[-1].send_signal(15)
+        vcs[-1].send_signal(15)
         s_down = int((t_kill - genesis) // slot_s) + 1
         down = list(range(s_down, s_down + CL_DOWN_SLOTS))
         while not any(duty_leader(Duty(s, DutyType.ATTESTER), 1, CL_NODES)
@@ -4529,6 +4691,17 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
             res["final"][i] = await scrape(i)
             res["qbft"][i] = json.loads((await get(i, "/debug/qbft"))[1])
     finally:
+        vc_codes = []
+        for p in vcs:
+            if p.poll() is None:
+                p.send_signal(15)
+        for p in vcs:
+            try:
+                vc_codes.append(await asyncio.to_thread(p.wait,
+                                                        CL_EXIT_TIMEOUT))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                vc_codes.append(await asyncio.to_thread(p.wait))
         for p in procs:
             if p.poll() is None:
                 p.send_signal(15)
@@ -4548,8 +4721,138 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
         for srv in servers:
             await srv.stop()
     res["codes"], res["exit_s"] = codes, exit_s
+    res["vc_codes"] = vc_codes
     res["records"] = records()
     return res
+
+
+#: the kernels of a node's verify tiles and combines
+CL_PROFILED = ("g2_decompress", "miller_loop", "final_exp", "f12_fold",
+               "g1_scalar_mul", "g1_tables", "straus_msm", "g2_law",
+               "g2_normalize", "g1_decompress")
+
+
+def kernel_symbols() -> set:
+    """CL_PROFILED's kernels by the symbol a profiler trace names them
+    with (their compiled functions, PTXAS_NAMES, without template
+    arguments)."""
+    return {re.sub(r"<.*", "", PTXAS_NAMES[k].split()[1])
+            for k in CL_PROFILED}
+
+
+def profile_kernels(tarball: bytes) -> dict:
+    """A /debug/profile tarball's trace → its kernel events by name."""
+    import io
+    import tarfile
+
+    with tarfile.open(fileobj=io.BytesIO(tarball), mode="r:gz") as tar:
+        member = next((m for m in tar.getmembers()
+                       if m.name.endswith("trace.json")), None)
+        if member is None:
+            raise AssertionError("cluster: /debug/profile's tarball holds "
+                                 "no trace.json")
+        doc = json.load(tar.extractfile(member))
+    events = doc.get("traceEvents", []) if isinstance(doc, dict) else doc
+    names: dict = {}
+    for e in events:
+        if str(e.get("cat", "")).lower() == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def cluster_serving(res: dict, recs: dict, nodes: list) -> None:
+    """The serving layer in the cluster: each node's VC process exited 0
+    and submitted at least its node's waited attestations, each one a
+    request its router served (``app_vapi_requests_total``); no request
+    shed; the router's upstream fetches and the caching beacon client's
+    hits and misses; the /debug/profile and /debug/spans checks."""
+    work = res["work"]
+    waited_atts = {n: sum(1 for (kind, slot, _) in recs
+                          if kind == "attestation" and (
+                              slot in res["up"] or (slot in res["down"]
+                                                    and n < CL_NODES)))
+                   for n in nodes}
+    for n, code in zip(nodes, res["vc_codes"]):
+        lines = (work / f"vc{n}.stdout").read_text().strip().splitlines()
+        stats = json.loads(lines[-1]) if lines else {}
+        m = res["final"][n]
+        reqs = family(m, "app_vapi_requests_total", ("endpoint", "code"))
+        shed = family(m, "app_vapi_shed_total", ("endpoint",))
+        misses = family(m, "app_serving_cache_misses_total", ("endpoint",))
+        hits = family(m, "app_serving_cache_hits_total", ("endpoint",))
+        coal = family(m, "app_serving_coalesced_total", ("endpoint",))
+        lat_s = family(m, "app_vapi_request_seconds_sum", ("endpoint",))
+        lat_n = family(m, "app_vapi_request_seconds_count", ("endpoint",))
+        router = {ep: {"requests": sum(v for k, v in reqs.items()
+                                       if k.split("/")[0] == ep),
+                       "upstream_fetches": misses.get(ep, 0.0),
+                       "hits": hits.get(ep, 0.0),
+                       "coalesced": coal.get(ep, 0.0),
+                       "mean_ms": round(1e3 * lat_s.get(ep, 0.0)
+                                        / max(1.0, lat_n.get(ep, 0.0)), 3)}
+                  for ep in sorted({k.split("/")[0] for k in reqs})}
+        client = {ep: {"hits": hits.get(ep, 0.0),
+                       "misses": misses.get(ep, 0.0),
+                       "coalesced": coal.get(ep, 0.0)}
+                  for ep in sorted(set(hits) | set(misses))
+                  if ep.startswith("beacon/")}
+        log(f"cluster: node {n}: VC exit {code}, {json.dumps(stats)}; "
+            f"app_vapi_requests_total by endpoint/code {json.dumps(reqs)}; "
+            f"sheds {json.dumps(shed)}; router requests, upstream "
+            f"fetches (for attestation data: DutyDB waits) and mean "
+            f"milliseconds a request by endpoint class {json.dumps(router)}; "
+            f"the caching "
+            f"beacon client's cache {json.dumps(client)}")
+        if code != 0 or not stats:
+            raise AssertionError(f"cluster: VC {n} exited {code}: " + (
+                work / f"vc{n}.stderr").read_text(errors="replace")[-2000:])
+        if any(shed.values()):
+            raise AssertionError(f"cluster: node {n}'s router shed {shed}")
+        if (stats["submitted_atts"] < waited_atts[n]
+                or reqs.get("submit/2xx", 0) < waited_atts[n]):
+            raise AssertionError(
+                f"cluster: node {n}'s VC submitted {stats} through a router "
+                f"that served {reqs.get('submit/2xx', 0)} submissions, for "
+                f"{waited_atts[n]} waited attestations")
+    # the App's auto-profiler (on by default): its captures by reason,
+    # and no capture that failed
+    auto = {}
+    for n in nodes:
+        m = res["final"][n]
+        le = family(m, "app_event_loop_lag_seconds_bucket", ("le",))
+        count = sum(family(m, "app_event_loop_lag_seconds_count", ()).values())
+        auto[n] = {"captures": family(m, "app_autoprofile_captures_total",
+                                      ("reason",)),
+                   "skipped": family(m, "app_autoprofile_skipped_total",
+                                     ("reason",)),
+                   # the node's loop-lag samples, and those past 0.25 s
+                   # and 1 s (a capture's stall shows among them)
+                   "loop_lag": [int(count), int(count - le.get("0.25", 0)),
+                                int(count - le.get("1", 0))]}
+        # each capture's reason and when, in slots from the genesis, and
+        # the seconds its profiler's start and stop took (on a worker
+        # thread; the set-up paid at boot: app_boot_seconds{profiler})
+        auto[n]["at_slot"] = []
+        for meta in sorted((work / f"autoprofile-node{n - 1}").glob(
+                "cap*/meta.json")):
+            d = json.loads(meta.read_text())
+            took = d.get("timings", {})
+            auto[n]["at_slot"].append([d["reason"], round(
+                (d["unix_time"] - res["genesis"]) / res["slot_s"], 2),
+                round(took.get("start_s", -1), 4),
+                round(took.get("stop_s", -1), 4)])
+        err = (work / f"node{n}.stderr").read_text(errors="replace")
+        if "auto-profile capture failed" in err:
+            raise AssertionError(f"cluster: node {n}'s auto-profiler failed "
+                                 f"a capture:\n{err[-2000:]}")
+    log("cluster: the auto-profiler by node (app_autoprofile_*, by reason; "
+        "loop_lag: [samples, > 0.25 s, > 1 s]; at_slot: each capture's "
+        "reason, start in slots from the genesis, and its profiler's start "
+        "and stop in seconds) " + json.dumps(auto))
+    log("cluster: /debug/profile captures (slot_s: when each ended, in "
+        "slots from the genesis; kernel events by name, the port's among "
+        "them) " + json.dumps(res["profile"]))
+    log("cluster: /debug/spans " + json.dumps(res["spans"]))
 
 
 def cluster_report(res: dict, secrets: list, costs: dict,
@@ -4595,7 +4898,8 @@ def cluster_report(res: dict, secrets: list, costs: dict,
         raise AssertionError("cluster: an attestation of no known attester")
     signed = cluster_oracle(secrets, {k: {n: x[:2] for n, x in recs[k].items()}
                                       for k in waited})
-    log(f"cluster: ready (spawn → /readyz 200 with prewarm done) per node "
+    log(f"cluster: ready (spawn → /readyz 200 with prewarm and profiler "
+        f"set-up done) per node "
         + json.dumps({i: round(s, 2) for i, s in res["ready_s"].items()})
         + f"; genesis {res['genesis_s']:.1f} s after the spawn"
         + f"; slots {res['up']} with every node, {res['down']} with node "
@@ -4621,6 +4925,20 @@ def cluster_report(res: dict, secrets: list, costs: dict,
     log(f"cluster: arrivals past their deadline (their slot's end, {slot_s:.0f}"
         f" s from its start), by kind and window (up: {CL_NODES} nodes, "
         f"down: {CL_NODES - 1}) " + json.dumps(late, sort_keys=True))
+    # the attestations, each node's signed by its VC process over HTTP,
+    # beside the base (the phase with its VCs in the nodes' processes)
+    att_up = {n: [round(statistics.median(by_node[("attestation", s)][n]), 3)
+                  for s in res["up"]] for n in nodes}
+    log("cluster: attestations with every node up, each slot's median "
+        "seconds from slot start to arrival, by node — this run / the base "
+        f"(VCs in the nodes' processes; V = {len(secrets)}"
+        f" / {CL_BASE['v']}) " + json.dumps(
+            {n: [ms, CL_BASE["attestation_up"][n]]
+             for n, ms in att_up.items()})
+        + "; [late, arrivals] by kind and window — this run / the base "
+        + json.dumps({k: [[v["late"], v["arrivals"]], CL_BASE["late"].get(k)]
+                      for k, v in sorted(late.items())}))
+    cluster_serving(res, recs, nodes)
     launches: dict = {}
     for i in nodes:
         m = res["final"][i]
@@ -4701,6 +5019,35 @@ def cluster_report(res: dict, secrets: list, costs: dict,
         "QBFT messages of the up window × this host's primitive times; a "
         "QBFT message's justifications not counted) " + json.dumps(shares))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the validator-API serving layer under HTTP load
+# ---------------------------------------------------------------------------
+
+def serving_phase() -> list:
+    """The counterpart of the root bench.py's serving arms, on the port's
+    stack (`testutil.serving_load`: the port's `VapiRouter` in front of
+    its HTTP beacon mock, `app/http1` clients): coalesce — 64 concurrent
+    VCs × 5 rounds of spec, attester duties and the validators snapshot,
+    the upstream's duties 20 ms slow: ≥ 5× fewer upstream fetches than
+    requests and no 503; overload — the duties class at 2 concurrent + 2
+    queued, the upstream 50 ms slow, 32 clients on distinct epochs: sheds
+    as 503 + Retry-After.  The arms assert their rules; → both arms'
+    results.  No kernel runs here."""
+    from charon_tpu_torch.testutil import serving_load
+
+    arms = serving_load.run_serving_arms(n_vc=64, rounds=5)
+    for arm in arms:
+        log(f"serving: {arm['config']}: " + json.dumps(arm))
+    co, ov = arms
+    log(f"serving: coalesce {co['requests']} requests, "
+        f"{co['upstream_fetches']} upstream fetches "
+        f"({co['coalesce_ratio']:.1f}×), {co['rps']:.1f} requests/s, p50 / "
+        f"p99 {co['p50_ms']:.3f} / {co['p99_ms']:.3f} ms; overload "
+        f"{ov['served']} served, {ov['shed']} shed (503, Retry-After "
+        f"{ov['retry_after']}), {ov['rps']:.1f} requests/s")
+    return arms
 
 
 # ---------------------------------------------------------------------------
@@ -4962,6 +5309,8 @@ def main() -> int:
     resident_launches = resident_phase(dev, entries, bits)
     mark("simnet")
     simnet_launches = simnet_phase()
+    mark("serving")
+    serving_phase()
     mark("cluster")
     cluster_launches = cluster_phase()
 

@@ -19,6 +19,15 @@ talking over the authenticated TCP mesh and to an HTTP beacon mock.
       no card exits non-zero and names the missing device: nothing falls
       back to the CPU; under real BLS the App's validator mock signs in a
       spawned process, with the bytes of signing inline.
+(v)   the validator API over HTTP: two port `App`s and one JAX `App` from
+      one lock, each serving its router at the address
+      ``--validator-api-address`` sets (`RunConfig.vapi_port`), with no
+      validator mock: HTTP VCs (the port's for the port nodes, the JAX
+      package's for the JAX node) sign every attestation and block through
+      the routers, and every node broadcasts the same bytes; and what the
+      App wires around them, as the JAX App does: the caching beacon
+      client, the router in the lifecycle, the OTLP and Loki sinks from
+      the environment and the auto-profiler on the slot budget's hook.
 """
 
 import asyncio
@@ -308,6 +317,15 @@ def _readyz(port: int) -> bool:
         return False
 
 
+def _http_status(port: int, path: str) -> int:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+    try:
+        conn.request("GET", path)
+        return conn.getresponse().status
+    finally:
+        conn.close()
+
+
 def test_smoke_subprocess_cluster(tmp_path):
     """Three `python -m charon_tpu_torch run` processes: readiness first,
     then one node sent SIGTERM; the two left keep attesting, and every
@@ -322,6 +340,7 @@ def test_smoke_subprocess_cluster(tmp_path):
         server = BeaconMockServer(bmock)
         await server.start()
         mon = free_ports(n)
+        vapi = free_ports(n)
         env = dict(os.environ, CHARON_TPU_TBLS_SCHEME="insecure-test",
                    OMP_NUM_THREADS="1")
         procs = []
@@ -334,6 +353,7 @@ def test_smoke_subprocess_cluster(tmp_path):
                  os.path.join(node_dir, "charon-enr-private-key"),
                  "--beacon-node-endpoints", server.addr,
                  "--monitoring-address", f"127.0.0.1:{mon[i]}",
+                 "--validator-api-address", f"127.0.0.1:{vapi[i]}",
                  "--simnet-validator-mock"],
                 env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE))
@@ -347,6 +367,14 @@ def test_smoke_subprocess_cluster(tmp_path):
                 pending = {i for i in pending if not _readyz(mon[i])}
                 assert time.time() < deadline, f"never ready: {pending}"
                 await asyncio.sleep(0.2)
+            # each node's validator API answers at the address its flag
+            # set: a proxied path and the intercepted duties path
+            for i in range(n):
+                for path in ("/eth/v1/node/version",
+                             "/eth/v1/validator/duties/proposer/0"):
+                    status = await asyncio.to_thread(
+                        _http_status, vapi[i], path)
+                    assert status == 200, (i, path, status)
             procs[-1].send_signal(signal.SIGTERM)
             seen = len(bmock.attestations)
             deadline = time.time() + 60
@@ -421,3 +449,256 @@ def test_run_with_bls_and_no_card_names_the_missing_device(tmp_path):
         cwd=str(ROOT), capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr, res.stderr[-2000:]
+
+
+def test_port_and_jax_apps_attest_through_their_routers(tmp_path,
+                                                         monkeypatch):
+    """Two port `App`s and one JAX `App` from one lock, each serving the
+    validator API at its own address (what ``--validator-api-address``
+    sets), no validator mock: HTTP VCs sign with the share keys through
+    the routers — the port's VC at the port nodes, the JAX package's at
+    the JAX node — and every duty at the mock carries the same bytes,
+    valid under the group key, from every node."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    from charon_tpu.app import run as jrun
+    from charon_tpu.tbls import api as japi
+    from charon_tpu.testutil.httpvc import HttpValidatorClient as JVC
+    from charon_tpu_torch.eth2util import keystore
+    from charon_tpu_torch.testutil.httpvc import (HttpValidatorClient,
+                                                  load_share_keys)
+
+    n, t, m, slot, spe = 3, 2, 2, 0.5, 4
+    cluster_dir, lock = create_cluster(tmp_path, n, t, m)
+    vapi = free_ports(n)
+    cfgs = []
+    for i in range(n):
+        cls = RunConfig if i < 2 else jrun.RunConfig
+        cfg = node_cfg(cluster_dir, i, "", cls)
+        cfg.simnet_vmock = False
+        cfg.vapi_port = vapi[i]
+        cfgs.append(cfg)
+    japi.set_scheme("insecure-test")
+    try:
+        async def main():
+            bmock = BeaconMock(slot_duration=slot, slots_per_epoch=spe)
+            for v in lock.validators:
+                bmock.add_validator(pubkey_from_bytes(v.public_key))
+            server = BeaconMockServer(bmock)
+            await server.start()
+            for cfg in cfgs:
+                cfg.beacon_urls = [server.addr]
+            apps = [App(cfgs[0]), App(cfgs[1]), jrun.App(cfgs[2])]
+            runners, vcs = [], []
+            for app in apps:
+                if isinstance(app, jrun.App):
+                    # the JAX App's auto-profiler starts and stops
+                    # jax.profiler on its loop, here the one loop of all
+                    # three Apps; the port's Apps keep theirs (off the loop)
+                    monkeypatch.setenv("CHARON_TPU_AUTOPROFILE", "0")
+                await app.setup()
+                monkeypatch.delenv("CHARON_TPU_AUTOPROFILE", raising=False)
+                runners.append(asyncio.ensure_future(app.life.run()))
+            for i, app in enumerate(apps):
+                while not app.router.addr:
+                    await asyncio.sleep(0.01)
+                assert app.router.addr == f"http://127.0.0.1:{vapi[i]}"
+                keys = load_share_keys(cfgs[i].keystore_dir)
+                assert len(keystore.load_keys(cfgs[i].keystore_dir)) == m
+                vcs.append((HttpValidatorClient if i < 2 else JVC)(
+                    app.router.addr, keys))
+            tasks = [asyncio.ensure_future(vc.run(max_slots=16))
+                     for vc in vcs]
+            deadline = time.time() + 40.0
+            try:
+                while time.time() < deadline:
+                    await asyncio.sleep(0.1)
+                    slots = {a.data.slot for a in bmock.attestations}
+                    if len(slots) >= 3 and bmock.blocks:
+                        await asyncio.sleep(2 * slot)
+                        break
+            finally:
+                for vc in vcs:
+                    vc.stop()
+                for task in tasks:
+                    task.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+                for app in apps:
+                    app.life.stop()
+                for r in runners:
+                    await asyncio.wait_for(r, timeout=15)
+                await server.stop()
+            return bmock, apps, vcs
+
+        bmock, apps, vcs = asyncio.run(main())
+    finally:
+        japi.set_scheme("bls")
+
+    assert len({a.data.slot for a in bmock.attestations}) >= 3
+    assert bmock.blocks
+    check_group_signatures(bmock, lock)
+    for blk in bmock.blocks:
+        root = signing_root(DomainName.BEACON_PROPOSER,
+                            blk.message.hash_tree_root(), FORK)
+        assert any(tbls.verify(v.public_key, root, blk.signature)
+                   for v in lock.validators)
+    by_duty: dict = {}
+    for att in bmock.attestations:
+        by_duty.setdefault((att.data.hash_tree_root(),
+                            att.aggregation_bits), set()).add(att.signature)
+    assert all(len(sigs) == 1 for sigs in by_duty.values()), by_duty
+    # every node broadcast; every VC's submissions went through its router
+    assert all(a.bcast.broadcast_delays for a in apps)
+    assert all(vc.submitted_atts > 0 for vc in vcs)
+    assert [a.autoprofiler is None for a in apps] == [False, False, True]
+    for app in apps:
+        assert app.router.requests.get(("submit", "2xx"), 0) > 0
+        assert app.router.requests.get(("attestation_data", "2xx"), 0) > 0
+        assert any("/eth/v1/beacon/genesis" in p for p in app.router.proxied)
+
+
+def test_app_wires_the_serving_layer(tmp_path, monkeypatch):
+    """`App.setup` wires what the JAX App wires around the workflow: the
+    caching beacon client over the multi-client, the validator-API router
+    at the configured address with its start and stop hooks, the OTLP file
+    and HTTP sinks and the Loki sink from the environment (``{node}``
+    expanded), and the auto-profiler — on by default — on the slot
+    budget's late-duty hook; the stop hook drains the sinks."""
+    from charon_tpu_torch.app import log as applog
+    from charon_tpu_torch.app import otlp
+    from charon_tpu_torch.app.autoprofile import AutoProfiler
+    from charon_tpu_torch.app.lifecycle import StartOrder, StopOrder
+    from charon_tpu_torch.app.serving import CachingBeaconClient
+    from charon_tpu_torch.eth2util.beacon_client import MultiBeaconClient
+
+    monkeypatch.delenv("CHARON_TPU_AUTOPROFILE", raising=False)
+    monkeypatch.setenv("CHARON_TPU_AUTOPROFILE_DIR",
+                       str(tmp_path / "prof-{node}"))
+    monkeypatch.setenv("CHARON_TPU_TRACE_FILE",
+                       str(tmp_path / "{node}.otlp.jsonl"))
+    monkeypatch.setenv("CHARON_TPU_TRACE_ENDPOINT",
+                       "http://127.0.0.1:9/v1/traces")
+    monkeypatch.setenv("CHARON_TPU_LOKI_ENDPOINT",
+                       "http://127.0.0.1:9/loki/api/v1/push")
+    cluster_dir, lock = create_cluster(tmp_path, 3, 2, 1)
+    vapi_port = free_ports(1)[0]
+
+    async def main():
+        bmock = BeaconMock(slot_duration=1.0, slots_per_epoch=4)
+        server = BeaconMockServer(bmock)
+        await server.start()
+        cfg = node_cfg(cluster_dir, 1, server.addr)
+        cfg.simnet_vmock = False
+        cfg.vapi_port = vapi_port
+        app = App(cfg)
+        await app.setup()
+        try:
+            hooks = {(h.order, h.name) for h in app.life._start_hooks}
+            stops = {(h.order, h.name) for h in app.life._stop_hooks}
+            await app.router.start()
+            status = await asyncio.to_thread(
+                _http_status, vapi_port, "/eth/v1/node/version")
+            await app.router.stop()
+            sinks = [type(x).__name__ for x in app._otlp_sinks]
+            out = (hooks, stops, status, sinks,
+                   app._otlp_sinks[0].path, app._loki_sink._labels,
+                   app._loki_sink in applog._sinks)
+            with app.tracer_spans.start_span("core/test"):
+                pass
+            await app._stop_monitoring()
+            return app, out
+        finally:
+            await app.eth2cl.close()
+            await server.stop()
+
+    app, (hooks, stops, status, sinks, path, labels, installed) = \
+        asyncio.run(main())
+    assert isinstance(app.eth2cl, CachingBeaconClient)
+    assert isinstance(app.eth2cl.inner, MultiBeaconClient)
+    assert (StartOrder.VALIDATOR_API, "vapi-router") in hooks
+    assert (StopOrder.VALIDATOR_API, "vapi-router") in stops
+    assert status == 200 and app.router.addr == \
+        f"http://127.0.0.1:{vapi_port}"
+    assert sinks == ["FileSink", "AsyncHTTPSink"]
+    assert path == str(tmp_path / "node1.otlp.jsonl")
+    assert installed and labels["node"] == "node1"
+    assert app._loki_sink not in applog._sinks      # detached at stop
+    # the router's span of the request and one of the test's, drained to
+    # the file at stop
+    assert [s.name for s in otlp.parse_export_lines(
+        open(path).read())] == ["vapi/proxy", "core/test"]
+    assert isinstance(app.autoprofiler, AutoProfiler)
+    assert app.autoprofiler.out_dir == str(tmp_path / "prof-node1")
+    assert len(app.slotbudget._late_hooks) == 1
+
+
+
+@pytest.mark.parametrize("duties,fetched,signed", [
+    ((), None, None),
+    (("attester:vc", "sync_message"), {"attester"}, {"sync_message"}),
+    (("attester", "proposer"), {"attester", "proposer"},
+     {"attester", "proposer"}),
+    (("attester:vc",), {"attester"}, set()),
+])
+def test_simnet_duties_leave_vc_flows_to_the_validator_api(
+        tmp_path, monkeypatch, duties, fetched, signed):
+    """``run --simnet-duties``: the scheduler fetches every flow named,
+    the validator mock signs those not marked ``:vc`` (no mock when every
+    flow is) — the `cluster` layout of the smoke run, where HTTP VCs sign
+    the attestations and the mock the sync messages.  `run` itself parses
+    the flag and builds the App, which stops once set up."""
+    from charon_tpu_torch.app import run as run_mod
+    from charon_tpu_torch.app.run import _FETCHED_BY_FLOW, simnet_flows
+    from charon_tpu_torch.tbls import dispatch
+    from charon_tpu_torch.core.scheduler import _FETCHED_TYPES
+    from charon_tpu_torch.testutil.validatormock import FLOWS
+
+    cluster_dir, _ = create_cluster(tmp_path, 3, 2, 1)
+    node_dir = os.path.join(cluster_dir, "node1")
+    seen = []
+
+    class SetUpOnly(App):
+        async def run(self):
+            await self.setup()
+            try:
+                seen.append((self.cfg.simnet_duties,
+                             self.scheduler._fetched_types, self.vmock))
+            finally:
+                await self._stop_monitoring()
+                await self.eth2cl.close()
+
+    monkeypatch.setattr(run_mod, "App", SetUpOnly)
+    # `run` shuts the process's dispatch pipeline down as it returns and
+    # leaves SIGINT / SIGTERM ignored: give it a pipeline of its own, and
+    # put back this process's pipeline and handlers after it
+    monkeypatch.setattr(dispatch, "_default", None)
+    handlers = {s: signal.getsignal(s)
+                for s in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        rc = cli_main(
+            ["run", "--lock-file",
+             os.path.join(node_dir, "cluster-lock.json"),
+             "--identity-key-file",
+             os.path.join(node_dir, "charon-enr-private-key"),
+             "--simnet-beacon-mock", "--simnet-validator-mock",
+             "--monitoring-address", "127.0.0.1:0",
+             "--validator-api-address", "127.0.0.1:0",
+             "--tbls-scheme", "insecure-test"]
+            + (["--simnet-duties", ",".join(duties)] if duties else []))
+    finally:
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+    assert rc == 0
+    [(cfg_duties, types_, vmock)] = seen
+    assert cfg_duties == duties
+    if fetched is None:
+        assert types_ == tuple(_FETCHED_TYPES) and vmock._flows == set(FLOWS)
+        return
+    assert set(types_) == {t for f in fetched
+                           for t in _FETCHED_BY_FLOW.get(f, ())}
+    if signed:
+        assert vmock._flows == signed
+    else:
+        assert vmock is None
+    assert simnet_flows(duties)[0] == tuple(d.split(":")[0] for d in duties)
+    with pytest.raises(ValueError):
+        simnet_flows(("attester:mock",))

@@ -220,11 +220,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'charon_tpu_torch.eth2util.beacon_client',"
         " 'charon_tpu_torch.testutil.beaconmock_http',"
         " 'charon_tpu_torch.app.run', 'charon_tpu_torch.cmd',"
-        " 'charon_tpu_torch.__main__')\n"
+        " 'charon_tpu_torch.__main__', 'charon_tpu_torch.app.serving',"
+        " 'charon_tpu_torch.app.router', 'charon_tpu_torch.app.otlp',"
+        " 'charon_tpu_torch.app.log', 'charon_tpu_torch.app.autoprofile',"
+        " 'charon_tpu_torch.app.forkjoin', 'charon_tpu_torch.eth2util.network',"
+        " 'charon_tpu_torch.eth2util.synthproposer',"
+        " 'charon_tpu_torch.testutil.httpvc',"
+        " 'charon_tpu_torch.testutil.serving_load')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('charon_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          cwd=str(Path(__file__).resolve().parent.parent))
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 87
+    assert int(res.stdout.split()[-1]) >= 97
