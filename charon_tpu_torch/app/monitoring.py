@@ -294,6 +294,8 @@ def export_dispatch_metrics(registry: "Registry") -> None:
     built; absent before the first build), the resident route's captured
     verify graphs (``app_cuda_graphs_total``, always served), and the
     process pipeline's cumulative device-stage runs and verify rows."""
+    from ..ops import launch_count
+
     build = sys.modules.get("charon_tpu_torch.ops.build")
     if build is not None and "build_seconds" in build.INFO:
         registry.set_gauge("app_cuda_build_seconds",
@@ -312,16 +314,9 @@ def export_dispatch_metrics(registry: "Registry") -> None:
                            pipe.verify_rows)
     # each kernel's launches in this process, from its wrapper module's
     # counts (a node process's own: another process's never land here)
-    for mod in _WRAPPER_MODULES:
-        wrappers = sys.modules.get("charon_tpu_torch.ops." + mod)
-        for name, n in getattr(wrappers, "LAUNCHES", {}).items():
-            registry.set_gauge("app_cuda_kernel_launches_total", n,
-                               labels={"kernel": name})
-
-
-#: the kernel wrapper modules whose `LAUNCHES` /metrics serves
-_WRAPPER_MODULES = ("cuda_fp", "cuda_g2", "cuda_pairing", "cuda_h2c",
-                    "cuda_final_exp", "cuda_codec")
+    for name, n in launch_count.process_launches().items():
+        registry.set_gauge("app_cuda_kernel_launches_total", n,
+                           labels={"kernel": name})
 
 
 #: Device-memory sampling cadence (seconds).  The gauge answers the

@@ -1,4 +1,5 @@
-"""charon-tpu CLI of the port — run / create {cluster,enr} / enr / version.
+"""charon-tpu CLI of the port — run / dkg / create {cluster,enr,dkg} /
+sign / combine / enr / version.
 
 Mirrors reference cmd/cmd.go:45-76 (cobra command tree) with argparse.
 Flag values default from CHARON_TPU_<FLAG> environment variables, matching
@@ -11,14 +12,19 @@ scheduler fetches and the ``--simnet-validator-mock`` VCs sign; a flow
 marked ``:vc`` is left to the VCs on the validator API).  Its
 verifies and combines run on the card; ``--tbls-scheme insecure-test``
 is the only way to the CPU, and with the ``bls`` scheme on a machine
-without a card ``run`` exits non-zero naming the missing device.  `dkg`, `sign`,
-`combine` and `create dkg` wait for the DKG slice.
+without a card ``run`` exits non-zero naming the missing device.  `dkg`
+likewise: its lock and deposit verifies and combines run on the card, and
+with the ``bls`` scheme and no card it exits non-zero before it dials a
+peer.  `create dkg` writes the definition, each operator `sign`s its
+entry, and `combine` recombines ≥ t nodes' keystores into the group
+secrets, checked against the lock's group keys.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import os
 import sys
 import time
@@ -77,7 +83,22 @@ def main(argv: list[str] | None = None) -> int:
                       choices=["bls", "insecure-test"],
                       help="insecure-test is for smoke/compose testing only")
 
-    # -- create {cluster,enr} -----------------------------------------------
+    # -- dkg ----------------------------------------------------------------
+    dkgp = sub.add_parser("dkg", help="participate in a DKG ceremony")
+    dkgp.add_argument("--definition-file",
+                      default=_env("definition-file",
+                                   ".charon/cluster-definition.json"))
+    dkgp.add_argument("--identity-key-file",
+                      default=_env("identity-key-file",
+                                   ".charon/charon-enr-private-key"))
+    dkgp.add_argument("--output-dir", default=_env("output-dir", ".charon"))
+    dkgp.add_argument("--algorithm", default=_env("algorithm", None))
+    dkgp.add_argument("--no-verify", action="store_true",
+                      default=_env("no-verify") == "true",
+                      help="skip operator signature verification on the "
+                           "definition")
+
+    # -- create {cluster,enr,dkg} -------------------------------------------
     createp = sub.add_parser("create", help="create cluster artifacts")
     csub = createp.add_subparsers(dest="create_cmd", required=True)
 
@@ -99,6 +120,39 @@ def main(argv: list[str] | None = None) -> int:
     ce.add_argument("--host", default="127.0.0.1")
     ce.add_argument("--port", type=int, default=0)
 
+    cd = csub.add_parser("dkg", help="create a cluster definition for DKG")
+    cd.add_argument("--name", default="charon-tpu-cluster")
+    cd.add_argument("--operator-enrs", required=True,
+                    help="comma-separated operator ENR records")
+    cd.add_argument("--threshold", type=int, default=0)
+    cd.add_argument("--num-validators", type=int, default=1)
+    cd.add_argument("--fork-version", default="0x00000000")
+    cd.add_argument("--dkg-algorithm", default="default")
+    cd.add_argument("--output-file", default="cluster-definition.json")
+
+    # -- sign ---------------------------------------------------------------
+    signp = sub.add_parser(
+        "sign",
+        help="sign your operator entry in a cluster definition "
+             "(each operator runs this before the DKG)")
+    signp.add_argument("--definition-file",
+                       default=_env("definition-file",
+                                    "cluster-definition.json"))
+    signp.add_argument("--identity-key-file",
+                       default=_env("identity-key-file",
+                                    ".charon/charon-enr-private-key"))
+
+    # -- combine ------------------------------------------------------------
+    comb = sub.add_parser(
+        "combine",
+        help="recombine threshold key shares into the group secret "
+             "(reference: testutil/combine)")
+    comb.add_argument("--cluster-dir", required=True,
+                      help="dir with node*/validator_keys keystores")
+    comb.add_argument("--output-dir", default="./combined")
+    comb.add_argument("--tbls-scheme", default="bls",
+                      choices=["bls", "insecure-test"])
+
     # -- enr / version ------------------------------------------------------
     enrp = sub.add_parser("enr", help="print this node's ENR record")
     enrp.add_argument("--identity-key-file",
@@ -112,7 +166,10 @@ def main(argv: list[str] | None = None) -> int:
     args = p.parse_args(argv)
     return {
         "run": _cmd_run,
+        "dkg": _cmd_dkg,
         "create": _cmd_create,
+        "sign": _cmd_sign,
+        "combine": _cmd_combine,
         "enr": _cmd_enr,
         "version": _cmd_version,
     }[args.cmd](args)
@@ -210,11 +267,69 @@ def _cmd_run(args) -> int:
     return 0
 
 
+def _cmd_dkg(args) -> int:
+    from .cluster.definition import (definition_from_json, load_json,
+                                     verify_definition_signatures)
+    from .dkg.ceremony import run_dkg
+    from .ops import launch_count
+    from .p2p import identity as ident
+    from .p2p.transport import TCPMesh, mesh_params_from_definition
+    from .tbls import api as tbls
+    from .tbls import dispatch
+
+    if tbls.scheme_name() == "bls":
+        # the ceremony's verifies and combines need the card's backend:
+        # with no card, stop here rather than after the keygen rounds
+        try:
+            tbls.backend_name()
+        except RuntimeError as exc:
+            print(f"error: dkg: {exc}", file=sys.stderr)
+            return 1
+
+    async def main() -> None:
+        definition = definition_from_json(load_json(args.definition_file))
+        if not args.no_verify:
+            # Default-ON: a stripped/unsigned definition is an ERROR, not a
+            # silent skip — otherwise a MITM bypasses verification by
+            # deleting signatures.  --no-verify is the only opt-out.
+            verify_definition_signatures(definition)
+        # async-ok: boot-time one-shot read, before the mesh starts
+        with open(args.identity_key_file) as f:
+            identity = ident.NodeIdentity.from_bytes(
+                bytes.fromhex(f.read().strip()))
+        peers, pubs = mesh_params_from_definition(definition)
+        index = next(i for i, pub in pubs.items()
+                     if pub == identity.pubkey)
+        mesh = TCPMesh(index, peers, identity, pubs)
+        await mesh.start()
+        try:
+            lock = await run_dkg(definition, mesh, index, args.output_dir,
+                                 algorithm=args.algorithm)
+            print(f"dkg complete: lock hash 0x{lock.lock_hash.hex()}")
+            # the ceremony's device work in this process (nothing under
+            # the insecure-test scheme)
+            print("dkg: kernel launches " + json.dumps(
+                {k: n for k, n in launch_count.process_launches().items()
+                 if n}))
+        finally:
+            await mesh.stop()
+
+    try:
+        asyncio.run(main())
+    finally:
+        pipe = dispatch.current_pipeline()
+        if pipe is not None:
+            pipe.shutdown()
+    return 0
+
+
 def _cmd_create(args) -> int:
     if args.create_cmd == "cluster":
         return _create_cluster(args)
     if args.create_cmd == "enr":
         return _create_enr(args)
+    if args.create_cmd == "dkg":
+        return _create_dkg(args)
     return 2
 
 
@@ -310,6 +425,108 @@ def _create_enr(args) -> int:
     with open(path, "w") as f:
         f.write(nid.to_bytes().hex())
     print(nid.enr(args.host, args.port))
+    return 0
+
+
+def _create_dkg(args) -> int:
+    import math
+
+    from .cluster.definition import (Definition, Operator,
+                                     definition_to_json, save_json)
+
+    enrs = [e.strip() for e in args.operator_enrs.split(",") if e.strip()]
+    threshold = args.threshold or math.ceil(len(enrs) * 2 / 3)
+    definition = Definition(
+        name=args.name,
+        operators=tuple(Operator(address=f"op{i}", enr=enr)
+                        for i, enr in enumerate(enrs)),
+        threshold=threshold,
+        num_validators=args.num_validators,
+        fork_version=bytes.fromhex(args.fork_version[2:]),
+        dkg_algorithm=args.dkg_algorithm)
+    save_json(args.output_file, definition_to_json(definition))
+    print(f"wrote {args.output_file}")
+    return 0
+
+
+def _cmd_sign(args) -> int:
+    """Sign this operator's entry in a shared cluster definition — the
+    distributed-flow counterpart of create-cluster's local signing: each
+    operator runs `sign` on the definition file, then operators exchange /
+    merge the signed file before `dkg` (which verifies default-on)."""
+    from .cluster.definition import (definition_from_json,
+                                     definition_to_json, load_json,
+                                     save_json, sign_operator)
+    from .p2p import identity as ident
+
+    definition = definition_from_json(load_json(args.definition_file))
+    with open(args.identity_key_file) as f:
+        nid = ident.NodeIdentity.from_bytes(bytes.fromhex(f.read().strip()))
+    op_index = None
+    for i, op in enumerate(definition.operators):
+        pub, _, _ = ident.enr_parse(op.enr)
+        if pub == nid.pubkey:
+            op_index = i
+            break
+    if op_index is None:
+        print("error: identity key does not match any operator ENR",
+              file=sys.stderr)
+        return 1
+    definition = sign_operator(definition, op_index, nid)
+    save_json(args.definition_file, definition_to_json(definition))
+    print(f"signed operator {op_index} in {args.definition_file}")
+    return 0
+
+
+def _cmd_combine(args) -> int:
+    """Recombine per-node share keystores into group secrets — the escape
+    hatch for leaving a cluster (reference: testutil/combine/main.go).
+    Requires ≥ threshold node directories' keystores.  The lock is
+    verified on load, on the card under the bls scheme."""
+    import glob
+
+    from .cluster.definition import load_json, lock_from_json
+    from .eth2util import keystore
+    from .tbls import api as tbls
+
+    if args.tbls_scheme != "bls":
+        tbls.set_scheme(args.tbls_scheme)
+    node_dirs = sorted(glob.glob(os.path.join(args.cluster_dir, "node*")))
+    if not node_dirs:
+        print("error: no node*/ dirs found", file=sys.stderr)
+        return 1
+    lock = lock_from_json(
+        load_json(os.path.join(node_dirs[0], "cluster-lock.json")))
+    threshold = lock.definition.threshold
+
+    # share_idx (1-based) is the operator index + 1; collect per validator
+    shares_by_val: dict[int, dict[int, bytes]] = {
+        v: {} for v in range(len(lock.validators))}
+    for d in node_dirs:
+        idx = int(os.path.basename(d).removeprefix("node")) + 1
+        ks_dir = os.path.join(d, "validator_keys")
+        if not os.path.isdir(ks_dir):
+            continue
+        for v, sk in enumerate(keystore.load_keys(ks_dir)):
+            shares_by_val[v][idx] = sk
+    os.makedirs(args.output_dir, exist_ok=True)
+    secrets_out = []
+    for v, dv in enumerate(lock.validators):
+        shares = shares_by_val[v]
+        if len(shares) < threshold:
+            print(f"error: validator {v}: {len(shares)} shares < "
+                  f"threshold {threshold}", file=sys.stderr)
+            return 1
+        take = dict(list(shares.items())[:threshold])
+        group_sk = tbls.combine_shares(take)
+        if tbls.privkey_to_pubkey(group_sk) != dv.public_key:
+            print(f"error: validator {v}: recombined secret does not match "
+                  "the lock's group pubkey", file=sys.stderr)
+            return 1
+        secrets_out.append(group_sk)
+    keystore.store_keys(secrets_out, args.output_dir)
+    print(f"recombined {len(secrets_out)} validator secrets "
+          f"into {args.output_dir}")
     return 0
 
 

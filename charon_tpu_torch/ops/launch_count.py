@@ -15,10 +15,16 @@ counts them each time the graph is replayed.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 
 _LOCK = threading.Lock()
 _LOCAL = threading.local()
+
+#: the kernel wrapper modules (``charon_tpu_torch.ops.<name>``), each with
+#: its `LAUNCHES`
+WRAPPER_MODULES = ("cuda_fp", "cuda_g2", "cuda_pairing", "cuda_h2c",
+                   "cuda_final_exp", "cuda_codec")
 
 
 def bump(totals: dict[str, int], name: str) -> None:
@@ -59,3 +65,13 @@ def replay(captured: list) -> None:
     """Count the launches of one replay of a captured graph."""
     for totals, name in captured:
         bump(totals, name)
+
+
+def process_launches() -> dict[str, int]:
+    """Every kernel's launches in this process, from the wrapper modules
+    loaded so far (none before the first device call)."""
+    out: dict[str, int] = {}
+    for mod in WRAPPER_MODULES:
+        wrappers = sys.modules.get(f"{__package__}.{mod}")
+        out.update(getattr(wrappers, "LAUNCHES", {}))
+    return out

@@ -204,7 +204,31 @@ Phases, in order; any failure raises and exits non-zero:
              tracker's verdict, the sums of
              `core_dispatch_stage_seconds{stage,op}` and the
              device-memory gauge beside `torch.cuda.memory_allocated`.
-9. cluster — the node as a process: config 2's cluster (4 nodes,
+9. dkg     — BASELINE.json config 5 (FROST DKG share-proof verify, 1,000
+             validators, 7-of-10) on a fresh resident backend: real Shamir
+             shares on the host, validator v's proof by share (v mod 10) +
+             1, pubshares share·G1 and proofs share·H(m) made on the card;
+             warm — `keygen.verify_share_proofs` over one transcript, one
+             tile (one graph replay), p50 of 5, row 500's proof swapped
+             for row 501's rejected alone, it and 8 more rows equal to the
+             pure-Python oracle; cold — `verify_share_proofs_multi` over
+             1,000 transcripts (H(m) hashed and signed on the card), both
+             message caches emptied before each of 5 reps so each rep
+             hashes its 1,000 messages in one device batch, a corrupted
+             transcript rejected alone, p50 and messages/s.  Then a
+             keycast ceremony (4 operators, 3-of-4, 2 validators) of four
+             `run_dkg`s on this loop over the port's TCP mesh, whose
+             launches are `launches_dkg`; then the ceremony as operators
+             run it: `create enr` ×4, `create dkg` (Pedersen, 3-of-4, 8
+             validators: the lock / deposit batch's 9 messages are hashed
+             on the card), `sign` ×4, four `python -m charon_tpu_torch
+             dkg` processes timed from spawn to the last exit, each
+             reporting its verify, hash and combine kernels; equal locks
+             that verify on load, keystores of the nodes' pubshares,
+             every deposit signature verified by the oracle, `combine`
+             over 3 node directories recombining every group key and
+             refusing 2.
+10. cluster — the node as a process: config 2's cluster (4 nodes,
              3-of-4, attestation + sync committee message, QBFT, 12 s
              slots) written by `python -m charon_tpu_torch create
              cluster` with real BLS, V the largest count whose mock-VC
@@ -249,7 +273,8 @@ the distinct-message flush) and `launches_resident` (the first run of
 each resident flush kind: cold after prewarm, warm, slot-start, distinct,
 cold; a replay counts its graph's captured launches) and
 `launches_simnet` (the three clusters' runs, each from its first slot's
-tick to the end) and `launches_cluster` (the four node processes' own
+tick to the end) and `launches_dkg` (the in-process keycast ceremony of
+phase 9, from zero) and `launches_cluster` (the four node processes' own
 counts from their spawn, each read from its /metrics just before its
 SIGTERM), each counted from zero. K10 addsel has no
 caller on any path (nor in the JAX package): only phase 2 launches it, as
@@ -2372,11 +2397,12 @@ async def verify_round(entries):
 
 
 def _wrapper_modules():
-    from charon_tpu_torch.ops import (cuda_codec, cuda_final_exp, cuda_fp,
-                                      cuda_g2, cuda_h2c, cuda_pairing)
+    import importlib
 
-    return (cuda_fp, cuda_g2, cuda_pairing, cuda_h2c, cuda_final_exp,
-            cuda_codec)
+    from charon_tpu_torch.ops import launch_count
+
+    return tuple(importlib.import_module(f"charon_tpu_torch.ops.{mod}")
+                 for mod in launch_count.WRAPPER_MODULES)
 
 
 def reset_all_launches() -> None:
@@ -4018,7 +4044,7 @@ def simnet_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the node as a process — four `python -m charon_tpu_torch run`
+# Phase 10: the node as a process — four `python -m charon_tpu_torch run`
 # ---------------------------------------------------------------------------
 
 #: BASELINE.json config 2's cluster: 4 nodes, 3-of-4, 12 s slots (of
@@ -5022,7 +5048,471 @@ def cluster_report(res: dict, secrets: list, costs: dict,
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the validator-API serving layer under HTTP load
+# Phase 9: the DKG — BASELINE.json config 5's share-proof verify, warm and
+# cold, an in-process ceremony, and the ceremony as operator processes
+# ---------------------------------------------------------------------------
+
+#: config 5: 1,000 validators' share proofs of a 7-of-10 cluster
+DKG_V, DKG_T, DKG_N = 1000, 7, 10
+#: timed reps (p50), the corrupted row, oracle-checked rows besides it
+DKG_REPS, DKG_BAD_ROW, DKG_ORACLE_ROWS = 5, 500, 8
+#: the in-process keycast ceremony whose launches the kernels line counts
+DKG_LOOP_N, DKG_LOOP_T, DKG_LOOP_M = 4, 3, 2
+#: the ceremony as processes (Pedersen): 1 + m distinct messages in the
+#: lock / deposit batch, at least the card's hash batch (H2C_MIN_BATCH);
+#: cut from config 5's 1,000 × 7-of-10, whose pure-Python round 2 would
+#: take hours a process
+DKG_CER_N, DKG_CER_T, DKG_CER_M = 4, 3, 8
+#: the seconds the operator processes may take, spawn to last exit
+DKG_CER_TIMEOUT = 300.0
+
+
+def dkg_share_pool(dev) -> tuple[list[int], list[bytes], torch.Tensor]:
+    """Config 5's shares, as the root bench.py makes them: a real 7-of-10
+    Shamir split a validator on the host, validator v's share the one of
+    index (v mod 10) + 1; its pubshare share·G1 made on the card → (shares,
+    pubshares, the shares' bits on the card)."""
+    from charon_tpu_torch.ops import codec, curve as tcurve
+    from charon_tpu_torch.tbls import shamir
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.tbls.ref.fields import R
+
+    rng = random.Random(55)
+    shares = []
+    for v in range(DKG_V):
+        split, _ = shamir.split_secret(rng.randrange(1, R), DKG_T, DKG_N,
+                                       rng)
+        shares.append(split[v % DKG_N + 1])
+    bits = torch.from_numpy(np.ascontiguousarray(
+        tcurve.scalars_to_bits(shares).T)).to(dev)
+    g1 = torch.from_numpy(tcurve.g1_pack([rc.G1_GEN])).to(dev).expand(
+        3, NL, DKG_V).contiguous()
+    x, y, inf = codec.g1_normalize(tcurve.scalar_mul(tcurve.FP_OPS, g1, bits))
+    pks = codec.g1_compress_np(x.cpu().numpy().T, y.cpu().numpy().T,
+                               inf.cpu().numpy())
+    return shares, [pks[k].tobytes() for k in range(DKG_V)], bits
+
+
+def dkg_oracle_sample(label: str, items, oks, msg_of, gen,
+                      others: int) -> list[int]:
+    """The corrupted row and `others` more: each verdict equal to the
+    pure-Python oracle's → the rows checked."""
+    rest = [r for r in range(len(items)) if r != DKG_BAD_ROW]
+    rows = [DKG_BAD_ROW] + sorted(gen.choice(rest, others,
+                                             replace=False).tolist())
+    for r in rows:
+        pk, sig = items[r][0], items[r][1]
+        if oracle_verify(pk, msg_of(r), sig) != oks[r]:
+            raise AssertionError(f"{label} row {r}: verdict {oks[r]} != "
+                                 f"the oracle's")
+    return rows
+
+
+def dkg_warm(dev, backend, shares: list[int], pubshares: list[bytes]
+             ) -> dict:
+    """Config 5 warm (bench.py `dkg-share-verify-1000v-7of10`): the 1,000
+    proofs share·H(transcript) made on the card, verified by
+    `keygen.verify_share_proofs` — one `tbls.batch_verify`, one tile —
+    once to fill the stores, then DKG_REPS timed; a copy with row 500's
+    proof replaced by row 501's must reject that row alone."""
+    from charon_tpu_torch.dkg import keygen
+    from charon_tpu_torch.tbls.ref import bls
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.tbls.ref.hash_to_curve import hash_to_g2
+
+    transcript = b"charon-tpu-torch chip smoke: dkg ceremony transcript"
+    msg = keygen.share_proof_msg(transcript)
+    t0 = time.perf_counter()
+    proofs = sigs_on_card(dev, hash_to_g2(msg), shares)
+    t_pool = time.perf_counter() - t0
+    for k in (0, DKG_V - 1):
+        if pubshares[k] != rc.g1_to_bytes(bls.sk_to_pk(shares[k])) or \
+                proofs[k] != rc.g2_to_bytes(bls.sign(shares[k], msg)):
+            raise AssertionError(f"dkg pool row {k}: != the oracle's")
+    items = list(zip(pubshares, proofs))
+    if not all(keygen.verify_share_proofs(items, transcript)):
+        raise AssertionError("dkg warm: the first verify rejected a proof")
+    walls = []
+    for rep in range(DKG_REPS):
+        backend.reset_verify_totals()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        oks = keygen.verify_share_proofs(items, transcript)
+        walls.append(time.perf_counter() - t0)
+        if not all(oks):
+            raise AssertionError(f"dkg warm rep {rep}: {oks.count(False)} "
+                                 f"rejected")
+        if rep == 0:
+            check_graph_stage("dkg warm", backend.verify_launch_totals, 1)
+            check_no_k1("dkg warm", all_launches())
+            stages = dict(backend.verify_totals)
+    bad = list(items)
+    bad[DKG_BAD_ROW] = (bad[DKG_BAD_ROW][0], proofs[DKG_BAD_ROW + 1])
+    oks = keygen.verify_share_proofs(bad, transcript)
+    rejected = [r for r, ok in enumerate(oks) if not ok]
+    if rejected != [DKG_BAD_ROW]:
+        raise AssertionError(f"dkg warm: rows {rejected} rejected, want "
+                             f"[{DKG_BAD_ROW}]")
+    rows = dkg_oracle_sample("dkg warm", bad, oks, lambda r: msg,
+                             np.random.default_rng(5), DKG_ORACLE_ROWS)
+    p50 = statistics.median(walls)
+    log(f"dkg config 5 warm: {DKG_V:,} share proofs ({DKG_T}-of-{DKG_N}, "
+        f"one transcript), pubshares and proofs made on the card "
+        f"{t_pool:.2f} s (2 rows oracle-checked); verify_share_proofs "
+        f"p50 {p50:.4f} s of {DKG_REPS} ({[round(w, 4) for w in walls]}), "
+        f"{DKG_V / p50:,.0f} proofs/s; one tile, one graph replay; stages "
+        + json.dumps({k: round(v, 5) for k, v in stages.items()})
+        + f"; row {DKG_BAD_ROW} corrupted → only it rejected; rows {rows} "
+        f"equal the oracle")
+    return {"p50_s": p50, "walls_s": walls}
+
+
+def dkg_cold(dev, backend, shares: list[int], bits: torch.Tensor,
+             pubshares: list[bytes]) -> dict:
+    """Config 5 cold (bench.py `dkg-share-verify-1000v-coldcache`): one
+    ceremony transcript a validator, H(m) made on the card and signed on
+    the card; `keygen.verify_share_proofs_multi` DKG_REPS times, both
+    message caches (the host LRU and the device store) emptied before
+    each, so every tile hashes its 1,000 messages on the card; one
+    corrupted transcript must be the only row rejected."""
+    from charon_tpu_torch.dkg import keygen
+    from charon_tpu_torch.tbls.ref import bls
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    def empty_message_caches() -> None:
+        backend._hm_cache.clear()
+        if backend._hm_dev is not None:
+            backend._hm_dev.clear()
+
+    transcripts = [b"charon-tpu-torch chip smoke: dkg transcript %d" % v
+                   for v in range(DKG_V)]
+    msgs = [keygen.share_proof_msg(t) for t in transcripts]
+    t0 = time.perf_counter()
+    hms = backend._hash_points(msgs, {}, {})
+    sigs = sign_on_card(dev, bits, hms)
+    t_pool = time.perf_counter() - t0
+    for k in (0, DKG_V - 1):
+        if sigs[k] != rc.g2_to_bytes(bls.sign(shares[k], msgs[k])):
+            raise AssertionError(f"dkg cold pool row {k}: != the oracle's")
+    items = [(pubshares[v], sigs[v], transcripts[v]) for v in range(DKG_V)]
+    walls, stages = [], None
+    for rep in range(DKG_REPS):
+        empty_message_caches()
+        backend.reset_verify_totals()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        oks = keygen.verify_share_proofs_multi(items)
+        walls.append(time.perf_counter() - t0)
+        if not all(oks):
+            raise AssertionError(f"dkg cold rep {rep}: {oks.count(False)} "
+                                 f"rejected")
+        st = backend.verify_launch_totals
+        check_h2c_launches(f"dkg cold rep {rep}", st.get("h2c_s", {}), 1)
+        if rep == 0:
+            check_graph_stage("dkg cold", st, 1)
+            check_no_k1("dkg cold", all_launches())
+            stages = dict(backend.verify_totals)
+    bad = list(items)
+    bad[DKG_BAD_ROW] = (bad[DKG_BAD_ROW][0], bad[DKG_BAD_ROW][1],
+                        b"charon-tpu-torch chip smoke: corrupted transcript")
+    empty_message_caches()
+    oks = keygen.verify_share_proofs_multi(bad)
+    rejected = [r for r, ok in enumerate(oks) if not ok]
+    if rejected != [DKG_BAD_ROW]:
+        raise AssertionError(f"dkg cold: rows {rejected} rejected, want "
+                             f"[{DKG_BAD_ROW}]")
+    rows = dkg_oracle_sample(
+        "dkg cold", bad, oks,
+        lambda r: keygen.share_proof_msg(bad[r][2]),
+        np.random.default_rng(6), 2)
+    p50 = statistics.median(walls)
+    log(f"dkg config 5 cold: {DKG_V:,} share proofs over {DKG_V:,} "
+        f"transcripts, H(m) hashed and signed on the card {t_pool:.2f} s "
+        f"(2 rows oracle-checked); verify_share_proofs_multi with both "
+        f"message caches emptied p50 {p50:.4f} s of {DKG_REPS} "
+        f"({[round(w, 4) for w in walls]}), {DKG_V / p50:,.0f} messages/s; "
+        f"one device hash batch and one graph replay a rep; stages "
+        + json.dumps({k: round(v, 5) for k, v in stages.items()})
+        + f"; row {DKG_BAD_ROW}'s transcript corrupted → only it rejected; "
+        f"rows {rows} equal the oracle")
+    return {"p50_s": p50, "walls_s": walls, "msgs_per_s": DKG_V / p50}
+
+
+def dkg_loop_ceremony(work: Path) -> dict:
+    """A keycast ceremony (n = 4, t = 3, m = 2) of four `run_dkg`s on this
+    process's loop over the port's TCP mesh, its verifies and combine on
+    the card → its launches per kernel, counted from zero (the kernels
+    line's `launches_dkg`).  The locks must be equal and verify."""
+    from charon_tpu_torch.cluster import definition as cdef
+    from charon_tpu_torch.dkg.ceremony import run_dkg
+    from charon_tpu_torch.p2p.transport import (TCPMesh,
+                                                mesh_params_from_definition,
+                                                new_test_identities)
+
+    n = DKG_LOOP_N
+    ids, _ = new_test_identities(n, seed=b"chip-smoke-dkg")
+    ports = free_ports(n)
+    definition = cdef.Definition(
+        name="chip-smoke-dkg",
+        operators=tuple(cdef.Operator(address=f"op{i}",
+                                      enr=ids[i].enr("127.0.0.1", ports[i]))
+                        for i in range(n)),
+        threshold=DKG_LOOP_T, num_validators=DKG_LOOP_M,
+        dkg_algorithm="keycast")
+    for i in range(n):
+        definition = cdef.sign_operator(definition, i, ids[i])
+
+    async def main():
+        peers, pubs = mesh_params_from_definition(definition)
+        meshes = [TCPMesh(i, peers, ids[i], pubs,
+                          cluster_hash=cdef.definition_hash(definition))
+                  for i in range(n)]
+        for mesh in meshes:
+            await mesh.start()
+        try:
+            return await asyncio.gather(*(
+                run_dkg(definition, meshes[i], i, str(work / f"loop{i}"))
+                for i in range(n)))
+        finally:
+            for mesh in meshes:
+                await mesh.stop()
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    locks = asyncio.run(main())
+    wall = time.perf_counter() - t0
+    counts = all_launches()
+    if len({lk.lock_hash for lk in locks}) != 1:
+        raise AssertionError("dkg in-process ceremony: the locks differ")
+    cdef.verify_lock(locks[0])
+    zero = [k for k in GRAPH_KERNELS + COMBINE_PATH_KERNELS if not counts[k]]
+    if zero:
+        raise AssertionError(f"dkg in-process ceremony: never launched "
+                             f"{zero}")
+    check_no_k1("dkg in-process ceremony", counts)
+    log(f"dkg in-process ceremony (keycast, {n} operators, "
+        f"{DKG_LOOP_T}-of-{n}, {DKG_LOOP_M} validators, TCP mesh): "
+        f"{wall:.2f} s; lock 0x{locks[0].lock_hash.hex()} verified; "
+        "launches " + json.dumps({k: c for k, c in counts.items() if c}))
+    return counts
+
+
+def smi_compute_pids() -> set[int]:
+    """The pids nvidia-smi lists as compute apps on the card now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30)
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def dkg_processes(work: Path) -> dict:
+    """The ceremony as operators run it: `create enr` ×4, `create dkg`
+    (Pedersen, t = 3, m = 8), `sign` ×4 on that one file, one after
+    another, then four `python -m charon_tpu_torch dkg` processes on the
+    card, timed from the spawn to the last exit.  Checks: every process
+    exits 0 and reports the verify, hash and combine kernels launched in
+    it; the four locks are equal, load with `lock_from_json(verify=True)`
+    and pass `verify_lock`; every keystore share's pubkey is its node's
+    pubshare; the oracle verifies every deposit signature; `combine` over
+    three node directories recombines every group key, over two it exits
+    non-zero.  → the ceremony's numbers."""
+    import io
+    import os
+    import shutil
+    import threading
+
+    from charon_tpu_torch.cluster.definition import load_json, lock_from_json
+    from charon_tpu_torch.cmd import main as cli
+    from charon_tpu_torch.eth2util import keystore
+    from charon_tpu_torch.eth2util.deposit import deposit_signing_root
+    from charon_tpu_torch.tbls import api
+
+    n, t, m = DKG_CER_N, DKG_CER_T, DKG_CER_M
+    ports = free_ports(n)
+    enrs = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            if cli(["create", "enr", "--data-dir", str(work / f"op{i}"),
+                    "--host", "127.0.0.1", "--port", str(ports[i])]):
+                raise AssertionError("dkg: create enr failed")
+        enrs.append(out.getvalue().strip())
+    definition = str(work / "cluster-definition.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli(["create", "dkg", "--name", "chip-smoke-dkg",
+                "--operator-enrs", ",".join(enrs), "--threshold", str(t),
+                "--num-validators", str(m), "--dkg-algorithm", "default",
+                "--output-file", definition]):
+            raise AssertionError("dkg: create dkg failed")
+        for i in range(n):
+            if cli(["sign", "--definition-file", definition,
+                    "--identity-key-file",
+                    str(work / f"op{i}" / "charon-enr-private-key")]):
+                raise AssertionError(f"dkg: sign {i} failed")
+    prep_s = time.perf_counter() - t0
+
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    pids: set[int] = set()
+    stop = threading.Event()
+
+    def watch() -> None:
+        while not stop.is_set():
+            with contextlib.suppress(Exception):
+                pids.update(smi_compute_pids())
+            stop.wait(0.5)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    procs, files = [], []
+    t0 = time.perf_counter()
+    for i in range(n):
+        out = open(work / f"dkg{i}.stdout", "wb")
+        err = open(work / f"dkg{i}.stderr", "wb")
+        files += [out, err]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "charon_tpu_torch", "dkg",
+             "--definition-file", definition,
+             "--identity-key-file",
+             str(work / f"op{i}" / "charon-enr-private-key"),
+             "--output-dir", str(work / "cluster" / f"node{i}")],
+            cwd=str(ROOT), env=env, stdout=out, stderr=err))
+    watcher.start()
+    exits = [0.0] * n
+    try:
+        for i, proc in enumerate(procs):
+            left = DKG_CER_TIMEOUT - (time.perf_counter() - t0)
+            proc.wait(timeout=max(left, 1.0))
+            exits[i] = time.perf_counter() - t0
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+        raise AssertionError(f"dkg: the operators ran past "
+                             f"{DKG_CER_TIMEOUT:.0f} s")
+    finally:
+        for proc in procs:
+            with contextlib.suppress(Exception):
+                proc.wait(timeout=10)
+        stop.set()
+        watcher.join(timeout=35)
+        for f in files:
+            f.close()
+    wall = max(exits)
+    hashes, launches = [], []
+    for i, proc in enumerate(procs):
+        text = (work / f"dkg{i}.stdout").read_text()
+        err = (work / f"dkg{i}.stderr").read_text(errors="replace")
+        got = re.search(r"dkg complete: lock hash 0x([0-9a-f]{64})", text)
+        rep = re.search(r"dkg: kernel launches (\{.*\})", text)
+        if proc.returncode != 0 or got is None or rep is None:
+            print(f"dkg: operator {i} stderr:\n{err[-3000:]}",
+                  file=sys.stderr, flush=True)
+            raise AssertionError(f"dkg: operator {i} exited "
+                                 f"{proc.returncode}")
+        hashes.append(got.group(1))
+        launches.append(json.loads(rep.group(1)))
+        zero = [k for k in GRAPH_KERNELS + COMBINE_PATH_KERNELS
+                + H2C_PATH_KERNELS if not launches[-1].get(k)]
+        if zero:
+            raise AssertionError(f"dkg: operator {i} never launched {zero}")
+    on_smi = sorted(p.pid for p in procs if p.pid in pids)
+
+    t0 = time.perf_counter()
+    objs = [load_json(str(work / "cluster" / f"node{i}" /
+                          "cluster-lock.json")) for i in range(n)]
+    # `run`'s boot check: the load verifies each lock (`verify_lock`)
+    locks = [lock_from_json(obj, verify=True) for obj in objs]
+    if len({lk.lock_hash.hex() for lk in locks} | set(hashes)) != 1:
+        raise AssertionError(f"dkg: lock hashes differ: {hashes}")
+    lock = locks[0]
+    if len(lock.validators) != m or lock.definition.threshold != t:
+        raise AssertionError("dkg: the lock is not the definition's")
+    for i in range(n):
+        keys = keystore.load_keys(str(work / "cluster" / f"node{i}" /
+                                      "validator_keys"))
+        if [api.privkey_to_pubkey(sk) for sk in keys] != \
+                [v.public_shares[i] for v in lock.validators]:
+            raise AssertionError(f"dkg: node {i}'s keystores are not its "
+                                 f"pubshares")
+    deposits = load_json(str(work / "cluster" / "node0" /
+                             "deposit-data.json"))
+    for i in range(1, n):
+        if load_json(str(work / "cluster" / f"node{i}" /
+                         "deposit-data.json")) != deposits:
+            raise AssertionError(f"dkg: node {i}'s deposit data differs")
+    for d, v in zip(deposits, lock.validators):
+        root = deposit_signing_root(
+            v.public_key, bytes.fromhex(d["withdrawal_credentials"]),
+            lock.definition.fork_version)
+        if bytes.fromhex(d["pubkey"]) != v.public_key or not oracle_verify(
+                v.public_key, root, bytes.fromhex(d["signature"])):
+            raise AssertionError("dkg: a deposit signature fails the oracle")
+    check_s = time.perf_counter() - t0
+
+    for k in (3, 2):
+        shutil.rmtree(work / f"combine{k}", ignore_errors=True)
+        for i in range(k):
+            shutil.copytree(work / "cluster" / f"node{i}",
+                            work / f"combine{k}" / f"node{i}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc3 = cli(["combine", "--cluster-dir", str(work / "combine3"),
+                   "--output-dir", str(work / "combined3")])
+    secrets = keystore.load_keys(str(work / "combined3"))
+    if rc3 != 0 or [api.privkey_to_pubkey(sk) for sk in secrets] != \
+            [v.public_key for v in lock.validators]:
+        raise AssertionError(f"dkg: combine over {t} nodes exited {rc3}")
+    with contextlib.redirect_stderr(io.StringIO()) as err2:
+        rc2 = cli(["combine", "--cluster-dir", str(work / "combine2"),
+                   "--output-dir", str(work / "combined2")])
+    if rc2 == 0 or "< threshold" not in err2.getvalue():
+        raise AssertionError(f"dkg: combine over 2 nodes exited {rc2}")
+
+    log(f"dkg ceremony as processes (Pedersen, {n} operators, {t}-of-{n}, "
+        f"{m} validators, real BLS): create enr ×{n}, create dkg, sign ×{n} "
+        f"{prep_s:.2f} s; the {n} `dkg` processes {wall:.2f} s from spawn "
+        f"to the last exit (exits at "
+        f"{', '.join(f'{x:.2f}' for x in exits)} s); lock "
+        f"0x{hashes[0]} equal on all {n}, verified on load; keystores, "
+        f"{m} deposit signatures (oracle) and the locks checked in "
+        f"{check_s:.2f} s; combine over {t} nodes recombined {m} group "
+        f"keys, over 2 refused; pids under nvidia-smi's compute apps: "
+        f"{len(on_smi)} of {n}; each process's launches: "
+        + json.dumps(launches))
+    return {"wall_s": wall, "exits_s": exits, "launches": launches,
+            "pids_on_smi": len(on_smi)}
+
+
+def dkg_phase(dev) -> dict:
+    """Config 5's share-proof verify warm and cold on a fresh resident
+    backend, the in-process keycast ceremony (its launches are the
+    kernels line's `launches_dkg`), and the Pedersen ceremony as four
+    operator processes → the in-process ceremony's launches."""
+    import shutil
+
+    from charon_tpu_torch.tbls import api, backend_cuda
+
+    prev = api._backend()
+    backend = backend_cuda.CUDABackend()
+    api.register_backend("cuda", backend)
+    work = ROOT / "build" / "dkg_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        shares, pubshares, bits = dkg_share_pool(dev)
+        log(f"dkg config 5 pool: {DKG_V:,} Shamir shares on the host and "
+            f"their pubshares on the card {time.perf_counter() - t0:.2f} s")
+        dkg_warm(dev, backend, shares, pubshares)
+        dkg_cold(dev, backend, shares, bits, pubshares)
+        counts = dkg_loop_ceremony(work)
+        torch.cuda.empty_cache()
+        dkg_processes(work)
+    finally:
+        api.register_backend("cuda", prev)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The validator-API serving layer under HTTP load (before the dkg phase)
 # ---------------------------------------------------------------------------
 
 def serving_phase() -> list:
@@ -5311,6 +5801,8 @@ def main() -> int:
     simnet_launches = simnet_phase()
     mark("serving")
     serving_phase()
+    mark("dkg")
+    dkg_launches = dkg_phase(dev)
     mark("cluster")
     cluster_launches = cluster_phase()
 
@@ -5330,6 +5822,7 @@ def main() -> int:
                       + distinct_launches[name]
                       + sum(c[name] for c in resident_launches.values())
                       + simnet_launches[name]
+                      + dkg_launches[name]
                       + cluster_launches.get(name, 0)),
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
@@ -5339,6 +5832,7 @@ def main() -> int:
          "launches_resident": {kind: c[name] for kind, c in
                                resident_launches.items()},
          "launches_simnet": simnet_launches[name],
+         "launches_dkg": dkg_launches[name],
          "launches_cluster": cluster_launches.get(name, 0),
          **kern[name],
          **{k: ptxas[PTXAS_NAMES[name]][k] for k in ("regs", "stack",
