@@ -15,7 +15,7 @@ gets a `Tracer` and the
 device-memory probes, and the registry's place in the process-global
 dispatch fan-out.  The node chooses no tbls backend: its verifies and
 combines run on whatever backend is set, through the process's one
-`tbls.dispatch.DispatchPipeline`.
+`tbls.dispatch.DispatchPipeline` or the one passed as `dispatcher`.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ class Node:
                  slots_per_epoch: int = 16, genesis_time: float = 0.0,
                  slot_duration: float = 1.0, registry=None, tracer=None,
                  clock=None, dutydb=None, aggsigdb=None, probes: bool = True,
-                 fetched_types=None):
+                 fetched_types=None, dispatcher=None):
         """`clock` (default wall time) threads one injectable timebase
         through scheduler, deadliner, tracker, slot budget and
         broadcaster — the chaos simnet's determinism hook.  `dutydb` /
@@ -71,7 +71,9 @@ class Node:
         faults).  `probes=False` skips the loop-lag/device-memory sampling
         background tasks (virtual-time soak runs don't want wall-clocked
         samplers).  `fetched_types` narrows the scheduler's triggered duty
-        families."""
+        families.  `dispatcher` is the `tbls.dispatch.DispatchPipeline`
+        the node's verifies and combines run through (None: the process's
+        one pipeline; the chaos simnet passes an inline one)."""
         self.cfg = cfg
         self.eth2cl = eth2cl
         clock = clock if clock is not None else time.time
@@ -96,8 +98,10 @@ class Node:
         self.consensus = consensus
         self.dutydb = dutydb if dutydb is not None else MemDutyDB()
         # Off-loop dispatch pipeline shared by verify + combine launches
-        # (the process's one pipeline, shared by every in-process node).
-        self.dispatcher = dispatch.default_pipeline()
+        # (by default the process's one pipeline, shared by every
+        # in-process node).
+        self.dispatcher = (dispatcher if dispatcher is not None
+                           else dispatch.default_pipeline())
         # Both verify call-sites (local VC submissions + inbound peer
         # partials) share one micro-batching verifier → one
         # tbls.batch_verify launch per event-loop tick (reference per-sig

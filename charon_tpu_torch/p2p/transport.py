@@ -38,9 +38,8 @@ a port mesh and a JAX mesh handshake and exchange frames.  One
 difference: each inbound request is served by a task of its own, where
 the JAX mesh awaits its handler inside the connection's read loop (see
 `_on_body`), at most `MAX_INFLIGHT` of them a connection; a handler's
-exception is logged and the connection kept.
-Left out until the chaos harness (`testutil/chaos.py`) comes over: the
-`faults=` injection hook.
+exception is logged and the connection kept.  The `faults=` injection
+hook drives the chaos harness's link faults (`testutil/chaos.MeshLinkFaults`).
 """
 
 from __future__ import annotations
@@ -143,13 +142,18 @@ class TCPMesh:
     failure mode), while every fast-failed send still rides the
     ``app_p2p_send_failure_streak`` gauge so a peer the mesh has
     effectively given up on is visible at /metrics.  A successful dial
-    resets the gate.  `rng` pins the jitter for deterministic tests."""
+    resets the gate.  `rng` pins the jitter for deterministic tests.
+
+    `faults` is the chaos-harness injection point (testutil/chaos.py):
+    an object with async hooks ``on_dial(peer_index)`` and
+    ``on_send(peer_index, protocol, nbytes)`` that may delay (inject
+    latency) or raise OSError/ConnectionError (drop the dial/frame)."""
 
     def __init__(self, self_index: int, peers: list[Peer],
                  node_identity: ident.NodeIdentity,
                  peer_pubkeys: dict[int, bytes],
-                 cluster_hash: bytes = b"", registry=None, rng=None,
-                 backoff_base: float = 0.1,
+                 cluster_hash: bytes = b"", registry=None, faults=None,
+                 rng=None, backoff_base: float = 0.1,
                  backoff_factor: float = 1.6, backoff_jitter: float = 0.2,
                  backoff_ceiling: float = 30.0):
         self.self_index = self_index
@@ -174,6 +178,7 @@ class TCPMesh:
         # per-peer transport health metrics (reference: p2p/sender.go:53-110
         # logs + p2p metrics.go counters); optional app.monitoring.Registry
         self.registry = registry
+        self._faults = faults
         self._ever_connected: set[int] = set()
         # reconnect gate state: peer -> (not-before loop time, delay gen)
         self._rng = rng
@@ -380,6 +385,8 @@ class TCPMesh:
                 self.dial_attempts.get(peer_index, 0) + 1)
             writer = None
             try:
+                if self._faults is not None:
+                    await self._faults.on_dial(peer_index)
                 reader, writer = await self._dial(peer)
                 ch = await self._handshake_initiator(reader, writer,
                                                      peer_index)
@@ -426,6 +433,8 @@ class TCPMesh:
                           payload: bytes, msg_id: int, is_reply: bool):
         t0 = asyncio.get_running_loop().time()
         ch = await self._connect(peer_index)
+        if self._faults is not None:
+            await self._faults.on_send(peer_index, protocol, len(payload))
         frame = ch.seal(self._encode_body(protocol, payload, msg_id,
                                           is_reply))
         ch.writer.write(frame)

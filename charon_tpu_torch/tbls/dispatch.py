@@ -5,9 +5,10 @@ A copy of the JAX package's stdlib-only pipeline (tbls/dispatch.py),
 wired to this package's `api`: the combine and verify paths, the boot
 prewarm, and the telemetry (the process-global metrics fan-out, the
 per-job stages and the overlap gauge).  Left out: the environment knobs
-(inline mode, the tile size, the prewarm switch and the loop guard are
-fixed here: always off-loop, `VERIFY_TILE`, prewarm when called, guard
-always on).  A device
+(the tile size, the prewarm switch and the loop guard are fixed here:
+`VERIFY_TILE`, prewarm when called, guard always on); the JAX package's
+inline mode (``CHARON_TPU_DISPATCH=0``) is the constructor argument
+``DispatchPipeline(inline=True)``.  A device
 launch must never run on the asyncio event loop: a multi-hundred-ms
 combine would freeze every timer and duty hand-off for its duration.  The
 process owns ONE `DispatchPipeline`, a two-stage executor pair:
@@ -23,6 +24,13 @@ thread packs batch *k+1*.  A verify larger than `VERIFY_TILE` entries is
 split into tiles that run through the same two stages, so host prep of
 tile *i+1* overlaps device execution of tile *i*.  The split entry points
 come from `tbls.api.verify_stages` / `combine_stages`.
+
+An inline pipeline (``inline=True``: the chaos harness's, whose virtual
+clock must not move while a flush is in flight) starts no thread: each
+payload's prep and then its exec run on the calling thread, in order, and
+`prewarm` runs there too.  It keeps the same counters and stage seconds
+(its queue waits are zero), and `assert_off_loop` lets a device entry
+point through only while one of its stages runs on that thread.
 
 Telemetry: every job is attributed to queue_wait / host_prep /
 device_exec / fetch stages (`STAGES`), recorded on the awaiting event
@@ -43,6 +51,7 @@ launch-busy window serves :meth:`DispatchPipeline.overlap_efficiency`.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import threading
 import time
 from collections import deque
@@ -58,9 +67,29 @@ def tile_sizes(n: int, tile: int) -> list[int]:
     return [min(tile, n - i) for i in range(0, n, tile)]
 
 
+#: per-thread flag: an inline pipeline's stage is running on this thread
+_inline_stage = threading.local()
+
+
+@contextlib.contextmanager
+def _inline_stage_running():
+    """Mark the body as an inline pipeline's stage on this thread (the one
+    place `assert_off_loop` lets a device entry point through on a loop
+    thread)."""
+    prev = getattr(_inline_stage, "on", False)
+    _inline_stage.on = True
+    try:
+        yield
+    finally:
+        _inline_stage.on = prev
+
+
 def assert_off_loop(op: str) -> None:
     """Raise if a device entry point runs on a thread with a RUNNING event
-    loop (i.e. inline in a coroutine)."""
+    loop (i.e. inline in a coroutine), unless an inline pipeline's own
+    stage is running it."""
+    if getattr(_inline_stage, "on", False):
+        return
     try:
         asyncio.get_running_loop()
     except RuntimeError:
@@ -158,13 +187,19 @@ class DispatchPipeline:
     is mutated and snapshotted under ONE ``_lock``.  Per-job stage times
     are written into each job dict by the stage that ran it, and folded
     into the counters and the registries on the awaiting event loop after
-    the job completes."""
+    the job completes.
 
-    def __init__(self):
-        self._prep_pool = ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="charon-cuda-host-prep")
-        self._launch_pool = ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="charon-cuda-launch")
+    `inline` runs both stages on the calling thread instead (module
+    docstring): no executor, no thread."""
+
+    def __init__(self, inline: bool = False):
+        self.inline = bool(inline)
+        self._prep_pool = self._launch_pool = None
+        if not self.inline:
+            self._prep_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="charon-cuda-host-prep")
+            self._launch_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="charon-cuda-launch")
         self._lock = threading.Lock()
         #: coalesced calls completed (one per combine or verify flush) and
         #: device-stage runs (one per tile)
@@ -317,6 +352,8 @@ class DispatchPipeline:
         first stage exception is raised after every submitted exec has
         finished (a tile failure must not leave orphaned executor jobs
         mutating shared counters)."""
+        if self.inline:
+            return self._inline_run(stages, payloads, op, stats)
         prep_fn, exec_fn = stages
         loop = asyncio.get_running_loop()
         launch_futs, jobs = [], []
@@ -342,9 +379,50 @@ class DispatchPipeline:
             results = await asyncio.gather(*launch_futs,
                                            return_exceptions=True)
         finally:
-            with self._lock:
-                self.launches += bool(launch_futs)
-                self.tiles += len(launch_futs)
+            self._count_call(len(launch_futs))
+        return self._finish_call(op, jobs, results, prep_exc, stats)
+
+    def _inline_run(self, stages, payloads, op: str,
+                    stats: dict | None) -> list:
+        """`_pipelined` on the calling thread: each payload's prep, then
+        its exec, in order, with the same counters, stage seconds and
+        error order."""
+        prep_fn, exec_fn = stages
+        results, jobs = [], []
+        prep_exc: BaseException | None = None
+        try:
+            for payload in payloads:
+                job = {"t_submit": time.perf_counter()}
+                try:
+                    with _inline_stage_running():
+                        prepared = self._run_prep(prep_fn, payload, job)
+                except BaseException as exc:  # noqa: BLE001 — re-raised
+                    prep_exc = exc
+                    break
+                self._bump_depth(+1)
+                job["t_enq_launch"] = time.perf_counter()
+                try:
+                    with _inline_stage_running():
+                        results.append(self._run_launch(exec_fn, prepared,
+                                                        job))
+                except BaseException as exc:  # noqa: BLE001 — re-raised
+                    results.append(exc)
+                job["fetch_s"] = time.perf_counter() - job["t_exec_end"]
+                jobs.append(job)
+        finally:
+            self._count_call(len(jobs))
+        return self._finish_call(op, jobs, results, prep_exc, stats)
+
+    def _count_call(self, tiles: int) -> None:
+        with self._lock:
+            self.launches += bool(tiles)
+            self.tiles += tiles
+
+    def _finish_call(self, op: str, jobs: list, results: list,
+                     prep_exc: BaseException | None,
+                     stats: dict | None) -> list:
+        """Record every finished job, then raise the first failure (a
+        prep failure before any exec's) or return the results."""
         for job, r in zip(jobs, results):
             if not isinstance(r, BaseException):
                 self._record_job(op, job, stats)
@@ -397,9 +475,15 @@ class DispatchPipeline:
         """`tbls.prewarm` at boot, on a short-lived thread of its own — not
         the launch pool, where seconds of prewarm queued on the single
         launch thread would hold the first duties' launches behind it.
-        The backend's locks order what it shares with the launches."""
+        The backend's locks order what it shares with the launches.  An
+        inline pipeline runs it on the calling thread."""
         from . import api
 
+        if self.inline:
+            with _inline_stage_running():
+                report = api.prewarm(pubshares, num_validators, threshold)
+            self.prewarmed = report
+            return report
         loop = asyncio.get_running_loop()
         pool = ThreadPoolExecutor(max_workers=1,
                                   thread_name_prefix="charon-cuda-prewarm")
@@ -412,8 +496,9 @@ class DispatchPipeline:
         return report
 
     def shutdown(self) -> None:
-        self._prep_pool.shutdown(wait=True)
-        self._launch_pool.shutdown(wait=True)
+        for pool in (self._prep_pool, self._launch_pool):
+            if pool is not None:
+                pool.shutdown(wait=True)
 
 
 _default: DispatchPipeline | None = None

@@ -7,7 +7,12 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. build   — compile csrc/*.cu with nvcc (one process per source, in
              parallel); print the build seconds, the compiler's register /
-             spill report, and the card's name and power limit.
+             spill report, and the card's name and power limit.  The
+             host's 8 worker processes start first (below nvcc's
+             priority) and make what needs no kernel meanwhile: the chaos
+             phase's signatures and the cluster phase's `create cluster`
+             (its V by one signature timed before them); later phases
+             hand them the oracle's larger checks.
 2. kernels — every kernel (K1 fp ops, K2 G2 dbl/add, K3 Straus head/tail
              at the combine's shapes; K4 Miller dbl/add, K5 Fp12
              sqr/mul014/f12mul and K6 G1 dblsel at one verify tile, 4,096
@@ -228,10 +233,42 @@ Phases, in order; any failure raises and exits non-zero:
              every deposit signature verified by the oracle, `combine`
              over 3 node directories recombining every group key and
              refusing 2.
-10. cluster — the node as a process: config 2's cluster (4 nodes,
+10. chaos   — the fault catalogue and the race stress with real BLS, on
+             a fresh resident backend (`testutil/chaos.py`, one inline
+             dispatch pipeline a run, the nodes on a virtual clock):
+             `garbage` (24 slots: a byzantine node's 96 random bytes as
+             partials, off-round consensus frames) and
+             `byzantine_equivocation` (22 slots, cut from 32: validly
+             signed conflicting partials that the card must accept for
+             the detector to count them) at seed 0, and `garbage` at 8
+             slots twice, all four at once (their walls concurrent), each
+             on a thread and a CUDA stream of its own with its own copy of
+             every verify bucket (captured first, dropped after the runs;
+             `verify_graphs_per_stream`); the signatures the mock VCs will make
+             (recorded from the same runs under insecure-test) made
+             beforehand on the host's workers during the build; the
+             cluster phase's four node processes boot on the same card
+             beside the runs' end.  Each run passes
+             `ChaosHarness.check` (liveness, safety, telemetry truth), 8
+             distinct attestations of each scenario equal the oracle,
+             the verify tile's and the combine's kernels launch and K1
+             only as a re-check's negation; per scenario the wall, the
+             nodes' verify flushes, tiles, rows rejected, re-checks,
+             combines, attestations, verify stages and launches; the two
+             8-slot runs must give one fingerprint.  Then
+             `testutil/racecheck.py`'s dispatch_stress (seed 5, bls: the
+             verifies, prewarm and a device store on the card beside
+             scrape and commit threads, a fresh backend's two locks
+             instrumented) twice: clean, every entry verified,
+             `CUDABackend.*` among the writers, one fingerprint.
+11. cluster — the node as a process: config 2's cluster (4 nodes,
              3-of-4, attestation + sync committee message, QBFT, 12 s
              slots) written by `python -m charon_tpu_torch create
-             cluster` with real BLS, V the largest count whose mock-VC
+             cluster` with real BLS (on a host worker during the build),
+             spawned during the chaos phase's runs once their estimated
+             time left and the phase's tail fit before the genesis (90 s
+             after the spawn: the nodes boot beside the phase's end, their
+             waited slots after it), V the largest count whose mock-VC
              signing in ONE node's process fits ⅔ of a slot, at most 32
              (what one card keeps up with for four nodes); a
              BeaconMockServer a node in this process over one mock; four
@@ -274,7 +311,8 @@ each resident flush kind: cold after prewarm, warm, slot-start, distinct,
 cold; a replay counts its graph's captured launches) and
 `launches_simnet` (the three clusters' runs, each from its first slot's
 tick to the end) and `launches_dkg` (the in-process keycast ceremony of
-phase 9, from zero) and `launches_cluster` (the four node processes' own
+phase 9, from zero) and `launches_chaos` (phase 10's two scenarios,
+each from zero) and `launches_cluster` (the four node processes' own
 counts from their spawn, each read from its /metrics just before its
 SIGTERM), each counted from zero. K10 addsel has no
 caller on any path (nor in the JAX package): only phase 2 launches it, as
@@ -307,6 +345,11 @@ launches. `regs`, `stack` and `spill` are the compiler's
 full rate; K11 also gives `bound_one_warp_ms`, the bound at the rate of
 the SMs its rows can occupy under its one-warp-per-row design (one SM at 1
 row).
+A `plain_ms` taken on a plain version's first call in the run is cold
+(`plain_warm` false: its first-use set-up included), any other warm;
+the script orders each kernel's shapes so that its top-level entry's is
+warm where one call can serve (K13's, on one input of random, all-LMAX
+and real rows, is its only call and cold).
 The second-to-last line is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -317,6 +360,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import json
 import multiprocessing
 import random
@@ -326,7 +370,8 @@ import subprocess
 import sys
 import threading
 import time
-from concurrent.futures import ProcessPoolExecutor
+import types
+from concurrent.futures import Future, ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -370,6 +415,30 @@ def smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+#: the host's worker processes for the run's pure-Python work (the chaos
+#: runs' signatures, `create cluster`, the oracle's larger checks):
+#: spawned (never forked after CUDA is up) before the build, so that the
+#: work no kernel needs runs while nvcc does, below nvcc's priority
+HOST_WORKERS, HOST_NICE = 8, 10
+HOST_POOL: ProcessPoolExecutor | None = None
+
+
+def _host_worker_init() -> None:
+    import os
+
+    os.nice(HOST_NICE)
+
+
+def host_pool() -> ProcessPoolExecutor:
+    """The run's host workers, started on first use."""
+    global HOST_POOL
+    if HOST_POOL is None:
+        HOST_POOL = ProcessPoolExecutor(
+            max_workers=HOST_WORKERS, initializer=_host_worker_init,
+            mp_context=multiprocessing.get_context("spawn"))
+    return HOST_POOL
 
 
 # ---------------------------------------------------------------------------
@@ -579,15 +648,44 @@ def bound(ops: np.ndarray, nbytes: float, sm_clocks_per_s: float
             "operations" if t_ops >= t_mem else "bytes")
 
 
+#: the plain versions this run has called (by module and name): a plain
+#: version's first call pays its first-use set-up, so a time taken on it
+#: is marked cold (`plain_warm` false)
+PLAIN_CALLED: set = set()
+
+
 def record(results: dict, name, kernel_fn, plain_fn, ops, nbytes, patterns,
-           sm_clocks_per_s: float, plain_reps: int = 5) -> None:
+           sm_clocks_per_s: float, plain_reps: int = 5) -> tuple:
     """Hold the kernel against its plain version on every input pattern
     (bit for bit), then time both on the first pattern (the kernel over 5
-    runs, the plain version over `plain_reps`)."""
+    runs, the plain version over `plain_reps`).  With `plain_reps` 1 the
+    first pattern is compared last and its comparison call is the plain
+    version's one timed run: warm where an earlier call of the same plain
+    version came before it in this run (another pattern's, or another
+    shape's), and marked cold (`plain_warm` false) where none did.  → the
+    plain version's outputs on the first pattern."""
     err = 0
-    for pat in patterns:
+    plain_ms = first = None
+    warm = True
+    once = plain_reps == 1
+    key = (plain_fn.__module__, plain_fn.__qualname__)
+    order = [*patterns[1:], patterns[0]] if once else patterns
+    for pat in order:
         args = pat()
-        got, want = kernel_fn(*args), plain_fn(*args)
+        got = kernel_fn(*args)
+        if once and pat is patterns[0]:
+            warm = key in PLAIN_CALLED
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain_fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+        else:
+            want = plain_fn(*args)
+        PLAIN_CALLED.add(key)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -601,14 +699,19 @@ def record(results: dict, name, kernel_fn, plain_fn, ops, nbytes, patterns,
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {diff})")
         err = max(err, diff)
+        if pat is patterns[0]:
+            first = want
     args = patterns[0]()
     ms = time_ms(lambda: kernel_fn(*args))
-    plain_ms = time_ms(lambda: plain_fn(*args), plain_reps)
+    if plain_ms is None:
+        plain_ms = time_ms(lambda: plain_fn(*args), plain_reps)
     bms, by = bound(ops, nbytes, sm_clocks_per_s)
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by}
+                     "plain_warm": warm, "bound_ms": bms, "bound_by": by}
     log(f"kernel {name}: bit-identical on {len(patterns)} inputs; {ms:.4f} "
-        f"ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by})")
+        f"ms (plain {plain_ms:.4f} ms{'' if warm else ', cold'}, bound "
+        f"{bms:.4f} ms by {by})")
+    return first
 
 
 def kernels_phase(dev, rows: int, vrows: int, sm_clocks_per_s: float) -> dict:
@@ -1019,28 +1122,28 @@ def straus_msm_phase(dev, rows: int, vrows: int,
 def zmul_phase(dev, sm_clocks_per_s: float) -> dict:
     """K17 against `zmul_plain` bit for bit at a 2,048-message hash
     batch's [|x|]P, [|x|]ψ(P) launch (4,096 rows) and at the slot-start
-    batch's (128 rows), on random limbs with ∞ rows and all-LMAX limbs,
+    batch's (128 rows), on random limbs with ∞ rows and a quarter of the
+    rows all-LMAX (one input, one plain call a shape),
     and against the 34 K2/K10 launches it replaced (`zmul_steps`); timed
     beside them, its bound and the plain version; the sweep over 2, 4 and
     8 lanes at 4,096 rows."""
-    from charon_tpu_torch.ops import cuda_g2, cuda_h2c as ch
+    from charon_tpu_torch.ops import cuda_g2, fp
+    from charon_tpu_torch.ops import cuda_h2c as ch
     from charon_tpu_torch.ops import miller_program as mp
 
     gen = np.random.default_rng(20261022)
     row_ops = 65 * OPS["g2_dbl"] + 6 * OPS["g2_add"]
     res = {}
-    for n in (4096, 128):
-        def pat(pattern, n=n):
-            q = limbs(dev, gen, (6, NL, n), pattern)
-            if pattern == "random":
-                q[..., 5:21] = cuda_g2.inf_planes(16, dev)
-            return (q,)
-
+    # the slot-start batch's 128 rows first: the plain version's first
+    # call (cold), the 4,096 rows' after it warm
+    for n in (128, 4096):
+        q = limbs(dev, gen, (6, NL, n), "random")
+        q[..., 5:21] = cuda_g2.inf_planes(16, dev)
+        q[..., n - n // 4:] = fp.LMAX
         part = {}
         record(part, "g2_zmul", ch.zmul, ch.zmul_plain, row_ops * n,
-               2 * PT_BYTES * n, [lambda: pat("random"), lambda: pat("lmax")],
-               sm_clocks_per_s, plain_reps=1)
-        q, = pat("random")
+               2 * PT_BYTES * n, [lambda q=q: (q,)], sm_clocks_per_s,
+               plain_reps=1)
         if not torch.equal(ch.zmul_steps(q), ch.zmul(q)):
             raise AssertionError(f"K17 at {n} rows differs from the K2/K10 "
                                  f"launch sequence")
@@ -1463,7 +1566,9 @@ def g1_decompress_phase(dev, pks: list[bytes], sm_clocks_per_s: float,
 
     rows, kinds = g1_decompress_rows(pks)
     res = {}
-    for n in sizes:
+    # the last size first: the plain version's one call there is its
+    # first (cold), the first size's (the kernels line's) after it warm
+    for n in reversed(sizes):
         x, sign, inf, bad = codec.g1_bytes_split(
             np.stack([np.frombuffer(b, np.uint8) for b in rows[:n]]))
         if bad.any():
@@ -1493,7 +1598,8 @@ def g1_decompress_phase(dev, pks: list[bytes], sm_clocks_per_s: float,
     log("K21 g1_decompress: " + "; ".join(
         f"at {n:,} keys {r['ms']:.4f} ms against {r['steps_ms']:.4f} ms for "
         f"the K1 chain (bound {r['bound_ms']:.4f} ms by {r['bound_by']}; "
-        f"plain {r['plain_ms']:.1f} ms)" for n, r in res.items()))
+        f"plain {r['plain_ms']:.1f} ms{'' if r['plain_warm'] else ', cold'})"
+        for n, r in ((n, res[n]) for n in sizes)))
     return {**res[sizes[0]], "rows": sizes[0],
             **{f"at_{n}": res[n] for n in sizes[1:]}}
 
@@ -1866,15 +1972,16 @@ def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
                            combine_real: int, combine_rows: int,
                            sm_clocks_per_s: float, sms: int) -> dict:
     """K11 with its verdict "= 1" against `final_exp_plain` and
-    `pairing.is_one` at 1 row (the batch check) and `tile` rows (a
-    re-check), on seeded random limbs — half the rows Fp elements, which
-    come out one — and all-LMAX limbs; K12 against
+    `pairing.is_one` at `tile` rows (a re-check) on one input of seeded
+    random limbs — half the rows Fp elements, which come out one — with a
+    quarter all-LMAX, and at 1 row (the batch check) on an Fp element and
+    on three rows of that input; K12 against
     `g2_decompress_plain` at `tile` rows (a verify tile) and `combine_rows`
     (the combine: `combine_real` signatures, the rest ∞ padding), on the
     pool's signatures (both signs) with ∞ rows, x off the curve and
     on-curve points outside G2 mixed in.  Bit for bit, every row's ok flag
     as its kind wants, and both timed beside their bounds."""
-    from charon_tpu_torch.ops import codec, cuda_codec, cuda_final_exp
+    from charon_tpu_torch.ops import codec, cuda_codec, cuda_final_exp, fp
     from charon_tpu_torch.ops import pairing as tpair
     from charon_tpu_torch.tbls.ref import curve as rc
     from charon_tpu_torch.tbls.ref.fields import FQ2
@@ -1884,29 +1991,36 @@ def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
     # K11: bound_ms at the card's full rate; `bound_one_warp_ms` at the
     # rate of the SMs that one warp per row can occupy (one SM a row), an
     # assumption of this design that the function does not force
-    def fe_rows(rows, pattern):
-        """Fp12 rows; with random limbs the first ⌈rows / 2⌉ of them Fp
-        elements (c0's c0 only), which the exponentiation takes to one."""
-        f = limbs(dev, gen, (2, 3, 2, NL, rows), pattern)
-        if pattern == "random":
-            f.view(12, NL, rows)[1:, :, :-(-rows // 2)] = 0
-        return (f,)
+    def fe_rows(rows):
+        """Fp12 rows of seeded random limbs, the first ⌈rows / 2⌉ of them
+        Fp elements (c0's c0 only), which the exponentiation takes to one,
+        and the last ⌊rows / 4⌋ all-LMAX."""
+        f = limbs(dev, gen, (2, 3, 2, NL, rows), "random")
+        f.view(12, NL, rows)[1:, :, :-(-rows // 2)] = 0
+        if rows // 4:
+            f[..., rows - rows // 4:] = fp.LMAX
+        return f
 
     def fe_plain(f):
         out = cuda_final_exp.final_exp_plain(f)
         return out, tpair.is_one(out)
 
-    for rows in (1, tile):
+    # the re-check's rows first (the plain version's first call, cold),
+    # then the batch check's 1 row (warm): there one launch a row on a
+    # row that is one, a random row and an all-LMAX row of the re-check's
+    # input, each against the plain version's row of it
+    big = fe_rows(tile)
+    for rows in (tile, 1):
         part = {}
         ops = (final_exp_ops() + 12 * (OPS["fp_sub"] + _ISZERO)) * rows
         nbytes = (2 * 12 * EL_BYTES + 1) * rows
+        f = big if rows == tile else fe_rows(1)
         # the path's form: the result and its verdict "= 1" in one launch
-        record(part, "final_exp", cuda_final_exp.final_exp_is_one, fe_plain,
-               ops, nbytes,
-               [lambda rows=rows, p=p: fe_rows(rows, p)
-                for p in ("random", "lmax")],
-               sm_clocks_per_s, plain_reps=1)
-        f, = fe_rows(rows, "random")
+        want = record(part, "final_exp", cuda_final_exp.final_exp_is_one,
+                      fe_plain, ops, nbytes, [lambda f=f: (f,)],
+                      sm_clocks_per_s, plain_reps=1)
+        if rows == tile:
+            plain_big = want
         _, one = cuda_final_exp.final_exp_is_one(f)
         want = [k < -(-rows // 2) for k in range(rows)]
         if one.tolist() != want:
@@ -1918,6 +2032,12 @@ def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
                                         "bound_one_warp_ms": one_warp}
         log(f"K11 at {rows:,} rows: bound {one_warp:.4f} ms if each row "
             f"stays on one SM (one warp per row)")
+    for r in (0, tile // 2, tile - 1):
+        got = cuda_final_exp.final_exp_is_one(big[..., r:r + 1].contiguous())
+        if any(not torch.equal(g, w[..., r:r + 1])
+               for g, w in zip(got, plain_big)):
+            raise AssertionError(f"K11 at 1 row: the re-check input's row "
+                                 f"{r} differs from its plain version")
 
     # K12: the kinds of row
     off_curve = []
@@ -1930,7 +2050,9 @@ def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
     cof = codec._find_g2_cofactor_point()
     off_group = [rc.g2_to_bytes(cof), rc.g2_to_bytes(rc.neg(cof))]
     inf = rc.g2_to_bytes(None)
-    for rows, real in ((tile, tile), (combine_rows, combine_real)):
+    # the combine's shape first: the plain version's one call there is
+    # its first (cold), the verify tile's after it warm
+    for rows, real in ((combine_rows, combine_real), (tile, tile)):
         raw = [pool[k % len(pool)] for k in range(real)] \
             + [inf] * (rows - real)
         kind = ["valid"] * real + ["inf"] * (rows - real)
@@ -2020,11 +2142,25 @@ def miller_pairs(dev, pool: list[bytes], rows: int) -> tuple:
     return p.contiguous(), q.contiguous()
 
 
+def miller_inputs(dev, gen, pool: list[bytes], rows: int) -> tuple:
+    """One Miller input of `rows` rows: a third seeded random limbs, a
+    third all-LMAX, the rest (an even count, as `miller_pairs` builds
+    them) real pairs with ∞ rows → (p [3, 32, rows], q [4, 32, rows])."""
+    n_real = rows // 3 // 2 * 2
+    cut = (rows // 3, rows - n_real)
+    pairs = miller_pairs(dev, pool, n_real)
+    return tuple(torch.cat([limbs(dev, gen, (k, NL, cut[0]), "random"),
+                            limbs(dev, gen, (k, NL, cut[1] - cut[0]), "lmax"),
+                            real], -1).contiguous()
+                 for k, real in ((3, pairs[0]), (4, pairs[1])))
+
+
 def miller_phase(dev, pool: list[bytes], rows: int,
                  sm_clocks_per_s: float) -> dict:
     """K13 against `miller_loop_plain` at `rows` Miller rows (a verify
-    tile), bit for bit, on seeded random limbs, all-LMAX limbs and real
-    pairs with ∞ rows; timed beside the 198-launch K4/K5 sequence it
+    tile), bit for bit, on one input of seeded random limbs, all-LMAX
+    limbs and real pairs with ∞ rows (one call of the plain version, its
+    time); timed beside the 198-launch K4/K5 sequence it
     replaced (also held bit for bit), its bound and the plain version.
     The probe that chose its design: pp_mul014 across row counts, the same
     loop one thread per row (`miller_thread`), K13 at other row counts and
@@ -2033,35 +2169,31 @@ def miller_phase(dev, pool: list[bytes], rows: int,
     from charon_tpu_torch.ops import miller_program as mp
 
     gen = np.random.default_rng(20261021)
-    pats = {pat: (limbs(dev, gen, (3, NL, rows), pat),
-                  limbs(dev, gen, (4, NL, rows), pat))
-            for pat in ("random", "lmax")}
-    pats["pairs"] = miller_pairs(dev, pool, rows)
+    p, q = miller_inputs(dev, gen, pool, rows)
+    key = (cp.miller_loop_plain.__module__, cp.miller_loop_plain.__qualname__)
+    warm = key in PLAIN_CALLED
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = cp.miller_loop_plain(p, q)
+    end.record()
+    torch.cuda.synchronize()
+    PLAIN_CALLED.add(key)
+    plain_ms = start.elapsed_time(end)
     err = 0
-    plain_ms = None
-    for name, (p, q) in pats.items():
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = cp.miller_loop_plain(p, q)
-        end.record()
+    for label, fn in (("K13", cp.miller_loop),
+                      ("the K4/K5 sequence", cp.miller_steps),
+                      ("the thread-per-row probe", cp.miller_thread)):
+        got = fn(p, q)
         torch.cuda.synchronize()
-        plain_ms = plain_ms or start.elapsed_time(end)
-        for label, fn in (("K13", cp.miller_loop),
-                          ("the K4/K5 sequence", cp.miller_steps),
-                          ("the thread-per-row probe", cp.miller_thread)):
-            got = fn(p, q)
-            torch.cuda.synchronize()
-            diff = int((got.long() - want.long()).abs().max())
-            if diff:
-                raise AssertionError(f"{label} at {rows} rows ({name}): "
-                                     f"differs from miller_loop_plain (max "
-                                     f"abs err {diff})")
-            err = max(err, diff)
-    log(f"K13 at {rows:,} rows: bit-identical to miller_loop_plain on "
-        f"random, LMAX and real pairs with ∞ rows (the K4/K5 sequence and "
-        f"the thread-per-row probe too)")
-    p, q = pats["random"]
+        diff = int((got.long() - want.long()).abs().max())
+        if diff:
+            raise AssertionError(f"{label} at {rows} rows: differs from "
+                                 f"miller_loop_plain (max abs err {diff})")
+        err = max(err, diff)
+    log(f"K13 at {rows:,} rows: bit-identical to miller_loop_plain on one "
+        f"input of random, all-LMAX and real pairs with ∞ rows (the K4/K5 "
+        f"sequence and the thread-per-row probe too)")
     ms = time_ms(lambda: cp.miller_loop(p, q))
     steps_ms = time_ms(lambda: cp.miller_steps(p, q), 3)
     bms, by = bound(miller_ops() * rows, rows * (3 + 4 + 12) * EL_BYTES,
@@ -2087,12 +2219,14 @@ def miller_phase(dev, pool: list[bytes], rows: int,
         f"slots, {prog.steps} steps, {prog.cost():,} instructions a lane "
         f"by the scheduler's count): {ms:.3f} ms at {rows:,} rows; the "
         f"198-launch K4/K5 sequence {steps_ms:.3f} ms "
-        f"({steps_ms / ms:.2f}×); plain {plain_ms:.1f} ms; bound "
+        f"({steps_ms / ms:.2f}×); plain {plain_ms:.1f} ms"
+        f"{'' if warm else ' (cold)'}; bound "
         f"{bms:.4f} ms by {by}")
     log(f"K13 probe: {json.dumps(probe)}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "rows": rows,
-            "steps_ms": steps_ms, "lanes": mp.LANES, "slots": mp.SLOTS,
+            "plain_warm": warm, "bound_ms": bms, "bound_by": by,
+            "rows": rows, "steps_ms": steps_ms, "lanes": mp.LANES,
+            "slots": mp.SLOTS,
             "program_steps": prog.steps, "program_cost": prog.cost(),
             "probe": probe}
 
@@ -2222,8 +2356,9 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
     got, launches = asyncio.run(sigagg_round(parsigs_for(sig_sets, 1), 7, 32))
     if launches != 1:
         raise AssertionError(f"Shamir round took {launches} combines")
-    for k, sk in enumerate(sks):
-        if got[f"0x{k:096x}"] != rc.g2_to_bytes(rc.multiply(h, sk)):
+    want = host_pool().map(oracle_mul, [h] * nv, sks, chunksize=8)
+    for k, w in enumerate(want):
+        if got[f"0x{k:096x}"] != w:
             raise AssertionError(f"validator {k}: combined != sk·H(m)")
     log(f"shamir: {nv} validators, random 7-of-10 subsets: every combined "
         f"signature == sk·H(m) ({time.perf_counter() - t0:.2f} s)")
@@ -2281,8 +2416,10 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
         log(f"combine rep {rep}: {v} validators × {t}: {wall:.3f} s wall; "
             + ", ".join(f"{k} {val:.4f}" for k, val in
                         backend.last_stages.items()))
-    for r in sorted(gen.choice(v, 4, replace=False).tolist()):
-        if got[f"0x{r:096x}"] != oracle_combine(sig_sets[r]):
+    rows = sorted(gen.choice(v, 4, replace=False).tolist())
+    for r, w in zip(rows, host_pool().map(oracle_combine,
+                                          [sig_sets[r] for r in rows])):
+        if got[f"0x{r:096x}"] != w:
             raise AssertionError(f"row {r}: combine != oracle")
     log("combine: 4 random rows equal the pure-Python oracle")
     zero = [k for k in COMBINE_PATH_KERNELS if launch_counts[k] == 0]
@@ -2326,6 +2463,29 @@ def oracle_verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
         return bls.verify(rc.g1_from_bytes(pk), msg, rc.g2_from_bytes(sig))
     except ValueError:
         return False
+
+
+def oracle_verdicts(rows) -> list[bool]:
+    """`oracle_verify` of each (pk, msg, sig) row, on the host's workers."""
+    rows = list(rows)
+    return list(host_pool().map(oracle_verify, *zip(*rows)))
+
+
+def oracle_mul(point, k: int) -> bytes:
+    """The pure-Python [k]·point of G2, compressed."""
+    from charon_tpu_torch.tbls.ref import curve as rc
+
+    return rc.g2_to_bytes(rc.multiply(point, k))
+
+
+def oracle_hm(msg: bytes, dst: bytes | None = None) -> np.ndarray:
+    """The pure-Python hash_to_g2(msg) (the signature DST by default) as
+    the device pipeline's affine planes."""
+    from charon_tpu_torch.ops import curve as tcurve
+    from charon_tpu_torch.tbls.ref.hash_to_curve import hash_to_g2
+
+    pt = hash_to_g2(msg) if dst is None else hash_to_g2(msg, dst)
+    return tcurve.g2_pack([pt])[..., 0]
 
 
 def sign_on_card(dev, bits: torch.Tensor, hms: np.ndarray) -> list[bytes]:
@@ -2665,8 +2825,8 @@ def verify_phase(dev):
     sample = bad_rows + sorted(gen.choice(good_rows, 4,
                                           replace=False).tolist())
     t1 = time.perf_counter()
-    for r in sample:
-        if oracle_verify(*batch[r]) != oks[r]:
+    for r, ok in zip(sample, oracle_verdicts(batch[r] for r in sample)):
+        if ok != oks[r]:
             raise AssertionError(f"reject run row {r}: verdict {oks[r]} != "
                                  f"the oracle's")
     log(f"verify reject: {len(batch):,} entries, 6 bad rows {bad_rows} "
@@ -2827,7 +2987,7 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
     oracle, timed alone, and small batches against the host hash (the
     size rule's crossover).  → the plain pipeline's packed affine H(m)
     [3, 2, 32, batch]."""
-    from charon_tpu_torch.ops import cuda_g2, cuda_h2c, curve as tcurve
+    from charon_tpu_torch.ops import cuda_g2, cuda_h2c
     from charon_tpu_torch.tbls import backend_cuda
     from charon_tpu_torch.tbls.ref.hash_to_curve import hash_to_g2
 
@@ -2869,17 +3029,18 @@ def h2c_phase(dev, batch: int) -> np.ndarray:
     rng = random.Random(13)
     sample = sorted(rng.sample(range(batch), H2C_ORACLE_SAMPLES))
     t0 = time.perf_counter()
-    for k in sample:
-        if not np.array_equal(planes[..., k],
-                              tcurve.g2_pack([hash_to_g2(msgs[k])])[..., 0]):
+    want = list(host_pool().map(
+        oracle_hm, [msgs[k] for k in sample] + list(J101_MSGS),
+        [None] * len(sample) + [J101_DST] * len(J101_MSGS)))
+    for k, w in zip(sample, want):
+        if not np.array_equal(planes[..., k], w):
             raise AssertionError(f"h2c message {k}: != the oracle's H(m)")
     # the same pipeline under the J.10.1 suite's DST
     pts = cuda_h2c.hash_to_g2_rows(torch.from_numpy(
         cuda_h2c.pack_messages(J101_MSGS, J101_DST)).to(dev))
     jp = backend_cuda._affine_planes(cuda_g2.as_points(pts)).cpu().numpy()
-    for k, msg in enumerate(J101_MSGS):
-        if not np.array_equal(jp[..., k], tcurve.g2_pack(
-                [hash_to_g2(msg, J101_DST)])[..., 0]):
+    for k, (msg, w) in enumerate(zip(J101_MSGS, want[len(sample):])):
+        if not np.array_equal(jp[..., k], w):
             raise AssertionError(f"J.10.1 message {msg[:8]!r}: != the "
                                  f"oracle's H(m)")
     log(f"h2c: {H2C_ORACLE_SAMPLES} sampled messages and the 5 RFC 9380 "
@@ -3034,8 +3195,8 @@ def verify_distinct_phase(dev, pks: list[bytes], sks: list[int],
     check_recheck("distinct reject", backend.verify_launch_totals)
     good = [r for r in range(len(batch)) if r not in bad_rows]
     sample = bad_rows + sorted(gen.choice(good, 2, replace=False).tolist())
-    for r in sample:
-        if oracle_verify(*batch[r]) != oks[r]:
+    for r, ok in zip(sample, oracle_verdicts(batch[r] for r in sample)):
+        if ok != oks[r]:
             raise AssertionError(f"distinct reject row {r}: verdict "
                                  f"{oks[r]} != the oracle's")
     log(f"distinct reject: {len(batch):,} entries, 4 swapped-message rows "
@@ -3241,8 +3402,8 @@ def resident_phase(dev, entries, bits: torch.Tensor) -> dict:
     check_graph_stage("resident reject", res.verify_launch_totals, 1)
     sample = bad_rows + sorted(gen.choice(good_rows, 2,
                                           replace=False).tolist())
-    for r in sample:
-        if oracle_verify(*batch[r]) != oks[r]:
+    for r, ok in zip(sample, oracle_verdicts(batch[r] for r in sample)):
+        if ok != oks[r]:
             raise AssertionError(f"resident reject row {r}: verdict "
                                  f"{oks[r]} != the oracle's")
     log(f"resident reject: 6 bad rows {bad_rows} rejected exactly, "
@@ -3364,22 +3525,27 @@ def simnet_start_slot(bmock, v: int, slots: int) -> int:
 def simnet_oracle(cluster, records: list, label: str) -> int:
     """Every broadcast record (kind, validator index, signing root, bytes)
     carries exactly `ref.bls.sign` with the group secret (`combine_shares`
-    of the share keys) over its signing root → the signatures computed."""
+    of the share keys) over its signing root (`oracle_signs` a root on the
+    host's workers) → the signatures computed."""
     from charon_tpu_torch.tbls import api
-    from charon_tpu_torch.tbls.ref import bls
-    from charon_tpu_torch.tbls.ref import curve as rc
 
-    want: dict = {}
+    by_root: dict = {}
+    for _, vi, root, _ in records:
+        vis = by_root.setdefault(root, [])
+        if vi not in vis:
+            vis.append(vi)
+    roots = list(by_root)
+    keys = [[api.privkey_to_int(api.combine_shares(
+        cluster.validators[vi].share_privkeys)) for vi in by_root[r]]
+        for r in roots]
+    want = {(vi, root): sig for root, sigs in zip(
+        roots, host_pool().map(oracle_signs, roots, keys))
+        for vi, sig in zip(by_root[root], sigs)}
     for kind, vi, root, sig in records:
-        key = (vi, root)
-        if key not in want:
-            sk = api.privkey_to_int(api.combine_shares(
-                cluster.validators[vi].share_privkeys))
-            want[key] = rc.g2_to_bytes(bls.sign(sk, root))
-        if sig != want[key]:
+        if sig != want[(vi, root)]:
             raise AssertionError(f"{label}: {kind} of validator {vi} carries "
                                  f"{sig.hex()[:16]}…, not the oracle's "
-                                 f"{want[key].hex()[:16]}…")
+                                 f"{want[(vi, root)].hex()[:16]}…")
     return len(want)
 
 
@@ -4092,6 +4258,14 @@ CL_UP_SLOTS, CL_DOWN_SLOTS = 3, 2
 #: it, so that no slot is scheduled before the cluster is up; and the
 #: seconds a node may take to exit after SIGTERM
 CL_GENESIS_S, CL_EXIT_TIMEOUT = 90.0, 60.0
+#: the nodes boot beside the chaos phase's runs: `main` spawns them once
+#: the runs' estimated seconds left (`chaos_left`) plus CHAOS_TAIL_S (the
+#: runs' cool-down and final check, the oracle, the two stress runs) are
+#: CL_SPAWN_SLACK_S under CL_GENESIS_S, so that the phase ends before the
+#: genesis and no slot of the nodes runs beside it (a node's slots before
+#: the waited ones leave it behind: on an H100, ten of them beside the
+#: whole phase put slot 12's sync messages over CL_LATE_SLOTS late)
+CHAOS_TAIL_S, CL_SPAWN_SLACK_S = 30.0, 20.0
 #: the verify and combine kernels every node must launch, and K21 (the
 #: pubshares' decompression at prewarm)
 CL_NODE_KERNELS = ("g1_decompress",)
@@ -4112,26 +4286,34 @@ def free_ports(n: int) -> list[int]:
     return ports
 
 
-def free_base_port(n: int) -> int:
-    """A base port whose n consecutive ports are free now (`create
-    cluster` writes consecutive mesh ports into the ENRs)."""
+#: the ports `quiet_base_port` draws from: below Linux's default
+#: ephemeral range (32768–60999), which the run's outgoing connections
+#: and `free_ports` take theirs from
+QUIET_PORTS = (20000, 32000)
+
+
+def quiet_base_port(n: int) -> int:
+    """A base port whose n consecutive ports are free now and lie outside
+    the ephemeral range: `create cluster` writes the mesh ports into the
+    ENRs during the build, and no connection of the phases between takes
+    one of them before the nodes bind it."""
     import socket
 
-    for _ in range(100):
-        base = free_ports(1)[0]
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(QUIET_PORTS[0], QUIET_PORTS[1] - n)
         socks = []
         try:
-            for p in range(base, min(base + n, 65536)):
-                s = socket.socket()
-                socks.append(s)
-                s.bind(("127.0.0.1", p))
-            if len(socks) == n:
-                return base
+            for p in range(base, base + n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", p))
+            return base
         except OSError:
             continue
         finally:
-            for s in socks:
-                s.close()
+            for sock in socks:
+                sock.close()
     raise AssertionError("cluster: no free run of mesh ports")
 
 
@@ -4241,23 +4423,35 @@ def cluster_check_node(i: int, metrics: dict) -> dict:
     return launches
 
 
+def oracle_signs(root: bytes, keys: list[int]) -> list[bytes]:
+    """`ref.bls.sign`'s computation for each secret of `keys` over one
+    message: [sk]·hash_to_g2(root), the root hashed once."""
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.tbls.ref.hash_to_curve import DST_G2, hash_to_g2
+
+    h = hash_to_g2(root, DST_G2)
+    return [rc.g2_to_bytes(rc.multiply(h, sk)) for sk in keys]
+
+
 def cluster_oracle(secrets: list, records: dict) -> int:
     """Every broadcast (kind, slot, validator) → {node: (root, bytes)}
     carries `ref.bls.sign` with the validator's group secret — its
     computation, [sk]·hash_to_g2(root), with each root hashed once (a
-    slot's sync messages share one root) → the signatures computed."""
-    from charon_tpu_torch.tbls.ref import curve as rc
-    from charon_tpu_torch.tbls.ref.hash_to_curve import DST_G2, hash_to_g2
-
-    want: dict = {}
-    hashed: dict = {}
+    slot's sync messages share one root; `oracle_signs` a root on the
+    host's workers) → the signatures computed."""
+    by_root: dict = {}
     for (kind, slot, vi), by_node in records.items():
         for node, (root, sig) in by_node.items():
-            if (vi, root) not in want:
-                if root not in hashed:
-                    hashed[root] = hash_to_g2(root, DST_G2)
-                want[(vi, root)] = rc.g2_to_bytes(
-                    rc.multiply(hashed[root], secrets[vi]))
+            vis = by_root.setdefault(root, [])
+            if vi not in vis:
+                vis.append(vi)
+    roots = list(by_root)
+    want = {(vi, root): sig for root, sigs in zip(roots, host_pool().map(
+        oracle_signs, roots, [[secrets[vi] for vi in by_root[r]]
+                              for r in roots]))
+            for vi, sig in zip(by_root[root], sigs)}
+    for (kind, slot, vi), by_node in records.items():
+        for node, (root, sig) in by_node.items():
             if sig != want[(vi, root)]:
                 raise AssertionError(
                     f"cluster: node {node}'s {kind} of validator {vi} at "
@@ -4266,111 +4460,184 @@ def cluster_oracle(secrets: list, records: dict) -> int:
     return len(want)
 
 
-def cluster_phase(scheme: str = "bls", slot_s: float = SIM_SLOT_S) -> dict:
-    """`BASELINE.json` config 2's cluster as four node processes on the
-    card: `create cluster` writes it (real BLS), one `BeaconMockServer`
-    a node in this process over one mock, four `python -m
-    charon_tpu_torch run --validator-api-address … --simnet-validator-mock`
-    processes boot from the lock (each verifies it and prewarms on the
-    card), every /readyz polled and 200 before the mock's genesis,
-    CL_GENESIS_S after the spawn, and then a VC process a node
-    (`testutil.httpvc`, the node's share keys) signs the node's attester
-    duties over HTTP through its router, while the node's in-process mock
-    signs its sync messages; then CL_UP_SLOTS slots with every node
-    (/debug/profile during the first, /debug/spans of all four after the
-    window), node 4 and its VC sent SIGTERM, the next CL_DOWN_SLOTS slots
-    (one of them led by node 4 in QBFT's round 1) with the other three,
-    and SIGTERM to those.  Checks: every waited duty at the mock from
-    every live node with the oracle's bytes, each node's verifies on the
-    resident route and its kernels launched, every down-window consensus
-    duty decided on every live node (node 4's by a round change), every
-    VC's attestations served by its router and no request shed, a profile
-    whose trace names a kernel of the port, one attester duty's trace on
-    all four nodes, every process exit 0 within CL_EXIT_TIMEOUT with no
-    traceback; the arrivals past their slot's end are counted.  → the
-    four nodes' launches per kernel (each read from its /metrics just
-    before its SIGTERM)."""
-    import shutil
-
+def cluster_create(work: str, v: int, scheme: str,
+                   base_port: int) -> tuple[float, list]:
+    """In a host worker, during the build: `create cluster` (CL_NODES
+    nodes, CL_T-of-CL_NODES, `v` validators, `scheme`) into `work`, mesh
+    ports from `base_port` → (its seconds, each validator's group secret
+    recombined from CL_T nodes' keystores — with bls, the first and last
+    checked against the lock's group keys)."""
     from charon_tpu_torch.cluster.definition import load_json, lock_from_json
     from charon_tpu_torch.cmd import main as cli
     from charon_tpu_torch.eth2util import keystore
     from charon_tpu_torch.tbls import api
 
+    t0 = time.perf_counter()
+    api.set_scheme(scheme)
+    if cli(["create", "cluster", "--name", "chip-smoke", "--nodes",
+            str(CL_NODES), "--threshold", str(CL_T), "--num-validators",
+            str(v), "--cluster-dir", work, "--base-port", str(base_port),
+            "--tbls-scheme", scheme]):
+        raise AssertionError("cluster: create cluster failed")
+    create_s = time.perf_counter() - t0
+    lock = lock_from_json(load_json(str(Path(work) / "node0" /
+                                        "cluster-lock.json")), verify=False)
+    # the oracle's group secrets: t nodes' keystores recombined
+    shares = [keystore.load_keys(str(Path(work) / f"node{i}" /
+                                     "validator_keys"))
+              for i in range(CL_T)]
+    secrets = [api.privkey_to_int(api.combine_shares(
+        {i + 1: shares[i][vi] for i in range(CL_T)})) for vi in range(v)]
+    if scheme == "bls":
+        from charon_tpu_torch.tbls.ref import bls
+        from charon_tpu_torch.tbls.ref import curve as rc
+
+        if any(rc.g1_to_bytes(bls.sk_to_pk(secrets[vi]))
+               != lock.validators[vi].public_key for vi in (0, v - 1)):
+            raise AssertionError("cluster: recombined secrets are not the "
+                                 "lock's group keys")
+    return create_s, secrets
+
+
+def cluster_prepare(pool, scheme: str = "bls",
+                    slot_s: float = SIM_SLOT_S) -> dict:
+    """Before the build: V by this host's pure-Python signing and the
+    mesh's primitive times (measured before the build and the host
+    workers load the cores), and `create cluster` handed to `pool`
+    (`cluster_create`) → what `cluster_start` takes."""
+    import shutil
+
     sign_s = simnet_sign_seconds()
     v = min(CL_V_FULL, CL_V_CARD, simnet_validators(sign_s, 1))
-    costs = crypto_costs()
     log(f"cluster: one pure-Python tbls.sign {sign_s:.4f} s → V = {v} (one "
         f"node's VC signs {v * (1 + 1 / SIM_SPE):.1f} a slot, "
         f"{v * (1 + 1 / SIM_SPE) * sign_s:.2f} s of a {slot_s:.0f} s slot; "
         f"{simnet_validators(sign_s, 1)} by the signing rule, at most "
-        f"{CL_V_CARD} on one card; cut from {CL_V_FULL}); the mesh's "
-        "primitives on this host "
-        "(median s): " + json.dumps({k: round(x, 6)
-                                     for k, x in costs.items()}))
+        f"{CL_V_CARD} on one card; cut from {CL_V_FULL}); `create cluster` "
+        f"runs in a host worker during the build")
+    costs = crypto_costs()
+    log("cluster: the mesh's primitives on this host (median s): "
+        + json.dumps({k: round(x, 6) for k, x in costs.items()}))
     work = ROOT / "build" / "cluster_phase"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    t0 = time.perf_counter()
-    prev = api.scheme_name()
-    api.set_scheme(scheme)
-    try:
-        if cli(["create", "cluster", "--name", "chip-smoke", "--nodes",
-                str(CL_NODES), "--threshold", str(CL_T), "--num-validators",
-                str(v), "--cluster-dir", str(work), "--base-port",
-                str(free_base_port(CL_NODES)), "--tbls-scheme", scheme]):
-            raise AssertionError("cluster: create cluster failed")
-        create_s = time.perf_counter() - t0
-        lock = lock_from_json(load_json(str(work / "node0" /
-                                            "cluster-lock.json")),
-                              verify=False)
-        # the oracle's group secrets: t nodes' keystores recombined
-        shares = [keystore.load_keys(str(work / f"node{i}" /
-                                         "validator_keys"))
-                  for i in range(CL_T)]
-        secrets = [api.privkey_to_int(api.combine_shares(
-            {i + 1: shares[i][vi] for i in range(CL_T)})) for vi in range(v)]
-        if api.scheme_name() == "bls":
-            from charon_tpu_torch.tbls.ref import bls
-            from charon_tpu_torch.tbls.ref import curve as rc
+    return {"work": work, "v": v, "scheme": scheme, "slot_s": slot_s,
+            "costs": costs,
+            "created": pool.submit(cluster_create, str(work), v, scheme,
+                                   quiet_base_port(CL_NODES))}
 
-            if any(rc.g1_to_bytes(bls.sk_to_pk(secrets[vi]))
-                   != lock.validators[vi].public_key for vi in (0, v - 1)):
-                raise AssertionError("cluster: recombined secrets are not "
-                                     "the lock's group keys")
-    finally:
-        api.set_scheme(prev)
+
+class ClusterRun:
+    """`cluster_run` on a thread and an event loop of its own from the
+    spawn on: the nodes boot (lock verify, prewarm, profiler set-up) while
+    the chaos phase's runs end on this thread, and the run waits at its
+    gate before its waited slots, which start after `finish` opens it."""
+
+    def __init__(self, prep: dict, lock):
+        self.prep = prep
+        self.gate, self.stop = threading.Event(), threading.Event()
+        self.res = self.error = None
+        self.thread = threading.Thread(
+            target=self._run, name="cluster", daemon=True,
+            args=(prep["work"], lock, prep["v"], prep["scheme"],
+                  prep["slot_s"]))
+        self.thread.start()
+
+    def _run(self, *args) -> None:
+        try:
+            self.res = asyncio.run(cluster_run(*args, gate=self.gate,
+                                               stop=self.stop))
+        except BaseException as exc:  # noqa: BLE001 — raised by finish
+            self.error = exc
+
+    def abort(self) -> None:
+        """An earlier phase failed: stop the processes, wait for them."""
+        self.stop.set()
+        self.thread.join()
+
+    def finish(self) -> dict:
+        """Open the gate, wait for the run → `cluster_report`'s result."""
+        self.gate.set()
+        self.thread.join()
+        if self.error is not None:
+            cluster_stderr(self.prep["work"])
+            raise self.error
+        return cluster_report(self.res, self.prep["secrets"],
+                              self.prep["costs"], self.prep["slot_s"])
+
+
+def cluster_start(prep: dict) -> ClusterRun:
+    """`BASELINE.json` config 2's cluster as four node processes on the
+    card: `create cluster` written during the build (real BLS,
+    `cluster_create`), one `BeaconMockServer` a node in this process over
+    one mock, four `python -m charon_tpu_torch run --validator-api-address
+    … --simnet-validator-mock` processes boot from the lock (each
+    verifies it and prewarms on the card) while the chaos phase's runs
+    end, every /readyz polled and 200 before the mock's genesis, CL_GENESIS_S
+    after the spawn, and then a VC process a node (`testutil.httpvc`, the
+    node's share keys) signs the node's attester duties over HTTP through
+    its router, while the node's in-process mock signs its sync messages;
+    after the gate (`ClusterRun.finish`), CL_UP_SLOTS slots with every
+    node (/debug/profile during the first, /debug/spans of all four after
+    the window), node 4 and its VC sent SIGTERM, the next CL_DOWN_SLOTS
+    slots (one of them led by node 4 in QBFT's round 1) with the other
+    three, and SIGTERM to those.  Checks (`cluster_report`): every waited
+    duty at the mock from every live node with the oracle's bytes, each
+    node's verifies on the resident route and its kernels launched, every
+    down-window consensus duty decided on every live node (node 4's by a
+    round change), every VC's attestations served by its router and no
+    request shed, a profile whose trace names a kernel of the port, one
+    attester duty's trace on all four nodes, every process exit 0 within
+    CL_EXIT_TIMEOUT with no traceback; the arrivals past their slot's end
+    are counted.  `finish` → the four nodes' launches per kernel (each
+    read from its /metrics just before its SIGTERM)."""
+    from charon_tpu_torch.cluster.definition import load_json, lock_from_json
+
+    create_s, prep["secrets"] = prep["created"].result()
     log(f"cluster: create cluster ({CL_NODES} nodes, {CL_T}-of-{CL_NODES}, "
-        f"V = {v}, {scheme}) {create_s:.1f} s")
-    torch.cuda.empty_cache()
-    try:
-        res = asyncio.run(cluster_run(work, lock, v, scheme, slot_s))
-    except BaseException:
-        # on both streams: a failed run's standard error shows what the
-        # processes logged — their warnings and errors, then the last lines
-        for name in ("node", "vc"):
-            for i in range(1, CL_NODES + 1):
-                err = work / f"{name}{i}.stderr"
-                if not err.exists():
-                    continue
-                lines = err.read_text(errors="replace").splitlines()
-                loud = [ln for ln in lines if any(
-                    w in ln for w in (" WARNING ", " ERROR ", "ERROR:",
-                                      "Traceback", "Error"))]
-                text = (f"cluster: {name} {i}'s stderr, {len(loud)} "
-                        "warning and error lines (at most 25):\n"
-                        + "\n".join(ln[:300] for ln in loud[:25])
-                        + "\n… its last lines:\n"
-                        + "\n".join(ln[:300] for ln in lines[-12:]))
-                log(text)
-                print(text, file=sys.stderr, flush=True)
-        raise
-    return cluster_report(res, secrets, costs, slot_s)
+        f"V = {prep['v']}, {prep['scheme']}) {create_s:.1f} s, in a host "
+        f"worker during the build")
+    lock = lock_from_json(load_json(str(prep["work"] / "node0" /
+                                        "cluster-lock.json")), verify=False)
+    return ClusterRun(prep, lock)
 
 
-async def cluster_run(work: Path, lock, v: int, scheme: str,
-                      slot_s: float) -> dict:
-    """The processes' run; → what `cluster_report` checks and prints."""
+def cluster_phase(scheme: str = "bls", slot_s: float = SIM_SLOT_S) -> dict:
+    """`cluster_prepare`, `cluster_start` and `ClusterRun.finish` in one
+    call, nothing beside the boot (`main` spawns the nodes during the
+    chaos phase's runs instead, `chaos_and_cluster`) → the nodes'
+    launches per kernel."""
+    return cluster_start(cluster_prepare(host_pool(), scheme,
+                                         slot_s)).finish()
+
+
+def cluster_stderr(work: Path) -> None:
+    """On both streams: what a failed run's processes logged — their
+    warnings and errors, then their last lines."""
+    for name in ("node", "vc"):
+        for i in range(1, CL_NODES + 1):
+            err = work / f"{name}{i}.stderr"
+            if not err.exists():
+                continue
+            lines = err.read_text(errors="replace").splitlines()
+            loud = [ln for ln in lines if any(
+                w in ln for w in (" WARNING ", " ERROR ", "ERROR:",
+                                  "Traceback", "Error"))]
+            text = (f"cluster: {name} {i}'s stderr, {len(loud)} warning and "
+                    "error lines (at most 25):\n"
+                    + "\n".join(ln[:300] for ln in loud[:25])
+                    + "\n… its last lines:\n"
+                    + "\n".join(ln[:300] for ln in lines[-12:]))
+            log(text)
+            print(text, file=sys.stderr, flush=True)
+
+
+async def cluster_run(work: Path, lock, v: int, scheme: str, slot_s: float,
+                      gate: threading.Event,
+                      stop: threading.Event) -> dict:
+    """The processes' run; its waited slots start after `gate` is set,
+    and `stop` ends it (raising) before them → what `cluster_report`
+    checks and prints."""
     import os
 
     from charon_tpu_torch.app.http1 import json_response
@@ -4455,6 +4722,11 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
 
     def start(slot: int) -> float:
         return genesis + slot * slot_s
+
+    def stopped() -> None:
+        if stop.is_set():
+            raise AssertionError("cluster: stopped before its window (an "
+                                 "earlier phase failed)")
 
     def alive(nodes) -> None:
         for i in nodes:
@@ -4637,6 +4909,7 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
         # every node
         ready: dict = {}
         while len(ready) < CL_NODES:
+            stopped()
             alive(range(1, CL_NODES + 1))
             for i in range(1, CL_NODES + 1):
                 if i in ready or (await get(i, "/readyz"))[0] != 200:
@@ -4659,6 +4932,13 @@ async def cluster_run(work: Path, lock, v: int, scheme: str,
         # each node's VC, once its router listens (before the genesis)
         for i in range(1, CL_NODES + 1):
             spawn_vc(i)
+        # the gate: the phase before this one (its processes booting
+        # meanwhile) has ended
+        while not gate.is_set():
+            stopped()
+            alive(range(1, CL_NODES + 1))
+            await asyncio.sleep(0.5)
+        res["gate_s"] = time.time() - t_spawn
         # the waited slots start after every node is ready (from slot 0,
         # the genesis being later), one of the two after them (node 4
         # down) led by node 4 in round 1
@@ -4925,9 +5205,10 @@ def cluster_report(res: dict, secrets: list, costs: dict,
     signed = cluster_oracle(secrets, {k: {n: x[:2] for n, x in recs[k].items()}
                                       for k in waited})
     log(f"cluster: ready (spawn → /readyz 200 with prewarm and profiler "
-        f"set-up done) per node "
+        f"set-up done, beside the chaos phase's end) per node "
         + json.dumps({i: round(s, 2) for i, s in res["ready_s"].items()})
-        + f"; genesis {res['genesis_s']:.1f} s after the spawn"
+        + f"; genesis {res['genesis_s']:.1f} s after the spawn, the gate "
+        f"(the chaos phase's end) {res['gate_s']:.1f} s"
         + f"; slots {res['up']} with every node, {res['down']} with node "
         f"{CL_NODES} down; {len(waited)} waited duties, every one from "
         f"every live node, byte-equal to the oracle ({signed} signatures)")
@@ -5439,13 +5720,14 @@ def dkg_processes(work: Path) -> dict:
         if load_json(str(work / "cluster" / f"node{i}" /
                          "deposit-data.json")) != deposits:
             raise AssertionError(f"dkg: node {i}'s deposit data differs")
-    for d, v in zip(deposits, lock.validators):
-        root = deposit_signing_root(
-            v.public_key, bytes.fromhex(d["withdrawal_credentials"]),
-            lock.definition.fork_version)
-        if bytes.fromhex(d["pubkey"]) != v.public_key or not oracle_verify(
-                v.public_key, root, bytes.fromhex(d["signature"])):
-            raise AssertionError("dkg: a deposit signature fails the oracle")
+    rows = [(v.public_key, deposit_signing_root(
+        v.public_key, bytes.fromhex(d["withdrawal_credentials"]),
+        lock.definition.fork_version), bytes.fromhex(d["signature"]))
+        for d, v in zip(deposits, lock.validators)]
+    if any(bytes.fromhex(d["pubkey"]) != v.public_key
+           for d, v in zip(deposits, lock.validators)) or not all(
+            oracle_verdicts(rows)):
+        raise AssertionError("dkg: a deposit signature fails the oracle")
     check_s = time.perf_counter() - t0
 
     for k in (3, 2):
@@ -5490,9 +5772,10 @@ def dkg_phase(dev) -> dict:
 
     from charon_tpu_torch.tbls import api, backend_cuda
 
-    prev = api._backend()
+    prev, prev_scheme = api._backend(), api.scheme_name()
     backend = backend_cuda.CUDABackend()
     api.register_backend("cuda", backend)
+    api.set_scheme("bls")
     work = ROOT / "build" / "dkg_phase"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -5509,6 +5792,491 @@ def dkg_phase(dev) -> dict:
     finally:
         api.register_backend("cuda", prev)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The chaos and race harnesses with real BLS (after the dkg phase)
+# ---------------------------------------------------------------------------
+
+#: the fault catalogue's scenarios run on the card at seed 0, with the
+#: slots they run: garbage partials reach K12's decompression (a dead row
+#: of the batch); validly signed equivocations must verify for the
+#: detector to count them.  byzantine_equivocation is cut from the
+#: catalogue's 32 slots to 22 for the script's time limit: its longest
+#: run at 32 held the phase (PERF.md §6), and 21 is the fewest at
+#: which each honest node still counts the ≥ 30 equivocations its own
+#: check asks for
+CHAOS_SCENARIOS = (("garbage", 24), ("byzantine_equivocation", 22))
+#: garbage's replay contract on the card: two runs at this many slots
+CHAOS_REPLAY_SLOTS = 8
+#: distinct attestations of each scenario held against the oracle
+CHAOS_ORACLE_SAMPLES = 8
+#: the race stress on the card: dispatch_stress from this seed, twice
+CHAOS_RACE_SEED = 5
+#: the verify buckets the runs reach (their flushes, the 2 × distinct
+#: attestations of the final check), captured on each run's stream
+#: before the runs start
+CHAOS_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+class SignMemo:
+    """`tbls.sign` for the chaos runs, each (key, message) signed once:
+    the runs share the cluster's keys and the beacon mock's attestation
+    data by slot, so a signature one run's mock VC made serves the
+    others (a run that asks for one being made waits for it, its virtual
+    clock still: the result is the same bytes, only the host's time is
+    saved).  `preload` takes the ones made beforehand (`chaos_presign`)."""
+
+    def __init__(self, sign):
+        self._sign = sign
+        self._lock = threading.Lock()
+        self._made: dict = {}
+        self.signed = self.served = 0
+
+    def preload(self, made: dict) -> None:
+        """Keep `made`'s {(key, message): signature}."""
+        for pair, sig in made.items():
+            done = threading.Event()
+            done.set()
+            self._made[pair] = [done, sig]
+
+    def __call__(self, sk: bytes, msg: bytes) -> bytes:
+        with self._lock:
+            entry = self._made.get((sk, msg))
+            mine = entry is None
+            if mine:
+                entry = self._made[(sk, msg)] = [threading.Event(), None]
+                self.signed += 1
+            else:
+                self.served += 1
+        if mine:
+            try:
+                entry[1] = self._sign(sk, msg)
+            finally:
+                entry[0].set()
+        entry[0].wait()
+        if entry[1] is None:
+            raise RuntimeError("chaos: a shared signature failed")
+        return entry[1]
+
+
+class ChaosTally:
+    """Per thread: a backend's verify tiles, rows, rejected rows, stage
+    seconds and stage launches, its combines and validator rows — its
+    device stages and `_note_verify`, wrapped for the phase as bound
+    methods (the pipeline still finds the backend behind them), counted
+    on the thread that ran them, so runs on concurrent threads keep their
+    own figures."""
+
+    def __init__(self, backend):
+        self._local = threading.local()
+        verify, combine = (backend.verify_device_exec,
+                           backend.combine_device_exec)
+        note = backend._note_verify
+
+        def verify_exec(be, prepared):
+            oks = verify(prepared)
+            if oks:
+                t = self.mine()
+                t["tiles"] += 1
+                t["rows"] += len(oks)
+                bad = len(oks) - sum(oks)
+                t["rejected"] += bad
+                t["rejecting_tiles"] += bool(bad)
+            return oks
+
+        def combine_exec(be, prepared):
+            out = combine(prepared)
+            t = self.mine()
+            t["combines"] += bool(out)
+            t["combine_rows"] += len(out)
+            return out
+
+        def note_verify(be, stages, launches):
+            t = self.mine()
+            for k, sec in stages.items():
+                t["stages"][k] = t["stages"].get(k, 0.0) + sec
+            for k, counts in launches.items():
+                mine = t["stage_launches"].setdefault(k, {})
+                for name, c in counts.items():
+                    mine[name] = mine.get(name, 0) + c
+            note(stages, launches)
+
+        backend.verify_device_exec = types.MethodType(verify_exec, backend)
+        backend.combine_device_exec = types.MethodType(combine_exec,
+                                                       backend)
+        backend._note_verify = types.MethodType(note_verify, backend)
+
+    def mine(self) -> dict:
+        """The calling thread's figures (zero at its first call)."""
+        t = getattr(self._local, "t", None)
+        if t is None:
+            t = self._local.t = {
+                "tiles": 0, "rows": 0, "rejected": 0, "rejecting_tiles": 0,
+                "combines": 0, "combine_rows": 0, "stages": {},
+                "stage_launches": {}}
+        return t
+
+
+def chaos_oracle(harness, res, label: str, pool) -> int:
+    """CHAOS_ORACLE_SAMPLES distinct (message, signature) attestations of
+    a run, spread over it: each must verify under the group key the run
+    found, by the pure-Python oracle (in `pool`'s worker processes) → how
+    many were checked."""
+    from charon_tpu_torch.eth2util.signing import DomainName, signing_root
+    from charon_tpu_torch.testutil import chaos
+
+    keys = {v.group_pubkey: v.tss.group_pubkey
+            for v in harness.cluster.validators}
+    distinct: dict = {}
+    for att, rec in zip(harness.bmock.attestations, res.attestations):
+        distinct.setdefault((att.data.hash_tree_root(), att.signature),
+                            (att, rec))
+    rows = list(distinct.values())
+    step = max(1, len(rows) // CHAOS_ORACLE_SAMPLES)
+    sample = rows[::step][:CHAOS_ORACLE_SAMPLES]
+    if len(sample) < CHAOS_ORACLE_SAMPLES:
+        raise AssertionError(f"chaos {label}: only {len(sample)} distinct "
+                             f"attestations")
+    if any(pk is None for _, (_, _, _, pk) in sample):
+        raise AssertionError(f"chaos {label}: an attestation verified under "
+                             f"no group key")
+    oks = pool.map(oracle_verify, [keys[rec[3]] for _, rec in sample],
+                   [signing_root(DomainName.BEACON_ATTESTER,
+                                 att.data.hash_tree_root(), chaos.FORK,
+                                 chaos.GVR) for att, _ in sample],
+                   [att.signature for att, _ in sample])
+    for (_, (slot, _, _, pk)), ok in zip(sample, oks):
+        if not ok:
+            raise AssertionError(f"chaos {label}: slot {slot}'s attestation "
+                                 f"fails the oracle under {pk}")
+    return len(sample)
+
+
+def chaos_sign_pairs(runs) -> set:
+    """The (share key, message) pairs the runs' mock VCs and byzantine
+    signer sign: the same runs under the insecure-test scheme (the same
+    keys, duties and plans; ≈ 1 s a run), recorded."""
+    from charon_tpu_torch.tbls import api
+    from charon_tpu_torch.testutil import chaos
+
+    pairs: set = set()
+    sign = api.sign
+
+    def recorded(sk: bytes, msg: bytes) -> bytes:
+        pairs.add((sk, msg))
+        return sign(sk, msg)
+
+    api.sign = recorded
+    try:
+        for name, slots in runs:
+            scn = dataclasses.replace(chaos.SCENARIOS[name], slots=slots)
+            chaos.ChaosHarness(scn, seed=0, scheme="insecure-test").run()
+    finally:
+        api.sign = sign
+    return pairs
+
+
+def chaos_runs() -> tuple:
+    """The chaos phase's runs: the CHAOS_SCENARIOS, then garbage at
+    CHAOS_REPLAY_SLOTS twice."""
+    return (*CHAOS_SCENARIOS, ("garbage", CHAOS_REPLAY_SLOTS),
+            ("garbage", CHAOS_REPLAY_SLOTS))
+
+
+def chaos_pairs() -> list:
+    """In a host worker: the (key, message) pairs the chaos runs and the
+    race stress will sign, sorted."""
+    from charon_tpu_torch.testutil import racecheck
+
+    pairs = chaos_sign_pairs(chaos_runs())
+    stress, _ = racecheck.stress_inputs(CHAOS_RACE_SEED)
+    pairs |= {(racecheck.STRESS_SK, m) for msgs in stress for m in msgs}
+    return sorted(pairs)
+
+
+def chaos_presign(pool) -> Future:
+    """The chaos phase's signatures, made on `pool`'s workers from the
+    start of the run (the build needs few of the host's cores at its end):
+    the pairs recorded in one worker (`chaos_pairs`), then signed with the
+    bls scheme's pure-Python `tbls.sign` on all of them → a future of
+    ({(key, message): signature}, the seconds to record the pairs, the
+    seconds to the last signature)."""
+    from charon_tpu_torch.tbls import api
+
+    out: Future = Future()
+
+    def work() -> None:
+        try:
+            t0 = time.perf_counter()
+            pairs = pool.submit(chaos_pairs).result()
+            t_pairs = time.perf_counter() - t0
+            sigs = pool.map(api.sign, [sk for sk, _ in pairs],
+                            [m for _, m in pairs], chunksize=4)
+            made = dict(zip(pairs, sigs))
+            out.set_result((made, t_pairs, time.perf_counter() - t0))
+        except BaseException as exc:  # noqa: BLE001 — raised by result()
+            out.set_exception(exc)
+
+    threading.Thread(target=work, name="chaos-presign", daemon=True).start()
+    return out
+
+
+def chaos_run(name: str, slots: int, stream, tally: ChaosTally,
+              publish=lambda harness: None) -> dict:
+    """One catalogue scenario at seed 0 with the bls scheme on the card,
+    on the calling thread and `stream`, `ChaosHarness.check` passed
+    (`publish(harness)` before it runs) → {the harness, its result, wall
+    seconds, the thread's launches, its tally}."""
+    from charon_tpu_torch.ops import launch_count
+    from charon_tpu_torch.testutil import chaos
+
+    scn = dataclasses.replace(chaos.SCENARIOS[name], slots=slots)
+    n0 = launch_count.this_thread()
+    with torch.cuda.stream(stream):
+        t0 = time.perf_counter()
+        harness = chaos.ChaosHarness(scn, seed=0, scheme="bls")
+        publish(harness)
+        res = harness.run()
+        wall = time.perf_counter() - t0
+    n1 = launch_count.this_thread()
+    harness.check(res)
+    counts = {k: n1.get(k, 0) - n0.get(k, 0) for k in all_launches()}
+    return {"harness": harness, "res": res, "wall": wall,
+            "counts": counts, "tally": tally.mine()}
+
+
+@contextlib.contextmanager
+def verify_graphs_per_stream(stream_key=None):
+    """While open, the resident route keeps a verify bucket per (device,
+    padded v, replaying stream) in place of `backend_cuda`'s one per
+    (device, padded v): runs on threads and CUDA streams of their own each
+    replay their own copy of a bucket, its static buffers included, in
+    place of queueing on the one bucket's lock (held from load to
+    readback).  The copies are dropped at exit and `backend_cuda`'s own
+    buckets are left as they were.  `stream_key(device)` names the
+    replaying stream (default: the calling thread's current CUDA
+    stream) → the copies by key."""
+    from charon_tpu_torch.tbls import backend_cuda
+
+    if stream_key is None:
+        def stream_key(device):
+            return torch.cuda.current_stream(device).cuda_stream
+    shared = backend_cuda._verify_graph
+    graphs: dict = {}
+    lock = threading.Lock()
+
+    def per_stream(device, v):
+        key = (str(device), v, stream_key(device))
+        with lock:
+            g = graphs.get(key)
+            if g is None:
+                g = graphs[key] = backend_cuda._VerifyGraph(device, v)
+            return g
+
+    backend_cuda._verify_graph = per_stream
+    try:
+        yield graphs
+    finally:
+        backend_cuda._verify_graph = shared
+        graphs.clear()
+
+
+def chaos_left(harnesses: list, elapsed: float) -> float | None:
+    """Seconds the slowest of the runs still needs for its scenario
+    window, from its virtual clock's progress through it so far (None
+    before every run is a quarter of the way)."""
+    left = 0.0
+    for h in harnesses:
+        loop = None if h is None else h._loop
+        if loop is None:
+            return None
+        done = min(1.0, loop.time() / (h.scenario.slots * h.dur))
+        if done < 0.25:
+            return None
+        left = max(left, elapsed * (1.0 - done) / done)
+    return left
+
+
+def chaos_concurrent(runs, streams, tally: ChaosTally,
+                     beside=lambda left: None) -> list[dict]:
+    """`runs` ((name, slots), ...) each on a thread and a stream of its
+    own, all at once (a run's virtual clock is its own, so concurrency
+    changes no result; their replays overlap on their streams, each with
+    its own copy of a verify bucket, `verify_graphs_per_stream`), calling
+    `beside(chaos_left(...))` on this thread every half second meanwhile
+    → their `chaos_run` results in order, each wall shared with the
+    others' host time; the first failure raised.  The runs share the
+    process's tbls scheme, which must be bls: each run sets it and puts
+    back what it found."""
+    from charon_tpu_torch.tbls import api
+
+    if api.scheme_name() != "bls":
+        raise AssertionError(f"chaos: the runs would share the "
+                             f"{api.scheme_name()!r} scheme, not bls")
+    out: list = [None] * len(runs)
+    harnesses: list = [None] * len(runs)
+
+    def work(i: int, name: str, slots: int) -> None:
+        try:
+            out[i] = chaos_run(name, slots, streams[i], tally,
+                               lambda h: harnesses.__setitem__(i, h))
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            out[i] = exc
+
+    threads = [threading.Thread(target=work, args=(i, *run),
+                                name=f"chaos-{run[0]}-{i}")
+               for i, run in enumerate(runs)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        beside(chaos_left(harnesses, time.perf_counter() - t0))
+        next(t for t in threads if t.is_alive()).join(0.5)
+    for r in out:
+        if isinstance(r, BaseException):
+            raise r
+    return out
+
+
+def chaos_phase(dev, presigned: Future, beside=lambda left: None) -> dict:
+    """The fault catalogue and the race stress with real BLS, on a fresh
+    resident backend: the CHAOS_SCENARIOS runs and garbage at
+    CHAOS_REPLAY_SLOTS twice, all at once on threads and streams of their
+    own (`chaos_concurrent`; each stream's own verify buckets,
+    `verify_graphs_per_stream`, captured first; the mock VCs' and the
+    stress's signatures made in the host's workers from the start of the
+    run, `presigned` from `chaos_presign`, `SignMemo`), each passing
+    `ChaosHarness.check` (liveness, safety, telemetry truth) with sampled
+    attestations equal to the oracle, the verify tile's and the
+    combine's kernels launched and K1 only as a re-check's negation, the
+    two replays at one fingerprint; then `testutil.racecheck`'s
+    dispatch_stress twice: clean, every entry verified, `CUDABackend.*`
+    among the writers, one fingerprint (`beside(left)` called through the
+    runs, `chaos_concurrent`) → the CHAOS_SCENARIOS runs' launches summed
+    (the kernels line's `launches_chaos`)."""
+    from charon_tpu_torch.ops import cuda_fp
+    from charon_tpu_torch.tbls import api, backend_cuda
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.testutil import chaos, racecheck
+
+    prev, prev_scheme = api._backend(), api.scheme_name()
+    backend = backend_cuda.CUDABackend()
+    api.register_backend("cuda", backend)
+    api.set_scheme("bls")
+    t_phase = time.perf_counter()
+    total: dict[str, int] = {}
+    memo = SignMemo(api.sign)
+    # pure-Python BLS (the oracle) on the host's workers
+    pool = host_pool()
+    try:
+        runs = chaos_runs()
+        streams = [torch.cuda.Stream(dev) for _ in runs]
+        with verify_graphs_per_stream():
+            t0 = time.perf_counter()
+            pk = rc.g1_to_bytes(rc.G1_GEN)
+            inf_sig = backend_cuda._G2_INF_BYTES.tobytes()
+            for stream in streams:
+                with torch.cuda.stream(stream):
+                    for v in CHAOS_BUCKETS:
+                        backend.batch_verify_bytes(
+                            [(pk, b"chip smoke chaos bucket %d" % k, inf_sig)
+                             for k in range(v)])
+            t1 = time.perf_counter()
+            made, t_pairs, t_made = presigned.result()
+            memo.preload(made)
+            log(f"chaos: verify buckets {list(CHAOS_BUCKETS)} captured on "
+                f"{len(streams)} streams in {t1 - t0:.1f} s; the "
+                f"{len(made)} signatures the runs and the stress will ask "
+                f"for (recorded from the same runs under insecure-test in "
+                f"{t_pairs:.1f} s) made in the host's {HOST_WORKERS} "
+                f"workers {t_made:.1f} s after the run's start, in by "
+                f"{time.perf_counter() - t0:.1f} s")
+            tally = ChaosTally(backend)
+            api.sign = memo
+            t0 = time.perf_counter()
+            done = chaos_concurrent(runs, streams, tally, beside)
+        log(f"chaos: {len(runs)} runs at once, each on its own thread and "
+            f"CUDA stream: {time.perf_counter() - t0:.1f} s; signatures "
+            f"served {memo.served}, made during the runs {memo.signed}; "
+            f"each run's wall below shares the host with the other runs "
+            f"and, from the cluster's spawn, the card with its booting "
+            f"processes")
+        for (name, slots), r in zip(runs[:len(CHAOS_SCENARIOS)], done):
+            res, counts, t = r["res"], r["counts"], r["tally"]
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            zero = [k for k in GRAPH_KERNELS + COMBINE_PATH_KERNELS
+                    if not counts[k]]
+            if zero:
+                raise AssertionError(f"chaos {name}: never launched {zero}")
+            rechecks = t["stage_launches"].get("recheck_s", {}).get(
+                "pp_f12mul", 0)
+            k1 = {k: counts[k] for k in cuda_fp.LAUNCHES if counts[k]}
+            if k1 != ({"fp_neg": rechecks} if rechecks else {}):
+                raise AssertionError(f"chaos {name}: K1 launched {k1} with "
+                                     f"{rechecks} re-checks")
+            sampled = chaos_oracle(r["harness"], res, name, pool)
+            flushes = sum(h.node.verifier.launches
+                          for h in r["harness"]._slots)
+            full = chaos.SCENARIOS[name].slots
+            cut = (f" (cut from the catalogue's {full} for the phase's time)"
+                   if slots != full else "")
+            stages = {k: round(sec, 4)
+                      for k, sec in sorted(t["stages"].items())}
+            equiv = {str(n): c for n, c in res.equivocations.items()}
+            launched = {k: c for k, c in counts.items() if c}
+            log(f"chaos {name} (bls, seed 0, {slots} slots{cut}): "
+                f"{r['wall']:.1f} s wall, concurrent; {flushes} verify "
+                f"flushes through "
+                f"the nodes' verifiers, {t['tiles']} tiles of {t['rows']} "
+                f"rows ({t['rejected']} rows rejected in "
+                f"{t['rejecting_tiles']} tiles, {rechecks} re-checks); "
+                f"{t['combines']} combines of {t['combine_rows']} "
+                f"validators; {len(res.attestations)} attestations, "
+                f"{len(res.healthy_slots)} healthy slots, {sampled} "
+                f"distinct ones equal to the oracle; byzantine "
+                f"{json.dumps(res.byz_stats)}, router "
+                f"{json.dumps(res.router_stats)}, equivocations counted "
+                f"{json.dumps(equiv)}; verify stages (s, summed) "
+                f"{json.dumps(stages)}; launches {json.dumps(launched)}; "
+                f"fingerprint {res.fingerprint()[:16]}")
+        replays = done[len(CHAOS_SCENARIOS):]
+        fps = [(r["res"].fingerprint(), round(r["wall"], 1))
+               for r in replays]
+        if fps[0][0] != fps[1][0]:
+            raise AssertionError(f"chaos garbage at {CHAOS_REPLAY_SLOTS} "
+                                 f"slots does not replay: {fps}")
+        log(f"chaos replay: garbage at {CHAOS_REPLAY_SLOTS} slots, seed 0, "
+            f"twice on the card at once: fingerprint {fps[0][0][:16]} both "
+            f"times ({fps[0][1]} s, {fps[1][1]} s wall, concurrent)")
+        races = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rc_ = racecheck.run_scenario(
+                "dispatch_stress", seed=CHAOS_RACE_SEED, scheme="bls")
+            wall = time.perf_counter() - t0
+            if rc_.counters["verified_ok"] != rc_.counters["entries"]:
+                raise AssertionError(f"racecheck: {rc_.counters}")
+            if not any(k.startswith("CUDABackend.") for k in rc_.writers):
+                raise AssertionError(f"racecheck: no CUDABackend attribute "
+                                     f"written: {sorted(rc_.writers)}")
+            races.append(rc_)
+            writers = {k: sorted(v) for k, v in sorted(rc_.writers.items())}
+            log(f"racecheck dispatch_stress (bls, seed {CHAOS_RACE_SEED}): "
+                f"clean in {wall:.1f} s; {json.dumps(rc_.counters)}; writers "
+                f"{json.dumps(writers)}; fingerprint "
+                f"{rc_.fingerprint()[:16]}")
+        if races[0].fingerprint() != races[1].fingerprint():
+            raise AssertionError(
+                "racecheck dispatch_stress (bls) does not replay: "
+                + json.dumps([r.to_dict() for r in races], default=list))
+    finally:
+        api.sign = memo._sign
+        api.register_backend("cuda", prev)
+        api.set_scheme(prev_scheme)
+    log(f"chaos: phase {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5691,10 +6459,57 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    try:
+        # the host's work that needs no kernel: handed to the workers
+        # before the build (the cluster's V by a signature timed first,
+        # before the workers load the cores)
+        cluster_prep = cluster_prepare(host_pool())
+        presigned = chaos_presign(host_pool())
+        return run_phases(dev, t_start, cluster_prep, presigned)
+    finally:
+        host_pool().shutdown(cancel_futures=True)
+
+
+def chaos_and_cluster(dev, cluster_prep: dict, presigned: Future,
+                      between=lambda: None) -> tuple[dict, dict]:
+    """The chaos phase, then the cluster phase, whose processes boot
+    beside the end of the chaos phase's runs: spawned once the runs'
+    estimated seconds left and the phase's tail fit before the genesis
+    (`cluster_start` at the latest after the phase), their waited slots
+    after the phase (`between()` then) → (the chaos runs' launches, the
+    nodes')."""
+    cluster = None
+    t0 = time.perf_counter()
+
+    def spawn_beside(left: float | None) -> None:
+        nonlocal cluster
+        if cluster is None and left is not None and (
+                left + CHAOS_TAIL_S <= CL_GENESIS_S - CL_SPAWN_SLACK_S):
+            log(f"cluster: spawned {time.perf_counter() - t0:.1f} s into "
+                f"the chaos phase, its runs' estimated {left:.1f} s left")
+            cluster = cluster_start(cluster_prep)
+
+    try:
+        chaos_launches = chaos_phase(dev, presigned, spawn_beside)
+    except BaseException:
+        if cluster is not None:
+            cluster.abort()
+        raise
+    if cluster is None:
+        cluster = cluster_start(cluster_prep)
+    between()
+    return chaos_launches, cluster.finish()
+
+
+def run_phases(dev, t_start: float, cluster_prep: dict,
+               presigned: Future) -> int:
+    """The phases in order (`main`'s, after it handed the host's work to
+    its workers)."""
     from charon_tpu_torch.ops import build
 
-    dev = torch.device("cuda", 0)
-    t_start = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.INFO['build_seconds']:.1f} s) → {build.INFO['path']}")
@@ -5803,8 +6618,9 @@ def main() -> int:
     serving_phase()
     mark("dkg")
     dkg_launches = dkg_phase(dev)
-    mark("cluster")
-    cluster_launches = cluster_phase()
+    mark("chaos")
+    chaos_launches, cluster_launches = chaos_and_cluster(
+        dev, cluster_prep, presigned, lambda: mark("cluster"))
 
     from charon_tpu_torch.tbls import dispatch
     pipe = dispatch.current_pipeline()
@@ -5823,6 +6639,7 @@ def main() -> int:
                       + sum(c[name] for c in resident_launches.values())
                       + simnet_launches[name]
                       + dkg_launches[name]
+                      + chaos_launches.get(name, 0)
                       + cluster_launches.get(name, 0)),
          "launches_combine": combine_launches.get(name, 0),
          "launches_verify": verify_launches[name],
@@ -5833,6 +6650,7 @@ def main() -> int:
                                resident_launches.items()},
          "launches_simnet": simnet_launches[name],
          "launches_dkg": dkg_launches[name],
+         "launches_chaos": chaos_launches.get(name, 0),
          "launches_cluster": cluster_launches.get(name, 0),
          **kern[name],
          **{k: ptxas[PTXAS_NAMES[name]][k] for k in ("regs", "stack",

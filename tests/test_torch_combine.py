@@ -226,7 +226,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'charon_tpu_torch.app.forkjoin', 'charon_tpu_torch.eth2util.network',"
         " 'charon_tpu_torch.eth2util.synthproposer',"
         " 'charon_tpu_torch.testutil.httpvc',"
-        " 'charon_tpu_torch.testutil.serving_load')\n"
+        " 'charon_tpu_torch.testutil.serving_load',"
+        " 'charon_tpu_torch.testutil.chaos',"
+        " 'charon_tpu_torch.testutil.racecheck',"
+        " 'charon_tpu_torch.testutil.golden')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('charon_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
