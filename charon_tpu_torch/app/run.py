@@ -187,6 +187,7 @@ class App:
         self.boot_seconds["verify_lock"] = time.perf_counter() - t0
 
         # 2. identity + self index from the lock ENRs (app/app.go:162-178)
+        # async-ok: boot-time one-shot read, no duties scheduled yet
         with open(cfg.identity_key_file) as f:
             identity = ident.NodeIdentity.from_bytes(
                 bytes.fromhex(f.read().strip()))

@@ -51,6 +51,7 @@
 // pow where α = −1.  Measured times: PERF.md.
 
 #include "fp381.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -217,4 +218,14 @@ extern "C" int charon_g2_decompress(void* out, void* ok, const void* xc0,
       static_cast<const unsigned char*>(sign),
       static_cast<const unsigned char*>(inf), n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_decompress_attrs(int i, int threads, int smem,
+                                       long long* out) {
+  const void* const fns[] = {
+      (const void*)g2_decompress_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

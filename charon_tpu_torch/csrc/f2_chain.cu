@@ -54,6 +54,7 @@
 // are the program's: chip_smoke.py's sweep chose them (PERF.md).
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -158,4 +159,15 @@ extern "C" int charon_f2_chain_program(void* out, void* ok, const void* in,
       static_cast<const int*>(in), static_cast<const int2*>(prog), steps,
       static_cast<const int*>(fout), in_planes, out_planes, lanes, slots, n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_f2_chain_attrs(int i, int threads, int smem,
+                                     long long* out) {
+  const void* const fns[] = {
+      (const void*)f2_chain_program_kernel<0>,  // 0
+      (const void*)f2_chain_program_kernel<1>  // 1
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -58,6 +58,7 @@
 
 #include "f12_warp.cuh"
 #include "fp_inv.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -303,4 +304,14 @@ extern "C" int charon_final_exp(void* out, const void* in, void* verdict,
       static_cast<int*>(out), static_cast<unsigned char*>(verdict),
       static_cast<const int*>(in), n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_final_exp_attrs(int i, int threads, int smem,
+                                      long long* out) {
+  const void* const fns[] = {
+      (const void*)final_exp_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

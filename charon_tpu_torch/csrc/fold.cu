@@ -40,6 +40,7 @@
 #include <cooperative_groups.h>
 
 #include "f12_warp.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -147,4 +148,14 @@ extern "C" int charon_f12_fold(void* out, const void* in, const void* drop,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_fold_attrs(int i, int threads, int smem,
+                                 long long* out) {
+  const void* const fns[] = {
+      (const void*)f12_fold_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -38,6 +38,7 @@
 // its plain versions in its kernel phase.
 
 #include "fp381.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -85,4 +86,18 @@ extern "C" int charon_fp_op(int op, int k, void* out, const void* a,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_fp_ops_attrs(int i, int threads, int smem,
+                                   long long* out) {
+  const void* const fns[] = {
+      (const void*)fp_op_kernel<MUL>,  // 0
+      (const void*)fp_op_kernel<ADD>,  // 1
+      (const void*)fp_op_kernel<SUB>,  // 2
+      (const void*)fp_op_kernel<NEG>,  // 3
+      (const void*)fp_op_kernel<SMALL>  // 4
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -47,6 +47,7 @@
 // products spread over lanes.
 
 #include "fp381.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -153,4 +154,14 @@ extern "C" int charon_g1_decompress(void* pts, void* ok, const void* x_std,
       static_cast<const unsigned char*>(sign),
       static_cast<const unsigned char*>(inf), n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_g1_decompress_attrs(int i, int threads, int smem,
+                                          long long* out) {
+  const void* const fns[] = {
+      (const void*)g1_decompress_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -50,6 +50,7 @@
 // sums folded in).
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -76,4 +77,14 @@ extern "C" int charon_g1_scalar_mul(void* out, const void* in,
                                     void* stream) {
   return program::launch(g1_scalar_mul_kernel, out, in, prog, steps, fout,
                          digits, lanes, slots, n, stream);
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_g1_scalar_mul_attrs(int i, int threads, int smem,
+                                          long long* out) {
+  const void* const fns[] = {
+      (const void*)g1_scalar_mul_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -31,6 +31,7 @@
 // side.
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -54,4 +55,14 @@ extern "C" int charon_g1_tables(void* out, const void* in, const void* prog,
                                 int slots, int n, void* stream) {
   return program::launch(g1_tables_kernel, out, in, prog, steps, fout,
                          nullptr, lanes, slots, n, stream);
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_g1_tables_attrs(int i, int threads, int smem,
+                                      long long* out) {
+  const void* const fns[] = {
+      (const void*)g1_tables_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

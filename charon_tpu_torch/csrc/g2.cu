@@ -52,6 +52,7 @@
 // or fusing the 87 windows into one kernel, is the next design.
 
 #include "fp381.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -199,4 +200,19 @@ extern "C" int charon_g2_sel(int dbl, void* out, const void* acc,
         o, a, p1, p2, p3, d, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_g2_attrs(int i, int threads, int smem,
+                               long long* out) {
+  const void* const fns[] = {
+      (const void*)g2_step_kernel<0>,  // 0
+      (const void*)g2_step_kernel<1>,  // 1
+      (const void*)straus_step_kernel<0>,  // 2
+      (const void*)straus_step_kernel<1>,  // 3
+      (const void*)g2_sel_kernel<0>,  // 4
+      (const void*)g2_sel_kernel<1>  // 5
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

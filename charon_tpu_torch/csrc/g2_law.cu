@@ -51,6 +51,7 @@
 // round trips (6.21–6.31 ms against 6.92–6.99).
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -81,4 +82,16 @@ extern "C" int charon_g2_law(int kind, void* out, const void* in,
   if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   return program::launch(kernels[kind], out, in, prog, steps, fout,
                          nullptr, lanes, slots, n, stream);
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_g2_law_attrs(int i, int threads, int smem,
+                                   long long* out) {
+  const void* const fns[] = {
+      (const void*)g2_law_kernel<6, 18>,  // 0
+      (const void*)g2_law_kernel<16, 24>,  // 1
+      (const void*)g2_law_kernel<36, 6>  // 2
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

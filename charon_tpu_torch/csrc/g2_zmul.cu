@@ -35,6 +35,7 @@
 // also runs [|x|]P and [|x|]ψ(P) as one launch over both row sets.
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -58,4 +59,14 @@ extern "C" int charon_g2_zmul(void* out, const void* in, const void* prog,
                               int slots, int n, void* stream) {
   return program::launch(g2_zmul_kernel, out, in, prog, steps, fout,
                          nullptr, lanes, slots, n, stream);
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_g2_zmul_attrs(int i, int threads, int smem,
+                                    long long* out) {
+  const void* const fns[] = {
+      (const void*)g2_zmul_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

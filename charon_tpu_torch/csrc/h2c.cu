@@ -49,6 +49,7 @@
 // is the next design.
 
 #include "fp381.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -266,4 +267,20 @@ extern "C" int charon_h2c_point(int kind, void* out, const void* in, int n,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_h2c_attrs(int i, int threads, int smem,
+                                long long* out) {
+  const void* const fns[] = {
+      (const void*)f2_chain_kernel<SQR>,  // 0
+      (const void*)f2_chain_kernel<MUL>,  // 1
+      (const void*)f2_chain_kernel<SQR4>,  // 2
+      (const void*)f2_chain_kernel<SQR4MUL>,  // 3
+      (const void*)h2c_sswu_kernel,  // 4
+      (const void*)h2c_point_kernel<ISO3>,  // 5
+      (const void*)h2c_point_kernel<PSI>  // 6
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

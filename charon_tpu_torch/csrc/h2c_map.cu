@@ -48,6 +48,7 @@
 // launch shares the prep stream's SMs with the launch thread's kernels).
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -152,4 +153,14 @@ extern "C" int charon_h2c_map_tail(void* out, const void* aff,
       static_cast<const int*>(consts), static_cast<const int2*>(prog), steps,
       static_cast<const int*>(fout), lanes, slots, n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_h2c_map_attrs(int i, int threads, int smem,
+                                    long long* out) {
+  const void* const fns[] = {
+      (const void*)h2c_map_tail_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

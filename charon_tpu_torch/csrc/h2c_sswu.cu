@@ -46,6 +46,7 @@
 // launch shares the prep stream's SMs with the launch thread's kernels).
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -131,4 +132,14 @@ extern "C" int charon_h2c_sswu_head(void* out, void* sgn, const void* u,
       static_cast<const int2*>(prog), steps, static_cast<const int*>(fout),
       lanes, slots, n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_h2c_sswu_attrs(int i, int threads, int smem,
+                                     long long* out) {
+  const void* const fns[] = {
+      (const void*)h2c_sswu_head_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -60,6 +60,7 @@
 // Measured times: PERF.md.
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -162,4 +163,21 @@ extern "C" int charon_miller_thread(void* out, const void* p, const void* q,
       static_cast<int*>(out), static_cast<const int*>(p),
       static_cast<const int*>(q), n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_miller_attrs(int i, int threads, int smem,
+                                   long long* out) {
+  const void* const fns[] = {
+      (const void*)miller_loop_kernel,  // 0
+      (const void*)miller_thread_kernel  // 1
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
+}
+
+// csrc/program.cuh's row_words on the host: ops/smem_budget.py's copy is
+// held against it on the card.
+extern "C" int charon_row_words(int slots) {
+  return program::row_words(slots);
 }

@@ -36,6 +36,7 @@
 // products of the chain spread over lanes (one Fp product over 4 lanes).
 
 #include "fp_inv.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -93,4 +94,14 @@ extern "C" int charon_g2_normalize(void* out, void* inf, const void* pts,
       static_cast<int*>(out), static_cast<unsigned char*>(inf),
       static_cast<const int*>(pts), n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_normalize_attrs(int i, int threads, int smem,
+                                      long long* out) {
+  const void* const fns[] = {
+      (const void*)g2_normalize_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -45,6 +45,7 @@
 // lane split per row and wgmma for the limb products are the next designs.
 
 #include "fp381.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -211,4 +212,19 @@ extern "C" int charon_g1_dblsel(void* out, const void* acc, const void* t1,
       static_cast<const int*>(t1), static_cast<const int*>(t2),
       static_cast<const int*>(t3), static_cast<const int*>(w), n);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_pairing_attrs(int i, int threads, int smem,
+                                    long long* out) {
+  const void* const fns[] = {
+      (const void*)pp_step_kernel<PP_DBL>,  // 0
+      (const void*)pp_step_kernel<PP_ADD>,  // 1
+      (const void*)f12_step_kernel<F12_SQR>,  // 2
+      (const void*)f12_step_kernel<F12_MUL014>,  // 3
+      (const void*)f12_step_kernel<F12_MUL>,  // 4
+      (const void*)g1_dblsel_kernel  // 5
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -57,6 +57,7 @@
 // chosen by chip_smoke.py's sweep over 2, 4 and 8 lanes.
 
 #include "program.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -160,4 +161,14 @@ extern "C" int charon_straus_msm(void* out, const void* tables,
       static_cast<const int2*>(tail), tail_steps,
       static_cast<const int*>(tail_out), nwin, t_count, n, lanes, slots);
   return (int)cudaGetLastError();
+}
+
+// The kernel contract audit's query (attrs.cuh) of kernel i of `fns`.
+extern "C" int charon_straus_attrs(int i, int threads, int smem,
+                                   long long* out) {
+  const void* const fns[] = {
+      (const void*)straus_msm_kernel  // 0
+  };
+  return attrs::query(fns, (int)(sizeof(fns) / sizeof(fns[0])), i,
+                      threads, smem, out);
 }

@@ -31,7 +31,7 @@ SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu", "final_exp.cu",
            "g1_tables.cu", "g1_decompress.cu", "g2_law.cu", "h2c_map.cu",
            "h2c_sswu.cu")
 HEADERS = ("fp381.cuh", "fp381_consts.cuh", "program.cuh", "f12_warp.cuh",
-           "fp_inv.cuh")
+           "fp_inv.cuh", "attrs.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -114,7 +114,7 @@ def build() -> Path:
     return lib
 
 
-def _kernel_name(mangled: str) -> str:
+def kernel_name(mangled: str) -> str:
     """'_ZN…_pairing_cu_…15f12_step_kernelILi2EE…' → 'pairing.cu
     f12_step_kernel<2>' (the length-prefixed name ending in _kernel)."""
     # the longest source stem in the name: "_decompress_cu_" is also in
@@ -134,23 +134,33 @@ def _kernel_name(mangled: str) -> str:
     return found
 
 
-def ptxas_rows() -> list[dict]:
-    """One dict per kernel of the current build — its name, registers,
-    stack frame and the largest spill of the kernel or the device
-    functions it calls — from the compiler's -Xptxas -v log."""
-    log = build_root() / source_hash() / "ptxas.log"
-    if not log.exists():
-        return []
+def ptxas_log_path() -> Path:
+    """The current build's -Xptxas -v log (absent before the build)."""
+    return build_root() / source_hash() / "ptxas.log"
+
+
+def ptxas_rows(text: str | None = None) -> list[dict]:
+    """One dict per kernel of the current build (or of the log `text`) —
+    its name, registers, stack frame, the largest spill of the kernel or
+    the device functions it calls, and its static shared memory — from
+    the compiler's -Xptxas -v log."""
+    if text is None:
+        log = ptxas_log_path()
+        if not log.exists():
+            return []
+        text = log.read_text()
     rows, cur = [], None
-    for line in log.read_text().splitlines():
+    for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = {"name": _kernel_name(m.group(1)), "regs": 0, "stack": 0,
-                   "spill": 0}
+            cur = {"name": kernel_name(m.group(1)), "regs": 0, "stack": 0,
+                   "spill": 0, "smem": 0}
             rows.append(cur)
         elif cur is not None:
             if (m := re.search(r"Used (\d+) registers", line)):
                 cur["regs"] = int(m.group(1))
+                if (m := re.search(r"(\d+) bytes smem", line)):
+                    cur["smem"] = int(m.group(1))
             if (m := re.search(r"(\d+) bytes cumulative stack size", line)):
                 cur["stack"] = int(m.group(1))
             if (m := re.search(r"(\d+) bytes spill stores", line)):
@@ -194,6 +204,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_g2_law.argtypes = [i, p, p, p, i, p, i, i, i, p]
     lib.charon_h2c_map_tail.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
     lib.charon_h2c_sswu_head.argtypes = [p, p, p, p, p, i, p, i, i, i, p]
+    for src in SOURCES:
+        query = getattr(lib, f"charon_{Path(src).stem}_attrs")
+        query.argtypes = [i, i, i, p]
+        query.restype = i
+    lib.charon_row_words.argtypes = [i]
+    lib.charon_row_words.restype = i
     for fn in (lib.charon_fp_op, lib.charon_g2_step, lib.charon_straus_step,
                lib.charon_pp_step, lib.charon_f12_step,
                lib.charon_g1_dblsel, lib.charon_g2_sel, lib.charon_f2_chain,
@@ -218,6 +234,29 @@ def library() -> ctypes.CDLL:
             _bind(lib)
             _LIB = lib
         return _LIB
+
+
+#: the fields of csrc/attrs.cuh's query, in its order
+ATTR_FIELDS = ("regs", "local_bytes", "static_smem", "max_dynamic_smem",
+               "max_threads", "blocks_per_sm")
+
+
+def kernel_attrs(stem: str, index: int, threads: int, smem: int) -> dict:
+    """Kernel `index` of csrc/<stem>.cu's attribute query as the runtime
+    reports it (``cudaFuncGetAttributes``), with the blocks an SM holds at
+    `threads` a block and `smem` bytes of dynamic shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) → {ATTR_FIELDS}."""
+    out = (ctypes.c_longlong * len(ATTR_FIELDS))()
+    err = getattr(library(), f"charon_{stem}_attrs")(index, threads, smem,
+                                                     out)
+    if err:
+        raise RuntimeError(f"charon_{stem}_attrs({index}): CUDA error {err}")
+    return dict(zip(ATTR_FIELDS, out))
+
+
+def row_words(slots: int) -> int:
+    """csrc/program.cuh's row_words, computed by the library's host code."""
+    return library().charon_row_words(slots)
 
 
 def _exp_words(e: int) -> list[int]:
@@ -294,6 +333,6 @@ def render_consts_header() -> str:
 
 
 if __name__ == "__main__":
-    path = build()
-    print(f"built {path} in {INFO['build_seconds']:.1f} s")
+    library()
+    print(f"built {INFO['path']} in {INFO['build_seconds']:.1f} s")
     print(ptxas_report())

@@ -195,8 +195,7 @@ LAUNCHES = {"g2_decompress": 0, "g2_normalize": 0, "g1_decompress": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    launch_count.reset(LAUNCHES)
 
 
 def g2_decompress(xc0: torch.Tensor, xc1: torch.Tensor, sign: torch.Tensor,
@@ -375,3 +374,25 @@ def g1_decompress(x: torch.Tensor, sign: torch.Tensor, inf: torch.Tensor):
     _raise_on("g1_decompress", err)
     launch_count.bump(LAUNCHES, "g1_decompress")
     return pts, ok
+
+
+def _register_kernels() -> None:
+    """K12, K19 and K21 for the kernel contract audit: a thread a row,
+    32 threads a block."""
+    from ..analysis import registry
+    from . import smem_budget
+
+    for name, stem, sym, budget, replaces, row in (
+            ("g2_decompress", "decompress", "g2_decompress_kernel",
+             (255, 11008, 0), "charon_tpu/ops/pallas_fp.py:78", 26),
+            ("g2_normalize", "normalize", "g2_normalize_kernel",
+             (255, 3584, 0), "charon_tpu/ops/codec.py:319", 33),
+            ("g1_decompress", "g1_decompress", "g1_decompress_kernel",
+             (168, 8320, 0), "charon_tpu/ops/codec.py:266", 35)):
+        registry.register_kernel(registry.KernelSpec(
+            name=f"{stem}.cu {sym}", symbol=sym, source=f"csrc/{stem}.cu",
+            launch=name, attr_index=0, geometry=smem_budget.per_thread(32),
+            budget=budget, replaces=replaces, perf_rows=(row,)))
+
+
+_register_kernels()

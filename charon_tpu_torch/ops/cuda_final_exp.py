@@ -256,7 +256,7 @@ LAUNCHES = {"final_exp": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["final_exp"] = 0
+    launch_count.reset(LAUNCHES)
 
 
 def final_exp(f: torch.Tensor) -> torch.Tensor:
@@ -298,3 +298,19 @@ def _final_exp(f: torch.Tensor, verdict: bool):
     _raise_on("final_exp", err)
     launch_count.bump(LAUNCHES, "final_exp")
     return (out, ok) if verdict else out
+
+
+def _register_kernels() -> None:
+    """K11 for the kernel contract audit: a warp a row, a row a block."""
+    from ..analysis import registry
+    from . import smem_budget
+
+    registry.register_kernel(registry.KernelSpec(
+        name="final_exp.cu final_exp_kernel", symbol="final_exp_kernel",
+        source="csrc/final_exp.cu", launch="final_exp", attr_index=0,
+        geometry=smem_budget.per_warp_row, budget=(255, 10048, 204),
+        replaces="charon_tpu/ops/pallas_fp.py:78", perf_rows=(25,),
+        tail=False))
+
+
+_register_kernels()

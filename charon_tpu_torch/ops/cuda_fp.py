@@ -30,8 +30,7 @@ LAUNCHES = {name: 0 for name in OPS}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    launch_count.reset(LAUNCHES)
 
 
 def _check(name: str, *ts: torch.Tensor) -> None:
@@ -103,3 +102,23 @@ def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:
     if a.device.type == "cpu":
         return _fp.mul_small_plain(a, k)
     return _launch("fp_mul_small", a, None, k)
+
+
+def _register_kernels() -> None:
+    """K1's five instantiations (``fp_op_kernel<OP>``, OP as in `OPS`)
+    for the kernel contract audit: 128 threads a block, a thread a row."""
+    from ..analysis import registry
+    from . import smem_budget
+
+    budgets = ((122, 0, 0), (56, 0, 0), (64, 0, 0), (64, 0, 0), (56, 0, 0))
+    lines = (78, 97, 104, 112, 120)
+    for name, op in OPS.items():
+        registry.register_kernel(registry.KernelSpec(
+            name=f"fp_ops.cu fp_op_kernel<{op}>", symbol="fp_op_kernel",
+            source="csrc/fp_ops.cu", launch=name, attr_index=op,
+            geometry=smem_budget.per_thread(128), budget=budgets[op],
+            replaces=f"charon_tpu/ops/pallas_fp.py:{lines[op]}",
+            perf_rows=(op + 1,)))
+
+
+_register_kernels()

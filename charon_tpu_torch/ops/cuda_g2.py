@@ -327,8 +327,7 @@ LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "straus_head": 0, "straus_tail": 0,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    launch_count.reset(LAUNCHES)
 
 
 def _check_pts(name: str, *ts: torch.Tensor) -> None:
@@ -664,3 +663,53 @@ def g2_law(kind: str, block: torch.Tensor, cfg=None) -> torch.Tensor:
     _raise_on("g2_law", err)
     launch_count.bump(LAUNCHES, "g2_law")
     return out
+
+
+def _register_kernels() -> None:
+    """K2, K3, K10, K16 and K22 for the kernel contract audit.  K2 and K3
+    run a thread a row, 64 threads a block, K10 32; K16 and K22 are
+    program kernels (ops/miller_program.py), one warp a block, their
+    shared memory from the scheduled program's lanes and slots; K22's
+    three instantiations are its "tables", "pre" and "post" programs
+    (template: the input block's planes)."""
+    from ..analysis import registry
+    from . import smem_budget
+
+    g2 = "charon_tpu/ops/pallas_g2.py"
+    for launch, sym, t, base, block, budget, line, row in (
+            ("g2_add", "g2_step_kernel", 0, 0, 64, (255, 4608, 0), 354, 7),
+            ("g2_dbl", "g2_step_kernel", 1, 0, 64, (255, 4096, 0), 350, 6),
+            ("straus_tail", "straus_step_kernel", 0, 2, 64,
+             (255, 4608, 0), 700, 10),
+            ("straus_head", "straus_step_kernel", 1, 2, 64,
+             (255, 4608, 0), 706, 11),
+            ("g2_addsel", "g2_sel_kernel", 0, 4, 32, (255, 4608, 0), 384, 8),
+            ("g2_dblsel", "g2_sel_kernel", 1, 4, 32, (255, 4608, 0), 389, 9)):
+        registry.register_kernel(registry.KernelSpec(
+            name=f"g2.cu {sym}<{t}>", symbol=sym, source="csrc/g2.cu",
+            launch=launch, attr_index=base + t,
+            geometry=smem_budget.per_thread(block), budget=budget,
+            replaces=f"{g2}:{line}", perf_rows=(row,)))
+    registry.register_kernel(registry.KernelSpec(
+        name="straus.cu straus_msm_kernel", symbol="straus_msm_kernel",
+        source="csrc/straus.cu", launch="straus_msm", attr_index=0,
+        geometry=lambda rows, sms: smem_budget.program_geometry(
+            miller_program.straus_programs(
+                miller_program.ST_LANES, miller_program.ST_SLOTS,
+                miller_program.ST_WINDOW)[0]),
+        budget=(255, 128, 144), replaces=f"{g2}:797", perf_rows=(30,)))
+    for kind, code in _LAW_KIND.items():
+        planes = miller_program.LAWS[kind][1] + (4 if kind == "pre" else 0)
+        registry.register_kernel(registry.KernelSpec(
+            name=f"g2_law.cu g2_law_kernel<{planes}>",
+            symbol="g2_law_kernel", source="csrc/g2_law.cu",
+            launch="g2_law", attr_index=code,
+            geometry=lambda rows, sms, kind=kind:
+                smem_budget.program_geometry(
+                    miller_program.law_program(kind)),
+            budget=(255, 216, 172),
+            replaces=f"{g2}:811" if kind == "tables" else None,
+            perf_rows=(36,)))
+
+
+_register_kernels()

@@ -286,8 +286,7 @@ _POINT = {"h2c_iso3": (0, 4), "h2c_psi": (1, 6)}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    launch_count.reset(LAUNCHES)
 
 
 def _check(name: str, t: torch.Tensor, planes: int, n: int) -> None:
@@ -890,3 +889,68 @@ def pack_messages(msgs, dst: bytes = DST_G2) -> np.ndarray:
     flags on the card."""
     pairs = [hash_to_field_fp2(msg, 2, dst) for msg in msgs]
     return _pack_u([p[0] for p in pairs] + [p[1] for p in pairs])
+
+
+def _register_kernels() -> None:
+    """K7–K9, K17, K18, K23 and K24 for the kernel contract audit.  K7–K9
+    run a thread a row, 32 threads a block; the others are program
+    kernels (ops/miller_program.py), one warp a block, their shared
+    memory from the scheduled program's lanes and slots.  K18's
+    instantiation 1 is the root ("sqrt", whose lanes `chain_config`
+    widens on a batch of few warps an SM), 0 the inverse and the affine
+    step (one configuration)."""
+    from ..analysis import registry
+    from . import smem_budget
+
+    h2c = "charon_tpu/ops/pallas_h2c.py"
+    for launch, sym, t, index, budget, line, row in (
+            ("h2c_sqr", "f2_chain_kernel", 0, 0, (250, 256, 0), 290, 19),
+            ("h2c_mul", "f2_chain_kernel", 1, 1, (255, 512, 0), 294, 20),
+            ("h2c_sqr4", "f2_chain_kernel", 2, 2, (249, 256, 0), 298, 21),
+            ("h2c_sqr4mul", "f2_chain_kernel", 3, 3, (254, 512, 0), 302,
+             22),
+            ("h2c_sswu", "h2c_sswu_kernel", None, 4, (255, 3096, 568), 285,
+             18),
+            ("h2c_iso3", "h2c_point_kernel", 0, 5, (255, 1696, 160), 306,
+             23),
+            ("h2c_psi", "h2c_point_kernel", 1, 6, (254, 1024, 0), 311, 24)):
+        registry.register_kernel(registry.KernelSpec(
+            name=f"h2c.cu {sym}" + ("" if t is None else f"<{t}>"),
+            symbol=sym, source="csrc/h2c.cu", launch=launch,
+            attr_index=index, geometry=smem_budget.per_thread(32),
+            budget=budget, replaces=f"{h2c}:{line}", perf_rows=(row,)))
+    registry.register_kernel(registry.KernelSpec(
+        name="g2_zmul.cu g2_zmul_kernel", symbol="g2_zmul_kernel",
+        source="csrc/g2_zmul.cu", launch="g2_zmul", attr_index=0,
+        geometry=lambda rows, sms: smem_budget.program_geometry(
+            miller_program.zmul_program(
+                miller_program.ZM_LANES, miller_program.ZM_SLOTS,
+                miller_program.ZM_WINDOW)),
+        budget=(255, 216, 172), replaces=f"{h2c}:537", perf_rows=(31,)))
+    for t, kind, budget in ((1, "sqrt", (255, 736, 168)),
+                            (0, "affine", (255, 184, 156))):
+        registry.register_kernel(registry.KernelSpec(
+            name=f"f2_chain.cu f2_chain_program_kernel<{t}>",
+            symbol="f2_chain_program_kernel", source="csrc/f2_chain.cu",
+            launch="f2_chain", attr_index=t,
+            geometry=lambda rows, sms, kind=kind:
+                smem_budget.program_geometry(miller_program.chain_program(
+                    kind, miller_program.chain_config(kind, rows, sms))),
+            budget=budget, replaces=f"{h2c}:482" if t else None,
+            perf_rows=(32,)))
+    registry.register_kernel(registry.KernelSpec(
+        name="h2c_map.cu h2c_map_tail_kernel", symbol="h2c_map_tail_kernel",
+        source="csrc/h2c_map.cu", launch="h2c_map_tail", attr_index=0,
+        geometry=lambda rows, sms: smem_budget.program_geometry(
+            miller_program.map_tail_program()),
+        budget=(255, 608, 160), replaces=f"{h2c}:306", perf_rows=(37,)))
+    registry.register_kernel(registry.KernelSpec(
+        name="h2c_sswu.cu h2c_sswu_head_kernel",
+        symbol="h2c_sswu_head_kernel", source="csrc/h2c_sswu.cu",
+        launch="h2c_sswu_head", attr_index=0,
+        geometry=lambda rows, sms: smem_budget.program_geometry(
+            miller_program.sswu_program()),
+        budget=(255, 480, 164), replaces=f"{h2c}:285", perf_rows=(38,)))
+
+
+_register_kernels()

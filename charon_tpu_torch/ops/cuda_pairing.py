@@ -329,8 +329,7 @@ LAUNCHES = {"pp_dbl": 0, "pp_add": 0, "pp_sqr": 0, "pp_mul014": 0,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    launch_count.reset(LAUNCHES)
 
 
 def _check(name: str, t: torch.Tensor, planes: int, n: int,
@@ -753,3 +752,70 @@ def g1_tables(base: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     _raise_on("g1_tables", err)
     launch_count.bump(LAUNCHES, "g1_tables")
     return out[:P_PLANES], out[P_PLANES:]
+
+
+def _register_kernels() -> None:
+    """K4–K6, K13–K15 and K20 for the kernel contract audit.  K4–K6 and
+    K13's one-thread probe run a thread a row, 32 threads a block; K13,
+    K15 and K20 are program kernels (ops/miller_program.py), one warp a
+    block, their shared memory from the scheduled program's lanes and
+    slots (K15's at the RLC's 32 windows, with −Y); K14 is one
+    cooperative launch of one-warp blocks, a product of the first level
+    a block."""
+    from ..analysis import registry
+    from . import smem_budget
+
+    pp = "charon_tpu/ops/pallas_pairing.py"
+    for launch, sym, t, base, budget, line, row in (
+            ("pp_dbl", "pp_step_kernel", 0, 0, (255, 6400, 0), 328, 12),
+            ("pp_add", "pp_step_kernel", 1, 0, (255, 6432, 20), 332, 13),
+            ("pp_sqr", "f12_step_kernel", 0, 2, (255, 8456, 4), 336, 14),
+            ("pp_mul014", "f12_step_kernel", 1, 2, (255, 10120, 4), 340,
+             15),
+            ("pp_f12mul", "f12_step_kernel", 2, 2, (255, 9992, 4), 345,
+             16)):
+        registry.register_kernel(registry.KernelSpec(
+            name=f"pairing.cu {sym}<{t}>", symbol=sym,
+            source="csrc/pairing.cu", launch=launch, attr_index=base + t,
+            geometry=smem_budget.per_thread(32), budget=budget,
+            replaces=f"{pp}:{line}", perf_rows=(row,)))
+    registry.register_kernel(registry.KernelSpec(
+        name="pairing.cu g1_dblsel_kernel", symbol="g1_dblsel_kernel",
+        source="csrc/pairing.cu", launch="g1_dblsel", attr_index=5,
+        geometry=smem_budget.per_thread(32), budget=(168, 2304, 0),
+        replaces=f"{pp}:349", perf_rows=(17,)))
+    registry.register_kernel(registry.KernelSpec(
+        name="miller.cu miller_loop_kernel", symbol="miller_loop_kernel",
+        source="csrc/miller.cu", launch="miller_loop", attr_index=0,
+        geometry=lambda rows, sms: smem_budget.program_geometry(
+            miller_program.miller_program(
+                miller_program.LANES, miller_program.SLOTS,
+                miller_program.WINDOW)),
+        budget=(255, 216, 172), replaces=f"{pp}:489", perf_rows=(27,)))
+    registry.register_kernel(registry.KernelSpec(
+        name="miller.cu miller_thread_kernel", symbol="miller_thread_kernel",
+        source="csrc/miller.cu", launch="miller_thread", attr_index=1,
+        geometry=smem_budget.per_thread(32), budget=(255, 10704, 40)))
+    registry.register_kernel(registry.KernelSpec(
+        name="fold.cu f12_fold_kernel", symbol="f12_fold_kernel",
+        source="csrc/fold.cu", launch="f12_fold", attr_index=0,
+        geometry=lambda rows, sms: registry.Geometry(threads=32, rows=2),
+        budget=(255, 1744, 140), replaces=f"{pp}:535", perf_rows=(28,),
+        cooperative=True, tail=False))
+    registry.register_kernel(registry.KernelSpec(
+        name="g1_scalar_mul.cu g1_scalar_mul_kernel",
+        symbol="g1_scalar_mul_kernel", source="csrc/g1_scalar_mul.cu",
+        launch="g1_scalar_mul", attr_index=0,
+        geometry=lambda rows, sms: smem_budget.program_geometry(
+            miller_program.g1_program(32, neg_y=True)),
+        budget=(255, 216, 168), replaces=f"{pp}:520", perf_rows=(29,)))
+    registry.register_kernel(registry.KernelSpec(
+        name="g1_tables.cu g1_tables_kernel", symbol="g1_tables_kernel",
+        source="csrc/g1_tables.cu", launch="g1_tables", attr_index=0,
+        geometry=lambda rows, sms: smem_budget.program_geometry(
+            miller_program.g1_tables_program()),
+        budget=(255, 216, 172),
+        replaces="charon_tpu/tbls/backend_tpu.py:543", perf_rows=(34,)))
+
+
+_register_kernels()

@@ -43,6 +43,14 @@ def bump(totals: dict[str, int], name: str) -> None:
     mine[name] = mine.get(name, 0) + 1
 
 
+def reset(totals: dict[str, int]) -> None:
+    """Zero a wrapper module's `LAUNCHES` under the lock `bump` counts
+    under, so that a launch on another thread is never lost to a reset."""
+    with _LOCK:
+        for name in totals:
+            totals[name] = 0
+
+
 def this_thread() -> dict[str, int]:
     """The calling thread's launches per kernel since it started (a copy;
     never reset, so callers difference two readings)."""
@@ -63,8 +71,8 @@ def capture():
 
 def replay(captured: list) -> None:
     """Count the launches of one replay of a captured graph."""
-    for totals, name in captured:
-        bump(totals, name)
+    for counts, name in captured:
+        bump(counts, name)
 
 
 def process_launches() -> dict[str, int]:

@@ -822,8 +822,11 @@ class _VerifyGraph:
     what it needs of the graph's outputs (its re-check included): the
     launch and prewarm threads share the buckets."""
 
-    def __init__(self, device: torch.device, v: int):
+    def __init__(self, device: torch.device, v: int, tile=None):
         self.device = device
+        #: the function captured: `_verify_tile` (looked up at each call)
+        #: unless given another (the residency audit's fixture)
+        self.tile = tile
         self.lock = threading.Lock()
         i32 = {"dtype": torch.int32, "device": device}
         b = {"dtype": torch.bool, "device": device}
@@ -853,20 +856,23 @@ class _VerifyGraph:
                           ("windows", p["windows"])):
             st[key].copy_(torch.from_numpy(np.ascontiguousarray(host)))
 
-    def capture(self) -> None:
+    def capture(self, keep_graph: bool = False) -> None:
         """One eager call (it uploads every constant the body reads: a
         pageable copy inside a capture is an error), then the capture on a
         stream of its own, in thread-local mode so the prep thread's
-        allocations and copies go on meanwhile."""
+        allocations and copies go on meanwhile.  `keep_graph` keeps the
+        captured ``cudaGraph_t`` for `graph.raw_cuda_graph()` (the
+        residency audit lists its nodes)."""
         cur = torch.cuda.current_stream(self.device)
-        _verify_tile(**self.inputs)
-        graph = torch.cuda.CUDAGraph()
+        tile = self.tile or _verify_tile
+        tile(**self.inputs)
+        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side), launch_count.capture() as rec:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                outputs = _verify_tile(**self.inputs)
+                outputs = tile(**self.inputs)
             except BaseException:
                 with contextlib.suppress(RuntimeError):
                     graph.capture_end()
@@ -879,7 +885,7 @@ class _VerifyGraph:
         """→ `_verify_tile`'s outputs for the loaded inputs: a replay on
         the caller's stream on the card, a call on the CPU."""
         if self.graph is None:
-            return _verify_tile(**self.inputs)
+            return (self.tile or _verify_tile)(**self.inputs)
         self.graph.replay()
         launch_count.replay(self.launches)
         return self.outputs
@@ -976,3 +982,90 @@ class _StageClock:
         self._seconds[name] = now - self._t
         self._launches[name] = {k: n[k] - self._n[k] for k in n}
         self._t, self._n = now, n
+
+
+#: the resident verify tile's kernels in the order `_verify_tile` launches
+#: them (K12, K20, K15, K13, K14, K11): what one capture must hold
+VERIFY_TILE_KERNELS = ("g2_decompress", "g1_tables", "g1_scalar_mul",
+                       "miller_loop", "f12_fold", "final_exp")
+
+
+def _verify_shape_rows(v: int) -> dict[str, int]:
+    """Rows per kernel instantiation of one verify tile of v padded
+    entries (`_verify_tile`), its pubkey misses decompressed (K21) and its
+    re-check (`CUDABackend._recheck`)."""
+    return {"decompress.cu g2_decompress_kernel": v,
+            "g1_tables.cu g1_tables_kernel": 2 * v,
+            "g1_scalar_mul.cu g1_scalar_mul_kernel": 2 * v,
+            "miller.cu miller_loop_kernel": 2 * v,
+            "fold.cu f12_fold_kernel": 2 * v,
+            "final_exp.cu final_exp_kernel": 1,
+            "g1_decompress.cu g1_decompress_kernel": v}
+
+
+def _recheck_shape_rows(v: int) -> dict[str, int]:
+    return {"fp_ops.cu fp_op_kernel<3>": 2 * v,
+            "miller.cu miller_loop_kernel": 2 * v,
+            "pairing.cu f12_step_kernel<2>": v,
+            "final_exp.cu final_exp_kernel": v}
+
+
+def _hash_shape_rows(m: int) -> dict[str, int]:
+    """Rows per kernel instantiation of one device hash of m messages
+    (`cuda_h2c.hash_to_g2_rows` over its 2m u rows, then `_affine_planes`):
+    K24 and K23 on the u rows, K18's root on both candidates, its affine
+    step on the u rows, K22 "pre" and "post" on the messages, K17 on
+    [P | ψ(P)] then on m rows (the larger here), K19 on the messages."""
+    return {"h2c_sswu.cu h2c_sswu_head_kernel": 2 * m,
+            "f2_chain.cu f2_chain_program_kernel<1>": 4 * m,
+            "f2_chain.cu f2_chain_program_kernel<0>": 2 * m,
+            "h2c_map.cu h2c_map_tail_kernel": 2 * m,
+            "g2_law.cu g2_law_kernel<16>": m,
+            "g2_zmul.cu g2_zmul_kernel": 2 * m,
+            "g2_law.cu g2_law_kernel<36>": m,
+            "normalize.cu g2_normalize_kernel": m}
+
+
+def _combine_shape_rows(v: int, t: int) -> dict[str, int]:
+    """Rows per kernel instantiation of one combine of v validators with
+    t partials each (`CUDABackend.combine_device_exec`)."""
+    vpad = -(-v // ROW_TILE) * ROW_TILE
+    return {"decompress.cu g2_decompress_kernel": t * vpad,
+            "g2_law.cu g2_law_kernel<6>": t * vpad,
+            "straus.cu straus_msm_kernel": vpad,
+            "normalize.cu g2_normalize_kernel": vpad}
+
+
+def _register_analysis() -> None:
+    """The main path's shapes and the resident verify graph for the
+    kernel contract audit: a verify tile of `dispatch.VERIFY_TILE`
+    entries (4,096 Miller rows) and its re-check; the DKG's 1,024-entry
+    bucket; the chaos and cluster tiles of 1–4 entries; the device hash
+    at its least batch, the slot-start's 64 messages, the DKG's 1,000 and
+    a tile's 2,048; the combine at 10,000 validators × 7 (10,240 padded
+    rows, 71,680 point rows) and at one validator of a 3-of-4 cluster."""
+    from ..analysis import registry
+
+    def shape(name: str, origin: str, rows: dict) -> None:
+        registry.register_workload_shape(registry.WorkloadShape(
+            name=name, origin=origin, rows=tuple(sorted(rows.items()))))
+
+    for v in (dispatch.VERIFY_TILE, 1024, 1, 2, 4):
+        shape(f"verify v={v}", "tbls/backend_cuda._verify_tile",
+              _verify_shape_rows(v))
+        shape(f"recheck v={v}", "tbls/backend_cuda.CUDABackend._recheck",
+              _recheck_shape_rows(v))
+    for m in (H2C_MIN_BATCH, 64, 1000, dispatch.VERIFY_TILE):
+        shape(f"hash m={m}", "ops/cuda_h2c.hash_to_g2_rows",
+              _hash_shape_rows(m))
+    for v, t in ((10_000, 7), (1, 3)):
+        shape(f"combine v={v} t={t}",
+              "tbls/backend_cuda.CUDABackend.combine_device_exec",
+              _combine_shape_rows(v, t))
+    registry.register_residency_program(registry.ResidencyProgramSpec(
+        name="resident_verify_tile",
+        build=lambda v, device: _VerifyGraph(device, v),
+        stages=VERIFY_TILE_KERNELS, cases=(2,)))
+
+
+_register_analysis()

@@ -481,6 +481,8 @@ class DispatchPipeline:
 
         if self.inline:
             with _inline_stage_running():
+                # the stages of an inline pipeline run on the loop's thread
+                # async-ok: by design (module docstring)
                 report = api.prewarm(pubshares, num_validators, threshold)
             self.prewarmed = report
             return report

@@ -2,10 +2,10 @@
 lock-discipline pass.
 
 A copy of the JAX package's testutil/racecheck.py on this package's
-modules.  The JAX package's static pass (its analysis/concurrency.py,
-which proves lexically that every read-modify-write of a declared guarded
-attribute sits inside ``with <lock>``) is not ported yet; here the
-guarded attributes are declared by each scenario.  A static pass cannot
+modules.  Its static twin, `charon_tpu_torch.analysis.concurrency`,
+proves lexically that every read-modify-write of a declared guarded
+attribute sits inside ``with <lock>`` (its `SHARED_STATE_SPECS`); here
+the guarded attributes are declared by each scenario.  A static pass cannot
 see attributes mutated through aliases, `setattr`, or C-level code, and
 it cannot observe lock-order inversions that only materialise across
 call chains; this harness checks them at runtime:
@@ -207,7 +207,7 @@ class RaceHarness:
 
     def guard_from_spec(self, obj, spec, lock: InstrumentedLock) -> None:
         """Apply a shared-state declaration (an object with ``where`` and
-        ``attrs``, the JAX static pass's `SharedStateSpec`) at runtime:
+        ``attrs``, `analysis.concurrency.SharedStateSpec`) at runtime:
         all of the spec's attrs guarded by the given instrumented lock."""
         self.guard(obj, spec.where,
                    {attr: lock.name for attr in spec.attrs})

@@ -13,6 +13,20 @@ Phases, in order; any failure raises and exits non-zero:
              phase's signatures and the cluster phase's `create cluster`
              (its V by one signature timed before them); later phases
              hand them the oracle's larger checks.
+   contract — the kernel contract audit (`python -m
+             charon_tpu_torch.analysis`) with the build's ptxas.log, its
+             AST lints run in a host worker beside the build; then, for
+             every registered kernel instantiation, the card's own figures
+             (`cudaFuncGetAttributes`: registers, local memory, static
+             shared memory, threads a block; the occupancy API's blocks an
+             SM at its launch geometry) held against the compiler's report
+             and ops/smem_budget.py's model; the resident verify tile
+             captured at a 2-entry bucket as one CUDA graph of K12, K20,
+             K15, K13, K14 and K11 in order (its nodes read through
+             libcuda); and the on-card golden-bad `resident_roundtrip`,
+             which must be flagged.  Any violation fails the run.  Each
+             kernel's shared memory a block and blocks an SM join its
+             entry in the kernels line.
 2. kernels — every kernel (K1 fp ops, K2 G2 dbl/add, K3 Straus head/tail
              at the combine's shapes; K4 Miller dbl/add, K5 Fp12
              sqr/mul014/f12mul and K6 G1 dblsel at one verify tile, 4,096
@@ -5040,10 +5054,9 @@ CL_PROFILED = ("g2_decompress", "miller_loop", "final_exp", "f12_fold",
 
 def kernel_symbols() -> set:
     """CL_PROFILED's kernels by the symbol a profiler trace names them
-    with (their compiled functions, PTXAS_NAMES, without template
-    arguments)."""
-    return {re.sub(r"<.*", "", PTXAS_NAMES[k].split()[1])
-            for k in CL_PROFILED}
+    with (their compiled functions, without template arguments)."""
+    line = line_kernels()
+    return {line[k].symbol for k in CL_PROFILED}
 
 
 def profile_kernels(tarball: bytes) -> dict:
@@ -6309,146 +6322,81 @@ def serving_phase() -> list:
 
 
 # ---------------------------------------------------------------------------
+# The kernel contract (the phase after the build)
+# ---------------------------------------------------------------------------
 
-SOURCES = {
-    "fp_mul": ("charon_tpu_torch/csrc/fp_ops.cu", "charon_tpu/ops/pallas_fp.py:78"),
-    "fp_add": ("charon_tpu_torch/csrc/fp_ops.cu", "charon_tpu/ops/pallas_fp.py:97"),
-    "fp_sub": ("charon_tpu_torch/csrc/fp_ops.cu", "charon_tpu/ops/pallas_fp.py:104"),
-    "fp_neg": ("charon_tpu_torch/csrc/fp_ops.cu", "charon_tpu/ops/pallas_fp.py:112"),
-    "fp_mul_small": ("charon_tpu_torch/csrc/fp_ops.cu",
-                     "charon_tpu/ops/pallas_fp.py:120"),
-    "g2_dbl": ("charon_tpu_torch/csrc/g2.cu", "charon_tpu/ops/pallas_g2.py:350"),
-    "g2_add": ("charon_tpu_torch/csrc/g2.cu", "charon_tpu/ops/pallas_g2.py:354"),
-    "straus_head": ("charon_tpu_torch/csrc/g2.cu",
-                    "charon_tpu/ops/pallas_g2.py:706"),
-    "straus_tail": ("charon_tpu_torch/csrc/g2.cu",
-                    "charon_tpu/ops/pallas_g2.py:700"),
-    "pp_dbl": ("charon_tpu_torch/csrc/pairing.cu",
-               "charon_tpu/ops/pallas_pairing.py:328"),
-    "pp_add": ("charon_tpu_torch/csrc/pairing.cu",
-               "charon_tpu/ops/pallas_pairing.py:332"),
-    "pp_sqr": ("charon_tpu_torch/csrc/pairing.cu",
-               "charon_tpu/ops/pallas_pairing.py:336"),
-    "pp_mul014": ("charon_tpu_torch/csrc/pairing.cu",
-                  "charon_tpu/ops/pallas_pairing.py:340"),
-    "pp_f12mul": ("charon_tpu_torch/csrc/pairing.cu",
-                  "charon_tpu/ops/pallas_pairing.py:345"),
-    "g1_dblsel": ("charon_tpu_torch/csrc/pairing.cu",
-                  "charon_tpu/ops/pallas_pairing.py:349"),
-    "h2c_sswu": ("charon_tpu_torch/csrc/h2c.cu",
-                 "charon_tpu/ops/pallas_h2c.py:285"),
-    "h2c_sqr": ("charon_tpu_torch/csrc/h2c.cu",
-                "charon_tpu/ops/pallas_h2c.py:290"),
-    "h2c_mul": ("charon_tpu_torch/csrc/h2c.cu",
-                "charon_tpu/ops/pallas_h2c.py:294"),
-    "h2c_sqr4": ("charon_tpu_torch/csrc/h2c.cu",
-                 "charon_tpu/ops/pallas_h2c.py:298"),
-    "h2c_sqr4mul": ("charon_tpu_torch/csrc/h2c.cu",
-                    "charon_tpu/ops/pallas_h2c.py:302"),
-    "h2c_iso3": ("charon_tpu_torch/csrc/h2c.cu",
-                 "charon_tpu/ops/pallas_h2c.py:306"),
-    "h2c_psi": ("charon_tpu_torch/csrc/h2c.cu",
-                "charon_tpu/ops/pallas_h2c.py:311"),
-    "g2_dblsel": ("charon_tpu_torch/csrc/g2.cu",
-                  "charon_tpu/ops/pallas_g2.py:389"),
-    "g2_addsel": ("charon_tpu_torch/csrc/g2.cu",
-                  "charon_tpu/ops/pallas_g2.py:384"),
-    # K11 and K12 each replace a whole chain of K1 launches (the pallas_fp
-    # kernels, :78 the product that does most of their work) in
-    # ops/pairing.py final_exponentiate and ops/codec.py g2_decompress
-    "final_exp": ("charon_tpu_torch/csrc/final_exp.cu",
-                  "charon_tpu/ops/pallas_fp.py:78"),
-    "g2_decompress": ("charon_tpu_torch/csrc/decompress.cu",
-                      "charon_tpu/ops/pallas_fp.py:78"),
-    # K13 replaces the Miller loop's K4/K5 launch sequence (pallas_pairing
-    # miller_rows over the kernels of :328–:340), K14 the fold's F12MUL
-    # launches (miller_product_tiled over :345) and K15 the RLC scaling's
-    # K6 launches (g1_scalar_mul_rows over :349)
-    "miller_loop": ("charon_tpu_torch/csrc/miller.cu",
-                    "charon_tpu/ops/pallas_pairing.py:489"),
-    "f12_fold": ("charon_tpu_torch/csrc/fold.cu",
-                 "charon_tpu/ops/pallas_pairing.py:535"),
-    "g1_scalar_mul": ("charon_tpu_torch/csrc/g1_scalar_mul.cu",
-                      "charon_tpu/ops/pallas_pairing.py:520"),
-    # K16 replaces the combine's K3 launch sequence (pallas_g2
-    # straus_combine over the kernels of :700 and :706), K17 each
-    # [|x|]-multiply's K2/K10 launches (pallas_h2c _zmul over :389)
-    "straus_msm": ("charon_tpu_torch/csrc/straus.cu",
-                   "charon_tpu/ops/pallas_g2.py:797"),
-    "g2_zmul": ("charon_tpu_torch/csrc/g2_zmul.cu",
-                "charon_tpu/ops/pallas_h2c.py:537"),
-    # K18 replaces the K7 launch sequences of the Fp2 root and inversion
-    # (pallas_h2c f2_sqrt_rows / f2_inv_rows over f2_pow_rows :482), K19
-    # the K1 chain of codec.g2_normalize (:319, its products the pallas_fp
-    # kernel :78) and K20 the RLC tables' K1 chain (backend_tpu
-    # _rlc_g1_tables_kernel :543)
-    "f2_chain": ("charon_tpu_torch/csrc/f2_chain.cu",
-                 "charon_tpu/ops/pallas_h2c.py:482"),
-    "g2_normalize": ("charon_tpu_torch/csrc/normalize.cu",
-                     "charon_tpu/ops/codec.py:319"),
-    "g1_tables": ("charon_tpu_torch/csrc/g1_tables.cu",
-                  "charon_tpu/tbls/backend_tpu.py:543"),
-    # K21 replaces the K1 chain of codec.g1_decompress (:266, its subgroup
-    # check :254), K22 the K2 launch sequences (pallas_g2 :350 / :354) of
-    # the combine's tables (straus_combine :811-813) and of hash-to-G2's
-    # group law (pallas_h2c hash_to_g2_rows :614, clear_cofactor_rows
-    # :550)
-    "g1_decompress": ("charon_tpu_torch/csrc/g1_decompress.cu",
-                      "charon_tpu/ops/codec.py:266"),
-    "g2_law": ("charon_tpu_torch/csrc/g2_law.cu",
-               "charon_tpu/ops/pallas_g2.py:811"),
-    # K23 replaces K9 ISO3 (pallas_h2c _h2c_iso3_kernel :306) and the map
-    # tail's exact boundary around it (map_to_g2_rows :601-612)
-    "h2c_map_tail": ("charon_tpu_torch/csrc/h2c_map.cu",
-                     "charon_tpu/ops/pallas_h2c.py:306"),
-    # K24 replaces K8 (pallas_h2c _h2c_sswu_kernel :285) and the host
-    # flags of pack_messages (:659-662)
-    "h2c_sswu_head": ("charon_tpu_torch/csrc/h2c_sswu.cu",
-                      "charon_tpu/ops/pallas_h2c.py:285"),
-}
+def line_kernels() -> dict:
+    """The kernels line's entries, from the kernel registry
+    (charon_tpu_torch/analysis/registry.py): launch key → the registered
+    instantiation whose figures the entry carries (its `source`, the TPU
+    kernel it `replaces`, its compiled function's `name` in the ptxas
+    report), so that the line and the audit cannot drift apart."""
+    from charon_tpu_torch.analysis import registry
 
-#: each kernel's compiled function in the ptxas report (its registers,
-#: stack frame and largest spill go into the kernels line)
-PTXAS_NAMES = {
-    "fp_mul": "fp_ops.cu fp_op_kernel<0>",
-    "fp_add": "fp_ops.cu fp_op_kernel<1>",
-    "fp_sub": "fp_ops.cu fp_op_kernel<2>",
-    "fp_neg": "fp_ops.cu fp_op_kernel<3>",
-    "fp_mul_small": "fp_ops.cu fp_op_kernel<4>",
-    "g2_dbl": "g2.cu g2_step_kernel<1>",
-    "g2_add": "g2.cu g2_step_kernel<0>",
-    "straus_head": "g2.cu straus_step_kernel<1>",
-    "straus_tail": "g2.cu straus_step_kernel<0>",
-    "pp_dbl": "pairing.cu pp_step_kernel<0>",
-    "pp_add": "pairing.cu pp_step_kernel<1>",
-    "pp_sqr": "pairing.cu f12_step_kernel<0>",
-    "pp_mul014": "pairing.cu f12_step_kernel<1>",
-    "pp_f12mul": "pairing.cu f12_step_kernel<2>",
-    "g1_dblsel": "pairing.cu g1_dblsel_kernel",
-    "h2c_sswu": "h2c.cu h2c_sswu_kernel",
-    "h2c_sqr": "h2c.cu f2_chain_kernel<0>",
-    "h2c_mul": "h2c.cu f2_chain_kernel<1>",
-    "h2c_sqr4": "h2c.cu f2_chain_kernel<2>",
-    "h2c_sqr4mul": "h2c.cu f2_chain_kernel<3>",
-    "h2c_iso3": "h2c.cu h2c_point_kernel<0>",
-    "h2c_psi": "h2c.cu h2c_point_kernel<1>",
-    "g2_dblsel": "g2.cu g2_sel_kernel<1>",
-    "g2_addsel": "g2.cu g2_sel_kernel<0>",
-    "final_exp": "final_exp.cu final_exp_kernel",
-    "g2_decompress": "decompress.cu g2_decompress_kernel",
-    "miller_loop": "miller.cu miller_loop_kernel",
-    "f12_fold": "fold.cu f12_fold_kernel",
-    "g1_scalar_mul": "g1_scalar_mul.cu g1_scalar_mul_kernel",
-    "straus_msm": "straus.cu straus_msm_kernel",
-    "g2_zmul": "g2_zmul.cu g2_zmul_kernel",
-    "f2_chain": "f2_chain.cu f2_chain_program_kernel<1>",
-    "g2_normalize": "normalize.cu g2_normalize_kernel",
-    "g1_tables": "g1_tables.cu g1_tables_kernel",
-    "g1_decompress": "g1_decompress.cu g1_decompress_kernel",
-    "g2_law": "g2_law.cu g2_law_kernel<6>",
-    "h2c_map_tail": "h2c_map.cu h2c_map_tail_kernel",
-    "h2c_sswu_head": "h2c_sswu.cu h2c_sswu_head_kernel",
-}
+    registry.ensure_populated()
+    return registry.line_kernels()
+
+
+def contract_lints() -> dict:
+    """The audit's AST lints (metric names against the port's catalogue,
+    lock discipline, event-loop discipline): run in a host worker while
+    nvcc builds."""
+    from charon_tpu_torch.analysis.audit import run_lints
+
+    return run_lints()
+
+
+def contract_phase(dev, lints: Future, sms: int) -> dict:
+    """The kernel contract on the card (module docstring, phase
+    "contract") → launch key → its kernels-line figures (`smem_block`,
+    `blocks_per_sm`, each at the instantiation's largest registered
+    shape).  Raises on any violation."""
+    from charon_tpu_torch.analysis import audit, fixtures, kernel_audit
+    from charon_tpu_torch.analysis import registry, residency
+    from charon_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    report = audit.run_audit(
+        ptxas_log=build.ptxas_log_path().read_text(),
+        ptxas_path=str(build.ptxas_log_path().relative_to(ROOT)),
+        lints=lints.result(), sms=sms)
+    t_cpu = time.perf_counter() - t0
+    shapes = kernel_audit.shape_rows()
+    figures = {}
+    for k in report.kernels:
+        spec = next(s for s in registry.kernels() if s.name == k.name)
+        rows = max((r for _, r in shapes.get(k.name, ())),
+                   default=max(kernel_audit.DEFAULT_ROWS))
+        card = kernel_audit.audit_card(spec, rows, sms, k)
+        if spec.replaces is not None:
+            figures[spec.launch] = {"smem_block": card["smem_block"],
+                                    "blocks_per_sm": card["blocks_per_sm"]}
+    t_card = time.perf_counter() - t0 - t_cpu
+    report.residency_cases += residency.run_residency_audit(dev)
+    bad = fixtures.audit_golden_bad("resident_roundtrip", dev)
+    torch.cuda.synchronize(dev)
+    t_res = time.perf_counter() - t0 - t_cpu - t_card
+    log(report.summary())
+    for case in bad.residency_cases:
+        log(f"contract: golden-bad {case.name}: "
+            + ("; ".join(case.violations) or "NOT FLAGGED"))
+    if not bad.residency_cases or bad.ok:
+        report.general.append("the golden-bad resident_roundtrip was not "
+                              "flagged by the residency pass")
+    log("contract: " + json.dumps({
+        "kernels": len(report.kernels), "shapes": report.shapes_checked,
+        "card": {k.name: k.card for k in report.kernels},
+        "residency": [{"name": r.name, "launches": r.launches,
+                       "nodes": r.nodes, "kernel_nodes": r.kernel_nodes,
+                       "capture_s": r.capture_seconds}
+                      for r in report.residency_cases]}))
+    log(f"contract: {time.perf_counter() - t0:.2f} s (audit on the host "
+        f"{t_cpu:.2f} s, the card's figures {t_card:.2f} s, residency and "
+        f"golden-bad {t_res:.2f} s), {len(report.violations)} violations")
+    if not report.ok:
+        raise AssertionError("kernel contract: "
+                             + "; ".join(report.violations))
+    return figures
 
 
 def main() -> int:
@@ -6466,8 +6414,9 @@ def main() -> int:
         # before the build (the cluster's V by a signature timed first,
         # before the workers load the cores)
         cluster_prep = cluster_prepare(host_pool())
+        lints = host_pool().submit(contract_lints)
         presigned = chaos_presign(host_pool())
-        return run_phases(dev, t_start, cluster_prep, presigned)
+        return run_phases(dev, t_start, cluster_prep, presigned, lints)
     finally:
         host_pool().shutdown(cancel_futures=True)
 
@@ -6504,7 +6453,7 @@ def chaos_and_cluster(dev, cluster_prep: dict, presigned: Future,
 
 
 def run_phases(dev, t_start: float, cluster_prep: dict,
-               presigned: Future) -> int:
+               presigned: Future, lints: Future) -> int:
     """The phases in order (`main`'s, after it handed the host's work to
     its workers)."""
     from charon_tpu_torch.ops import build
@@ -6515,7 +6464,8 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
         f"(nvcc {build.INFO['build_seconds']:.1f} s) → {build.INFO['path']}")
     log(build.ptxas_report())
     ptxas = {r["name"]: r for r in build.ptxas_rows()}
-    missing = [k for k in SOURCES if PTXAS_NAMES[k] not in ptxas]
+    line = line_kernels()
+    missing = [k for k, spec in line.items() if spec.name not in ptxas]
     if missing:
         raise AssertionError(f"no ptxas report for {missing}")
     card = smi("name,power.limit")
@@ -6528,6 +6478,9 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
         f" T/s")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
+
+    log(f"phase contract: starts at {time.perf_counter() - t_start:.1f} s")
+    contract = contract_phase(dev, lints, sms)
 
     # the phases before the resident one drive the bytes route (their
     # per-stage breakdown); the resident phase registers its own backends
@@ -6631,8 +6584,9 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
         f"{time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1],
+        {"name": name, "route": "cuda",
+         "source": f"charon_tpu_torch/{spec.source}",
+         "replaces": spec.replaces,
          "launches": (combine_launches.get(name, 0) + verify_launches[name]
                       + cold_launches[name] + slot_launches[name]
                       + distinct_launches[name]
@@ -6653,10 +6607,10 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
          "launches_chaos": chaos_launches.get(name, 0),
          "launches_cluster": cluster_launches.get(name, 0),
          **kern[name],
-         **{k: ptxas[PTXAS_NAMES[name]][k] for k in ("regs", "stack",
-                                                     "spill")},
+         **{k: ptxas[spec.name][k] for k in ("regs", "stack", "spill")},
+         **contract[name],
          "library_ms": None}
-        for name in SOURCES]}), flush=True)
+        for name, spec in line.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -100,6 +100,40 @@ def insecure_scheme():
     tbls.set_scheme("bls")
 
 
+#: how long a test waits for what it asserts.  The Apps run on wall-clock
+#: slots: on a host whose cores the suite's other workers share, their
+#: duties come late, not wrong, so the tests poll for the state they then
+#: assert; the limit only keeps a broken run from hanging
+WAIT_LIMIT = 240.0
+#: an App's lifecycle stop: the JAX App's aiohttp router waits up to 60 s
+#: for a validator-API handler still awaiting a duty that will never be
+#: decided once the nodes stop
+STOP_LIMIT = 90.0
+
+
+async def wait_until(cond, limit: float = WAIT_LIMIT) -> bool:
+    """Poll `cond()` every 0.1 s until it holds (→ True) or `limit`
+    seconds pass (→ False)."""
+    deadline = time.time() + limit
+    while time.time() < deadline:
+        if cond():
+            return True
+        await asyncio.sleep(0.1)
+    return False
+
+
+async def stop_vcs(vcs, tasks) -> None:
+    """Stop the HTTP VCs and let each finish the duty it has in flight
+    while the nodes still serve it (a request cancelled mid-flight leaves
+    its handler waiting on the node), cancelling what is left after 30 s."""
+    for vc in vcs:
+        vc.stop()
+    await asyncio.wait(tasks, timeout=30)
+    for task in tasks:
+        task.cancel()
+    await asyncio.gather(*tasks, return_exceptions=True)
+
+
 def create_cluster(tmp_path, n: int, t: int, m: int) -> tuple[str, object]:
     cluster_dir = str(tmp_path / "cluster")
     assert cli_main(["create", "cluster", "--name", "e2e",
@@ -155,17 +189,19 @@ def test_cli_create_cluster_and_run(tmp_path):
         for app in apps:
             await app.setup()
             runners.append(asyncio.ensure_future(app.life.run()))
-        deadline = time.time() + 8 * spe * slot + 20.0
         try:
-            while time.time() < deadline:
-                await asyncio.sleep(0.1)
-                if (bmock.attestations and bmock.blocks
-                        and bmock.sync_contributions
-                        and any(a.infosync._results for a in apps)
-                        and any(r.success for a in apps
-                                for r in a.tracker.reports)):
-                    await asyncio.sleep(3 * slot)  # settle + GC
-                    break
+            if await wait_until(
+                    lambda: (bmock.attestations and bmock.blocks
+                             and bmock.sync_messages
+                             and bmock.sync_contributions
+                             and any(a.infosync._results for a in apps)
+                             and any(r.success for a in apps
+                                     for r in a.tracker.reports)
+                             and all(a.peerinfo.peer_versions
+                                     for a in apps)
+                             and all(a.verifier.launches > 0
+                                     for a in apps))):
+                await asyncio.sleep(3 * slot)  # settle + GC
 
             # duties reached the BN under the group keys, the sync family
             # across the real mesh
@@ -181,6 +217,12 @@ def test_cli_create_cluster_and_run(tmp_path):
                     f"http://127.0.0.1:{port}{path}", timeout=5)
                 return resp.headers.get("Content-Type"), resp.read()
 
+            # readiness needs every peer's ping fresh (1.5 s): on a loaded
+            # host a ping can come late, so it is waited for like the duties
+            deadline = time.time() + WAIT_LIMIT
+            while not await asyncio.to_thread(_readyz, port) \
+                    and time.time() < deadline:
+                await asyncio.sleep(0.1)
             _, body = await asyncio.to_thread(get, "/readyz")
             assert body == b"ok"
             assert (await asyncio.to_thread(get, "/livez"))[1] == b"ok"
@@ -236,7 +278,7 @@ def test_cli_create_cluster_and_run(tmp_path):
             for app in apps:
                 app.life.stop()
             for r in runners:
-                await asyncio.wait_for(r, timeout=15)
+                await asyncio.wait_for(r, timeout=STOP_LIMIT)
             await server.stop()
 
     asyncio.run(main())
@@ -269,19 +311,22 @@ def test_mixed_cluster_port_and_jax_apps_broadcast_equal_aggregates(
             for app in apps:
                 await app.setup()
                 runners.append(asyncio.ensure_future(app.life.run()))
-            deadline = time.time() + 40.0
             try:
-                while time.time() < deadline:
-                    await asyncio.sleep(0.1)
-                    slots = {a.data.slot for a in bmock.attestations}
-                    if len(slots) >= 3 and len(bmock.sync_messages) >= 6:
-                        await asyncio.sleep(2 * slot)
-                        break
+                if await wait_until(
+                        lambda: (len({a.data.slot
+                                      for a in bmock.attestations}) >= 3
+                                 and len(bmock.sync_messages) >= 6
+                                 and all(a.bcast.broadcast_delays
+                                         for a in apps)
+                                 and set(apps[2].peerinfo.peer_versions)
+                                 == {0, 1}
+                                 and apps[2].consensus._decided)):
+                    await asyncio.sleep(2 * slot)
             finally:
                 for app in apps:
                     app.life.stop()
                 for r in runners:
-                    await asyncio.wait_for(r, timeout=15)
+                    await asyncio.wait_for(r, timeout=STOP_LIMIT)
                 await server.stop()
             return bmock, apps
 
@@ -506,26 +551,31 @@ def test_port_and_jax_apps_attest_through_their_routers(tmp_path,
                 assert len(keystore.load_keys(cfgs[i].keystore_dir)) == m
                 vcs.append((HttpValidatorClient if i < 2 else JVC)(
                     app.router.addr, keys))
-            tasks = [asyncio.ensure_future(vc.run(max_slots=16))
-                     for vc in vcs]
-            deadline = time.time() + 40.0
+            # the VCs run until stopped (a slot cap could end them before
+            # a loaded host's cluster is through its duties)
+            tasks = [asyncio.ensure_future(
+                vc.run(max_slots=int(2 * WAIT_LIMIT / slot)))
+                for vc in vcs]
             try:
-                while time.time() < deadline:
-                    await asyncio.sleep(0.1)
-                    slots = {a.data.slot for a in bmock.attestations}
-                    if len(slots) >= 3 and bmock.blocks:
-                        await asyncio.sleep(2 * slot)
-                        break
+                if await wait_until(
+                        lambda: (len({a.data.slot
+                                      for a in bmock.attestations}) >= 3
+                                 and bmock.blocks
+                                 and all(a.bcast.broadcast_delays
+                                         for a in apps)
+                                 and all(vc.submitted_atts > 0
+                                         for vc in vcs)
+                                 and all(a.router.requests.get(
+                                     (ep, "2xx"), 0) > 0 for a in apps
+                                     for ep in ("submit",
+                                                "attestation_data")))):
+                    await asyncio.sleep(2 * slot)
             finally:
-                for vc in vcs:
-                    vc.stop()
-                for task in tasks:
-                    task.cancel()
-                await asyncio.gather(*tasks, return_exceptions=True)
+                await stop_vcs(vcs, tasks)
                 for app in apps:
                     app.life.stop()
                 for r in runners:
-                    await asyncio.wait_for(r, timeout=15)
+                    await asyncio.wait_for(r, timeout=STOP_LIMIT)
                 await server.stop()
             return bmock, apps, vcs
 
