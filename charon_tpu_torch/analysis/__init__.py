@@ -29,10 +29,16 @@ resident.  The passes:
 4. **Event-loop discipline** (`asyncio_lint`): no blocking call in an
    ``async def``, device entry points behind `tbls.dispatch`'s
    `assert_off_loop` only through the pipeline.
+5. **The shard pass** (`shard_audit`), the JAX package's shard-carry
+   pass in the port's terms: the sharded combine's split and pad rows,
+   and one run in which no shard reads a tensor another shard made nor
+   an operand off its own device.
 
 Run it as ``python -m charon_tpu_torch.analysis`` (exit 0 iff every
 contract holds; ``--golden-bad <fixture>`` exits non-zero), in
-tests/test_torch_analysis.py, and in chip_smoke.py's ``contract`` phase.
+tests/test_torch_analysis.py, in chip_smoke.py's ``contract`` phase, and
+with the shard pass on its devices in `multichip.dryrun_multichip` and
+chip_smoke.py's ``multichip`` phase.
 
 This package's ``__init__`` stays import-light on purpose: the wrapper
 modules import `analysis.registry` at import time to register their

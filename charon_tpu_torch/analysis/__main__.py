@@ -4,7 +4,8 @@ CLI.
 Exit status 0 iff every contract holds: each registered kernel's source
 discipline and launch arithmetic at every registered shape, its figures
 in the compiler's report (with ``--ptxas-log``, or the current build's
-``ptxas.log`` when one exists), and the metric-name, lock-discipline and
+``ptxas.log`` when one exists), the shard pass over the sharded combine
+at ``--devices`` CPU shards, and the metric-name, lock-discipline and
 event-loop lints.  ``--golden-bad`` audits a known-broken fixture instead
 and therefore exits non-zero — the proof that the auditor detects each
 bug class, not just that HEAD is clean.
@@ -34,6 +35,10 @@ def main(argv=None) -> int:
                     help="a -Xptxas -v log to hold the kernels' registers, "
                          "stack and spill against (default: the current "
                          "build's, when there is one)")
+    ap.add_argument("--no-shard", action="store_true",
+                    help="skip the shard pass")
+    ap.add_argument("--devices", type=int, default=2,
+                    help="CPU shards for the shard pass")
     ap.add_argument("--no-metrics-lint", action="store_true",
                     help="skip the metric-name lint pass")
     ap.add_argument("--no-concurrency", action="store_true",
@@ -44,6 +49,12 @@ def main(argv=None) -> int:
                     help="print the full structured report as JSON")
     args = ap.parse_args(argv)
 
+    if not args.no_shard or args.golden_bad == "replicated_carry":
+        import torch
+
+        # the shard pass runs the plain versions on small tensors, where
+        # intra-op threads only spin
+        torch.set_num_threads(1)
     if args.golden_bad:
         from .fixtures import audit_golden_bad
 
@@ -57,6 +68,7 @@ def main(argv=None) -> int:
         report = run_audit(ptxas_log=log,
                            ptxas_path=(str(args.ptxas_log)
                                        if args.ptxas_log else None),
+                           shard=not args.no_shard, n_dev=args.devices,
                            metrics=not args.no_metrics_lint,
                            concurrency=not args.no_concurrency,
                            asyncio_lint=not args.no_asyncio_lint)

@@ -3,9 +3,11 @@ lints over the port.
 
 `run_audit` is the single entry point of the CLI
 (``python -m charon_tpu_torch.analysis``), the tests
-(tests/test_torch_analysis.py) and chip_smoke.py's ``contract`` phase,
+(tests/test_torch_analysis.py), chip_smoke.py's ``contract`` phase,
 which adds the card-side passes (`audit_card`, `residency`) to the
-report it returns.
+report it returns, and the multi-card dry run
+(`multichip.dryrun_multichip`), which adds the shard pass
+(`run_shard_audit`) on its own devices.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ class AuditReport:
     #: kernels, the report's unregistered rows
     general: list = field(default_factory=list)
     residency_cases: list = field(default_factory=list)
+    shard_cases: list = field(default_factory=list)  # ShardCaseAudit
     shapes_checked: list = field(default_factory=list)
     ptxas_log: str | None = None                    # where (c) read from
     metrics_lint: object = None  # metrics_lint.MetricsLintReport | None
@@ -35,6 +38,8 @@ class AuditReport:
             out += k.violations
         for r in self.residency_cases:
             out += r.violations
+        for c in self.shard_cases:
+            out += c.violations
         for lint in (self.metrics_lint, self.concurrency,
                      self.asyncio_lint):
             if lint is not None:
@@ -52,6 +57,7 @@ class AuditReport:
             "ptxas_log": self.ptxas_log,
             "kernels": [asdict(k) for k in self.kernels],
             "residency_cases": [asdict(r) for r in self.residency_cases],
+            "shard_cases": [asdict(c) for c in self.shard_cases],
             "metrics_lint": (self.metrics_lint.to_dict()
                              if self.metrics_lint is not None else None),
             "concurrency": (self.concurrency.to_dict()
@@ -83,6 +89,11 @@ class AuditReport:
             nodes = (f", nodes {r.nodes}" if r.nodes is not None else "")
             lines.append(f"  [{verdict}] {r.name}: one graph of "
                          f"{r.launches}{nodes}")
+        for c in self.shard_cases:
+            verdict = "ok" if not c.violations else "FAIL"
+            lines.append(f"  [{verdict}] {c.name}: {c.plans_checked} plans "
+                         f"on {', '.join(c.devices)}, ops by shard "
+                         f"{c.ops}")
         for lint in (self.metrics_lint, self.concurrency,
                      self.asyncio_lint):
             if lint is not None:
@@ -96,6 +107,7 @@ class AuditReport:
                      f"({len(self.kernels)} kernels, "
                      f"{len(self.shapes_checked)} shapes{source}, "
                      f"{len(self.residency_cases)} residency cases, "
+                     f"{len(self.shard_cases)} shard cases, "
                      f"{len(self.violations)} violations)")
         return "\n".join(lines)
 
@@ -124,7 +136,8 @@ def run_lints(metrics: bool = True, concurrency: bool = True,
 def run_audit(ptxas_log: str | None = None, ptxas_path: str | None = None,
               metrics: bool = True, concurrency: bool = True,
               asyncio_lint: bool = True, lints: dict | None = None,
-              sms: int | None = None) -> AuditReport:
+              sms: int | None = None, shard: bool = False,
+              n_dev: int | None = None, devices=None) -> AuditReport:
     """Run the kernel contract audit on the CPU.
 
     ptxas_log  : a ``-Xptxas -v`` log's text for pass (c) (None: the
@@ -133,6 +146,8 @@ def run_audit(ptxas_log: str | None = None, ptxas_path: str | None = None,
     metrics / concurrency / asyncio_lint : run each AST lint.
     lints      : the lints' reports, already run (`run_lints`).
     sms        : the card's SMs (default an H100's).
+    shard      : run the shard pass over the registered sharded programs
+                 at `devices` (default `n_dev` CPU shards, 2).
     """
     from ..ops import build
     from .kernel_audit import run_kernel_audit
@@ -151,4 +166,23 @@ def run_audit(ptxas_log: str | None = None, ptxas_path: str | None = None,
         report.ptxas_log = ptxas_path or "the given text"
     report.kernels, report.general = run_kernel_audit(ptxas_log, sms=sms)
     report.shapes_checked = [s.name for s in registry.workload_shapes()]
+    if shard:
+        report.shard_cases += run_shard_audit(n_dev, devices, sms)
     return report
+
+
+def run_shard_audit(n_dev: int | None = None, devices=None,
+                    sms: int | None = None, specs=None) -> list:
+    """The shard pass (analysis/shard_audit.py) over every registered
+    sharded program (or `specs`) at `devices`: default `n_dev` shards on
+    the CPU (2)."""
+    from .kernel_audit import read_csrc
+    from .shard_audit import audit_shard_program
+
+    registry.ensure_populated()
+    if devices is None:
+        devices = ["cpu"] * (n_dev or 2)
+    sources = read_csrc()
+    return [audit_shard_program(spec, devices, sms, sources)
+            for spec in (registry.shard_programs() if specs is None
+                         else specs)]

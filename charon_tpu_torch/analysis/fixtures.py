@@ -19,12 +19,16 @@ Kernel fixtures (the counterparts of the JAX package's):
 - `resident_roundtrip`: a verify tile that reads its signatures' flags
   back to the host between K12 and K20 — its capture must fail.  On the
   card only (chip_smoke.py's ``contract`` phase).
+- `replicated_carry` (the JAX package's: the r05 sharded combine whose
+  loop carry started from a replicated constant): the sharded combine
+  with one padding block made by shard 0 and reused by every other shard
+  — the shard pass must flag the read across shards (and, on separate
+  cards, the operand off the shard's device).
 
 Lint fixtures (copies of the JAX package's, audited with this package's
 passes): `bad_buckets`, `unbounded_label`, `undocumented_metric`,
 `unguarded_mutation`, `lock_cycle`, `blocking_in_async` and
-`waitfor_swallow`.  The JAX package's ``replicated_carry`` goes with its
-shard audit, which the port has no counterpart for yet.
+`waitfor_swallow`.
 """
 
 from __future__ import annotations
@@ -33,9 +37,9 @@ from . import registry
 
 #: the fixtures that run on the CPU (`resident_roundtrip` needs the card)
 CPU_FIXTURES = ("float_leak", "smem_overflow", "spill_over_budget",
-                "bad_buckets", "unbounded_label", "undocumented_metric",
-                "unguarded_mutation", "lock_cycle", "blocking_in_async",
-                "waitfor_swallow")
+                "replicated_carry", "bad_buckets", "unbounded_label",
+                "undocumented_metric", "unguarded_mutation", "lock_cycle",
+                "blocking_in_async", "waitfor_swallow")
 
 FLOAT_LEAK_CU = '''\
 #include "fp381.cuh"
@@ -118,6 +122,42 @@ def resident_roundtrip_spec() -> registry.ResidencyProgramSpec:
             device, v, tile=roundtrip_tile),
         stages=backend_cuda.VERIFY_TILE_KERNELS,
         cases=(2,))
+
+
+def replicated_carry_shard_spec() -> registry.ShardProgramSpec:
+    """The sharded combine with THE BUG: the first shard's padding block
+    (∞ points, zero digits) kept and reused by every later shard, as the
+    r05 carry reused one replicated ∞ accumulator on every device."""
+    from ..tbls import backend_cuda
+
+    def run(pts_vt, digits_vt, devices=None, scope=None):
+        pad: dict = {}
+
+        def make_inputs(src_pts, src_digits, v_local, device):
+            if not pad:                     # made by shard 0 ...
+                pad["pts"], pad["digits"] = backend_cuda.shard_inputs(
+                    src_pts[..., :0, :], src_digits[:, :0, :], v_local,
+                    device)
+            pts, digits = pad["pts"].clone(), pad["digits"].clone()
+            n = src_pts.shape[-2]           # ... and read by the others
+            pts[..., :n, :].copy_(src_pts)
+            digits[:, :n, :].copy_(src_digits)
+            return pts, digits
+
+        return backend_cuda.straus_combine_sharded(
+            pts_vt, digits_vt, devices, scope=scope,
+            make_inputs=make_inputs)
+
+    prod = next(s for s in _shard_programs()
+                if s.name == "backend_cuda.straus_combine_sharded")
+    return registry.ShardProgramSpec(**{**prod.__dict__,
+                                        "name": "golden_bad.replicated_carry",
+                                        "run": run, "cases": ()})
+
+
+def _shard_programs():
+    registry.ensure_populated()
+    return registry.shard_programs()
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +306,9 @@ def asyncio_golden_bad(which: str):
 
 def audit_golden_bad(which: str, device=None):
     """Audit one golden-bad fixture; the returned report must NOT be ok.
-    `resident_roundtrip` needs a card (`device`, default the current)."""
+    `resident_roundtrip` needs a card (`device`, default the current);
+    `replicated_carry` runs its two shards on `device` (default the
+    CPU)."""
     from . import kernel_audit
     from .audit import AuditReport
 
@@ -296,6 +338,12 @@ def audit_golden_bad(which: str, device=None):
         # the log holds K13 alone: the fixture is about K13's budget
         report.kernels += [k for k in kernels
                            if k.launch == "miller_loop"]
+    elif which == "replicated_carry":
+        from .audit import run_shard_audit
+
+        devices = [device or "cpu"] * 2
+        report.shard_cases += run_shard_audit(
+            devices=devices, specs=[replicated_carry_shard_spec()])
     elif which == "resident_roundtrip":
         from .residency import audit_residency_case
 

@@ -5,9 +5,9 @@ instantiation they launch here at import time, named as the compiler
 names it in its ``-Xptxas -v`` report (`ops/build.ptxas_rows`), with its
 launch geometry and its register, stack and spill budgets;
 `tbls/backend_cuda` registers the workload shapes the main path really
-launches and the resident verify graph.  The audit passes iterate the
-registry — a ``__global__`` instantiation in ``csrc/`` that is not
-registered is itself an audit failure.
+launches, the resident verify graph and the sharded combine.  The audit
+passes iterate the registry — a ``__global__`` instantiation in
+``csrc/`` that is not registered is itself an audit failure.
 
 This module imports neither torch nor numpy, so registration adds
 nothing to the wrappers' import cost and cannot make an import cycle
@@ -104,8 +104,33 @@ class ResidencyProgramSpec:
     cases: tuple = ()
 
 
+@dataclass(frozen=True)
+class ShardProgramSpec:
+    """One sharded program whose shards the shard pass checks
+    (`analysis.shard_audit`).
+
+    ``run(pts_vt, digits_vt, devices, scope=)`` runs it, entering
+    ``scope(j, device)`` around shard j's work; ``plan(v, t, devices)`` →
+    (v_local, [(lo, hi)]) its split; ``shard_inputs(src_pts, src_digits,
+    v_local, device)`` a shard's padded inputs; ``prime(t, nwin,
+    devices)`` makes what every shard reads before any shard runs;
+    ``rows(v_local, t)`` → {kernel spec name: rows} a shard launches.  The
+    plan is checked at every (V, T) of ``cases``; the program runs once
+    at the ``small`` (T, nwin) case under the recorder."""
+
+    name: str
+    run: Callable[..., Any]
+    plan: Callable[..., tuple]
+    shard_inputs: Callable[..., tuple]
+    prime: Callable[..., None]
+    rows: Callable[[int, int], dict]
+    cases: tuple = ()
+    small: tuple = (2, 2)
+
+
 _KERNELS: dict[str, KernelSpec] = {}
 _SHAPES: dict[str, WorkloadShape] = {}
+_SHARD_PROGRAMS: dict[str, ShardProgramSpec] = {}
 _RESIDENCY_PROGRAMS: dict[str, ResidencyProgramSpec] = {}
 
 
@@ -115,6 +140,10 @@ def register_kernel(spec: KernelSpec) -> None:
 
 def register_workload_shape(shape: WorkloadShape) -> None:
     _SHAPES[shape.name] = shape
+
+
+def register_shard_program(spec: ShardProgramSpec) -> None:
+    _SHARD_PROGRAMS[spec.name] = spec
 
 
 def register_residency_program(spec: ResidencyProgramSpec) -> None:
@@ -127,6 +156,10 @@ def kernels() -> tuple[KernelSpec, ...]:
 
 def workload_shapes() -> tuple[WorkloadShape, ...]:
     return tuple(_SHAPES[k] for k in sorted(_SHAPES))
+
+
+def shard_programs() -> tuple[ShardProgramSpec, ...]:
+    return tuple(_SHARD_PROGRAMS[k] for k in sorted(_SHARD_PROGRAMS))
 
 
 def residency_programs() -> tuple[ResidencyProgramSpec, ...]:

@@ -7,6 +7,8 @@ Everything here takes and returns numpy arrays; nothing imports JAX.
 - JAX tiled points ``[6, 32, S, 128]`` or limb-last points ``[R, 3, 2, 32]``
   ↔ port planes ``[6, 32, R]``;
 - JAX tiled Straus digits ``[nwin, S, 128]`` ↔ port ``[nwin, R]``;
+- the sharded combine's JAX arguments, points ``[V, T, 3, 2, 32]`` and
+  digits ``[V, T, nwin]`` ↔ port ``[3, 2, 32, V, T]`` / ``[nwin, V, T]``;
 - JAX tiled plane stacks ``[n, 32, S, 128]`` ↔ port ``[n, 32, R]``, and
   the limb-last Fp12 ``[R, 2, 3, 2, 32]`` and G1 ``[R, 3, 32]`` batches
   ↔ port ``[12, 32, R]`` / ``[3, 32, R]`` planes;
@@ -63,6 +65,26 @@ def digits_to_jax(arr) -> np.ndarray:
     """[nwin, R] → JAX tiled [nwin, R/128, 128]."""
     a = np.asarray(arr)
     return np.ascontiguousarray(a.reshape(a.shape[0], -1, LANES))
+
+
+def points_vt_from_jax(arr) -> np.ndarray:
+    """JAX per-validator points [V, T, 3, 2, 32] → [3, 2, 32, V, T]."""
+    return np.ascontiguousarray(np.moveaxis(np.asarray(arr), (0, 1), (3, 4)))
+
+
+def points_vt_to_jax(arr) -> np.ndarray:
+    """[3, 2, 32, V, T] → JAX [V, T, 3, 2, 32]."""
+    return np.ascontiguousarray(np.moveaxis(np.asarray(arr), (3, 4), (0, 1)))
+
+
+def digits_vt_from_jax(arr) -> np.ndarray:
+    """JAX per-validator digits [V, T, nwin] → [nwin, V, T]."""
+    return np.ascontiguousarray(np.moveaxis(np.asarray(arr), 2, 0))
+
+
+def digits_vt_to_jax(arr) -> np.ndarray:
+    """[nwin, V, T] → JAX [V, T, nwin]."""
+    return np.ascontiguousarray(np.moveaxis(np.asarray(arr), 0, 2))
 
 
 def planes_from_jax(arr) -> np.ndarray:

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import fp, tower
-from ..tbls.ref.fields import FQ2, R
+from ..tbls.ref.fields import FQ, FQ2, R
 
 
 @dataclass(frozen=True)
@@ -109,6 +109,14 @@ def inf_points(F: FieldOps, n: int, device) -> torch.Tensor:
     return pt.expand(*pt.shape[:-1], n).contiguous()
 
 
+def inf_point(F: FieldOps, batch_shape=(), device="cpu") -> torch.Tensor:
+    """Infinity (0 : 1 : 0) over `batch_shape`: its last entry is the rows
+    (1 when empty), the others lead — [*lead, 3, *elem]."""
+    *lead, rows = tuple(batch_shape) or (1,)
+    return inf_points(F, rows, device).expand(*lead, -1,
+                                              *([-1] * F.elem_ndim))
+
+
 def is_inf(F: FieldOps, pt) -> torch.Tensor:
     _, _, z = _coords(F, pt)
     return F.is_zero(z)
@@ -185,8 +193,18 @@ def eq_points(F: FieldOps, p1, p2):
     return (i1 & i2) | (~i1 & ~i2 & F.eq(xa, xb) & F.eq(ya, yb))
 
 
+def on_curve(F: FieldOps, pt) -> torch.Tensor:
+    """Y²Z = X³ + b·Z³ (vacuously true at ∞)."""
+    x, y, z = _coords(F, pt)
+    zz, yy = F.mul_many([(z, z), (y, y)])
+    lhs, x2, z3b = F.mul_many([
+        (yy, z), (x, x), (F.mul(fp.elem(F.b, pt.device), zz), z)])
+    rhs = F.add(F.mul(x2, x), z3b)
+    return F.eq(lhs, rhs) | F.is_zero(z)
+
+
 # ---------------------------------------------------------------------------
-# Scalar multiplication
+# Scalar multiplication / MSM
 # ---------------------------------------------------------------------------
 
 def scalars_to_bits(scalars) -> np.ndarray:
@@ -221,6 +239,30 @@ def scalar_mul(F: FieldOps, pt, bits: torch.Tensor):
     return acc
 
 
+def sum_points(F: FieldOps, pts, axis: int = 0):
+    """Reduce a leading batch axis of points (before the coordinate axis)
+    by group addition, as a log-depth tree: the halves' sums, the odd
+    point carried."""
+    ax = axis if axis >= 0 else axis + pts.dim() - (F.elem_ndim + 1)
+    n = pts.shape[ax]
+    while n > 1:
+        half = n // 2
+        pairsum = add_points(F, pts.narrow(ax, 0, half),
+                             pts.narrow(ax, half, half))
+        pts = torch.cat([pairsum, pts.narrow(ax, 2 * half, n - 2 * half)],
+                        dim=ax)
+        n = half + (n - 2 * half)
+    return pts.select(ax, 0)
+
+
+def msm(F: FieldOps, pts, bits, axis: int = 0):
+    """Σ scalarᵢ·Pᵢ along a leading batch axis: the batched scalar
+    multiplication, then the tree (tbls.Aggregate's Lagrange
+    interpolation).  `pts` [..., 3, *elem] over R rows, `bits` [nbits,
+    ..., R]."""
+    return sum_points(F, scalar_mul(F, pts, bits), axis=axis)
+
+
 # ---------------------------------------------------------------------------
 # Host conversions (oracle points ↔ limb planes)
 # ---------------------------------------------------------------------------
@@ -249,3 +291,22 @@ def g2_pack(pts) -> np.ndarray:
             out[n, 1] = tower.f2_pack([pt[1]])[..., 0]
             out[n, 2] = tower.F2_ONE
     return np.ascontiguousarray(np.moveaxis(out, 0, -1))
+
+
+def g1_unpack(pts) -> list:
+    """Projective [..., 3, 32, R] → oracle affine points (None at ∞), the
+    leading axes, then the rows."""
+    x, y, inf = to_affine(FP_OPS, pts)
+    xs = fp.unpack(fp.from_mont(x))
+    ys = fp.unpack(fp.from_mont(y))
+    infs = np.asarray(inf).reshape(-1)
+    return [None if i else (FQ(a), FQ(b)) for a, b, i in zip(xs, ys, infs)]
+
+
+def g2_unpack(pts) -> list:
+    """Projective [..., 3, 2, 32, R] → oracle affine points (None at ∞)."""
+    x, y, inf = to_affine(F2_OPS, pts)
+    xs = tower.f2_unpack(x)
+    ys = tower.f2_unpack(y)
+    infs = np.asarray(inf).reshape(-1)
+    return [None if i else (a, b) for a, b, i in zip(xs, ys, infs)]

@@ -58,6 +58,12 @@ def from_limbs(limbs) -> int:
     return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(arr))
 
 
+def pack(xs) -> np.ndarray:
+    """Host: ints (standard form) → [32, len] limb planes, each mod p."""
+    return np.ascontiguousarray(
+        np.stack([to_limbs(int(x) % P) for x in xs], axis=-1))
+
+
 def unpack(arr) -> list[int]:
     """[..., 32, R] limb planes → flat list of ints (mod p), row-major
     over the leading axes then R."""
@@ -236,6 +242,10 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
     return mul(a, a)
 
 
+def sqr_many(els: list[torch.Tensor]) -> list[torch.Tensor]:
+    return mul_many([(a, a) for a in els])
+
+
 def mul_many(pairs: list[tuple[torch.Tensor, torch.Tensor]]
              ) -> list[torch.Tensor]:
     """K independent products in ONE multiplier launch (stacked on a new
@@ -246,6 +256,17 @@ def mul_many(pairs: list[tuple[torch.Tensor, torch.Tensor]]
     xs = torch.stack([a.expand(shape) for a, _ in pairs])
     ys = torch.stack([b.expand(shape) for _, b in pairs])
     return list(mul(xs, ys).unbind(0))
+
+
+def to_mont(a) -> torch.Tensor:
+    """Standard form → internal form: the identity (the representation is
+    plain; the name is the JAX package's)."""
+    return torch.as_tensor(a)
+
+
+def from_mont(a: torch.Tensor) -> torch.Tensor:
+    """Internal form → canonical standard form in [0, p)."""
+    return canon_std(a)
 
 
 def pow_fixed(a: torch.Tensor, e: int) -> torch.Tensor:

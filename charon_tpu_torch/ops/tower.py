@@ -225,16 +225,42 @@ def f6_mul_by_v(a: torch.Tensor) -> torch.Tensor:
     return f6(f2_mul_by_xi(a2), a0, a1)
 
 
+def f6_sqr(a: torch.Tensor) -> torch.Tensor:
+    return f6_mul(a, a)
+
+
+def f6_mul_by_01_many(triples: list[tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]]
+                      ) -> list[torch.Tensor]:
+    """K independent sparse (d0 + d1·v) products — 5K Fp2 products in one
+    multiplier launch."""
+    f2_pairs = []
+    for a, d0, d1 in triples:
+        a0, a1, a2 = _f6c(a)
+        f2_pairs += [(a0, d0), (a1, d1), (f2_add(a1, a2), d1),
+                     (f2_add(a0, a1), f2_add(d0, d1)), (f2_add(a0, a2), d0)]
+    ts = f2_mul_many(f2_pairs)
+    out = []
+    for i in range(len(triples)):
+        v0, v1, x12, x01, x02 = ts[5 * i:5 * i + 5]
+        out.append(f6(f2_add(v0, f2_mul_by_xi(f2_sub(x12, v1))),
+                      f2_sub(x01, f2_add(v0, v1)),
+                      f2_add(f2_sub(x02, v0), v1)))
+    return out
+
+
 def f6_mul_by_01(a: torch.Tensor, d0: torch.Tensor,
                  d1: torch.Tensor) -> torch.Tensor:
     """Sparse (d0 + d1·v) product — 5 Fp2 products in one launch."""
-    a0, a1, a2 = _f6c(a)
-    v0, v1, x12, x01, x02 = f2_mul_many(
-        [(a0, d0), (a1, d1), (f2_add(a1, a2), d1),
-         (f2_add(a0, a1), f2_add(d0, d1)), (f2_add(a0, a2), d0)])
-    return f6(f2_add(v0, f2_mul_by_xi(f2_sub(x12, v1))),
-              f2_sub(x01, f2_add(v0, v1)),
-              f2_add(f2_sub(x02, v0), v1))
+    [out] = f6_mul_by_01_many([(a, d0, d1)])
+    return out
+
+
+def f6_mul_by_1(a: torch.Tensor, d1: torch.Tensor) -> torch.Tensor:
+    """Sparse d1·v product: one Fp2 product batched over the three
+    coefficients, then the v-rotation."""
+    a0d, a1d, a2d = _f6c(f2_mul(a, d1.unsqueeze(-4)))
+    return f6(f2_mul_by_xi(a2d), a0d, a1d)
 
 
 def f6_mul_f2(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -253,6 +279,11 @@ def f6_inv(a: torch.Tensor) -> torch.Tensor:
     finv = f2_inv(f2_add(fa, f2_mul_by_xi(f2_add(fb, fc))))
     ra, rb, rc = f2_mul_many([(A, finv), (B, finv), (C, finv)])
     return f6(ra, rb, rc)
+
+
+def f6_select(cond, a, b):
+    """cond ? a : b, cond shaped like the batch dims [..., R]."""
+    return torch.where(cond.unsqueeze(-2).unsqueeze(-2).unsqueeze(-2), a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +434,14 @@ def f2_pack(xs: list[FQ2]) -> np.ndarray:
     constant is `f2_pack([x])[..., 0]`, for `fp.elem`)."""
     return np.ascontiguousarray(np.stack(
         [np.stack([fp.to_limbs(c) for c in x.coeffs]) for x in xs], -1))
+
+
+def f2_unpack(arr) -> list[FQ2]:
+    """Limb planes [..., 2, 32, R] → flat list of oracle FQ2 (the leading
+    axes, then the rows)."""
+    a = np.moveaxis(np.asarray(arr), -1, -3).reshape(-1, 2, fp.NLIMBS)
+    return [FQ2([fp.from_limbs(row[0]) % P, fp.from_limbs(row[1]) % P])
+            for row in a]
 
 
 def f12_pack(xs: list[FQ12]) -> np.ndarray:

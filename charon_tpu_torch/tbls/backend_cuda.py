@@ -89,6 +89,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import math
 import threading
 import time
 from collections import OrderedDict
@@ -924,6 +925,242 @@ def _affine_planes(pts: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z])
 
 
+# ---------------------------------------------------------------------------
+# The multi-card combine (the JAX package's straus_combine_sharded)
+# ---------------------------------------------------------------------------
+
+def _v_granularity(t: int, device) -> int:
+    """Validators a shard pads to a multiple of.  On the card `ROW_TILE`
+    (the unsharded combine's padding; the JAX package's tile rule,
+    SUBLANES · LANES = 1,024).  On the CPU the JAX package's DIRECT rule,
+    max(1024 / gcd(t, 1024), 128) — t·v_local on the 1,024-row grid and
+    v_local on the 128-row one — because the plain route is what DIRECT
+    is there."""
+    if torch.device(device).type == "cuda":
+        return ROW_TILE
+    return max(1024 // math.gcd(t, 1024), 128)
+
+
+def shard_plan(v: int, t: int, devices) -> tuple[int, list[tuple[int, int]]]:
+    """The split of v validators of t partials over `devices` → (v_local,
+    [(lo, hi)]): every shard pads to v_local validators, a multiple of
+    the granularity, and holds the real validators [lo, hi) — contiguous,
+    as the JAX mesh splits its padded batch, so a shard past the last
+    validator holds none."""
+    n = len(devices)
+    gran = _v_granularity(t, devices[0])
+    v_local = -(-max(1, -(-v // n)) // gran) * gran
+    return v_local, [(min(j * v_local, v), min((j + 1) * v_local, v))
+                     for j in range(n)]
+
+
+def shard_inputs(src_pts: torch.Tensor, src_digits: torch.Tensor,
+                 v_local: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard's padded inputs, made on `device`: its real validators'
+    points [3, 2, 32, n, t] and digits [nwin, n, t] (slices of the global
+    batch, wherever it lies) copied in front of ∞ points with all-zero
+    digits, which every window keeps at ∞ → (points [3, 2, 32, v_local,
+    t], digits [nwin, v_local, t])."""
+    t, n = src_pts.shape[-1], src_pts.shape[-2]
+    pts = cuda_g2.inf_planes(v_local * t, device).view(3, 2, NL, v_local, t)
+    digits = torch.zeros((src_digits.shape[0], v_local, t),
+                         dtype=torch.int32, device=device)
+    if n:
+        pts[..., :n, :].copy_(src_pts)
+        digits[:, :n, :].copy_(src_digits)
+    return pts, digits
+
+
+def _sharded_combine_local(t: int, nwin: int):
+    """The per-shard body, exposed on its own as the JAX package's is, so
+    that the shard audit and the run see the same body: a shard's padded
+    points [3, 2, 32, v_local, t] and digits [nwin, v_local, t] → rows
+    t-major (row = k·v_local + v) → K22's tables → K16's window loop →
+    [3, 2, 32, v_local].  `lap(name)`, when given, marks the end of each
+    stage ("tables_s", "straus_s")."""
+
+    def local(pts, digits, lap=None):
+        vl = pts.shape[-2]
+        rows = pts.permute(0, 1, 2, 4, 3).reshape(6, NL, t * vl)
+        tables = cuda_g2.straus_tables(rows)
+        if lap is not None:
+            lap("tables_s")
+        out = cuda_g2.straus_msm(
+            tables, digits.permute(0, 2, 1).reshape(nwin, t * vl), t)
+        if lap is not None:
+            lap("straus_s")
+        return cuda_g2.as_points(out)
+
+    return local
+
+
+def shard_devices(devices=None) -> list[torch.device]:
+    """The shards' devices: `devices` (repeats allowed: the CPU is one
+    device, and one card may hold several shards), or one shard for each
+    visible card; raises with no card, as `CUDABackend()` does."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "straus_combine_sharded: no CUDA device is available (pass "
+                "devices=['cpu', ...] to run the plain versions on the CPU)")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    out = [torch.device(d) for d in devices]
+    if not out:
+        raise ValueError("straus_combine_sharded: no devices")
+    if len({d.type for d in out}) > 1:
+        raise ValueError(f"straus_combine_sharded: devices of more than one "
+                         f"kind: {out}")
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in out]
+
+
+#: cards whose constants and programs a combine has uploaded
+_PRIMED: set[str] = set()
+#: each (card, shard slot)'s stream, kept across calls: the caching
+#: allocator keeps its blocks a stream, so a fresh stream a call would
+#: allocate (and wait for) every shard's memory anew
+_STREAMS: dict[tuple[int, int], torch.cuda.Stream] = {}
+
+
+def prime_shards(t: int, nwin: int, devices) -> None:
+    """The body over one validator of ∞ points on each distinct device,
+    outside any shard: it uploads what the shards read and no shard makes
+    — the fold and ∞ constants, K22's and K16's programs (a pageable copy
+    each, whose DMA a shard on another stream must not race) — and keeps
+    those uploads out of the shards' timings."""
+    local = _sharded_combine_local(t, nwin)
+    for d in dict.fromkeys(devices):
+        with _shard_context(d, 0):
+            pts, digits = shard_inputs(
+                torch.zeros((3, 2, NL, 0, t), dtype=torch.int32),
+                torch.zeros((nwin, 0, t), dtype=torch.int32), 1, d)
+            local(pts, digits)
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+            _PRIMED.add(str(d))
+
+
+@contextlib.contextmanager
+def _shard_context(device: torch.device, j: int):
+    """Shard j's device as the current one and its stream (`_STREAMS`),
+    which first waits for the device's current stream → the stream (None
+    on the CPU)."""
+    if device.type != "cuda":
+        yield None
+        return
+    with torch.cuda.device(device):
+        stream = _STREAMS.get((device.index, j))
+        if stream is None:
+            stream = _STREAMS.setdefault((device.index, j),
+                                         torch.cuda.Stream(device))
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            yield stream
+
+
+class _ShardClock:
+    """A shard's stage marks: CUDA events on its stream, host time on the
+    CPU; `seconds()` waits for the last."""
+
+    def __init__(self, stream):
+        self._stream = stream
+        self.marks = [("start", self._mark())]
+
+    def _mark(self):
+        if self._stream is None:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        return ev
+
+    def lap(self, name: str) -> None:
+        self.marks.append((name, self._mark()))
+
+    def seconds(self) -> dict[str, float]:
+        if self._stream is not None:
+            self.marks[-1][1].synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            out[name] = (b - a if self._stream is None
+                         else a.elapsed_time(b) / 1e3)
+        return out
+
+
+def straus_combine_sharded(pts_vt: torch.Tensor, digits_vt: torch.Tensor,
+                           devices=None, scope=None, timings=None,
+                           make_inputs=shard_inputs) -> torch.Tensor:
+    """The multi-card combine: the validator batch — the data-parallel
+    axis, SURVEY.md §2.9 — split over `devices`, each shard's combine run
+    on its own device with no exchange between them.
+
+    pts_vt    [3, 2, 32, V, T]  each validator's partial signatures,
+    digits_vt [nwin, V, T]      balanced base-8 Lagrange digits,
+    → [3, 2, 32, V] the combined points, on devices[0].
+
+    The JAX package's arguments in the port's layout
+    (`convert.points_vt_from_jax`, `digits_vt_from_jax`).  `devices`: a
+    sequence of devices, repeats allowed; None is one shard a visible card
+    (`shard_devices`).  Every shard pads to v_local validators
+    (`shard_plan`): ∞ with all-zero digits, sliced off the result; a
+    shard that holds no validator runs nothing.  Each shard runs under its
+    device and a stream of its own (`_shard_context`): its inputs made
+    there (`make_inputs`, `shard_inputs`), then the body
+    (`_sharded_combine_local`: K22's tables, then K16), every launch from
+    the calling thread, so shards on different cards overlap without
+    threads; the gather waits on each shard's event, never on the caller's
+    stream.  `scope(j, device)`, when given, is a context entered around
+    shard j's work (the shard audit's recorder); `timings`, when given, a
+    list that gets each shard's device, validators and `_ShardClock`."""
+    devs = shard_devices(devices)
+    if pts_vt.dim() != 5 or tuple(pts_vt.shape[:3]) != (3, 2, NL):
+        raise ValueError(f"straus_combine_sharded: points must be [3, 2, 32, "
+                         f"V, T], got {tuple(pts_vt.shape)}")
+    v, t = pts_vt.shape[-2:]
+    if digits_vt.dim() != 3 or tuple(digits_vt.shape[1:]) != (v, t) \
+            or v == 0:
+        raise ValueError(f"straus_combine_sharded: digits must be [nwin, "
+                         f"{v}, {t}] with V > 0, got "
+                         f"{tuple(digits_vt.shape)}")
+    nwin = digits_vt.shape[0]
+    v_local, spans = shard_plan(v, t, devs)
+    unprimed = [d for d in devs if d.type == "cuda"
+                and str(d) not in _PRIMED]
+    if unprimed:
+        prime_shards(t, nwin, unprimed)
+    local = _sharded_combine_local(t, nwin)
+    shards = []
+    for j, (d, (lo, hi)) in enumerate(zip(devs, spans)):
+        if hi == lo:
+            continue
+        src_pts, src_digits = pts_vt[..., lo:hi, :], digits_vt[:, lo:hi, :]
+        with _shard_context(d, j) as stream, \
+                (scope(j, d) if scope else contextlib.nullcontext()):
+            clock = _ShardClock(stream) if timings is not None else None
+            pts, digits = make_inputs(src_pts, src_digits, v_local, d)
+            out = local(pts, digits, clock.lap if clock else None)
+            end = None
+            if stream is not None:
+                end = torch.cuda.Event()
+                end.record(stream)
+        if clock is not None:
+            timings.append({"shard": j, "device": str(d),
+                            "v_local": v_local, "validators": hi - lo,
+                            "clock": clock})
+        shards.append((d, out, end, hi - lo))
+    dev0 = devs[0]
+    parts = []
+    for d, out, end, n in shards:
+        if end is not None:
+            cur = torch.cuda.current_stream(d)
+            cur.wait_event(end)
+            out.record_stream(cur)
+            if d != dev0:
+                torch.cuda.current_stream(dev0).wait_event(end)
+        parts.append(out[..., :n].to(dev0))
+    return torch.cat(parts, dim=-1)
+
+
 _KERNELS = (*cuda_fp.LAUNCHES, *cuda_g2.LAUNCHES, *cuda_pairing.LAUNCHES,
             *cuda_h2c.LAUNCHES, *cuda_final_exp.LAUNCHES,
             *cuda_codec.LAUNCHES)
@@ -1036,6 +1273,21 @@ def _combine_shape_rows(v: int, t: int) -> dict[str, int]:
             "normalize.cu g2_normalize_kernel": vpad}
 
 
+#: (V, T) shapes the sharded combine is audited at (the JAX package's
+#: `AUDIT_VT_SHAPES`: the unit case, small and medium batches, the
+#: headline 10,000 × 7 and a stress shape), each at `AUDIT_SHARDS` shards
+AUDIT_VT_SHAPES = ((1, 1), (100, 3), (1024, 2), (4096, 4), (10_000, 7),
+                   (50_000, 10))
+AUDIT_SHARDS = (1, 2, 4, 8)
+
+
+def _sharded_shape_rows(v_local: int, t: int) -> dict[str, int]:
+    """Rows per kernel instantiation of one shard of v_local validators
+    with t partials each (`_sharded_combine_local`)."""
+    return {"g2_law.cu g2_law_kernel<6>": t * v_local,
+            "straus.cu straus_msm_kernel": v_local}
+
+
 def _register_analysis() -> None:
     """The main path's shapes and the resident verify graph for the
     kernel contract audit: a verify tile of `dispatch.VERIFY_TILE`
@@ -1043,7 +1295,9 @@ def _register_analysis() -> None:
     bucket; the chaos and cluster tiles of 1–4 entries; the device hash
     at its least batch, the slot-start's 64 messages, the DKG's 1,000 and
     a tile's 2,048; the combine at 10,000 validators × 7 (10,240 padded
-    rows, 71,680 point rows) and at one validator of a 3-of-4 cluster."""
+    rows, 71,680 point rows) and at one validator of a 3-of-4 cluster;
+    the sharded combine's shard at `AUDIT_VT_SHAPES` over `AUDIT_SHARDS`
+    cards, and the sharded combine for the shard pass."""
     from ..analysis import registry
 
     def shape(name: str, origin: str, rows: dict) -> None:
@@ -1062,6 +1316,18 @@ def _register_analysis() -> None:
         shape(f"combine v={v} t={t}",
               "tbls/backend_cuda.CUDABackend.combine_device_exec",
               _combine_shape_rows(v, t))
+    card = [torch.device("cuda")]
+    for n in AUDIT_SHARDS:
+        for v, t in AUDIT_VT_SHAPES:
+            v_local, _ = shard_plan(v, t, card * n)
+            shape(f"sharded v={v} t={t} n={n}", "sharded",
+                  _sharded_shape_rows(v_local, t))
+    registry.register_shard_program(registry.ShardProgramSpec(
+        name="backend_cuda.straus_combine_sharded",
+        run=straus_combine_sharded, plan=shard_plan,
+        shard_inputs=shard_inputs, prime=prime_shards,
+        rows=_sharded_shape_rows, cases=AUDIT_VT_SHAPES,
+        small=(2, 2)))
     registry.register_residency_program(registry.ResidencyProgramSpec(
         name="resident_verify_tile",
         build=lambda v, device: _VerifyGraph(device, v),

@@ -103,6 +103,25 @@ Phases, in order; any failure raises and exits non-zero:
              stage, ONE K22 launch in its tables stage, ONE K16 launch in
              its Straus stage and ONE K19 launch in its normalise
              stage.
+   multichip — the multi-card combine on the combine's batch:
+             `torch.cuda.device_count()` and each card's name and power
+             limit; `multichip.dryrun_multichip(device_count)` (the audit
+             with its shard pass on the cards, V = device_count
+             validators' 2-of-2 partials through
+             `backend_cuda.straus_combine_sharded`, each verified on a
+             card of its own by the re-check's kernels: K19, K1's
+             negation, K13, K5's product, K11); then the 10,000 × 7
+             batch, decompressed by K12, sharded one shard a visible card
+             and 4 shards on cuda:0: the normalised, compressed result
+             byte-equal to the unsharded `threshold_combine_bytes` of the
+             batch in each of 3 reps and 4 sampled rows to the oracle,
+             each shard's K22 and K16 seconds (CUDA events on its
+             stream), the sharded call's wall (its p50 of 3), and the
+             unsharded K22 + K16 at 10,240 rows beside them; then the
+             shard pass on the cards at both layouts and its golden-bad
+             `replicated_carry` flagged on the card.  One
+             card leaves copies between cards and shards running at once
+             on different cards unexercised.
    redesign — K11 (the final exponentiation in one launch, a warp per
              row) against its plain version at 1 row and at a verify
              tile's 2,048, and K12 (the G2 decompression in one launch, a
@@ -316,7 +335,9 @@ No flush (warm, cold, slot-start, distinct) and no combine launches K1
 or K9; K1 and K9 run in phase 2 as references.
 
 A kernel's `launches` in the JSON line is its count over the main-path
-runs: `launches_combine` (one combine rep), `launches_verify` (one
+runs: `launches_combine` (one combine rep), `launches_multichip` (the
+multichip phase's dry run and its two sharded combines, from zero; the
+unsharded reference and the shard pass outside it), `launches_verify` (one
 10,000-entry verify rep, warm caches), `launches_verify_cold` (the
 flush that fills the pubkey LRU), `launches_verify_slot_start` (one
 rep of the slot's first flush) and `launches_verify_distinct` (one rep of
@@ -2461,7 +2482,179 @@ def combine_phase(dev) -> tuple[dict, dict, list[bytes]]:
                          {"straus_msm": 1})
     check_stage_launches("combine", stage_launches, "normalize_s",
                          {"g2_normalize": 1})
-    return launch_counts, p50, pool
+    return launch_counts, p50, pool, sig_sets
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the multi-card combine
+# ---------------------------------------------------------------------------
+
+#: the kernels of the phase's counted runs: the dry run's (its shard pass,
+#: combine and re-check kernels) and the full-width combines' (K12, the
+#: shards' K22 and K16, K19)
+MULTICHIP_KERNELS = ("g2_decompress", "g2_law", "straus_msm",
+                     "g2_normalize", "miller_loop", "pp_f12mul",
+                     "final_exp", "fp_neg")
+
+
+def multichip_layouts() -> dict:
+    """The sharded combine's layouts: one shard a visible card, and four
+    shards on cuda:0 (one card shows the split, the padding, each shard's
+    device context and stream, the gather; not copies between cards nor
+    shards running at once on different cards)."""
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return {"one_a_card": cards, "four_on_cuda0": [cards[0]] * 4}
+
+
+def multichip_phase(dev, sig_sets: list[dict[int, bytes]]) -> dict:
+    """The multi-card combine (module docstring, phase "multichip") on the
+    combine phase's 10,000 × 7 batch → the launches of its counted runs
+    (`dryrun_multichip` over every visible card, then the sharded combine
+    at both layouts: K12's decompression, the shards' K22 and K16, K19's
+    normalisation).  The unsharded reference bytes and K22 + K16 at 10,240
+    rows are made before the count, the shard pass at both layouts after
+    it."""
+    from charon_tpu_torch import multichip
+    from charon_tpu_torch.analysis import fixtures
+    from charon_tpu_torch.analysis.audit import run_shard_audit
+    from charon_tpu_torch.ops import codec, cuda_codec, cuda_g2
+    from charon_tpu_torch.tbls import api, backend_cuda
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    log(f"multichip: torch.cuda.device_count() = {count}")
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    for i, line in enumerate(out.stdout.strip().splitlines()):
+        log(f"multichip: card {i}: {line}")
+    layouts = multichip_layouts()
+    backend = api._backend()
+    v, t = len(sig_sets), max(len(s) for s in sig_sets)
+
+    # before the count: the unsharded combine's bytes, and its K22 + K16
+    # at 10,240 rows on the same decompressed points
+    want = backend.threshold_combine_bytes(sig_sets)
+    prep = backend.combine_host_prep(sig_sets)
+    put = backend._put
+    vpad = prep["vpad"]
+
+    def decompressed():
+        pts, ok = cuda_codec.g2_decompress(put(prep["xc0"]),
+                                           put(prep["xc1"]),
+                                           put(prep["sign"]),
+                                           put(prep["inf"]))
+        if not bool((ok | ~put(prep["real"])).all()):
+            raise AssertionError("multichip: a partial did not decompress")
+        return pts
+
+    pts = decompressed()
+    digits = put(prep["digits"])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    tables = cuda_g2.straus_tables(cuda_g2.as_planes(pts))
+    ev[1].record()
+    cuda_g2.straus_msm(tables, digits, t)
+    ev[2].record()
+    ev[2].synchronize()
+    unsharded = {"tables_s": ev[0].elapsed_time(ev[1]) / 1e3,
+                 "straus_s": ev[1].elapsed_time(ev[2]) / 1e3,
+                 "rows": vpad}
+    del tables
+    for devs in layouts.values():
+        backend_cuda.prime_shards(t, digits.shape[0], devs)
+
+    reset_all_launches()
+    dry = multichip.dryrun_multichip(count)
+    results = {}
+    got_by_layout = {}
+    for name, devs in layouts.items():
+        walls, reps = [], []
+        for rep in range(REPS):
+            pts = decompressed()
+            pts_vt = pts.view(3, 2, NL, t, vpad)[..., :v].permute(
+                0, 1, 2, 4, 3)
+            digits_vt = digits.view(-1, t, vpad)[..., :v].permute(0, 2, 1)
+            timings = []
+            for d in set(devs):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            comb = backend_cuda.straus_combine_sharded(
+                pts_vt, digits_vt, devs, timings=timings)
+            for d in set(devs):
+                torch.cuda.synchronize(d)
+            walls.append(time.perf_counter() - t0)
+            xc0, xc1, yc0, yc1, inf = cuda_codec.g2_normalize(comb)
+            host = [a.cpu().numpy() for a in (xc0, xc1, yc0, yc1)]
+            comp = codec.g2_compress_np(*[a.T for a in host],
+                                        inf.cpu().numpy())
+            got = [comp[k].tobytes() for k in range(v)]
+            if got != want:
+                bad = sum(a != b for a, b in zip(got, want))
+                raise AssertionError(
+                    f"multichip {name} rep {rep}: {bad} of {v} combined "
+                    f"signatures differ from the unsharded combine's bytes")
+            got_by_layout[name] = got
+            reps.append([{"shard": s["shard"], "device": s["device"],
+                          "validators": s["validators"],
+                          "v_local": s["v_local"], **s["clock"].seconds()}
+                         for s in timings])
+            log(f"multichip {name} rep {rep}: {v} × {t} over {len(devs)} "
+                f"shard(s), byte-equal to the unsharded combine; sharded "
+                f"call {walls[-1]:.4f} s wall; per shard (K22 tables_s, K16 "
+                f"straus_s, CUDA events on its stream): " + "; ".join(
+                    f"{s['device']} #{s['shard']} {s['validators']}/"
+                    f"{s['v_local']}: {s['tables_s']:.4f} + "
+                    f"{s['straus_s']:.4f}" for s in reps[-1]))
+        results[name] = {"devices": [str(d) for d in devs],
+                         "wall_s": walls,
+                         "wall_p50_s": statistics.median(walls),
+                         "shards": reps}
+    launches = all_launches()
+    log(f"multichip: unsharded K22 + K16 at {vpad} rows: "
+        f"{unsharded['tables_s']:.4f} + {unsharded['straus_s']:.4f} s")
+    for k in MULTICHIP_KERNELS:
+        if not launches[k]:
+            raise AssertionError(f"multichip: {k} never launched in the "
+                                 f"phase's runs")
+
+    # the oracle on a sample of rows
+    gen = np.random.default_rng(5)
+    rows = sorted(gen.choice(v, 4, replace=False).tolist())
+    for r, w in zip(rows, host_pool().map(oracle_combine,
+                                          [sig_sets[r] for r in rows])):
+        for name, got in got_by_layout.items():
+            if got[r] != w:
+                raise AssertionError(f"multichip {name}: row {r} != oracle")
+
+    # the shard pass on the real devices at both layouts, and its
+    # golden-bad on the card
+    passes = {}
+    for name, devs in layouts.items():
+        t0 = time.perf_counter()
+        (case,) = run_shard_audit(devices=devs)
+        passes[name] = {"plans": case.plans_checked, "ops": case.ops,
+                        "s": time.perf_counter() - t0}
+        if case.violations:
+            raise AssertionError(f"multichip shard pass {name}: "
+                                 + "; ".join(case.violations))
+    bad = fixtures.audit_golden_bad("replicated_carry", dev)
+    if bad.ok:
+        raise AssertionError("multichip: the golden-bad replicated_carry "
+                             "was not flagged on the card")
+    log("multichip: shard pass clean at both layouts "
+        + json.dumps(passes) + "; golden-bad replicated_carry flagged: "
+        + "; ".join(bad.violations))
+    log("multichip: " + json.dumps({
+        "device_count": count, "dryrun": {
+            "devices": dry["devices"], "verdicts": dry["verdicts"],
+            "audit_s": dry["audit_s"], "combine_s": dry["combine_s"],
+            "verify_s": dry["verify_s"]},
+        "layouts": results, "unsharded": unsharded,
+        "launches": {k: n for k, n in launches.items() if n},
+        "phase_s": time.perf_counter() - t_phase}))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6532,7 +6725,10 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
     kern["h2c_sswu_head"] = sswu_head_phase(dev, sm_clocks_per_s,
                                             (MESSAGES, dispatch.VERIFY_TILE))
     mark("combine")
-    combine_launches, _, pool = combine_phase(dev)
+    combine_launches, _, pool, sig_sets = combine_phase(dev)
+    mark("multichip")
+    multichip_launches = multichip_phase(dev, sig_sets)
+    del sig_sets
     mark("redesign")
     # K11 at the batch check's 1 row and a re-check tile's rows, K12 at a
     # verify tile and at the combine's padded 10,240 × 7 rows
@@ -6587,7 +6783,9 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
         {"name": name, "route": "cuda",
          "source": f"charon_tpu_torch/{spec.source}",
          "replaces": spec.replaces,
-         "launches": (combine_launches.get(name, 0) + verify_launches[name]
+         "launches": (combine_launches.get(name, 0)
+                      + multichip_launches.get(name, 0)
+                      + verify_launches[name]
                       + cold_launches[name] + slot_launches[name]
                       + distinct_launches[name]
                       + sum(c[name] for c in resident_launches.values())
@@ -6596,6 +6794,7 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
                       + chaos_launches.get(name, 0)
                       + cluster_launches.get(name, 0)),
          "launches_combine": combine_launches.get(name, 0),
+         "launches_multichip": multichip_launches.get(name, 0),
          "launches_verify": verify_launches[name],
          "launches_verify_cold": cold_launches[name],
          "launches_verify_slot_start": slot_launches[name],

@@ -24,6 +24,11 @@ import threading
 from pathlib import Path
 
 import pytest
+import torch
+
+# one intra-op thread: the shard pass runs the plain versions on small
+# tensors, and several workers share the cores
+torch.set_num_threads(1)
 
 from charon_tpu_torch.analysis import fixtures, kernel_audit, registry
 from charon_tpu_torch.analysis.__main__ import main as analysis_main
@@ -427,3 +432,119 @@ def test_run_waives_its_boot_read():
     assert any(w.startswith("charon_tpu_torch/app/run.py:")
                for w in report.waived)
     assert report.ok, report.violations
+
+
+# ---------------------------------------------------------------------------
+# the shard pass (analysis/shard_audit.py) over the sharded combine
+# ---------------------------------------------------------------------------
+
+def _sharded_spec():
+    registry.ensure_populated()
+    (spec,) = registry.shard_programs()
+    assert spec.name == "backend_cuda.straus_combine_sharded"
+    return spec
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_shard_pass_clean_on_the_sharded_combine(n):
+    """The plan at every registered (V, T) and one isolated run of n CPU
+    shards: no violation, every shard's ops recorded."""
+    from charon_tpu_torch.analysis.audit import run_shard_audit
+
+    (case,) = run_shard_audit(n_dev=n)
+    assert case.violations == [], case.violations
+    assert case.plans_checked == len(_sharded_spec().cases) == 6
+    assert case.devices == ["cpu"] * n
+    assert sorted(case.ops) == list(range(n)) and all(case.ops.values())
+
+
+def test_shard_pass_names_the_replicated_carry():
+    """The golden-bad's one padding block, made by shard 0: shard 1's read
+    of it is the finding, and nothing else is."""
+    bad = fixtures.audit_golden_bad("replicated_carry")
+    text = "\n".join(bad.violations)
+    assert "shard 1: aten.clone.default reads a tensor made by shard 0" \
+        in text
+    assert all("made by shard 0" in v for v in bad.violations), text
+    res = subprocess.run(
+        [sys.executable, "-m", "charon_tpu_torch.analysis", "--golden-bad",
+         "replicated_carry"],
+        capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    assert res.returncode == 1 and "FAIL" in res.stdout, res.stdout[-2000:]
+
+
+def test_shard_pass_flags_a_bad_plan_and_bad_pads():
+    """A split whose v_local is off the granularity and leaves validators
+    out; pads of zeros instead of ∞ with digits that are not zero."""
+    import torch
+
+    from charon_tpu_torch.analysis import shard_audit
+    from charon_tpu_torch.tbls import backend_cuda
+
+    spec = _sharded_spec()
+
+    def short_plan(v, t, devices):
+        v_local, spans = backend_cuda.shard_plan(v, t, devices)
+        if v == 1:
+            return v_local, spans
+        return v_local - 1, [(lo, min(hi, v - 1)) for lo, hi in spans]
+
+    def zero_pads(src_pts, src_digits, v_local, device):
+        pts, digits = backend_cuda.shard_inputs(src_pts, src_digits,
+                                                v_local, device)
+        n = src_pts.shape[-2]
+        pts[..., n:, :] = 0
+        digits[:, n:, :] = 1
+        return pts, digits
+
+    audit = shard_audit.ShardCaseAudit(name="mutant", devices=["cpu"] * 2)
+    shard_audit.check_plan(dataclasses.replace(spec, plan=short_plan),
+                           [torch.device("cpu")] * 2, audit)
+    text = "\n".join(audit.violations)
+    assert "is not a positive multiple of 512" in text
+    assert "are not [0, 10000) in order" in text
+    pts, digits = shard_audit.small_inputs(300, 2, 2, "cpu")
+    shard_audit.check_pads(dataclasses.replace(spec, shard_inputs=zero_pads),
+                           [torch.device("cpu")] * 2, pts, digits, audit)
+    assert sum("a pad row is not ∞ with zero digits" in v
+               for v in audit.violations) == 2
+
+
+def test_shard_recorder_device_rule():
+    """An operand off the shard's device is a violation; the copy that
+    brings the shard a slice no shard made is not."""
+    import torch
+
+    from charon_tpu_torch.analysis.shard_audit import ShardRecorder
+
+    host = torch.ones(4, dtype=torch.int32)
+    rec = ShardRecorder()
+    with rec:
+        with rec.scope(0, torch.device("meta")):
+            mine = torch.empty(4, dtype=torch.int32, device="meta")
+            mine.copy_(host)                     # the transfer: allowed
+            torch.add(host, 1)                   # off the shard's device
+    assert rec.ops == {0: 3}
+    assert rec.violations == [
+        "shard 0: aten.add.Tensor has an operand on cpu, the shard runs on "
+        "meta"]
+
+
+def test_sharded_shapes_pass_the_launch_audit(head_audit):
+    """K22 and K16 at every registered shard: (V, T) of the JAX package's
+    AUDIT_VT_SHAPES over 1, 2, 4 and 8 cards, v_local on the card's
+    1,024-validator grid."""
+    by_name = {k.name: k for k in head_audit.kernels}
+    shapes = {s.name: dict(s.rows) for s in registry.workload_shapes()
+              if s.origin == "sharded"}
+    assert len(shapes) == 24
+    for n in (1, 2, 4, 8):
+        for v, t in ((1, 1), (100, 3), (1024, 2), (4096, 4), (10_000, 7),
+                     (50_000, 10)):
+            rows = shapes[f"sharded v={v} t={t} n={n}"]
+            v_local = -(-max(1, -(-v // n)) // 1024) * 1024
+            assert rows == {"g2_law.cu g2_law_kernel<6>": t * v_local,
+                            "straus.cu straus_msm_kernel": v_local}
+            for name, r in rows.items():
+                assert r in by_name[name].launches
+                assert by_name[name].violations == []
