@@ -464,6 +464,12 @@ def profile_guard_release() -> None:
         _PROFILE_ACTIVE = False
 
 
+def profile_guard_held() -> bool:
+    """Whether a capture holds the process-global profiler."""
+    with _PROFILE_GUARD_LOCK:
+        return _PROFILE_ACTIVE
+
+
 def _export_trace(prof, path: str) -> int:
     """Write the capture as a Chrome trace; its event count (0 = an
     empty capture)."""

@@ -73,7 +73,7 @@ from ..tbls import dispatch
 from . import autoprofile, featureset, log as applog, otlp, tracing
 from .lifecycle import Manager, StartOrder, StopOrder
 from .monitoring import (MonitoringAPI, Registry, hbm_sample_loop,
-                         loop_lag_probe, set_readiness)
+                         loop_lag_probe, profile_guard_held, set_readiness)
 from .peerinfo import PeerInfo
 from .qbftdebug import QBFTSniffer
 from .retry import Retryer, with_async_retry
@@ -632,6 +632,11 @@ class App:
         captured)."""
         await self._dispatch_prewarm()
         if self.autoprofiler is not None:
+            # a capture that boot's own loop stalls set off may hold the
+            # profiler (and pay its set-up): wait for it rather than skip,
+            # so the boot gauge that readiness checks read is written
+            while profile_guard_held():
+                await asyncio.sleep(0.1)
             seconds = await self.autoprofiler.prewarm()
             if seconds is not None:
                 self._boot_phase("profiler", seconds)

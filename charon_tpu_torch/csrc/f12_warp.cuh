@@ -4,9 +4,8 @@
 // and combination stages, each stage one instruction stream for all its
 // lanes (operands chosen by pointer, not by branch).  Every product and
 // sum is the same fp381.cuh function on the same inputs as the sequential
-// tower, so the split cannot change a bit.  Kernels K11 (final_exp.cu,
-// which also builds its squaring on `w_f6_products`) and K14 (fold.cu)
-// share it.
+// tower, so the split cannot change a bit.  Kernel K14 (fold.cu) runs
+// it; K11 (final_exp.cu) splits the same stages over groups of lanes.
 
 #pragma once
 

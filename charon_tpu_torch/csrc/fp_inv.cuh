@@ -1,34 +1,17 @@
-// fp_inv.cuh — the Fp inverse a^(p−2) for one thread: K11's (final_exp.cu,
-// the inverse of its easy part) and K19's (normalize.cu, Z's norm).
+// fp_inv.cuh — the Fp inverse a^(p−2) for one thread: K19's (normalize.cu,
+// Z's norm).
 //
-// fp_inv is fp.pow_fixed's square-and-multiply, LSB first: 380 squarings
-// and 229 products, the sequence K11's plain version runs, so K11 stays
-// bit-identical to it.  fp_inv_w4 is the same power by 4-bit windows, MSB
-// first: the table a¹..a¹⁵ (14 products), then per window four squarings
-// and, for a non-zero digit, one product — 489 products.  Its output is
-// another redundant residue of the same value; K19 canonicalises it.
-// inv(0) = 0 for both.
+// fp_inv_w4 is the power by 4-bit windows, MSB first: the table a¹..a¹⁵
+// (14 products), then per window four squarings and, for a non-zero
+// digit, one product — 489 products, where fp.pow_fixed's
+// square-and-multiply takes 609.  Its output is a redundant residue of the
+// value; K19 canonicalises it.  inv(0) = 0.  K11 runs the same schedule on
+// a group of lanes (final_exp.cu's fp_inv).
 #pragma once
 
 #include "fp381.cuh"
 
 namespace fp381 {
-
-// a^(p−2), LSB first (fp.pow_fixed's schedule)
-static __device__ __noinline__ void fp_inv(int* o, const int* a) {
-  int result[NL], base[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) result[i] = i == 0;
-  copy(base, a);
-#pragma unroll 1
-  for (int i = 0; i < EXP_PM2_BITS; ++i) {
-    if ((EXP_PM2[i >> 5] >> (i & 31)) & 1u) {
-      mul_n(result, result, base);
-    }
-    if (i != EXP_PM2_BITS - 1) mul_n(base, base, base);
-  }
-  copy(o, result);
-}
 
 // a^(p−2) by 4-bit windows, MSB first; digit k of p − 2 is bits 4k..4k+3
 // of EXP_PM2 (the top one, k = 95, is 1).  The table sits in the thread's

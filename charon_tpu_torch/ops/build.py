@@ -31,7 +31,7 @@ SOURCES = ("fp_ops.cu", "g2.cu", "pairing.cu", "h2c.cu", "final_exp.cu",
            "g1_tables.cu", "g1_decompress.cu", "g2_law.cu", "h2c_map.cu",
            "h2c_sswu.cu")
 HEADERS = ("fp381.cuh", "fp381_consts.cuh", "program.cuh", "f12_warp.cuh",
-           "fp_inv.cuh", "attrs.cuh")
+           "fp_inv.cuh", "attrs.cuh", "fp_lanes.cuh")
 LIB_NAME = "libcharon_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -188,7 +188,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.charon_h2c_sswu.argtypes = [p, p, p, i, p]
     lib.charon_h2c_point.argtypes = [i, p, p, i, p]
     lib.charon_final_exp.argtypes = [p, p, p, i, p]
-    lib.charon_g2_decompress.argtypes = [p, p, p, p, p, p, i, p]
+    lib.charon_g2_decompress.argtypes = [i, p, p, p, p, p, p, i, p]
     lib.charon_miller_loop.argtypes = [p, p, p, i, p, i, i, i, p]
     lib.charon_miller_thread.argtypes = [p, p, p, i, p]
     lib.charon_f12_fold.argtypes = [p, p, p, p, i, p]

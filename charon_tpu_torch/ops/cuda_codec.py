@@ -12,10 +12,12 @@ the flip, `from_affine` with the ∞ flag, and the subgroup check ψ(Q) ==
 :112, `_small_kernel_factory` :120); the port's plain copy makes each a
 K1 launch — 7,467 per batch.
 
-One thread per row holds the whole chain, on the csrc/fp381.cuh functions
-(the Fp2 squarings of the pows are `f2_sqr`, the group law the complete
-RCB doubling and addition of K2), plus exact `canon`, `is_zero` and `sgn`.
-The [|z|]Q multiplication is `curve.scalar_mul`'s 2-bit windowed
+A row runs on a group of 16 or 8 lanes (`decompress_lanes`), every Fp
+element spread over them (csrc/fp_lanes.cuh, the same integers as the
+csrc/fp381.cuh functions); the pows run 3-bit windows, MSB first
+(`_f2_pow_w3`), their squarings `f2_sqr`, the group law the complete
+RCB doubling and addition of K2, plus exact `canon`, `is_zero` and
+`sgn`.  The [|z|]Q multiplication is `curve.scalar_mul`'s 2-bit windowed
 double-and-add over |z| with the additions of zero windows left out and
 the top window's table entry as the start (the same group element: Q + ∞
 = Q).  The plain version here, `g2_decompress_plain`, runs the same
@@ -105,18 +107,25 @@ def _f2_one(like: torch.Tensor):
     return (one, torch.zeros_like(like))
 
 
-def _f2_pow(a, e: int):
-    """a^e, LSB first (tower.f2_pow_fixed's schedule): a set bit
-    multiplies the result by the base, every bit but the last squares
-    the base (f2_sqr)."""
-    result, base = _f2_one(a[0]), a
-    nbits = e.bit_length()
-    for i in range(nbits):
-        if (e >> i) & 1:
-            result = _f2mul(result, base)
-        if i != nbits - 1:
-            base = _f2sqr(base)
-    return result
+#: the windows of K12's pows (csrc/decompress.cu): 3 bits, MSB first
+POW_WINDOW = 3
+
+
+def _f2_pow_w3(a, e: int):
+    """a^e by 3-bit windows, MSB first (csrc/decompress.cu `pow`): the
+    table a..a⁷ (a² by f2_sqr, then products by a), then per window three
+    squarings (f2_sqr) and, for a non-zero digit, one product."""
+    tbl = [None, a, _f2sqr(a)]
+    for k in range(3, 1 << POW_WINDOW):
+        tbl.append(_f2mul(tbl[k - 1], a))
+    digits = miller_program.pow_digits(e, POW_WINDOW)
+    acc = tbl[digits[0]]
+    for d in digits[1:]:
+        for _ in range(POW_WINDOW):
+            acc = _f2sqr(acc)
+        if d:
+            acc = _f2mul(acc, tbl[d])
+    return acc
 
 
 def _f2_is_zero(a) -> torch.Tensor:
@@ -165,11 +174,11 @@ def g2_decompress_plain(xc0: torch.Tensor, xc1: torch.Tensor,
     x = (xc0, xc1)
     rhs = _f2add(_f2mul(_f2sqr(x), x), _cf2(_DC_B, xc0))
     # the square root (codec.f2_sqrt)
-    a1 = _f2_pow(rhs, EXP_P34)
+    a1 = _f2_pow_w3(rhs, EXP_P34)
     alpha = _f2mul(_f2sqr(a1), rhs)
     x0 = _f2mul(a1, rhs)
     root_u = (_negf(x0[1]), x0[0])
-    root_b = _f2mul(_f2_pow(_f2add(alpha, _f2_one(xc0)), EXP_P12), x0)
+    root_b = _f2mul(_f2_pow_w3(_f2add(alpha, _f2_one(xc0)), EXP_P12), x0)
     is_m1 = _f2_is_zero(_f2sub(alpha, _cf2(_DC_M1, xc0)))
     y = _f2_sel(is_m1, root_u, root_b)
     ok = _f2_is_zero(_f2sub(_f2sqr(y), rhs))
@@ -198,11 +207,31 @@ def reset_launches() -> None:
     launch_count.reset(LAUNCHES)
 
 
+#: K12's lanes a row by batch (csrc/decompress.cu's two instantiations):
+#: 16 up to this many rows (a verify tile, a combine of 3 shares), 8
+#: above it (4 shares, a DKG's 7, the 10,000 × 7 combine).  On the H100
+#: the two cross between 3,072 and 3,584 rows, where 16-lane groups pass
+#: one wave (132 SMs × 12 one-warp blocks × 2 rows = 3,168) and 8-lane
+#: ones do not (PERF.md row 26: `tools/k11_k12_ab.py --sweep`)
+DECOMPRESS_WIDE_ROWS = 3072
+
+
+def decompress_lanes(rows: int) -> int:
+    """The lanes a row K12 runs `rows` rows on."""
+    return 16 if rows <= DECOMPRESS_WIDE_ROWS else 8
+
+
+def decompress_kernel_name(rows: int) -> str:
+    """The instantiation K12 launches at `rows` rows (the registry's and
+    the compiler report's name)."""
+    return f"decompress.cu g2_decompress_kernel<{decompress_lanes(rows)}>"
+
+
 def g2_decompress(xc0: torch.Tensor, xc1: torch.Tensor, sign: torch.Tensor,
                   inf: torch.Tensor):
     """Std-form x limb planes [32, R] (int32) + sign/inf flags [R] (bool)
-    → (projective points [3, 2, 32, R], ok [R] bool): one launch, one
-    thread per row."""
+    → (projective points [3, 2, 32, R], ok [R] bool): one launch, a row
+    on `decompress_lanes(R)` threads."""
     r = xc0.shape[-1]
     for name, t in (("xc0", xc0), ("xc1", xc1)):
         if t.dtype != torch.int32 or tuple(t.shape) != (NL, r) or r == 0:
@@ -224,8 +253,8 @@ def g2_decompress(xc0: torch.Tensor, xc1: torch.Tensor, sign: torch.Tensor,
     pts = xc0.new_empty((3, 2, NL, r))
     ok = torch.empty(r, dtype=torch.bool, device=xc0.device)
     err = build.library().charon_g2_decompress(
-        pts.data_ptr(), ok.data_ptr(), xc0.data_ptr(), xc1.data_ptr(),
-        sign.data_ptr(), inf.data_ptr(), r,
+        decompress_lanes(r), pts.data_ptr(), ok.data_ptr(), xc0.data_ptr(),
+        xc1.data_ptr(), sign.data_ptr(), inf.data_ptr(), r,
         torch.cuda.current_stream(xc0.device).cuda_stream)
     _raise_on("g2_decompress", err)
     launch_count.bump(LAUNCHES, "g2_decompress")
@@ -377,14 +406,22 @@ def g1_decompress(x: torch.Tensor, sign: torch.Tensor, inf: torch.Tensor):
 
 
 def _register_kernels() -> None:
-    """K12, K19 and K21 for the kernel contract audit: a thread a row,
-    32 threads a block."""
+    """K12's two instantiations (a row on 16 or 8 lanes, one-warp blocks),
+    K19 and K21 (a thread a row, 32 threads a block) for the kernel
+    contract audit."""
     from ..analysis import registry
     from . import smem_budget
 
+    for lanes, budget, replaces in (
+            (16, (168, 688, 32), "charon_tpu/ops/pallas_fp.py:78"),
+            (8, (255, 1104, 0), None)):
+        registry.register_kernel(registry.KernelSpec(
+            name=f"decompress.cu g2_decompress_kernel<{lanes}>",
+            symbol="g2_decompress_kernel", source="csrc/decompress.cu",
+            launch="g2_decompress", attr_index=0 if lanes == 16 else 1,
+            geometry=smem_budget.lane_groups(lanes), budget=budget,
+            replaces=replaces, perf_rows=(26,)))
     for name, stem, sym, budget, replaces, row in (
-            ("g2_decompress", "decompress", "g2_decompress_kernel",
-             (255, 11008, 0), "charon_tpu/ops/pallas_fp.py:78", 26),
             ("g2_normalize", "normalize", "g2_normalize_kernel",
              (255, 3584, 0), "charon_tpu/ops/codec.py:319", 33),
             ("g1_decompress", "g1_decompress", "g1_decompress_kernel",

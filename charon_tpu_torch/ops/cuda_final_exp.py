@@ -13,18 +13,24 @@ per call.  K11 runs the same sequence inside one kernel:
 - the hard part: t0 = f^z·conj(f), t1 = t0^z·conj(t0), t2 =
   t1^z·frob(t1), t3 = (t2^z)^z, t5 = t3·frob²(t2)·conj(t2), and the
   result t5·f²·f — each ^z 63 squarings and 5 products over the bits of
-  |z|, then a conjugation (z < 0, the argument is cyclotomic).
+  |z|, then a conjugation (z < 0, the argument is cyclotomic).  The ^z
+  squarings are Granger–Scott's cyclotomic squaring (`_cyc_sqr`: nine
+  Fp2 squarings where the tower's squaring takes twelve Fp2 products),
+  the inverse's Fp pow p − 2 runs 4-bit windows (`cuda_codec.
+  _fp_inv_w4`).
 
-One WARP per row: the 12 Fp2 products of a squaring and the 18 of a
-product (their Toom-style Fp6 products) are independent, one per lane,
-with the operands in shared memory.  Every product and sum is the same
-csrc/fp381.cuh function on the same inputs as the sequential K5 tower
-(`cuda_pairing._f12_sqr`, `_f12_mul`), so the kernel is BIT-IDENTICAL to
-its plain version here, `final_exp_plain`, which batches each stage's
-independent products along the row axis the way the kernel spreads them
-over lanes: on the CPU that is ~5× faster than the same sequence on the
-K5 bodies (tools/plain_final_exp_cpu.py).  It is value-equal, not bit-equal, to `pairing.
-final_exponentiate` and to JAX's: their tower reduces in another order.
+A block of THREADS threads per row: 12 groups of 8 lanes, each group one
+Fp2 operation at a time with every Fp element spread over its lanes
+(csrc/fp_lanes.cuh), the independent operations of a stage on different
+groups, the values in shared memory.  Every product and sum is the same
+csrc/fp381.cuh function on the same inputs as this module's plain
+version, `final_exp_plain`, so the kernel is BIT-IDENTICAL to it; the
+plain version batches each stage's independent operations along the row
+axis the way the kernel spreads them over groups: on the CPU that is
+~5× faster than the same sequence on the K5 bodies
+(tools/plain_final_exp_cpu.py).  It is value-equal, not bit-equal, to
+`pairing.final_exponentiate` and to JAX's: their tower reduces in
+another order and squares without the cyclotomic formula.
 
 LAYOUT.  An Fp12 batch is ``[2, 3, 2, 32, R]`` (ops/pairing.py), which is
 the pairing kernels' ``[12, 32, R]`` plane stack (plane m = (k·3 + j)·2 +
@@ -38,10 +44,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..tbls.ref.fields import BLS_X, P
+from ..tbls.ref.fields import BLS_X
 from . import build, fp, launch_count, tower
-from .cuda_g2 import (_addf, _cuda_ready, _f2add, _f2mul, _f2small, _f2sub,
-                      _mulf, _negf, _raise_on, _table_f2)
+from .cuda_codec import _fp_inv_w4
+from .cuda_g2 import (_addf, _cuda_ready, _f2add, _f2mul, _f2small, _f2sqr,
+                      _f2sub, _mulf, _negf, _raise_on, _table_f2)
 from .cuda_pairing import _f2_mul_xi, _f6_mul, _f6_mul_by_v, _f6_sub
 
 NL = fp.NLIMBS
@@ -162,12 +169,45 @@ def _frob(f: list) -> list:
     return out[:3] + _many(_f2mul, [(x, gw) for x in out[3:]])
 
 
+#: the Fp4 pairs (a0, a1) of the cyclotomic squaring, as coefficient
+#: indices k·3 + j: A0 = (f00, f11), A1 = (f10, f02), A2 = (f01, f12)
+_CYC_PAIRS = ((0, 4), (3, 2), (1, 5))
+#: output coefficient m ← (pair, part, sign): 3X − 2·f_m for "R", 3X +
+#: 2·f_m for "I" and "XI" (ξ·I)
+_CYC_OUT = ((0, "R", -1), (1, "R", -1), (2, "R", -1), (2, "XI", 1),
+            (0, "I", 1), (1, "I", 1))
+
+
+def _cyc_sqr(f: list) -> list:
+    """f² for f in the cyclotomic subgroup (Granger–Scott), as the kernel
+    splits it: the nine Fp2 squarings S0 = a0², S1 = a1², S2 = (a0 + a1)²
+    of the three Fp4 pairs, then per coefficient R = S0 + ξ·S1 or I = S2 −
+    (S0 + S1) and 3X ∓ 2·f_m as ((X ∓ f_m)·2) + X."""
+    sums = _many(_f2add, [(f[a], f[b]) for a, b in _CYC_PAIRS])
+    sq = _many(_f2sqr, [(x,) for k, (a, b) in enumerate(_CYC_PAIRS)
+                        for x in (f[a], f[b], sums[k])])
+    x = []
+    for k, part, _ in _CYC_OUT:
+        s0, s1, s2 = sq[3 * k:3 * k + 3]
+        if part == "R":
+            x.append(_f2add(s0, _f2_mul_xi(s1)))
+        else:
+            i = _f2sub(s2, _f2add(s0, s1))
+            x.append(_f2_mul_xi(i) if part == "XI" else i)
+    d = [(_f2sub if sg < 0 else _f2add)(xm, f[m])
+         for m, (xm, (_, _, sg)) in enumerate(zip(x, _CYC_OUT))]
+    d = _many(lambda a: _f2small(a, 2), [(v,) for v in d])
+    return _many(_f2add, list(zip(d, x)))
+
+
 def _exp_abs_z(g: list) -> list:
-    acc = _sqr(g)
+    """g^|z| for a cyclotomic g: the bits of |z| below the leading one,
+    MSB first, each a cyclotomic squaring and, for a set bit, a product."""
+    acc = _cyc_sqr(g)
     if _Z_BITS[0]:
         acc = _mul(acc, g)
     for bit in _Z_BITS[1:]:
-        acc = _sqr(acc)
+        acc = _cyc_sqr(acc)
         if bit:
             acc = _mul(acc, g)
     return acc
@@ -177,27 +217,11 @@ def _exp_z(g: list) -> list:
     return _conj(_exp_abs_z(g))
 
 
-# -- the inverse: one lane of the kernel, sequential fp381 functions --------
-
-_EXP_PM2 = P - 2
-
-
-def _fp_inv(a: torch.Tensor) -> torch.Tensor:
-    """a^(p−2), LSB first (fp.pow_fixed's schedule); inv(0) = 0."""
-    result = fp.const(fp.ONE, a.device).unsqueeze(-1).expand_as(a)
-    base = a
-    nbits = _EXP_PM2.bit_length()
-    for i in range(nbits):
-        if (_EXP_PM2 >> i) & 1:
-            result = _mulf(result, base)
-        if i != nbits - 1:
-            base = _mulf(base, base)
-    return result
-
+# -- the inverse: one group of the kernel, the fp381 sequences -------------
 
 def _f2_inv(a):
     n = _addf(_mulf(a[0], a[0]), _mulf(a[1], a[1]))
-    ni = _fp_inv(n)
+    ni = _fp_inv_w4(n)
     return (_mulf(a[0], ni), _negf(_mulf(a[1], ni)))
 
 
@@ -254,6 +278,9 @@ def final_exp_plain(f: torch.Tensor) -> torch.Tensor:
 #: `launch_count.this_thread()` has the calling thread's own)
 LAUNCHES = {"final_exp": 0}
 
+#: threads of K11's block a row: 12 groups of 8 lanes (csrc/final_exp.cu)
+THREADS = 96
+
 
 def reset_launches() -> None:
     launch_count.reset(LAUNCHES)
@@ -261,14 +288,14 @@ def reset_launches() -> None:
 
 def final_exp(f: torch.Tensor) -> torch.Tensor:
     """f^(3·(p¹²−1)/r) per row of an int32 [2, 3, 2, 32, R] Fp12 batch: one
-    launch, one warp per row."""
+    launch, a block of THREADS threads per row."""
     return _final_exp(f, False)
 
 
 def final_exp_is_one(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(f^(3·(p¹²−1)/r), its verdict "= 1" [R] bool) per row of an int32
     [2, 3, 2, 32, R] Fp12 batch: one launch, which also writes the
-    verdict (lanes 0–11 each test one coefficient of the result minus
+    verdict (threads 0–11 each test one coefficient of the result minus
     one); on the CPU `pairing.is_one(final_exp_plain(f))`."""
     return _final_exp(f, True)
 
@@ -301,14 +328,15 @@ def _final_exp(f: torch.Tensor, verdict: bool):
 
 
 def _register_kernels() -> None:
-    """K11 for the kernel contract audit: a warp a row, a row a block."""
+    """K11 for the kernel contract audit: a block of `THREADS` threads a
+    row (12 groups of 8 lanes)."""
     from ..analysis import registry
     from . import smem_budget
 
     registry.register_kernel(registry.KernelSpec(
-        name="final_exp.cu final_exp_kernel", symbol="final_exp_kernel",
+        name="final_exp.cu final_exp_kernel<8>", symbol="final_exp_kernel",
         source="csrc/final_exp.cu", launch="final_exp", attr_index=0,
-        geometry=smem_budget.per_warp_row, budget=(255, 10048, 204),
+        geometry=smem_budget.per_block_row(THREADS), budget=(168, 1792, 16),
         replaces="charon_tpu/ops/pallas_fp.py:78", perf_rows=(25,),
         tail=False))
 

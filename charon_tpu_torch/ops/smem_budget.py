@@ -112,9 +112,18 @@ def per_thread(block: int):
     return lambda rows, sms: Geometry(threads=block, rows=block)
 
 
-def per_warp_row(rows: int, sms: int):
-    """The geometry of a kernel launched a warp a row, a row a block."""
-    return Geometry(threads=WARP, rows=1)
+def lane_groups(lanes: int):
+    """The geometry of a kernel launched a group of `lanes` threads a row
+    in one-warp blocks, its shared memory static (K12): (rows, SMs) →
+    `Geometry`."""
+    rows = program_rows(lanes)
+    return lambda n, sms: Geometry(threads=WARP, rows=rows)
+
+
+def per_block_row(threads: int):
+    """The geometry of a kernel launched a block of `threads` threads a
+    row, its shared memory static (K11): (rows, SMs) → `Geometry`."""
+    return lambda rows, sms: Geometry(threads=threads, rows=1)
 
 
 def program_geometry(prog):

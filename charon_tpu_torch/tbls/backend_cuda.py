@@ -1231,12 +1231,12 @@ def _verify_shape_rows(v: int) -> dict[str, int]:
     """Rows per kernel instantiation of one verify tile of v padded
     entries (`_verify_tile`), its pubkey misses decompressed (K21) and its
     re-check (`CUDABackend._recheck`)."""
-    return {"decompress.cu g2_decompress_kernel": v,
+    return {cuda_codec.decompress_kernel_name(v): v,
             "g1_tables.cu g1_tables_kernel": 2 * v,
             "g1_scalar_mul.cu g1_scalar_mul_kernel": 2 * v,
             "miller.cu miller_loop_kernel": 2 * v,
             "fold.cu f12_fold_kernel": 2 * v,
-            "final_exp.cu final_exp_kernel": 1,
+            "final_exp.cu final_exp_kernel<8>": 1,
             "g1_decompress.cu g1_decompress_kernel": v}
 
 
@@ -1244,7 +1244,7 @@ def _recheck_shape_rows(v: int) -> dict[str, int]:
     return {"fp_ops.cu fp_op_kernel<3>": 2 * v,
             "miller.cu miller_loop_kernel": 2 * v,
             "pairing.cu f12_step_kernel<2>": v,
-            "final_exp.cu final_exp_kernel": v}
+            "final_exp.cu final_exp_kernel<8>": v}
 
 
 def _hash_shape_rows(m: int) -> dict[str, int]:
@@ -1267,7 +1267,7 @@ def _combine_shape_rows(v: int, t: int) -> dict[str, int]:
     """Rows per kernel instantiation of one combine of v validators with
     t partials each (`CUDABackend.combine_device_exec`)."""
     vpad = -(-v // ROW_TILE) * ROW_TILE
-    return {"decompress.cu g2_decompress_kernel": t * vpad,
+    return {cuda_codec.decompress_kernel_name(t * vpad): t * vpad,
             "g2_law.cu g2_law_kernel<6>": t * vpad,
             "straus.cu straus_msm_kernel": vpad,
             "normalize.cu g2_normalize_kernel": vpad}

@@ -122,13 +122,14 @@ Phases, in order; any failure raises and exits non-zero:
              `replicated_carry` flagged on the card.  One
              card leaves copies between cards and shards running at once
              on different cards unexercised.
-   redesign — K11 (the final exponentiation in one launch, a warp per
-             row) against its plain version at 1 row and at a verify
-             tile's 2,048, and K12 (the G2 decompression in one launch, a
-             thread per row) at 2,048 rows and at the combine's 71,680, on
-             the pool's signatures with ∞ rows, x off the curve and points
-             outside G2 mixed in: bit-identical, every ok flag as its row's
-             kind wants; both timed beside their bounds.  K13 (the whole
+   redesign — K11 (the final exponentiation in one launch, a block of
+             12 lane groups per row) against its plain version at 1 row
+             and at a verify tile's 2,048, and K12 (the G2 decompression
+             in one launch, 16 or 8 lanes per row) at 1, 4 and 2,048 rows
+             and at the combine's 71,680, on the pool's signatures with ∞
+             rows, x off the curve, points outside G2 and α = −1 rows
+             mixed in: bit-identical, every ok flag as its row's kind
+             wants; both timed beside their bounds.  K13 (the whole
              Miller loop in one launch, 8 threads a row) against
              miller_loop_plain at a verify tile's 4,096 rows on random,
              all-LMAX and real pairs with ∞ rows, bit for bit, timed beside
@@ -377,9 +378,15 @@ iso3 launch and the glue it replaced, `iso3_ms` K9 iso3 alone, `sweep`;
 `plain_y_ms` without), and K3's `combine_digits` the mean over the combine's own
 launches. `regs`, `stack` and `spill` are the compiler's
 (-Xptxas -v) for each kernel's function. Every bound_ms is at the card's
-full rate; K11 also gives `bound_one_warp_ms`, the bound at the rate of
-the SMs its rows can occupy under its one-warp-per-row design (one SM at 1
-row).
+full rate; K11 also gives `bound_one_sm_ms`, the bound at the rate of
+the SMs its rows can occupy under its block-per-row design (one SM at 1
+row).  K11's and K12's bounds count the fewest operations known for
+their function (windowed pows, the α = −1 skip, the cyclotomic
+squaring: `final_exp_design_ops`, `decompress_design_ops`); their
+entries add `naive_ops` and `naive_bound_ms`, the count by
+square-and-multiply pows and tower squarings (`final_exp_ops`,
+`decompress_ops`) that their bounds were taken from before; K12 adds
+`lanes` (a row's) and `tiles`, its figures at 1 and 4 rows.
 A `plain_ms` taken on a plain version's first call in the run is cold
 (`plain_warm` false: its first-use set-up included), any other warm;
 the script orders each kernel's shapes so that its top-level entry's is
@@ -579,12 +586,12 @@ def _pow_ops(e: int, sqr, mul):
 
 
 def final_exp_ops() -> np.ndarray:
-    """[IMAD, ALU] of one K11 row (csrc/final_exp.cu): five ^z chains of
-    63 squarings and popcount(|z|) − 1 products, one more squaring and
-    nine products around them, 5 Frobenius maps, 9 conjugations and the
-    inverse (its Fp inverse the pow p − 2).  Each ^z squaring is counted
-    as the full K5 squaring the kernel runs: the argument is cyclotomic
-    there, and a Granger–Scott squaring would need fewer products."""
+    """[IMAD, ALU] of one final exponentiation by the naive sequence: five
+    ^z chains of 63 squarings and popcount(|z|) − 1 products, one more
+    squaring and nine products around them, 5 Frobenius maps, 9
+    conjugations and the inverse (its Fp inverse the pow p − 2 by square
+    and multiply), each ^z squaring a full K5 squaring.  The bound takes
+    `final_exp_design_ops`, which needs fewer."""
     from charon_tpu_torch.ops import cuda_codec
     from charon_tpu_torch.tbls.ref.fields import P
 
@@ -602,11 +609,13 @@ def final_exp_ops() -> np.ndarray:
 
 def decompress_ops(n_valid: int, n_inf: int, n_off_curve: int,
                    n_off_group: int) -> np.ndarray:
-    """[IMAD, ALU] of one K12 launch over rows of four kinds
-    (csrc/decompress.cu): every row computes x³ + b', both pows, the root,
-    its check and sign; a row whose root checks (valid, off the subgroup)
-    or that is ∞ runs the ψ check, whose equality multiplies only for two
-    finite points and stops at a differing x (off the subgroup)."""
+    """[IMAD, ALU] of one G2 decompression over rows of four kinds by the
+    naive sequence: every row computes x³ + b', both pows by square and
+    multiply, the root, its check and sign; a row whose root checks
+    (valid, off the subgroup) or that is ∞ runs the ψ check, whose
+    equality multiplies only for two finite points and stops at a
+    differing x (off the subgroup).  The bound takes
+    `decompress_design_ops`, which needs fewer."""
     from charon_tpu_torch.ops import cuda_codec
 
     n = n_valid + n_inf + n_off_curve + n_off_group
@@ -622,6 +631,60 @@ def decompress_ops(n_valid: int, n_inf: int, n_off_curve: int,
     return (n * every + (n_valid + n_inf + n_off_group) * chain
             + n_valid * (4 * _F2MUL + 2 * _F2EQ)
             + n_off_group * (2 * _F2MUL + _F2EQ))
+
+
+def _pow_w3_ops(e: int, sqr, mul):
+    """A fixed-exponent pow by 3-bit windows, MSB first (csrc/
+    decompress.cu): the table a..a⁷ (one squaring, five products), then per
+    window three squarings and, for a non-zero digit, one product."""
+    from charon_tpu_torch.ops import miller_program
+
+    digs = miller_program.pow_digits(e, 3)
+    return (sqr + 5 * mul + 3 * (len(digs) - 1) * sqr
+            + sum(map(bool, digs[1:])) * mul)
+
+
+def final_exp_design_ops() -> np.ndarray:
+    """[IMAD, ALU] of what csrc/final_exp.cu's design executes a row, at
+    fp381.cuh's costs (no lane-split overhead): `final_exp_ops`'s function
+    with the 315 ^z squarings cyclotomic — nine Fp2 squarings, three pair
+    sums and six combinations each — and the inverse's pow by 4-bit
+    windows."""
+    from charon_tpu_torch.ops import cuda_codec
+    from charon_tpu_torch.tbls.ref.fields import P
+
+    zbits = cuda_codec.ABS_Z.bit_length() - 1
+    zmuls = bin(cuda_codec.ABS_Z).count("1") - 1
+    cyc = (9 * _F2SQR + 3 * _F2ADD + 3 * (_XI + _F2ADD)
+           + 3 * (_F2ADD + _F2SUB) + _XI
+           + 3 * _F2SUB + 3 * _F2ADD + 6 * (_F2SMALL + _F2ADD))
+    f2_inv = (4 * OPS["fp_mul"] + OPS["fp_add"] + OPS["fp_neg"]
+              + _pow_w4_ops(P - 2, OPS["fp_mul"], OPS["fp_mul"]))
+    f6_inv = 12 * _F2MUL + 3 * _XI + 3 * _F2SUB + 2 * _F2ADD + f2_inv
+    f12_inv = 4 * _F6MUL + _XI + _F6SUB + f6_inv + 6 * OPS["fp_neg"]
+    conj = 6 * OPS["fp_neg"]
+    frob = 6 * OPS["fp_neg"] + 7 * _F2MUL
+    return (5 * zbits * cyc + OPS["pp_sqr"] + (5 * zmuls + 9)
+            * OPS["pp_f12mul"] + 5 * frob + 9 * conj + f12_inv)
+
+
+def decompress_design_ops(n_valid: int, n_inf: int, n_off_curve: int,
+                          n_off_group: int, n_alpha_m1: int = 0
+                          ) -> np.ndarray:
+    """[IMAD, ALU] of what csrc/decompress.cu's design executes over rows of
+    four kinds, at fp381.cuh's costs (no lane-split overhead):
+    `decompress_ops`'s function with both pows by 3-bit windows and the
+    second pow skipped on the `n_alpha_m1` rows (among the off-group ones)
+    where α = −1."""
+    from charon_tpu_torch.ops import cuda_codec
+
+    n = n_valid + n_inf + n_off_curve + n_off_group
+    base = decompress_ops(n_valid, n_inf, n_off_curve, n_off_group)
+    pows = lambda f: (f(cuda_codec.EXP_P34, _F2SQR, _F2MUL)
+                      + f(cuda_codec.EXP_P12, _F2SQR, _F2MUL))
+    return (base + n * (pows(_pow_w3_ops) - pows(_pow_ops))
+            - n_alpha_m1 * (_pow_w3_ops(cuda_codec.EXP_P12, _F2SQR, _F2MUL)
+                            + _F2ADD + _F2MUL))
 
 
 def straus_work(digits: np.ndarray, head: bool) -> tuple[np.ndarray, int]:
@@ -2003,78 +2066,55 @@ def k1_main_shapes(dev, sm_clocks_per_s: float) -> dict:
     return out
 
 
-def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
-                           combine_real: int, combine_rows: int,
-                           sm_clocks_per_s: float, sms: int) -> dict:
-    """K11 with its verdict "= 1" against `final_exp_plain` and
-    `pairing.is_one` at `tile` rows (a re-check) on one input of seeded
-    random limbs — half the rows Fp elements, which come out one — with a
-    quarter all-LMAX, and at 1 row (the batch check) on an Fp element and
-    on three rows of that input; K12 against
-    `g2_decompress_plain` at `tile` rows (a verify tile) and `combine_rows`
-    (the combine: `combine_real` signatures, the rest ∞ padding), on the
-    pool's signatures (both signs) with ∞ rows, x off the curve and
-    on-curve points outside G2 mixed in.  Bit for bit, every row's ok flag
-    as its kind wants, and both timed beside their bounds."""
-    from charon_tpu_torch.ops import codec, cuda_codec, cuda_final_exp, fp
-    from charon_tpu_torch.ops import pairing as tpair
+def fe_rows(dev, gen, rows: int) -> torch.Tensor:
+    """K11's input: Fp12 rows of seeded random limbs, the first ⌈rows /
+    2⌉ of them Fp elements (c0's c0 only), which the exponentiation takes
+    to one, and the last ⌊rows / 4⌋ all-LMAX."""
+    from charon_tpu_torch.ops import fp
+
+    f = limbs(dev, gen, (2, 3, 2, NL, rows), "random")
+    f.view(12, NL, rows)[1:, :, :-(-rows // 2)] = 0
+    if rows // 4:
+        f[..., rows - rows // 4:] = fp.LMAX
+    return f
+
+
+def alpha_m1_rows(count: int, seed: int = 20261021) -> list[bytes]:
+    """Compressed G2 encodings of `count` x on the twist whose root has α
+    = −1 (rhs = x³ + b' = −c², c ∈ Fp: rhs^((p−1)/2) = −1), by a seeded
+    search: x1 at random, x0 = √((x1³ − 4)/(3·x1)) (so that rhs ∈ Fp),
+    kept where α = −1.  On the curve, outside G2 (ok false)."""
+    from charon_tpu_torch.tbls.ref import curve as rc
+    from charon_tpu_torch.tbls.ref.fields import FQ, FQ2, P
+
+    rng = random.Random(seed)
+    out = []
+    while len(out) < count:
+        x1 = FQ(rng.randrange(1, P))
+        x0 = ((x1 ** 3 - FQ(4)) / (FQ(3) * x1)).sqrt()
+        if x0 is None:
+            continue
+        x = FQ2([x0.n, x1.n])
+        rhs = x ** 3 + rc.B2
+        if rhs ** ((P - 1) // 2) != FQ2([P - 1, 0]):
+            continue
+        # flags (compressed; the sign alternates) over c1, then c0
+        head = x1.n | (0x80 | 0x20 * (len(out) % 2)) << 376
+        out.append(head.to_bytes(48, "big") + x0.n.to_bytes(48, "big"))
+    return out
+
+
+def k12_inputs(dev, gen, pool: list[bytes], rows: int, real: int
+               ) -> tuple[tuple, list[str]]:
+    """K12's input at `rows` rows: `real` of the pool's signatures (both
+    signs), the rest ∞ padding; at 64 rows and more, 8 x off the curve,
+    32 on-curve points outside G2 (the cofactor point, its negation, and 2
+    x whose root has α = −1) and 8 ∞ rows at seeded spots; at 4 rows one
+    row of each kind → (the wrapper's arguments, each row's kind)."""
+    from charon_tpu_torch.ops import codec
     from charon_tpu_torch.tbls.ref import curve as rc
     from charon_tpu_torch.tbls.ref.fields import FQ2
 
-    gen = np.random.default_rng(20261019)
-    results = {}
-    # K11: bound_ms at the card's full rate; `bound_one_warp_ms` at the
-    # rate of the SMs that one warp per row can occupy (one SM a row), an
-    # assumption of this design that the function does not force
-    def fe_rows(rows):
-        """Fp12 rows of seeded random limbs, the first ⌈rows / 2⌉ of them
-        Fp elements (c0's c0 only), which the exponentiation takes to one,
-        and the last ⌊rows / 4⌋ all-LMAX."""
-        f = limbs(dev, gen, (2, 3, 2, NL, rows), "random")
-        f.view(12, NL, rows)[1:, :, :-(-rows // 2)] = 0
-        if rows // 4:
-            f[..., rows - rows // 4:] = fp.LMAX
-        return f
-
-    def fe_plain(f):
-        out = cuda_final_exp.final_exp_plain(f)
-        return out, tpair.is_one(out)
-
-    # the re-check's rows first (the plain version's first call, cold),
-    # then the batch check's 1 row (warm): there one launch a row on a
-    # row that is one, a random row and an all-LMAX row of the re-check's
-    # input, each against the plain version's row of it
-    big = fe_rows(tile)
-    for rows in (tile, 1):
-        part = {}
-        ops = (final_exp_ops() + 12 * (OPS["fp_sub"] + _ISZERO)) * rows
-        nbytes = (2 * 12 * EL_BYTES + 1) * rows
-        f = big if rows == tile else fe_rows(1)
-        # the path's form: the result and its verdict "= 1" in one launch
-        want = record(part, "final_exp", cuda_final_exp.final_exp_is_one,
-                      fe_plain, ops, nbytes, [lambda f=f: (f,)],
-                      sm_clocks_per_s, plain_reps=1)
-        if rows == tile:
-            plain_big = want
-        _, one = cuda_final_exp.final_exp_is_one(f)
-        want = [k < -(-rows // 2) for k in range(rows)]
-        if one.tolist() != want:
-            raise AssertionError(f"K11 at {rows} rows: verdicts "
-                                 f"{one.tolist()[:8]}…, want {want[:8]}…")
-        one_warp, _ = bound(ops, nbytes,
-                            sm_clocks_per_s * min(rows, sms) / sms)
-        results[f"final_exp@{rows}"] = {**part["final_exp"], "rows": rows,
-                                        "bound_one_warp_ms": one_warp}
-        log(f"K11 at {rows:,} rows: bound {one_warp:.4f} ms if each row "
-            f"stays on one SM (one warp per row)")
-    for r in (0, tile // 2, tile - 1):
-        got = cuda_final_exp.final_exp_is_one(big[..., r:r + 1].contiguous())
-        if any(not torch.equal(g, w[..., r:r + 1])
-               for g, w in zip(got, plain_big)):
-            raise AssertionError(f"K11 at 1 row: the re-check input's row "
-                                 f"{r} differs from its plain version")
-
-    # K12: the kinds of row
     off_curve = []
     x = 1
     while len(off_curve) < 8:
@@ -2085,45 +2125,133 @@ def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
     cof = codec._find_g2_cofactor_point()
     off_group = [rc.g2_to_bytes(cof), rc.g2_to_bytes(rc.neg(cof))]
     inf = rc.g2_to_bytes(None)
-    # the combine's shape first: the plain version's one call there is
-    # its first (cold), the verify tile's after it warm
-    for rows, real in ((combine_rows, combine_real), (tile, tile)):
-        raw = [pool[k % len(pool)] for k in range(real)] \
-            + [inf] * (rows - real)
-        kind = ["valid"] * real + ["inf"] * (rows - real)
-        spots = gen.choice(real, 8 + 8 * 4 + 8, replace=False).tolist()
+    raw = [pool[k % len(pool)] for k in range(real)] + [inf] * (rows - real)
+    kind = ["valid"] * real + ["inf"] * (rows - real)
+    if rows >= 64:
         special = ([(b, "off_curve") for b in off_curve]
-                   + [(b, "off_group") for b in off_group * 16]
+                   + [(b, "off_group") for b in off_group * 15]
+                   + [(b, "alpha_m1") for b in alpha_m1_rows(2)]
                    + [(inf, "inf")] * 8)
+        spots = gen.choice(real, len(special), replace=False).tolist()
         for r, (b, k) in zip(spots, special):
             raw[r], kind[r] = b, k
-        xc0, xc1, sign, inf_f, bad = codec.g2_bytes_split(
-            np.stack([np.frombuffer(b, np.uint8) for b in raw]))
-        if bad.any():
-            raise AssertionError("K12 inputs: a row does not decode")
-        args = (torch.from_numpy(np.ascontiguousarray(xc0.T)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(xc1.T)).to(dev),
-                torch.from_numpy(sign).to(dev),
-                torch.from_numpy(inf_f).to(dev))
+    elif rows == 4:
+        raw[1:], kind[1:] = ([inf, off_curve[0], alpha_m1_rows(1)[0]],
+                             ["inf", "off_curve", "alpha_m1"])
+    xc0, xc1, sign, inf_f, bad = codec.g2_bytes_split(
+        np.stack([np.frombuffer(b, np.uint8) for b in raw]))
+    if bad.any():
+        raise AssertionError("K12 inputs: a row does not decode")
+    args = (torch.from_numpy(np.ascontiguousarray(xc0.T)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(xc1.T)).to(dev),
+            torch.from_numpy(sign).to(dev), torch.from_numpy(inf_f).to(dev))
+    return args, kind
+
+
+def k12_counts(kind: list[str]) -> dict:
+    """Rows of each kind (α = −1 rows are on the curve, outside G2)."""
+    return {k: kind.count(k) for k in
+            ("valid", "inf", "off_curve", "off_group", "alpha_m1")}
+
+
+def k12_ops(counts: dict, design: bool) -> np.ndarray:
+    """The design's op count (`decompress_design_ops`: the bound) or the
+    naive sequence's (`decompress_ops`) over rows of these kinds."""
+    kinds = (counts["valid"], counts["inf"], counts["off_curve"],
+             counts["off_group"] + counts["alpha_m1"])
+    return (decompress_design_ops(*kinds, counts["alpha_m1"]) if design
+            else decompress_ops(*kinds))
+
+
+def redesign_kernels_phase(dev, pool: list[bytes], tile: int,
+                           combine_real: int, combine_rows: int,
+                           sm_clocks_per_s: float, sms: int) -> dict:
+    """K11 with its verdict "= 1" against `final_exp_plain` and
+    `pairing.is_one` at `tile` rows (a re-check) on `fe_rows`' input, and
+    at 1 row (the batch check) on an Fp element and on three rows of that
+    input; K12 against `g2_decompress_plain` at `combine_rows` (the
+    combine: `combine_real` signatures, the rest ∞ padding), `tile` rows
+    (a verify tile) and 4 and 1 rows (the chaos and cluster tiles) on
+    `k12_inputs` from the pool's signatures.  Bit for bit, every row's ok
+    flag as its kind wants, and each timed beside its bound (the design's
+    op count, the fewest known) and the naive sequence's (`naive_ops`)."""
+    from charon_tpu_torch.ops import cuda_codec, cuda_final_exp
+    from charon_tpu_torch.ops import pairing as tpair
+
+    gen = np.random.default_rng(20261019)
+    results = {}
+
+    def fe_plain(f):
+        out = cuda_final_exp.final_exp_plain(f)
+        return out, tpair.is_one(out)
+
+    def naive(part, name, ops):
+        bms, _ = bound(ops, 0, sm_clocks_per_s)
+        part[name].update({"naive_ops": [int(x) for x in ops],
+                           "naive_bound_ms": bms})
+
+    # K11: bound_ms at the card's full rate; `bound_one_sm_ms` at the rate
+    # of the SMs that a block per row occupies (one SM a row), an
+    # assumption of this design that the function does not force.  The
+    # re-check's rows first (the plain version's first call, cold), then
+    # the batch check's 1 row (warm): there one launch a row on a row that
+    # is one, a random row and an all-LMAX row of the re-check's input,
+    # each against the plain version's row of it
+    big = fe_rows(dev, gen, tile)
+    for rows in (tile, 1):
+        part = {}
+        check = 12 * (OPS["fp_sub"] + _ISZERO)
+        ops = (final_exp_design_ops() + check) * rows
+        nbytes = (2 * 12 * EL_BYTES + 1) * rows
+        f = big if rows == tile else fe_rows(dev, gen, 1)
+        # the path's form: the result and its verdict "= 1" in one launch
+        want = record(part, "final_exp", cuda_final_exp.final_exp_is_one,
+                      fe_plain, ops, nbytes, [lambda f=f: (f,)],
+                      sm_clocks_per_s, plain_reps=1)
+        naive(part, "final_exp", (final_exp_ops() + check) * rows)
+        if rows == tile:
+            plain_big = want
+        _, one = cuda_final_exp.final_exp_is_one(f)
+        want = [k < -(-rows // 2) for k in range(rows)]
+        if one.tolist() != want:
+            raise AssertionError(f"K11 at {rows} rows: verdicts "
+                                 f"{one.tolist()[:8]}…, want {want[:8]}…")
+        one_sm, _ = bound(ops, nbytes, sm_clocks_per_s * min(rows, sms) / sms)
+        results[f"final_exp@{rows}"] = {**part["final_exp"], "rows": rows,
+                                        "bound_one_sm_ms": one_sm}
+        log(f"K11 at {rows:,} rows: bound {one_sm:.4f} ms if each row "
+            f"stays on one SM (a block per row)")
+    for r in (0, tile // 2, tile - 1):
+        got = cuda_final_exp.final_exp_is_one(big[..., r:r + 1].contiguous())
+        if any(not torch.equal(g, w[..., r:r + 1])
+               for g, w in zip(got, plain_big)):
+            raise AssertionError(f"K11 at 1 row: the re-check input's row "
+                                 f"{r} differs from its plain version")
+
+    # K12: the combine's shape first: the plain version's one call there
+    # is its first (cold), the others after it warm
+    for rows, real in ((combine_rows, combine_real), (tile, tile), (4, 1),
+                       (1, 1)):
+        args, kind = k12_inputs(dev, gen, pool, rows, real)
         _, ok = cuda_codec.g2_decompress(*args)
         ok = ok.cpu().numpy()
         want = np.array([k in ("valid", "inf") for k in kind])
         if not np.array_equal(ok, want):
             raise AssertionError(f"K12 at {rows} rows: ok flags of "
                                  f"{int((ok != want).sum())} rows are wrong")
-        counts = {k: kind.count(k) for k in
-                  ("valid", "inf", "off_curve", "off_group")}
+        counts = k12_counts(kind)
         part = {}
         record(part, "g2_decompress", cuda_codec.g2_decompress,
-               cuda_codec.g2_decompress_plain,
-               decompress_ops(counts["valid"], counts["inf"],
-                              counts["off_curve"], counts["off_group"]),
+               cuda_codec.g2_decompress_plain, k12_ops(counts, True),
                rows * (2 * EL_BYTES + 2 + PT_BYTES + 1), [lambda: args],
                sm_clocks_per_s, plain_reps=1)
-        results[f"g2_decompress@{rows}"] = {**part["g2_decompress"],
-                                           "rows": rows}
-        log(f"K12 at {rows:,} rows: ok flags right for every kind "
-            f"{json.dumps(counts)}, {int(sign.sum()):,} rows of sign 1")
+        naive(part, "g2_decompress", k12_ops(counts, False))
+        results[f"g2_decompress@{rows}"] = {
+            **part["g2_decompress"], "rows": rows,
+            "lanes": cuda_codec.decompress_lanes(rows)}
+        log(f"K12 at {rows:,} rows ({cuda_codec.decompress_lanes(rows)} "
+            f"lanes a row): ok flags right for every kind "
+            f"{json.dumps(counts)}, {int(args[2].sum()):,} rows of sign 1")
     return results
 
 
@@ -6731,7 +6859,8 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
     del sig_sets
     mark("redesign")
     # K11 at the batch check's 1 row and a re-check tile's rows, K12 at a
-    # verify tile and at the combine's padded 10,240 × 7 rows
+    # verify tile, at the combine's padded 10,240 × 7 rows and at the
+    # chaos and cluster tiles' 1 and 4 rows
     tile = api.verify_padded_rows(dispatch.VERIFY_TILE)
     redesign = redesign_kernels_phase(dev, pool, tile, VALIDATORS * SHARES,
                                       vrows * SHARES, sm_clocks_per_s, sms)
@@ -6741,7 +6870,9 @@ def run_phases(dev, t_start: float, cluster_prep: dict,
                          "recheck": redesign[f"final_exp@{tile}"]}
     kern["g2_decompress"] = {**redesign[f"g2_decompress@{tile}"],
                              "combine": redesign[
-                                 f"g2_decompress@{vrows * SHARES}"]}
+                                 f"g2_decompress@{vrows * SHARES}"],
+                             "tiles": {str(n): redesign[f"g2_decompress@{n}"]
+                                       for n in (1, 4)}}
     # K13 at a verify tile's Miller rows
     mark("miller")
     kern["miller_loop"] = miller_phase(dev, pool, 2 * tile, sm_clocks_per_s)

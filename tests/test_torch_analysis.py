@@ -46,7 +46,7 @@ def head_audit():
 
 def test_registry_population():
     """Every __global__ function of csrc/ is registered (25 functions,
-    42 instantiations), every registered instantiation is in the report
+    43 instantiations), every registered instantiation is in the report
     and every report row is registered, and rows 1–38 of PERF.md's kernel
     table each map to a spec."""
     from charon_tpu_torch.ops import build
@@ -58,7 +58,7 @@ def test_registry_population():
     assert len(kernel_audit.global_instantiations(sources)) == 25
     rows = build.ptxas_rows(PTXAS_LOG)
     assert {r["name"] for r in rows} == {s.name for s in specs}
-    assert len(specs) == 42
+    assert len(specs) == 43
     assert kernel_audit.unregistered_rows(rows) == []
     served = {row for s in specs for row in s.perf_rows}
     assert served == set(range(1, 39))
@@ -77,7 +77,7 @@ def test_registry_population():
     combine = dict(next(s for s in registry.workload_shapes()
                         if s.name == "combine v=10000 t=7").rows)
     assert combine["straus.cu straus_msm_kernel"] == 10_240
-    assert combine["decompress.cu g2_decompress_kernel"] == 71_680
+    assert combine["decompress.cu g2_decompress_kernel<8>"] == 71_680
     verify = dict(next(s for s in registry.workload_shapes()
                        if s.name == "verify v=2048").rows)
     assert verify["miller.cu miller_loop_kernel"] == 4_096
@@ -96,7 +96,7 @@ def test_registry_imports_no_torch():
 def test_arithmetic_audit_clean_for_every_registered_shape(head_audit):
     assert head_audit.general == []
     by_name = {k.name: k for k in head_audit.kernels}
-    assert len(by_name) == 42
+    assert len(by_name) == 43
     for shape in registry.workload_shapes():
         for name, rows in shape.rows:
             assert rows in by_name[name].launches, (shape.name, name)
@@ -261,7 +261,7 @@ def test_cli_exits_zero_at_head_and_nonzero_for_a_fixture():
         capture_output=True, text=True, timeout=300, cwd=str(ROOT))
     assert ok.returncode == 0, ok.stdout[-2000:] + ok.stderr[-2000:]
     report = json.loads(ok.stdout)
-    assert report["ok"] and len(report["kernels"]) == 42
+    assert report["ok"] and len(report["kernels"]) == 43
     assert "PASS" in ok.stderr
     bad = subprocess.run(
         [sys.executable, "-m", "charon_tpu_torch.analysis", "--golden-bad",

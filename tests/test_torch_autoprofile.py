@@ -459,3 +459,44 @@ def test_prewarm_pays_the_profiler_setup_at_boot(tmp_path, monkeypatch):
     monkeypatch.setattr(t_monitoring, "profile_capture_sync", boom)
     assert asyncio.run(ap.prewarm()) is None and ap.capture_errors == 1
     assert not t_monitoring._PROFILE_ACTIVE
+
+
+def test_boot_prewarm_waits_for_a_capture_holding_the_guard(tmp_path,
+                                                           monkeypatch):
+    """The App's boot step (`App._boot_prewarm`): where a capture that a
+    boot loop stall set off holds the process-global guard when the
+    dispatch prewarm ends, the profiler's prewarm waits for it instead of
+    skipping, so the `profiler` boot phase, which readiness checks read,
+    is always written."""
+    import types
+
+    from charon_tpu_torch.app import run as t_run
+
+    monkeypatch.setattr(t_monitoring, "profile_capture_sync",
+                        lambda out_dir, seconds: {})
+    phases = {}
+
+    async def no_dispatch():
+        phases["prewarm"] = 0.0
+
+    app = types.SimpleNamespace(
+        _dispatch_prewarm=no_dispatch,
+        autoprofiler=t_autoprofile.AutoProfiler(str(tmp_path / "ring")),
+        _boot_phase=lambda name, seconds: phases.__setitem__(name, seconds))
+
+    async def boot():
+        assert t_monitoring.profile_guard_acquire()
+        seen = {}
+
+        def release():
+            seen["before_release"] = dict(phases)
+            t_monitoring.profile_guard_release()
+
+        asyncio.get_running_loop().call_later(0.3, release)
+        await asyncio.wait_for(t_run.App._boot_prewarm(app), 10)
+        return seen
+
+    seen = asyncio.run(boot())
+    assert seen["before_release"] == {"prewarm": 0.0}
+    assert set(phases) == {"prewarm", "profiler"}
+    assert not t_monitoring.profile_guard_held()

@@ -141,3 +141,105 @@ def test_subgroup_windows_start_at_a_set_window():
     assert sum(w << (62 - 2 * i) for i, w in enumerate(ccodec.Z_WINDOWS)) \
         == ccodec.ABS_Z
     assert ccodec.Z_NEG
+
+
+# ---------------------------------------------------------------------------
+# the redesigned K12: windowed pows, the α = −1 rows, the lanes a row
+# ---------------------------------------------------------------------------
+
+import chip_smoke  # noqa: E402
+from charon_tpu_torch.ops import tower as ttower  # noqa: E402
+from charon_tpu_torch.tbls.ref.fields import P  # noqa: E402
+
+
+def _split_rows(raw: list[bytes]):
+    xc0, xc1, sign, inf, bad = tcodec.g2_bytes_split(
+        np.stack([np.frombuffer(b, np.uint8) for b in raw]))
+    assert not bad.any()
+    return xc0, xc1, sign, inf
+
+
+@pytest.fixture(scope="module")
+def edge_rows():
+    """Two x whose root has α = −1 (chip_smoke.alpha_m1_rows' seeded
+    search: x1 at random, x0 = √((x1³ − 4)/(3·x1)) so that rhs ∈ Fp, kept
+    where rhs^((p−1)/2) = −1), a valid signature of each sign, and an x
+    of all-LMAX limbs (a redundant residue) with the sign set."""
+    raw = chip_smoke.alpha_m1_rows(2) + [RAW[0].tobytes(), RAW[1].tobytes()]
+    xc0, xc1, sign, inf = _split_rows(raw)
+    lmax = np.full((1, 32), tfp.LMAX, dtype=xc0.dtype)
+    return (np.concatenate([xc0, lmax]), np.concatenate([xc1, lmax]),
+            np.append(sign, True), np.append(inf, False))
+
+
+def test_alpha_minus_one_rows_take_the_skip(edge_rows):
+    xc0, xc1, _, _ = edge_rows
+    for k in range(2):
+        x = FQ2([tfp.from_limbs(xc0[k]), tfp.from_limbs(xc1[k])])
+        rhs = x ** 3 + refcurve.B2
+        assert rhs.coeffs[1] == 0
+        assert rhs ** ((P - 1) // 2) == FQ2([P - 1, 0])
+
+
+def test_edge_rows_equal_jax_within_lmax(edge_rows):
+    """The α = −1 rows (on the curve, outside G2), both signs and the
+    all-LMAX x: points by value and ok flags as JAX's g2_decompress, every
+    output limb within [0, LMAX]."""
+    xc0, xc1, sign, inf = edge_rows
+    pts, ok = ccodec.g2_decompress_plain(
+        torch.from_numpy(np.ascontiguousarray(xc0.T)),
+        torch.from_numpy(np.ascontiguousarray(xc1.T)),
+        torch.from_numpy(sign), torch.from_numpy(inf))
+    jpt, jok = jax.jit(jcodec.g2_decompress)(
+        jnp.asarray(xc0), jnp.asarray(xc1), jnp.asarray(sign),
+        jnp.asarray(inf))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    assert ok.tolist()[:4] == [False, False, True, True]
+    want = torch.from_numpy(convert.elems_from_jax(np.asarray(jpt)))
+    np.testing.assert_array_equal(_canon_points(pts), _canon_points(want))
+    assert int(pts.min()) >= 0 and int(pts.max()) <= tfp.LMAX
+
+
+def test_output_limbs_within_lmax(plain):
+    """K12's points feed K20, K15, K13, K22 and K16, which take limbs up
+    to LMAX."""
+    pts, _ = plain
+    assert int(pts.min()) >= 0 and int(pts.max()) <= tfp.LMAX
+
+
+def test_windowed_pow_equals_the_tower_pow():
+    """The 3-bit-window pow (the kernel's, MSB first) against the tower's
+    square-and-multiply by value, on random and all-LMAX rows."""
+    rng = np.random.default_rng(77)
+    a = torch.from_numpy(rng.integers(0, tfp.LMAX + 1, (2, 32, 3),
+                                      dtype=np.int32))
+    a[..., 0] = tfp.LMAX
+    for e in (ccodec.EXP_P34, ccodec.EXP_P12, 5, 8):
+        got = ccodec._f2_pow_w3((a[0], a[1]), e)
+        want = ttower.f2_pow_fixed(a, e)
+        np.testing.assert_array_equal(
+            tfp.canon_std(torch.stack(got)).numpy(),
+            tfp.canon_std(want).numpy())
+
+
+def test_lanes_a_row_rule():
+    """K12 runs a row on 16 lanes up to DECOMPRESS_WIDE_ROWS rows (a
+    verify tile, the chaos and cluster tiles, a combine of 3 shares), on 8
+    above (combines of 4 and of a DKG's 7 shares, the combine's 71,680
+    rows); the contract audit's shapes name the same instantiation."""
+    from charon_tpu_torch.analysis import registry
+    from charon_tpu_torch.tbls import backend_cuda
+
+    wide = ccodec.DECOMPRESS_WIDE_ROWS
+    assert [ccodec.decompress_lanes(n) for n in (1, 4, 2048, 3072, wide)] \
+        == [16] * 5
+    assert [ccodec.decompress_lanes(n)
+            for n in (wide + 1, 4096, 7168, 71_680)] == [8] * 4
+    assert ccodec.decompress_kernel_name(71_680) \
+        == "decompress.cu g2_decompress_kernel<8>"
+    names = {s.name for s in registry.kernels()}
+    assert {ccodec.decompress_kernel_name(n) for n in (1, 71_680)} <= names
+    assert ccodec.decompress_kernel_name(2048) in \
+        backend_cuda._verify_shape_rows(2048)
+    assert ccodec.decompress_kernel_name(71_680) in \
+        backend_cuda._combine_shape_rows(10_000, 7)

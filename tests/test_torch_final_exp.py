@@ -168,3 +168,60 @@ def test_verdict_equals_jax_is_one(rows, plain):
     assert verdict.tolist() == np.asarray(jone).tolist() == [
         True, False, False, True]
     assert verdict.tolist() == tpair.is_one(got).tolist()
+
+
+# ---------------------------------------------------------------------------
+# the cyclotomic squaring of the redesigned K11
+# ---------------------------------------------------------------------------
+
+from charon_tpu_torch.ops.cuda_g2 import (_f2add, _f2small, _f2sqr,  # noqa: E402
+                                          _f2sub)
+
+
+def _cyclotomic(seed: int) -> list:
+    """The easy part of random Fp12 rows (and an all-LMAX one): values in
+    the cyclotomic subgroup."""
+    f = _f12(seed).reshape(2, 3, 2, 32, 3)
+    f[..., 0] = jfp.LMAX
+    x = cfe._unstack(f)
+    x = cfe._mul(cfe._conj(x), cfe._inv(x))
+    return cfe._mul(cfe._frob(cfe._frob(x)), x)
+
+
+def test_cyclotomic_squaring_equals_f12_sqr_on_cyclotomic_inputs():
+    x = _cyclotomic(61)
+    got = cfe._stack(cfe._cyc_sqr(x))
+    np.testing.assert_array_equal(_canon(got),
+                                  _canon(ttower.f12_sqr(cfe._stack(x))))
+    # off the subgroup Granger–Scott's formula is not the square
+    f = _f12(62).reshape(2, 3, 2, 32, 3)
+    assert not np.array_equal(
+        _canon(cfe._stack(cfe._cyc_sqr(cfe._unstack(f)))),
+        _canon(ttower.f12_sqr(f)))
+
+
+def test_cyclotomic_squaring_stages_equal_the_sequential_body():
+    """The plain version batches the nine Fp2 squarings (the kernel's
+    groups) and the six combinations along the rows; each equals the
+    one-at-a-time sequence on the K5 bodies bit for bit."""
+    f = cfe._unstack(_f12(63).reshape(2, 3, 2, 32, 3))
+    s = []
+    for a, b in cfe._CYC_PAIRS:
+        s += [_f2sqr(f[a]), _f2sqr(f[b]), _f2sqr(_f2add(f[a], f[b]))]
+    want = []
+    for m, (k, part, sg) in enumerate(cfe._CYC_OUT):
+        s0, s1, s2 = s[3 * k:3 * k + 3]
+        if part == "R":
+            x = _f2add(s0, cp._f2_mul_xi(s1))
+        else:
+            x = _f2sub(s2, _f2add(s0, s1))
+            if part == "XI":
+                x = cp._f2_mul_xi(x)
+        d = _f2sub(x, f[m]) if sg < 0 else _f2add(x, f[m])
+        want.append(_f2add(_f2small(d, 2), x))
+    np.testing.assert_array_equal(cfe._stack(cfe._cyc_sqr(f)).numpy(),
+                                  cfe._stack(want).numpy())
+
+
+def test_output_limbs_within_lmax(plain):
+    assert int(plain.min()) >= 0 and int(plain.max()) <= jfp.LMAX

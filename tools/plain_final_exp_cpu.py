@@ -1,9 +1,11 @@
 """CPU time of K11's plain version, `cuda_final_exp.final_exp_plain`, in
 its two forms: as committed (each stage's independent Fp2 products
-batched along the rows, the way the kernel spreads them over lanes) and
-on the sequential K5 bodies `cuda_pairing._f12_sqr` / `_f12_mul` (one
-torch call per Fp2 product).  Both give the same bits; the script checks
-that and prints one JSON line of seconds per call.
+batched along the rows, the way the kernel spreads them over groups of
+lanes) and with its Fp12 products and its one tower squaring on the
+sequential K5 bodies `cuda_pairing._f12_sqr` / `_f12_mul` (one torch call
+per Fp2 product; the cyclotomic squarings stay batched in both).  Both
+give the same bits; the script checks that and prints one JSON line of
+seconds per call.
 
     python tools/plain_final_exp_cpu.py [--rows 1 4 16] [--threads 1]
 

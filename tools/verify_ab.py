@@ -10,7 +10,10 @@ pool of `chip_smoke.verify_pool` (64 messages), times the G1 decompress
 of its 10,000 keys alone on the idle card (a fresh backend's pubkey LRU,
 REPS times: `pk_alone`), then REPS cold flushes (the pubkey LRU emptied
 before each: the first flush after a node starts), REPS (default 5)
-warm flushes and REPS slot-start flushes (the warm flush's keys over 64
+warm flushes, REPS flushes of 1 and of 4 of its entries (`tile_1`,
+`tile_4`: the chaos and cluster phases' tiles, after one flush of each
+that pays the bucket's first use, `tile_first`) and REPS slot-start
+flushes (the warm flush's keys over 64
 messages new each rep, signed on the card, so its first tile hashes them
 on the card as one batch, as `chip_smoke.verify_slot_start_phase`
 does); then the 10,000-distinct-message flush of
@@ -92,6 +95,7 @@ def main() -> int:
              backend._pk_cache).clear()
 
     def flush(batch, kind):
+        out.setdefault(kind, [])
         backend.reset_verify_totals()
         t0 = time.perf_counter()
         oks, _, _ = asyncio.run(cs.verify_round(batch))
@@ -122,6 +126,13 @@ def main() -> int:
             flush(entries, "cold_after_prewarm")
     for _ in range(reps):
         flush(entries, "warm")
+    # the chaos and cluster tiles: flushes of 1 and 4 warm entries, after
+    # one that pays the bucket's first use (on the resident route its
+    # graph's capture)
+    for n in (1, 4):
+        flush(entries[:n], "tile_first")
+        for _ in range(reps):
+            flush(entries[:n], f"tile_{n}")
     v, m = len(entries), cs.MESSAGES
     for rep in range(reps):
         news = [f"verify_ab: slot {200 + rep} committee {c}".encode()
